@@ -1,0 +1,74 @@
+"""Transformer blocks: fused-QKV self-attention, MLP, pre-norm block.
+
+Port of the JAX package's ``models/attention.py`` (reference:
+src/models/attentionblock.py:24-99):
+
+* ``SelfAttention``: one [C, 3C] qkv projection reshaped as (B, N, 3, H, D),
+  attention through ``ops.attention``, a ``proj`` that always has a bias.
+* ``MLPBlock``: Linear -> GELU -> Linear (MONAI MLPBlock, biases on).
+* ``AttentionBlock``: x + attn(att_norm(x)); x + mlp(ffn_norm(x)).
+
+GELU is the tanh approximation unless ``HEADCT_EXACT_GELU=1`` (erf), read
+at call time, as in the JAX package. LoRA and ``save_attn`` are not ported
+yet. Dropout is omitted: this is the inference path (rate 0 in every
+shipped config).
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from headct_foundation_tpu_torch.models.layers import make_norm
+from headct_foundation_tpu_torch.ops.attention import dot_product_attention
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    exact = os.environ.get("HEADCT_EXACT_GELU", "0") == "1"
+    return F.gelu(x, approximate="none" if exact else "tanh")
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, hidden_size: int, num_heads: int = 12, qkv_bias: bool = False):
+        super().__init__()
+        if hidden_size % num_heads:
+            raise ValueError("hidden_size should be divisible by num_heads.")
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(hidden_size, 3 * hidden_size, bias=qkv_bias)
+        self.proj = nn.Linear(hidden_size, hidden_size, bias=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, N, C = x.shape
+        H = self.num_heads
+        qkv = self.qkv(x).reshape(B, N, 3, H, C // H)
+        # strided views of the fused projection; the kernel reads them in place
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        y = dot_product_attention(q, k, v).reshape(B, N, C)
+        return self.proj(y)
+
+
+class MLPBlock(nn.Module):
+    def __init__(self, hidden_size: int, mlp_dim: int):
+        super().__init__()
+        self.linear1 = nn.Linear(hidden_size, mlp_dim)
+        self.linear2 = nn.Linear(mlp_dim, hidden_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear2(gelu(self.linear1(x)))
+
+
+class AttentionBlock(nn.Module):
+    def __init__(self, hidden_size: int, mlp_dim: int, num_heads: int,
+                 qkv_bias: bool = False, norm_layer: str = "layernorm"):
+        super().__init__()
+        self.att_norm = make_norm(norm_layer, hidden_size)
+        self.attn = SelfAttention(hidden_size, num_heads, qkv_bias=qkv_bias)
+        self.ffn_norm = make_norm(norm_layer, hidden_size)
+        self.mlp = MLPBlock(hidden_size, mlp_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.att_norm(x))
+        return x + self.mlp(self.ffn_norm(x))

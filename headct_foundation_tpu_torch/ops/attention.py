@@ -1,0 +1,78 @@
+"""Attention dispatch: the hand-written kernel or the plain version.
+
+Port of the JAX package's ``ops/attention.py:189-216``. Under the kernel
+backend, a square sequence with ``pallas_min_t() <= T <= 1024`` goes to
+``fused_attention`` (the CUDA kernel on a CUDA tensor, its plain version on
+a CPU tensor). Shorter sequences take the plain PyTorch attention, where the
+JAX package takes XLA's ``jax.nn.dot_product_attention``. Longer or
+rectangular sequences need the blocked kernel, which is not ported yet:
+on CUDA they raise ``NotImplementedError``.
+
+The sharding/mesh machinery of the JAX module is not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import torch
+
+from headct_foundation_tpu_torch.ops.flash_attention import (
+    VMEM_PATH_MAX_T,
+    fused_attention,
+    fused_attention_reference,
+)
+
+# "kernel" | "plain" | None (auto: the kernel on CUDA tensors, plain on CPU).
+_BACKEND: Optional[str] = None
+_PALLAS_MIN_T: Optional[int] = None
+
+
+def set_attention_backend(name: Optional[str]) -> Optional[str]:
+    """Set the backend ("kernel" | "plain" | None = auto). Returns the
+    previous raw value, so a caller can restore it exactly."""
+    global _BACKEND
+    if name not in ("kernel", "plain", None):
+        raise ValueError(f"unknown attention backend {name!r}")
+    prev = _BACKEND
+    _BACKEND = name
+    return prev
+
+
+def get_attention_backend(device: torch.device) -> str:
+    if _BACKEND is None:
+        return "kernel" if device.type == "cuda" else "plain"
+    return _BACKEND
+
+
+def set_pallas_min_t(n: Optional[int]) -> Optional[int]:
+    """Set the kernel/plain crossover sequence length (None = env/default).
+    Returns the previous raw value."""
+    global _PALLAS_MIN_T
+    prev = _PALLAS_MIN_T
+    _PALLAS_MIN_T = None if n is None else int(n)
+    return prev
+
+
+def pallas_min_t() -> int:
+    """Shortest sequence that takes the kernel; HEADCT_PALLAS_MIN_T is read
+    at call time. The default 192 is the JAX package's, not tuned for the GPU."""
+    if _PALLAS_MIN_T is not None:
+        return _PALLAS_MIN_T
+    return int(os.environ.get("HEADCT_PALLAS_MIN_T", "192"))
+
+
+def dot_product_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: Optional[float] = None
+) -> torch.Tensor:
+    """Multi-head attention over [B, T, H, D] tensors -> [B, Tq, H, D] in q.dtype."""
+    tq, tk = q.shape[1], k.shape[1]
+    if get_attention_backend(q.device) == "kernel" and tq >= pallas_min_t():
+        if tq == tk and tq <= VMEM_PATH_MAX_T:
+            return fused_attention(q, k, v, scale)[0]
+        if q.device.type == "cuda":
+            raise NotImplementedError(
+                f"attention at Tq={tq}, Tk={tk} needs the blocked kernel "
+                "(ops/flash_attention.py:256 _blocked_fwd_kernel), not ported yet")
+    return fused_attention_reference(q, k, v, scale)[0]
