@@ -22,18 +22,27 @@
 // one real row (the others are computed on zeros and not stored). Inputs are
 // read through their (batch, token, head) strides with a unit head-dim stride,
 // so the q/k/v views sliced from the fused qkv projection need no copy.
-// All products run on the float32 CUDA cores (no wgmma, no TMA yet).
+// float32 operands run every product on the float32 CUDA cores; bfloat16
+// operands (MAE training) run them on the tensor cores with mma.sync
+// (flash_fwd_tc_kernel, bf16_mma.cuh): each warp keeps its 16 query rows' Q
+// fragments, running max and sum and output accumulator in registers, and P
+// (rounded to bf16) feeds the P.V product straight from the S accumulator
+// fragments. No wgmma, no TMA yet.
 //
 // Bound at the serving shape [8, 513, 12, 64] float32: 4*B*H*T^2*D = 6.47e9
 // operations, 0.097 ms at the H100 SXM's 67 TFLOP/s of float32 outside the
 // tensor cores; q, k, v read once and o written once are 50.5 MB, 0.015 ms at
-// 3.35 TB/s. So it is bound by operations.
+// 3.35 TB/s. So it is bound by operations. At the MAE decoder shape
+// [32, 513, 16, 48] bfloat16: 2.59e10 operations, 0.026 ms at 989 TFLOP/s,
+// against 102 MB, 0.030 ms: bound by bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
+
+#include "bf16_mma.cuh"
 
 namespace {
 
@@ -44,31 +53,20 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = kBlockM / kWarps;  // 16
 constexpr int kLdp = kBlockN + 4;              // row stride of the P tile
 static_assert(kBlockM == kBlockN, "load_tile stages kBlockN rows for Q as well");
+static_assert(kBlockM == headct_mma::kMmaRows && kThreads == headct_mma::kMmaThreads,
+              "tiles shared with bf16_mma.cuh");
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  uint2 raw = *reinterpret_cast<const uint2*>(p);
-  __nv_bfloat162 a, b;
-  memcpy(&a, &raw.x, sizeof(a));
-  memcpy(&b, &raw.y, sizeof(b));
-  const float2 fa = __bfloat1622float2(a);
-  const float2 fb = __bfloat1622float2(b);
-  return make_float4(fa.x, fa.y, fb.x, fb.y);
-}
-
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 // P rounded to the operand dtype before the P.V product, as the TPU kernel
-// casts p to v.dtype (flash_attention.py:78-81).
+// casts p to v.dtype (flash_attention.py:78-81); the bfloat16 rounding is in
+// flash_fwd_tc_kernel.
 template <typename T> __device__ __forceinline__ float to_operand(float x);
 template <> __device__ __forceinline__ float to_operand<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_operand<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -258,6 +256,165 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, voi
   return launch<T, 4>(q, k, v, o, lse, B, t_len, n_heads, d, qs, ks, vs, scale, stream);
 }
 
+// bfloat16 on the tensor cores: one block per (64 query rows, batch*head),
+// each warp 16 rows; K tiles row-major and V tiles transposed in shared
+// memory as the two B operands.
+template <int DP>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                    float* __restrict__ lse, int t_len, int n_heads, int d,
+                    long long q_sb, long long q_st, long long q_sh,
+                    long long k_sb, long long k_st, long long k_sh,
+                    long long v_sb, long long v_st, long long v_sh, float scale) {
+  using namespace headct_mma;
+  constexpr int LD = DP + 8;
+  extern __shared__ float4 smem4[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem4);  // [64][LD]
+  bf16* k_s = q_s + kBlockM * LD;               // [64][LD]
+  bf16* vt_s = k_s + kBlockN * LD;              // [DP][kLdt] V^T
+
+  const int bh = blockIdx.y;
+  const int b = bh / n_heads;
+  const int h = bh - b * n_heads;
+  const int q0 = blockIdx.x * kBlockM;
+  const int lane = threadIdx.x & 31;
+  const int m0 = (threadIdx.x >> 5) * 16;  // this warp's 16 query rows
+  const bf16* kb = k + b * k_sb + h * k_sh;
+  const bf16* vb = v + b * v_sb + h * v_sh;
+
+  load_tile_bf16<DP>(q_s, nullptr, q + b * q_sb + h * q_sh, q_st, q0, t_len, d);
+  __syncthreads();
+  uint32_t qf[DP / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) load_a(qf[kk], q_s, LD, m0, kk * 16);
+
+  // rows lane / 4 and lane / 4 + 8 of the warp's 16
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int n0 = 0; n0 < t_len; n0 += kBlockN) {
+    __syncthreads();  // the previous K/V tiles are consumed
+    load_tile_bf16<DP>(k_s, nullptr, kb, k_st, n0, t_len, d);
+    load_tile_bf16<DP>(nullptr, vt_s, vb, v_st, n0, t_len, d);
+    __syncthreads();
+
+    // S = Q K^T for 16 rows x 64 keys; element e of tile j is row + 8 (e / 2),
+    // key n0 + j * 8 + 2 (lane % 4) + e % 2.
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        uint32_t b0, b1;
+        load_b(b0, b1, k_s, LD, j * 8, kk * 16);
+        mma_bf16(s[j], qf[kk], b0, b1);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = n0 + j * 8 + 2 * (lane & 3) + (e & 1);
+        s[j][e] = key < t_len ? s[j][e] * scale : -INFINITY;
+      }
+    }
+
+    // Online softmax; the 4 lanes of a quad share a row.
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * half], s[j][2 * half + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[half], mx);
+      const float alpha = expf(m_run[half] - m_new);  // 0 on the first tile
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[j][2 * half] = expf(s[j][2 * half] - m_new);
+        s[j][2 * half + 1] = expf(s[j][2 * half + 1] - m_new);
+        sum += s[j][2 * half] + s[j][2 * half + 1];
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l_run[half] = l_run[half] * alpha + sum;
+      m_run[half] = m_new;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        acc[j][2 * half] *= alpha;
+        acc[j][2 * half + 1] *= alpha;
+      }
+    }
+
+    // acc += P V, P rounded to bf16 (flash_attention.py:78-81).
+#pragma unroll
+    for (int kq = 0; kq < 4; ++kq) {
+      uint32_t ap[4];
+      acc_to_a(ap, s, kq);
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        uint32_t b0, b1;
+        load_b(b0, b1, vt_s, kLdt, j * 8, kq * 16);
+        mma_bf16(acc[j], ap, b0, b1);
+      }
+    }
+  }
+
+  // O is written contiguous [B, T, H, D]; LSE as [B*H, 1, T].
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int t = q0 + m0 + (lane >> 2) + 8 * half;
+    if (t >= t_len) continue;
+    const float l_safe = fmaxf(l_run[half], 1e-30f);
+    bf16* orow = o + (((long long)b * t_len + t) * n_heads + h) * d;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = j * 8 + 2 * (lane & 3);
+      if (c < d)
+        *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(
+            acc[j][2 * half] / l_safe, acc[j][2 * half + 1] / l_safe);
+    }
+    if ((lane & 3) == 0) lse[(long long)bh * t_len + t] = m_run[half] + logf(l_safe);
+  }
+}
+
+template <int DP>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, void* lse,
+                      long long B, long long t_len, long long n_heads, long long d,
+                      const long long* qs, const long long* ks, const long long* vs,
+                      float scale, cudaStream_t stream) {
+  constexpr size_t smem = (size_t)(kBlockM + kBlockN) * (DP + 8) * sizeof(__nv_bfloat16) +
+                          (size_t)DP * headct_mma::kLdt * sizeof(__nv_bfloat16);
+  auto kernel = flash_fwd_tc_kernel<DP>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((t_len + kBlockM - 1) / kBlockM), (unsigned)(B * n_heads));
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), (int)t_len, (int)n_heads, (int)d, qs[0], qs[1], qs[2], ks[0],
+      ks[1], ks[2], vs[0], vs[1], vs[2], scale);
+  return cudaGetLastError();
+}
+
+// The head dim padded to the next of 16, 32, 48, 64, 128.
+cudaError_t dispatch_tc(const void* q, const void* k, const void* v, void* o, void* lse,
+                        long long B, long long t_len, long long n_heads, long long d,
+                        const long long* qs, const long long* ks, const long long* vs,
+                        float scale, cudaStream_t s) {
+  if (d <= 16) return launch_tc<16>(q, k, v, o, lse, B, t_len, n_heads, d, qs, ks, vs, scale, s);
+  if (d <= 32) return launch_tc<32>(q, k, v, o, lse, B, t_len, n_heads, d, qs, ks, vs, scale, s);
+  if (d <= 48) return launch_tc<48>(q, k, v, o, lse, B, t_len, n_heads, d, qs, ks, vs, scale, s);
+  if (d <= 64) return launch_tc<64>(q, k, v, o, lse, B, t_len, n_heads, d, qs, ks, vs, scale, s);
+  return launch_tc<128>(q, k, v, o, lse, B, t_len, n_heads, d, qs, ks, vs, scale, s);
+}
+
 }  // namespace
 
 // C entry point, bound with ctypes. Strides are in elements, in (batch, token,
@@ -280,8 +437,6 @@ extern "C" int headct_flash_attention_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)dispatch_d<float>(q, k, v, o, lse, B, t_len, n_heads, d, qs, ks, vs, scale, s);
-  if (dtype == 1)
-    return (int)dispatch_d<__nv_bfloat16>(q, k, v, o, lse, B, t_len, n_heads, d, qs, ks, vs,
-                                          scale, s);
+  if (dtype == 1) return (int)dispatch_tc(q, k, v, o, lse, B, t_len, n_heads, d, qs, ks, vs, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -21,6 +21,11 @@ foreground keeps the whole axis).
 Unlike the JAX version, volumes are not padded to 128-multiples: that
 bucketing existed to share jit compilations, and eager PyTorch compiles
 nothing. The "training" and "hu16" orders are not ported yet.
+
+The training step's entry cast is here too (JAX ``:169-219``):
+``wire_to_compute`` turns a wire batch (hu16 int16, hu8 uint8 or already
+windowed) into [B, C, ...] volumes in the compute dtype, windowing first, as
+the per-step intensity augmentation expects windowed volumes.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ import torch
 from scipy import ndimage
 
 from headct_foundation_tpu_torch.data.nifti import load_nifti, load_nifti_bytes, orientation_ras
-from headct_foundation_tpu_torch.data.transforms import window_params
+from headct_foundation_tpu_torch.data.transforms import HU8_TABLE, HU16_SCALE, window_params
 
 Source = Union[str, os.PathLike, bytes]
 
@@ -150,3 +155,41 @@ class DevicePreprocessor:
         r = torch.einsum("bw,awd->abd", aw, r)
         r = torch.einsum("cd,abd->abc", ad, r)
         return torch.clamp((r[None] - self._lo) / (self._hi - self._lo), 0.0, 1.0)
+
+
+def _window(hu: torch.Tensor, in_channels: int) -> torch.Tensor:
+    """[B, 1, ...] float32 HU -> [B, C, ...] window stack in [0, 1]."""
+    lows, highs = window_params(in_channels)
+    shape = (1, -1) + (1,) * (hu.dim() - 2)
+    lo = torch.from_numpy(lows).to(hu.device).reshape(shape)
+    hi = torch.from_numpy(highs).to(hu.device).reshape(shape)
+    return torch.clamp((hu - lo) / (hi - lo), 0.0, 1.0)
+
+
+def device_hu16_window(batch: torch.Tensor, in_channels: int) -> torch.Tensor:
+    """[B, 1, H, W, D] int16 fixed-point HU -> [B, C, H, W, D] float32 in [0, 1]."""
+    if batch.dim() != 5 or batch.shape[1] != 1:
+        raise ValueError(f"hu16 batches are [B, 1, H, W, D], got {tuple(batch.shape)}")
+    return _window(batch.to(torch.float32) * np.float32(1.0 / HU16_SCALE), in_channels)
+
+
+def device_hu8_window(batch: torch.Tensor, in_channels: int) -> torch.Tensor:
+    """[B, 1, H, W, D] uint8 companded HU codes -> [B, C, H, W, D] float32 in [0, 1]."""
+    if batch.dim() != 5 or batch.shape[1] != 1:
+        raise ValueError(f"hu8 batches are [B, 1, H, W, D], got {tuple(batch.shape)}")
+    table = torch.from_numpy(HU8_TABLE).to(batch.device)
+    return _window(table[batch.long()], in_channels)
+
+
+def wire_to_compute(batch: torch.Tensor, config, in_channels: int,
+                    dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Wire-format batch -> [B, C, ...] volumes in ``dtype``, per
+    ``config.DATA.WIRE_FORMAT``: 'hu16' and 'hu8' expand the window stack
+    on the device first; 'windowed' batches only cast."""
+    wire = (str(getattr(config.DATA, "WIRE_FORMAT", "windowed"))
+            if config is not None else "windowed")
+    if wire == "hu16":
+        return device_hu16_window(batch, in_channels).to(dtype)
+    if wire == "hu8":
+        return device_hu8_window(batch, in_channels).to(dtype)
+    return batch.to(dtype)

@@ -1,10 +1,20 @@
-"""HU window constants of the preprocessing chain.
+"""HU window constants and the hu16 / hu8 wire encodings.
 
 The windows and their math ((x - a_min) / (a_max - a_min), clipped to
 [0, 1]) match the reference (src/data/transforms.py:8-36, 119-134) and the
-JAX package's ``data/transforms.py:31-33``. The rest of the host-side
-transform chain is not ported yet: the serving path preprocesses on the
-device (``data/device_preprocess.py``).
+JAX package's ``data/transforms.py:31-33``.
+
+The wire formats (JAX ``data/transforms.py:65-123``) carry one scalar field
+of Hounsfield units per voxel; the training step expands it to the window
+stack on the device (``data/device_preprocess.py wire_to_compute``):
+
+* hu16: HU clamped to [-800, 2000] (the union of every window's range, so
+  the clamp changes no windowed value), then round(HU * 10) as int16.
+* hu8: 256 monotone HU levels, 30-HU steps below -20, 1-HU steps over the
+  soft-tissue windows [-20, 180], ~62.8-HU steps up to 2000; a voxel codes
+  to the nearest level.
+
+The rest of the host-side transform chain is not ported yet.
 """
 
 from __future__ import annotations
@@ -30,3 +40,29 @@ def window_params(in_channels: int) -> Tuple[np.ndarray, np.ndarray]:
     else:
         raise NotImplementedError(f"Channel size {in_channels} is not implemented.")
     return np.asarray(lows, np.float32), np.asarray(highs, np.float32)
+
+
+HU16_SCALE = 10.0
+HU16_CLAMP = (-800.0, 2000.0)
+
+HU8_TABLE = np.concatenate(
+    [
+        np.linspace(-800.0, -20.0, 27)[:-1],
+        np.arange(-20.0, 181.0, 1.0),
+        np.linspace(180.0, 2000.0, 30)[1:],
+    ]
+).astype(np.float32)
+assert HU8_TABLE.shape == (256,)
+_HU8_MIDPOINTS = (HU8_TABLE[1:] + HU8_TABLE[:-1]) / 2.0
+
+
+def hu16_encode(hu: np.ndarray) -> np.ndarray:
+    """float HU -> int16 wire values (clamp + fixed-point round)."""
+    q = np.clip(np.asarray(hu, np.float32), *HU16_CLAMP)
+    return np.round(q * HU16_SCALE).astype(np.int16)
+
+
+def hu8_encode(hu: np.ndarray) -> np.ndarray:
+    """float HU -> uint8 companded wire codes (nearest table level)."""
+    q = np.clip(np.asarray(hu, np.float32), HU8_TABLE[0], HU8_TABLE[-1])
+    return np.searchsorted(_HU8_MIDPOINTS, q).astype(np.uint8)

@@ -9,9 +9,11 @@ src/models/attentionblock.py:24-99):
 * ``AttentionBlock``: x + attn(att_norm(x)); x + mlp(ffn_norm(x)).
 
 GELU is the tanh approximation unless ``HEADCT_EXACT_GELU=1`` (erf), read
-at call time, as in the JAX package. LoRA and ``save_attn`` are not ported
-yet. Dropout is omitted: this is the inference path (rate 0 in every
-shipped config).
+at call time, as in the JAX package. Every projection is a ``layers.Linear``:
+float32 parameters computed in ``dtype`` (JAX ``models/attention.py:91-163``,
+flax ``dtype`` / ``param_dtype``), so with ``dtype=bfloat16`` the residual
+stream is bfloat16. LoRA and ``save_attn`` are not ported yet; a dropout
+rate above 0 raises (rate 0 in every shipped config).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from headct_foundation_tpu_torch.models.layers import make_norm
+from headct_foundation_tpu_torch.models.layers import Linear, make_norm
 from headct_foundation_tpu_torch.ops.attention import dot_product_attention
 
 
@@ -31,14 +33,22 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none" if exact else "tanh")
 
 
+def _no_dropout(rate: float) -> None:
+    if rate:
+        raise NotImplementedError(
+            "dropout is not ported yet (ROADMAP A); every shipped config uses rate 0")
+
+
 class SelfAttention(nn.Module):
-    def __init__(self, hidden_size: int, num_heads: int = 12, qkv_bias: bool = False):
+    def __init__(self, hidden_size: int, num_heads: int = 12, qkv_bias: bool = False,
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         if hidden_size % num_heads:
             raise ValueError("hidden_size should be divisible by num_heads.")
+        _no_dropout(dropout)
         self.num_heads = num_heads
-        self.qkv = nn.Linear(hidden_size, 3 * hidden_size, bias=qkv_bias)
-        self.proj = nn.Linear(hidden_size, hidden_size, bias=True)
+        self.qkv = Linear(hidden_size, 3 * hidden_size, bias=qkv_bias, dtype=dtype)
+        self.proj = Linear(hidden_size, hidden_size, bias=True, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, C = x.shape
@@ -51,10 +61,12 @@ class SelfAttention(nn.Module):
 
 
 class MLPBlock(nn.Module):
-    def __init__(self, hidden_size: int, mlp_dim: int):
+    def __init__(self, hidden_size: int, mlp_dim: int, dropout_rate: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.linear1 = nn.Linear(hidden_size, mlp_dim)
-        self.linear2 = nn.Linear(mlp_dim, hidden_size)
+        _no_dropout(dropout_rate)
+        self.linear1 = Linear(hidden_size, mlp_dim, dtype=dtype)
+        self.linear2 = Linear(mlp_dim, hidden_size, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.linear2(gelu(self.linear1(x)))
@@ -62,12 +74,14 @@ class MLPBlock(nn.Module):
 
 class AttentionBlock(nn.Module):
     def __init__(self, hidden_size: int, mlp_dim: int, num_heads: int,
-                 qkv_bias: bool = False, norm_layer: str = "layernorm"):
+                 qkv_bias: bool = False, norm_layer: str = "layernorm",
+                 dropout_rate: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.att_norm = make_norm(norm_layer, hidden_size)
-        self.attn = SelfAttention(hidden_size, num_heads, qkv_bias=qkv_bias)
+        self.attn = SelfAttention(hidden_size, num_heads, qkv_bias=qkv_bias,
+                                  dropout=dropout_rate, dtype=dtype)
         self.ffn_norm = make_norm(norm_layer, hidden_size)
-        self.mlp = MLPBlock(hidden_size, mlp_dim)
+        self.mlp = MLPBlock(hidden_size, mlp_dim, dropout_rate=dropout_rate, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.att_norm(x))

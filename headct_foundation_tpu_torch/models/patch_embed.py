@@ -7,6 +7,10 @@ matmul, which is how the JAX package computes it; the port does the same.
 The matmul route also keeps the float32 forward out of cuDNN, whose
 convolutions run in TF32 by default.
 
+Parameters stay float32; ``dtype`` is the compute dtype that patches,
+weight, bias and position embedding are cast to, as flax's ``dtype`` /
+``param_dtype`` (JAX ``models/patch_embed.py:120-135``).
+
 The weight is stored in the reference's Conv3d layout,
 ``patch_embeddings.weight`` [O, C, ph, pw, pd], so reference and exported
 checkpoints load by name, and is folded to [(ph pw pd C), O] at use.
@@ -54,8 +58,14 @@ class PatchEmbeddingBlock(nn.Module):
         in_channels: int,
         hidden_size: int,
         pos_embed: str = "learnable",
+        dropout_rate: float = 0.0,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        if dropout_rate:
+            raise NotImplementedError(
+                "dropout is not ported yet (ROADMAP A); every shipped config uses rate 0")
+        self.dtype = dtype
         for m, p in zip(img_size, patch_size):
             if m < p:
                 raise ValueError("patch_size should be smaller than img_size")
@@ -86,10 +96,11 @@ class PatchEmbeddingBlock(nn.Module):
                 f"input spatial size {tuple(x.shape[2:])} != img_size "
                 f"{self.img_size}; position-embedding interpolation is not ported"
             )
+        dt = self.dtype
         w = self.patch_embeddings.weight
-        kernel = w.permute(2, 3, 4, 1, 0).reshape(-1, w.shape[0]).to(x.dtype)
-        tokens = patchify3d(x, self.patch_size) @ kernel
-        tokens = tokens + self.patch_embeddings.bias.to(x.dtype)
+        kernel = w.permute(2, 3, 4, 1, 0).reshape(-1, w.shape[0]).to(dt)
+        tokens = patchify3d(x, self.patch_size).to(dt) @ kernel
+        tokens = tokens + self.patch_embeddings.bias.to(dt)
         if self.position_embeddings is not None:
-            tokens = tokens + self.position_embeddings.to(x.dtype)
+            tokens = tokens + self.position_embeddings.to(dt)
         return tokens

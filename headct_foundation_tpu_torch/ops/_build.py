@@ -4,8 +4,9 @@ Each source under ``csrc/`` compiles on its own into a shared library with a
 plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 -Xcompiler -fPIC``), loaded with ``ctypes``. The library lands in
 ``<repo>/build/kernels/<name>-<hash of the source>/``, a directory that
-``.gitignore`` lists, so an edited source builds anew and an unchanged one is
-reused. ``build_all`` starts one ``nvcc`` per source, all at once.
+``.gitignore`` lists, so an edited source (or shared ``.cuh`` header) builds
+anew and an unchanged one is reused. ``build_all`` starts one ``nvcc`` per
+source, all at once.
 
 Nothing falls back: a missing ``nvcc`` or a failed build raises.
 """
@@ -26,7 +27,8 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
 
 # kernel name -> source file under csrc/
-SOURCES = {"flash_attention_fwd": "flash_attention_fwd.cu"}
+SOURCES = {"flash_attention_fwd": "flash_attention_fwd.cu",
+           "flash_attention_bwd": "flash_attention_bwd.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -48,8 +50,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Where the library lands: keyed by its source, the shared headers
+    under csrc/ and the flags, so an edit to any of them builds anew."""
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_ROOT / f"{name}-{digest}" / f"lib{name}.so"
 
 

@@ -2,8 +2,8 @@
 
 Port of the JAX package's ``ops/attention.py:189-216``. Under the kernel
 backend, a square sequence with ``pallas_min_t() <= T <= 1024`` goes to
-``fused_attention`` (the CUDA kernel on a CUDA tensor, its plain version on
-a CPU tensor). Shorter sequences take the plain PyTorch attention, where the
+``FusedAttention`` (the CUDA forward and backward kernels on a CUDA tensor,
+their plain versions on a CPU tensor). Shorter sequences take the plain PyTorch attention, where the
 JAX package takes XLA's ``jax.nn.dot_product_attention``. Longer or
 rectangular sequences need the blocked kernel, which is not ported yet:
 on CUDA they raise ``NotImplementedError``.
@@ -20,7 +20,7 @@ import torch
 
 from headct_foundation_tpu_torch.ops.flash_attention import (
     VMEM_PATH_MAX_T,
-    fused_attention,
+    FusedAttention,
     fused_attention_reference,
 )
 
@@ -66,11 +66,13 @@ def pallas_min_t() -> int:
 def dot_product_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: Optional[float] = None
 ) -> torch.Tensor:
-    """Multi-head attention over [B, T, H, D] tensors -> [B, Tq, H, D] in q.dtype."""
+    """Multi-head attention over [B, T, H, D] tensors -> [B, Tq, H, D] in q.dtype.
+    Differentiable on both branches: the kernel branch through its own
+    backward, the plain branch through autograd."""
     tq, tk = q.shape[1], k.shape[1]
     if get_attention_backend(q.device) == "kernel" and tq >= pallas_min_t():
         if tq == tk and tq <= VMEM_PATH_MAX_T:
-            return fused_attention(q, k, v, scale)[0]
+            return FusedAttention.apply(q, k, v, scale)[0]
         if q.device.type == "cuda":
             raise NotImplementedError(
                 f"attention at Tq={tq}, Tk={tk} needs the blocked kernel "

@@ -1,5 +1,6 @@
-"""PyTorch port: imports no JAX and nothing of the JAX package, defaults to
-CUDA, and builds from its own config copy.
+"""PyTorch port: imports no JAX and nothing of the JAX package (it imports
+every module and runs a serving forward and a tiny MAE train step with those
+imports blocked), defaults to CUDA, and builds from its own config copy.
 
 The subprocess blocks the imports with a ``sys.meta_path`` finder rather than
 ``sys.modules["jax"] = None``: scipy's array-API helpers look ``jax`` up in
@@ -49,6 +50,23 @@ fe = FeatureExtractor(device="cpu", img_size=24, patch_size=12, in_chans=3, hidd
                       mlp_dim=96, num_layers=2, num_heads=4)
 out, hidden = fe(np.random.RandomState(0).rand(2, 3, 24, 24, 24))
 assert out.shape == (2, 9, 48) and len(hidden) == 2 and bool(torch.isfinite(out).all())
+from headct_foundation_tpu_torch.config import default_config
+from headct_foundation_tpu_torch.data.transforms import hu16_encode
+from headct_foundation_tpu_torch.engines import mae_engine
+
+cfg = default_config()
+cfg.merge_from_list(["MAE.INPUT_SIZE", 24, "MAE.PATCH_SIZE", 12, "MAE.ENCODER_DEPTH", 1,
+                     "MAE.ENCODER_EMBED_DIM", 48, "MAE.ENCODER_MLP_DIM", 96,
+                     "MAE.ENCODER_NUM_HEADS", 4, "MAE.DECODER_DEPTH", 1,
+                     "MAE.DECODER_EMBED_DIM", 48, "MAE.DECODER_MLP_DIM", 96,
+                     "MAE.DECODER_NUM_HEADS", 4, "MODEL.ROI", [24, 24, 24],
+                     "DATA.WIRE_FORMAT", "hu16", "TRAIN.GRAD_CLIP", 0.0,
+                     "PARALLEL.PALLAS_MIN_T", 9])
+state, _ = mae_engine.create_train_state(cfg, 10, 0, seed=0, device="cpu")
+step = mae_engine.make_train_step(augment=True, config=cfg)
+wire = torch.from_numpy(hu16_encode(np.random.RandomState(0).uniform(-900, 1500, (2, 1, 24, 24, 24))))
+state, metrics = step(state, wire, seed=0)
+assert state.step == 1 and bool(torch.isfinite(metrics["loss"]))
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("imported", len(names), "modules")
@@ -83,6 +101,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
     from headct_foundation_tpu_torch import serve_features
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_features.main(["--img-size", "24"])
+    from headct_foundation_tpu_torch.engines import mae_engine
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mae_engine.create_train_state(default_config(), 10, 0)
 
 
 def test_build_extractor_from_config_copy():
