@@ -12,6 +12,12 @@ Phases, each printing a line; any failure raises and exits non-zero:
              at the main paths' shapes and at ragged ones, and times the
              kernel, the plain version and the one PyTorch call that computes
              the same function (``library_ms``; the port never calls it).
+             Every output is held elementwise; a bfloat16 one also normwise,
+             ||kernel - plain|| / ||plain|| <= BF16_REL_L2. The blocked kernels B3 (forward), B4 (dK, dV) and B5 (dQ) are
+             held at the 192^3 MAE's shapes, in float32, with rectangular
+             q/k and a kv_len that masks whole key tiles, at head dims 12 and
+             128; their masked dK, dV must be exactly 0 and two runs of B4
+             and B5 bit-identical.
 4. slice   - the embedding server at full width: ViT-B/12 at 96^3, 3
              channels, random weights from a seeded generator, behind
              ``build_server(max_batch=8)``; 8 concurrent POSTs of synthetic
@@ -30,7 +36,15 @@ Phases, each printing a line; any failure raises and exits non-zero:
              batch (counts set to 0 just before each); then step time,
              throughput, peak memory, a breakdown (CUDA events) and the
              device time by kernel group over 2 profiled steps.
-6. report  - a JSON line of the kernels, the card line, then the result line.
+6. stretch - the long-context MAE step of configs/mae/mae_HeadCT_192.yaml at
+             full width (192^3, patch 12: encoder T=1025 at 12 heads x 64,
+             decoder T=4097 at 16 heads x 48) on batches of 2 synthetic hu16
+             phantoms: one step at batch 1 with the kernels against the plain
+             attention (bf16 and float32, every trainable gradient), then 6
+             train steps and 1 eval batch with exactly 20 B3 + 20 B4 + 20 B5
+             launches per train step, 20 B3 per eval batch and no B1 or B2;
+             then the same timings as the train phase.
+7. report  - a JSON line of the kernels, the card line, then the result line.
 
 Float32 matmuls and convolutions are pinned to full float32 (TF32 off for
 cuBLAS and cuDNN): the serving forward is float32, like the JAX package's.
@@ -80,9 +94,33 @@ BWD_CASES = [  # (shape, dtype, atol, rtol) for dq, dk, dv against the plain bac
     ((2, 200, 2, 64), torch.bfloat16, 2e-2, 2e-2),      # 64, 128)
     ((2, 70, 2, 128), torch.bfloat16, 2e-2, 2e-2),
 ]
+STRETCH_DECODER = (2, 4097, 16, 48)   # 192^3 MAE: 4096 patches + CLS, 16 heads x 48
+STRETCH_ENCODER = (2, 1025, 12, 64)   # 1024 kept after 75% masking + CLS, 12 heads x 64
+BLOCKED_CASES = [  # (q [B, Tq, H, D], Tk, kv_len, dtype, atol, rtol) for O; LSE at 1e-4 /
+    # 1e-4; dq, dk, dv at BLOCKED_BWD_TOL. kv_len 70 of 700 masks ten whole 64-key tiles.
+    (STRETCH_DECODER, 4097, None, torch.bfloat16, 2e-2, 2e-2),  # every stretch decoder block
+    (STRETCH_ENCODER, 1025, None, torch.bfloat16, 2e-2, 2e-2),  # every stretch encoder block
+    (STRETCH_ENCODER, 1025, None, torch.float32, 2e-5, 1e-4),
+    ((2, 300, 3, 32), 700, 650, torch.float32, 2e-5, 1e-4),     # rectangular, kv_len
+    ((2, 300, 3, 32), 700, 70, torch.float32, 2e-5, 1e-4),
+    ((2, 300, 3, 32), 700, 650, torch.bfloat16, 2e-2, 2e-2),
+    ((2, 300, 3, 32), 700, 70, torch.bfloat16, 2e-2, 2e-2),
+    ((2, 1100, 2, 12), 1100, None, torch.bfloat16, 2e-2, 2e-2),  # head dims 12 and 128
+    ((2, 200, 2, 128), 1500, 1300, torch.bfloat16, 2e-2, 2e-2),
+    ((2, 200, 2, 128), 1500, 1300, torch.float32, 2e-5, 1e-4),
+]
+BLOCKED_BWD_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
+# A bfloat16 output is also held normwise: ||a - b|| / ||b|| against its plain
+# version. The elementwise 2e-2 + 2e-2|x| is as large as a typical |o|, |dq|,
+# |dk|, |dv| at 4097 keys (about 0.026), so it would pass a kernel that skips
+# one 64-key or 64-query tile (about 1/8 of the norm at 4097 tokens).
+BF16_REL_L2 = 1e-2
 MAE_CONFIG = "configs/mae/mae_HeadCT.yaml"
+STRETCH_CONFIG = "configs/mae/mae_HeadCT_192.yaml"
 TRAIN_BATCH = 32          # the JAX bench's batch per chip (bench.py:54)
 TRAIN_BATCHES, VAL_BATCHES, WARMUP_STEPS = 6, 1, 2
+STRETCH_COMPARE_BATCH = 1  # autograd through the plain attention keeps ~3 [B,16,4097,4097]
+                           # float32 tensors per decoder block
 TRAIN_TOL = {  # kernel vs plain attention, one step, same weights and randomness
     torch.bfloat16: {"loss_rel": 1e-2, "grad_cos": 0.99},
     torch.float32: {"loss_rel": 1e-4, "grad_rel_max": 1e-3},
@@ -94,6 +132,22 @@ EMBED_ATOL = 1e-3  # kernel vs plain attention through 12 float32 blocks
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Normwise relative error ||a - b|| / ||b||, in float32."""
+    b = b.float()
+    return ((a.float() - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def within(a: torch.Tensor, b: torch.Tensor, atol: float, rtol: float, dtype) -> tuple:
+    """(elementwise ok, normwise ok, max |a - b|, ||a - b|| / ||b||) of a
+    kernel's output a against its plain version b; float32 outputs are held
+    elementwise only."""
+    err = (a.float() - b.float()).abs()
+    rel = rel_l2(a, b)
+    return (bool((err <= atol + rtol * b.float().abs()).all()),
+            dtype != torch.bfloat16 or rel <= BF16_REL_L2, err.max().item(), rel)
 
 
 def card_line() -> str:
@@ -129,8 +183,32 @@ def attention_bound_ms(shape, dtype, backward: bool = False) -> tuple:
     elt = torch.tensor([], dtype=dtype).element_size()
     ops = (10 if backward else 4) * B * H * T * T * D
     nbytes = (8 if backward else 4) * B * T * H * D * elt + B * H * T * 4
+    return bound_ms(ops, nbytes, dtype)
+
+
+def bound_ms(ops: float, nbytes: float, dtype) -> tuple:
     t_ops, t_bytes = ops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def blocked_bound_ms(name: str, q_shape, tk: int, kv_len, dtype) -> tuple:
+    """Least time of one blocked kernel on these inputs, counting the L =
+    kv_len keys it reads. B3 (flash_attention_blocked_fwd): 4*B*H*Tq*L*D
+    operations (S, P.V); q and L rows of k, v read, o and lse written. B4
+    (flash_attention_blocked_dkv): 8*B*H*Tq*L*D (S, dP, dV, dK); q, dO, L rows
+    of k, v, lse and delta read, dk, dv (Tk rows) written. B5
+    (flash_attention_blocked_dq): 6*B*H*Tq*L*D (S, dP, dQ); the same reads, dq
+    written."""
+    B, Tq, H, D = q_shape
+    L = tk if kv_len is None else kv_len
+    row = B * H * D * torch.tensor([], dtype=dtype).element_size()  # one token, all heads
+    rows_f32 = B * H * Tq * 4                                       # lse or delta
+    mult, nbytes = {
+        "flash_attention_blocked_fwd": (4, (2 * Tq + 2 * L) * row + rows_f32),
+        "flash_attention_blocked_dkv": (8, (2 * Tq + 2 * L + 2 * tk) * row + 2 * rows_f32),
+        "flash_attention_blocked_dq": (6, (3 * Tq + 2 * L) * row + 2 * rows_f32),
+    }[name]
+    return bound_ms(mult * B * H * Tq * L * D, nbytes, dtype)
 
 
 def synthetic_scan(seed: int) -> np.ndarray:
@@ -149,6 +227,10 @@ def synthetic_scan(seed: int) -> np.ndarray:
     return np.round(vol).astype(np.int16)
 
 
+def norm_note(dtype) -> str:
+    return f" and rel_l2 {BF16_REL_L2}" if dtype == torch.bfloat16 else ""
+
+
 def phase_kernels(fused_attention, fused_attention_reference) -> dict:
     results = {}
     for shape, dtype, atol, rtol in KERNEL_CASES:
@@ -159,16 +241,15 @@ def phase_kernels(fused_attention, fused_attention_reference) -> dict:
         o, lse = fused_attention(q, k, v)
         torch.cuda.synchronize()
         o_ref, lse_ref = fused_attention_reference(q, k, v)
-        err_o = (o.float() - o_ref.float()).abs()
+        elem_ok, norm_ok, err_o, rel_o = within(o, o_ref, atol, rtol, dtype)
         err_lse = (lse - lse_ref).abs()
-        ok = bool((err_o <= atol + rtol * o_ref.float().abs()).all()
-                  and (err_lse <= 1e-4 + 1e-4 * lse_ref.abs()).all())
+        ok = elem_ok and norm_ok and bool((err_lse <= 1e-4 + 1e-4 * lse_ref.abs()).all())
         print(f"kernel flash_attention_fwd {list(shape)} {str(dtype)[6:]}: max_abs_err "
-              f"o={err_o.max().item():.3e} lse={err_lse.max().item():.3e} "
-              f"(tolerance o atol {atol} rtol {rtol}, lse atol 1e-4 rtol 1e-4) "
-              f"{'ok' if ok else 'FAILED'}", flush=True)
+              f"o={err_o:.3e} lse={err_lse.max().item():.3e}, rel_l2 o={rel_o:.3e} "
+              f"(tolerance o atol {atol} rtol {rtol}{norm_note(dtype)}, lse atol 1e-4 rtol "
+              f"1e-4) {'ok' if ok else 'FAILED'}", flush=True)
         check(ok, f"flash_attention_fwd disagrees with its plain version at {shape} {dtype}")
-        row = {"max_abs_err": err_o.max().item()}
+        row = {"max_abs_err": err_o}
         if T == 513:  # the main path's shapes: time kernel, plain version and library call
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             row["ms"] = cuda_ms(lambda: fused_attention(q, k, v))
@@ -198,14 +279,16 @@ def phase_bwd_kernels(fused_attention, fused_attention_bwd, fused_attention_bwd_
         got = fused_attention_bwd(q, k, v, o, do, lse)
         torch.cuda.synchronize()
         want = fused_attention_bwd_reference(q, k, v, o, do, lse)
-        errs, ok = [], True
+        errs, rels, ok = [], [], True
         for a, b in zip(got, want):
-            err = (a.float() - b.float()).abs()
-            errs.append(err.max().item())
-            ok &= bool((err <= atol + rtol * b.float().abs()).all())
+            elem_ok, norm_ok, err, rel = within(a, b, atol, rtol, dtype)
+            errs.append(err)
+            rels.append(rel)
+            ok &= elem_ok and norm_ok
         print(f"kernel flash_attention_bwd {list(shape)} {str(dtype)[6:]}: max_abs_err "
-              f"dq={errs[0]:.3e} dk={errs[1]:.3e} dv={errs[2]:.3e} (tolerance atol {atol} "
-              f"rtol {rtol}) {'ok' if ok else 'FAILED'}", flush=True)
+              f"dq={errs[0]:.3e} dk={errs[1]:.3e} dv={errs[2]:.3e}, rel_l2 dq={rels[0]:.3e} "
+              f"dk={rels[1]:.3e} dv={rels[2]:.3e} (tolerance atol {atol} rtol {rtol}"
+              f"{norm_note(dtype)}) {'ok' if ok else 'FAILED'}", flush=True)
         check(ok, f"flash_attention_bwd disagrees with its plain version at {shape} {dtype}")
         row = {"max_abs_err": max(errs)}
         if shape == MAE_DECODER and dtype == torch.bfloat16:
@@ -231,6 +314,119 @@ def phase_bwd_kernels(fused_attention, fused_attention_bwd, fused_attention_bwd_
                   flush=True)
         results[(shape, dtype)] = row
     return results
+
+
+def blocked_inputs(shape, tk: int, dtype, seed: int) -> tuple:
+    """q, k, v (strided views of one [B, T, 3, H, D] tensor when square, as
+    the model passes them) and an incoming gradient, on the card."""
+    B, T, H, D = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if tk == T:
+        qkv = torch.randn(B, T, 3, H, D, device="cuda", generator=g).to(dtype)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        q = torch.randn(B, T, H, D, device="cuda", generator=g).to(dtype)
+        k, v = (torch.randn(B, tk, H, D, device="cuda", generator=g).to(dtype) for _ in range(2))
+    return q, k, v, torch.randn(B, T, H, D, device="cuda", generator=g).to(dtype)
+
+
+def phase_blocked_kernels() -> dict:
+    """B3, B4 and B5 against their plain versions at every BLOCKED_CASES case;
+    timed at the two stretch shapes. Returns {(kernel, shape): row}."""
+    from headct_foundation_tpu_torch.ops import flash_attention as fa
+
+    results = {}
+    for shape, tk, kv_len, dtype, atol, rtol in BLOCKED_CASES:
+        q, k, v, do = blocked_inputs(shape, tk, dtype, seed=3)
+        o, lse = fa.blocked_fused_attention(q, k, v, kv_len=kv_len)
+        delta = fa.attention_delta(o, do)
+        dk, dv = fa.blocked_attention_dkv(q, k, v, do, lse, delta, kv_len=kv_len)
+        dq = fa.blocked_attention_dq(q, k, v, do, lse, delta, kv_len=kv_len)
+        again = (*fa.blocked_attention_dkv(q, k, v, do, lse, delta, kv_len=kv_len),
+                 fa.blocked_attention_dq(q, k, v, do, lse, delta, kv_len=kv_len))
+        torch.cuda.synchronize()
+        o_ref, lse_ref = fa.blocked_attention_reference(q, k, v, kv_len=kv_len)
+        err_lse = (lse - lse_ref).abs()
+        # o against its plain version; the backward passes against theirs on
+        # the kernel's o, lse
+        want = (*fa.blocked_attention_dkv_reference(q, k, v, do, lse, delta, kv_len=kv_len),
+                fa.blocked_attention_dq_reference(q, k, v, do, lse, delta, kv_len=kv_len))
+        batol, brtol = BLOCKED_BWD_TOL[dtype]
+        res = [within(o, o_ref, atol, rtol, dtype)] + [
+            within(a, b, batol, brtol, dtype) for a, b in zip((dk, dv, dq), want)]
+        elem_ok = all(r[0] for r in res) and bool((err_lse <= 1e-4 + 1e-4 * lse_ref.abs()).all())
+        norm_ok = all(r[1] for r in res)
+        errs, rels = [r[2] for r in res], [r[3] for r in res]
+        same = all(torch.equal(a, b) for a, b in zip((dk, dv, dq), again))
+        masked_zero = kv_len is None or not (dk[:, kv_len:].any() or dv[:, kv_len:].any())
+        ok = elem_ok and norm_ok and same and masked_zero
+        print(f"kernel blocked B3/B4/B5 q {list(shape)} k/v length {tk} kv_len {kv_len} "
+              f"{str(dtype)[6:]}: max_abs_err o={errs[0]:.3e} lse={err_lse.max().item():.3e} "
+              f"dk={errs[1]:.3e} dv={errs[2]:.3e} dq={errs[3]:.3e}, rel_l2 o={rels[0]:.3e} "
+              f"dk={rels[1]:.3e} dv={rels[2]:.3e} dq={rels[3]:.3e} (tolerance o atol {atol} "
+              f"rtol {rtol}, lse 1e-4/1e-4, grads atol {batol} rtol {brtol}: "
+              f"{'ok' if elem_ok else 'FAILED'}{norm_note(dtype)}: "
+              f"{'ok' if norm_ok else 'FAILED'}); B4/B5 reruns bit-identical {same}; masked "
+              f"dk/dv exactly 0 {masked_zero} {'ok' if ok else 'FAILED'}", flush=True)
+        check(ok, f"blocked kernels disagree with their plain versions at {shape} {tk} "
+                  f"{kv_len} {dtype}")
+        rows = {"flash_attention_blocked_fwd": {"max_abs_err": errs[0]},
+                "flash_attention_blocked_dkv": {"max_abs_err": max(errs[1:3])},
+                "flash_attention_blocked_dq": {"max_abs_err": errs[3]}}
+        if shape in (STRETCH_DECODER, STRETCH_ENCODER) and dtype == torch.bfloat16:
+            time_blocked(fa, rows, q, k, v, o, do, lse, delta, shape, dtype)
+        for name, row in rows.items():
+            results[(name, shape, dtype)] = row
+        del q, k, v, o, do, lse, delta, dk, dv, dq, again, want, o_ref, lse_ref, res
+        torch.cuda.empty_cache()
+    return results
+
+
+def time_blocked(fa, rows, q, k, v, o, do, lse, delta, shape, dtype) -> None:
+    """Kernel, plain version and bound of B3, B4 and B5 at a main-path shape;
+    the library call: scaled_dot_product_attention's forward for B3, and its
+    backward against delta + B4 + B5 together."""
+    calls = {
+        "flash_attention_blocked_fwd": (lambda: fa.blocked_fused_attention(q, k, v),
+                                        lambda: fa.blocked_attention_reference(q, k, v)),
+        "flash_attention_blocked_dkv": (
+            lambda: fa.blocked_attention_dkv(q, k, v, do, lse, delta),
+            lambda: fa.blocked_attention_dkv_reference(q, k, v, do, lse, delta)),
+        "flash_attention_blocked_dq": (
+            lambda: fa.blocked_attention_dq(q, k, v, do, lse, delta),
+            lambda: fa.blocked_attention_dq_reference(q, k, v, do, lse, delta)),
+    }
+    for name, (kernel, plain) in calls.items():
+        rows[name]["ms"] = cuda_ms(kernel, iters=10)
+        rows[name]["plain_ms"] = cuda_ms(plain, iters=3, warmup=1)
+        rows[name]["bound_ms"], rows[name]["bound_by"] = blocked_bound_ms(
+            name, shape, shape[1], None, dtype)
+        rows[name]["library_ms"] = None
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    fwd_ms = cuda_ms(lambda: sdpa(qt, kt, vt), iters=10)
+    rows["flash_attention_blocked_fwd"]["library_ms"] = fwd_ms
+    sdpa_bwd_ms = cuda_ms(lambda: sdpa(qt, kt, vt).backward(dot), iters=10) - fwd_ms
+
+    def port_bwd():
+        d = fa.attention_delta(o, do)
+        fa.blocked_attention_dkv(q, k, v, do, lse, d)
+        fa.blocked_attention_dq(q, k, v, do, lse, d)
+
+    bwd_ms = cuda_ms(port_bwd, iters=10)
+    for name in ("flash_attention_blocked_dkv", "flash_attention_blocked_dq"):
+        rows[name]["backward_ms"] = bwd_ms   # delta + B4 + B5, the whole backward
+        rows[name]["library_backward_ms"] = sdpa_bwd_ms
+    for name, r in rows.items():
+        print(f"timing {name} {list(shape)} {str(dtype)[6:]}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+              f"({100 * r['bound_ms'] / r['ms']:.1f}% of bound)", flush=True)
+    print(f"timing blocked backward {list(shape)} {str(dtype)[6:]}: delta (torch) + B4 + B5 "
+          f"{bwd_ms:.4f} ms against the backward of scaled_dot_product_attention "
+          f"{sdpa_bwd_ms:.4f} ms (its forward+backward minus its forward, {fwd_ms:.4f} ms); "
+          f"B3 {rows['flash_attention_blocked_fwd']['ms']:.4f} ms against its forward",
+          flush=True)
 
 
 def post_scans(port: int, blobs) -> list:
@@ -381,11 +577,13 @@ def loss_and_grads(model, wire, cfg, draws, backend: str, names) -> tuple:
         port_attn.set_attention_backend(prev)
 
 
-def compare_backends(model, wire, cfg, draws, dtype) -> dict:
+def compare_backends(model, wire, cfg, draws, dtype, every: bool = False,
+                     label: str = "train") -> dict:
     """Kernel against plain attention on the same step: loss and every
-    decoder gradient (the decoder is where the kernels run)."""
+    decoder gradient (where the 96^3 step runs its kernels), or every
+    trainable gradient with ``every``."""
     names = [n for n, p in model.named_parameters()
-             if p.requires_grad and (n.startswith("decoder") or n == "mask_token")]
+             if p.requires_grad and (every or n.startswith("decoder") or n == "mask_token")]
     loss_k, g_k = loss_and_grads(model, wire, cfg, draws, "kernel", names)
     loss_p, g_p = loss_and_grads(model, wire, cfg, draws, "plain", names)
     rel = abs(loss_k - loss_p) / abs(loss_p)
@@ -396,9 +594,10 @@ def compare_backends(model, wire, cfg, draws, dtype) -> dict:
     tol = TRAIN_TOL[dtype]
     ok = rel <= tol["loss_rel"] and (cos >= tol["grad_cos"] if "grad_cos" in tol
                                      else grad_rel <= tol["grad_rel_max"])
-    print(f"train: kernel vs plain attention, one step at {str(dtype)[6:]}: loss {loss_k:.6f} vs "
+    print(f"{label}: kernel vs plain attention, one step at {str(dtype)[6:]}: loss {loss_k:.6f} vs "
           f"{loss_p:.6f} (relative {rel:.3e}, tolerance {tol['loss_rel']}); over "
-          f"{len(names)} decoder gradient tensors min cosine {cos:.6f}, max "
+          f"{len(names)} {'trainable' if every else 'decoder'} gradient tensors min cosine "
+          f"{cos:.6f}, max "
           f"|dg|/max|g| {grad_rel:.3e} (tolerance "
           f"{'cosine >= ' + str(tol['grad_cos']) if 'grad_cos' in tol else 'max |dg| <= ' + str(tol['grad_rel_max']) + ' max|g|'}) "
           f"{'ok' if ok else 'FAILED'}", flush=True)
@@ -407,6 +606,8 @@ def compare_backends(model, wire, cfg, draws, dtype) -> dict:
 
 
 PROFILE_GROUPS = [  # (group, substrings of a kernel name), first match wins
+    # B3-B5 instantiate the shared kernels with the tag "Blocked" in their names
+    ("attention kernels B3/B4/B5", ("blocked",)),
     ("attention kernels B1/B2", ("flash_fwd", "dkv_", "dq_", "delta_kernel")),
     ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "matmul")),
     ("AdamW", ("adam", "multi_tensor")),
@@ -440,7 +641,7 @@ def profile_steps(step, state, wire, step_ms: float, n: int = 2) -> None:
         group = next((g for g, keys in PROFILE_GROUPS if any(k in name for k in keys)),
                      "elementwise and other")
         groups[group] = groups.get(group, 0.0) + us
-        top.append((us, ev.key[:70]))
+        top.append((us, ev.key[:100]))
     if total <= 0:
         print("profile: the profiler recorded no device time; busy share not measured",
               flush=True)
@@ -457,88 +658,110 @@ def profile_steps(step, state, wire, step_ms: float, n: int = 2) -> None:
         flush=True)
 
 
-def phase_train(bwd_ms: float, fwd_ms: float) -> dict:
-    """Drive the MAE pretraining step at full width; returns each kernel's
-    launches in the train and eval runs."""
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its CUDA launches."""
+    from headct_foundation_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_attention_fwd": fa.fused_attention,
+            "flash_attention_bwd": fa.fused_attention_bwd,
+            "flash_attention_blocked_fwd": fa.blocked_fused_attention,
+            "flash_attention_blocked_dkv": fa.blocked_attention_dkv,
+            "flash_attention_blocked_dq": fa.blocked_attention_dq}
+
+
+def zero_launches() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def launches() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def phase_train(label: str, config: str, batch: int, compare_batch: int, seed0: int,
+                per_step: dict, per_eval: dict, kernel_note: str) -> dict:
+    """Drive one MAE pretraining configuration at full width; returns every
+    kernel's launches in the train and eval runs. ``per_step`` and
+    ``per_eval`` are the launches expected of each kernel per train step and
+    per eval batch (0 for a kernel not named); ``compare_batch`` is the batch
+    of the kernel-vs-plain step. That step checks every trainable gradient
+    where the blocked kernels run (in the 192^3 encoder and decoder), the
+    decoder's otherwise (the 96^3 encoder takes the plain attention)."""
     from headct_foundation_tpu_torch.config import default_config
-    from headct_foundation_tpu_torch.data.augment import draw_mae_augment
+    from headct_foundation_tpu_torch.data.augment import apply_mae_augment, draw_mae_augment
     from headct_foundation_tpu_torch.data.device_preprocess import wire_to_compute
     from headct_foundation_tpu_torch.engines import mae_engine
-    from headct_foundation_tpu_torch.ops.flash_attention import (
-        fused_attention,
-        fused_attention_bwd,
-    )
 
     cfg = default_config()
-    cfg.merge_from_file(str(ROOT / MAE_CONFIG))
+    cfg.merge_from_file(str(ROOT / config))
     cfg.DATA.WIRE_FORMAT = "hu16"
     total = TRAIN_BATCHES + 5  # the epoch, then the timed steps
     t0 = time.perf_counter()
     dev = torch.device("cuda")
     state, _ = mae_engine.create_train_state(cfg, total, WARMUP_STEPS, seed=0, device=dev)
     n_params = sum(p.numel() for p in state.model.parameters() if p.requires_grad)
-    wires = [head_phantoms(100 + i, TRAIN_BATCH, cfg.MAE.INPUT_SIZE)
+    wires = [head_phantoms(seed0 + i, batch, cfg.MAE.INPUT_SIZE)
              for i in range(TRAIN_BATCHES + VAL_BATCHES)]
     torch.cuda.synchronize()
-    dec = cfg.MAE
-    print(f"train set-up: MAE from {MAE_CONFIG} (encoder {dec.ENCODER_DEPTH}x"
-          f"{dec.ENCODER_EMBED_DIM}/{dec.ENCODER_NUM_HEADS} heads, decoder {dec.DECODER_DEPTH}x"
-          f"{dec.DECODER_EMBED_DIM}/{dec.DECODER_NUM_HEADS} heads, {dec.INPUT_SIZE}^3 patch "
-          f"{dec.PATCH_SIZE}, {dec.IN_CHANS} channels), {n_params} trainable parameters, "
+    m = cfg.MAE
+    print(f"{label} set-up: MAE from {config} (encoder {m.ENCODER_DEPTH}x"
+          f"{m.ENCODER_EMBED_DIM}/{m.ENCODER_NUM_HEADS} heads, decoder {m.DECODER_DEPTH}x"
+          f"{m.DECODER_EMBED_DIM}/{m.DECODER_NUM_HEADS} heads, {m.INPUT_SIZE}^3 patch "
+          f"{m.PATCH_SIZE}, {m.IN_CHANS} channels), {n_params} trainable parameters, "
           f"seed 0, bf16 compute; {len(wires)} synthetic hu16 batches of "
           f"{list(wires[0].shape)} int16 in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # Kernel against plain attention on one step, same weights and randomness.
+    every = per_step.get("flash_attention_blocked_fwd", 0) > 0  # the encoder runs kernels too
     g = mae_engine.step_generator(dev, 7, 0, 0)
     n_tok = int(np.prod(state.model.grid_size))
-    draws = {"noise": torch.rand((TRAIN_BATCH, n_tok), generator=g, device=dev),
-             "augment": draw_mae_augment(TRAIN_BATCH, g, dev)}
-    wire0 = torch.from_numpy(wires[0]).to(dev)
-    compare = {torch.bfloat16: compare_backends(state.model, wire0, cfg, draws, torch.bfloat16)}
+    draws = {"noise": torch.rand((compare_batch, n_tok), generator=g, device=dev),
+             "augment": draw_mae_augment(compare_batch, g, dev)}
+    wire0 = torch.from_numpy(wires[0][:compare_batch]).to(dev)
+    compare = {torch.bfloat16: compare_backends(state.model, wire0, cfg, draws, torch.bfloat16,
+                                                every, label)}
     m32 = mae_engine.build_mae_model(cfg, dtype=torch.float32).to(dev)
     m32.load_state_dict(state.model.state_dict())
     for n, p in m32.named_parameters():
         p.requires_grad_(dict(state.model.named_parameters())[n].requires_grad)
-    compare[torch.float32] = compare_backends(m32, wire0, cfg, draws, torch.float32)
+    compare[torch.float32] = compare_backends(m32, wire0, cfg, draws, torch.float32, every,
+                                              label)
     del m32
     torch.cuda.empty_cache()
 
     # The main path's run: every kernel count is 0 just before it.
-    log = logging.getLogger("chip_smoke.train")
+    log = logging.getLogger(f"chip_smoke.{label}")
     before = {n: p.detach().clone() for n, p in state.model.named_parameters() if p.requires_grad}
     step = mae_engine.make_train_step(augment=True, config=cfg)
     torch.cuda.reset_peak_memory_stats()
-    fused_attention.launches = fused_attention_bwd.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     state, stats = mae_engine.train_one_epoch(cfg, state, step, wires[:TRAIN_BATCHES], 0, 0, 1,
                                               logger=log)
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
-    train_launches = {"flash_attention_fwd": fused_attention.launches,
-                      "flash_attention_bwd": fused_attention_bwd.launches}
+    train_launches = launches()
     peak = torch.cuda.max_memory_allocated()
-    fused_attention.launches = fused_attention_bwd.launches = 0
+    zero_launches()
     val = mae_engine.val_one_epoch(cfg, state, mae_engine.make_eval_step(cfg),
                                    wires[TRAIN_BATCHES:], 0, 0, 1, logger=log)
-    val_launches = {"flash_attention_fwd": fused_attention.launches,
-                    "flash_attention_bwd": fused_attention_bwd.launches}
+    val_launches = launches()
 
-    depth = cfg.MAE.DECODER_DEPTH
     check(state.step == TRAIN_BATCHES and math.isfinite(stats["loss"])
           and math.isfinite(val["loss"]), f"train/val losses not finite: {stats} {val}")
-    check(train_launches == {"flash_attention_fwd": depth * TRAIN_BATCHES,
-                             "flash_attention_bwd": depth * TRAIN_BATCHES},
-          f"training launches {train_launches}; expected {depth} of each per step")
-    check(val_launches == {"flash_attention_fwd": depth * VAL_BATCHES, "flash_attention_bwd": 0},
-          f"eval launches {val_launches}; expected {depth} forward per batch")
+    want_train = {n: per_step.get(n, 0) * TRAIN_BATCHES for n in train_launches}
+    want_eval = {n: per_eval.get(n, 0) * VAL_BATCHES for n in val_launches}
+    check(train_launches == want_train,
+          f"training launches {train_launches}; expected {want_train}")
+    check(val_launches == want_eval, f"eval launches {val_launches}; expected {want_eval}")
     params = dict(state.model.named_parameters())
     unmoved = [n for n, p in before.items() if torch.equal(p, params[n].detach())]
     check(not unmoved, f"parameters that did not move in {TRAIN_BATCHES} steps: {unmoved[:5]}")
-    print(f"train: train_one_epoch over {TRAIN_BATCHES} batches of {TRAIN_BATCH} in "
+    print(f"{label}: train_one_epoch over {TRAIN_BATCHES} batches of {batch} in "
           f"{epoch_s:.2f} s, mean loss {stats['loss']:.6f}, mean lr {stats['lr']:.3e}; "
           f"val_one_epoch over {VAL_BATCHES} batch: loss {val['loss']:.6f}; all finite; every "
-          f"trainable tensor moved; launches train {train_launches} = {depth} + {depth} per "
-          f"step, eval {val_launches} = {depth} per batch; peak memory "
+          f"trainable tensor moved; launches train {train_launches} = {per_step} per step, "
+          f"eval {val_launches} = {per_eval} per batch, exactly; peak memory "
           f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)", flush=True)
 
     # Step time: host clock around synchronised steps (warm).
@@ -555,23 +778,23 @@ def phase_train(bwd_ms: float, fwd_ms: float) -> dict:
     # Breakdown (CUDA events): input, forward+backward, optimizer.
     model = state.model
     wire = torch.from_numpy(wires[0]).to(dev)
-    from headct_foundation_tpu_torch.data.augment import apply_mae_augment
+    aug = draw_mae_augment(batch, g, dev)
+    noise = torch.rand((batch, n_tok), generator=g, device=dev)
     prep_ms = cuda_ms(lambda: apply_mae_augment(
-        wire_to_compute(wire, cfg, cfg.MAE.IN_CHANS), draws["augment"]), iters=5, warmup=1)
-    batch = apply_mae_augment(wire_to_compute(wire, cfg, cfg.MAE.IN_CHANS), draws["augment"])
+        wire_to_compute(wire, cfg, cfg.MAE.IN_CHANS), aug), iters=5, warmup=1)
+    vols = apply_mae_augment(wire_to_compute(wire, cfg, cfg.MAE.IN_CHANS), aug)
 
     def fwd_bwd():
-        model(batch, noise=draws["noise"])[0].backward()
+        model(vols, noise=noise)[0].backward()
 
     fb_ms = cuda_ms(fwd_bwd, iters=5, warmup=1)
     opt_ms = cuda_ms(state.optimizer.step, iters=5, warmup=1)
     state.optimizer.zero_grad(set_to_none=True)
-    print(f"train: median step {step_ms:.2f} ms over {len(times)} synchronised steps "
-          f"({', '.join(f'{t:.1f}' for t in times)}), {TRAIN_BATCH / step_ms * 1e3:.2f} volumes/s; "
+    print(f"{label}: median step {step_ms:.2f} ms over {len(times)} synchronised steps "
+          f"({', '.join(f'{t:.1f}' for t in times)}), {batch / step_ms * 1e3:.2f} volumes/s; "
           f"breakdown: window+augment {prep_ms:.2f} ms, forward+backward {fb_ms:.2f} ms "
-          f"(of which flash_attention_fwd {depth} x {fwd_ms:.4f} = {depth * fwd_ms:.2f} ms and "
-          f"flash_attention_bwd {depth} x {bwd_ms:.4f} = {depth * bwd_ms:.2f} ms, from the "
-          f"kernel timings), AdamW step {opt_ms:.2f} ms", flush=True)
+          f"(of which {kernel_note}, from the kernel timings), AdamW step {opt_ms:.2f} ms",
+          flush=True)
     profile_steps(step, state, wire, step_ms)
     return {"train": train_launches, "eval": val_launches, "compare": compare}
 
@@ -609,36 +832,80 @@ def main() -> int:
     kernel_rows = phase_kernels(fused_attention, fused_attention_reference)
     bwd_rows = phase_bwd_kernels(fused_attention, fused_attention_bwd,
                                  fused_attention_bwd_reference)
+    blocked_rows = phase_blocked_kernels()
     build_dir = ROOT / "build"
     build_dir.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         serve_launches = phase_slice(Path(tmp))["flash_attention_fwd"]
     fwd_mae = kernel_rows[(MAE_DECODER, torch.bfloat16)]
     bwd_mae = bwd_rows[(MAE_DECODER, torch.bfloat16)]
-    train = phase_train(bwd_mae["ms"], fwd_mae["ms"])
+    depth = 8  # decoder blocks of both MAE configurations; the 96^3 encoder runs plain
+    train = phase_train(
+        "train", MAE_CONFIG, TRAIN_BATCH, TRAIN_BATCH, 100,
+        {"flash_attention_fwd": depth, "flash_attention_bwd": depth},
+        {"flash_attention_fwd": depth},
+        f"flash_attention_fwd {depth} x {fwd_mae['ms']:.4f} = {depth * fwd_mae['ms']:.2f} ms "
+        f"and flash_attention_bwd {depth} x {bwd_mae['ms']:.4f} = {depth * bwd_mae['ms']:.2f} ms")
+    torch.cuda.empty_cache()
 
-    fwd_launches = {"serving": serve_launches,
-                    "training": train["train"]["flash_attention_fwd"],
-                    "eval": train["eval"]["flash_attention_fwd"]}
-    bwd_launches = {"training": train["train"]["flash_attention_bwd"]}
-    check(all(n > 0 for n in fwd_launches.values()),
-          f"flash_attention_fwd was not launched on every main path: {fwd_launches}")
-    check(bwd_launches["training"] > 0, "flash_attention_bwd was not launched on the main path")
+    blocked = ("flash_attention_blocked_fwd", "flash_attention_blocked_dkv",
+               "flash_attention_blocked_dq")
+    enc_blocks = 12
+    def per_step(n):
+        dec_ms = blocked_rows[(n, STRETCH_DECODER, torch.bfloat16)]["ms"]
+        enc_ms = blocked_rows[(n, STRETCH_ENCODER, torch.bfloat16)]["ms"]
+        return (f"{n} {depth} x {dec_ms:.4f} + {enc_blocks} x {enc_ms:.4f} = "
+                f"{depth * dec_ms + enc_blocks * enc_ms:.2f} ms")
 
-    def row(name, replaces, launches, by_path, r, shape, dtype):
+    note = "; ".join(per_step(n) for n in blocked)
+    stretch = phase_train(
+        "stretch", STRETCH_CONFIG, STRETCH_DECODER[0], STRETCH_COMPARE_BATCH, 200,
+        {n: depth + enc_blocks for n in blocked}, {blocked[0]: depth + enc_blocks}, note)
+
+    by_path = {
+        "flash_attention_fwd": {"serving": serve_launches,
+                                "training": train["train"]["flash_attention_fwd"],
+                                "eval": train["eval"]["flash_attention_fwd"]},
+        "flash_attention_bwd": {"training": train["train"]["flash_attention_bwd"]},
+        "flash_attention_blocked_fwd": {"stretch training": stretch["train"][blocked[0]],
+                                        "stretch eval": stretch["eval"][blocked[0]]},
+        "flash_attention_blocked_dkv": {"stretch training": stretch["train"][blocked[1]]},
+        "flash_attention_blocked_dq": {"stretch training": stretch["train"][blocked[2]]},
+    }
+    for name, paths in by_path.items():
+        check(all(n > 0 for n in paths.values()),
+              f"{name} was not launched on every main path: {paths}")
+
+    def row(name, source, replaces, r, shape, dtype, **extra):
         return {"name": name, "route": "cuda",
-                "source": f"headct_foundation_tpu_torch/csrc/{name}.cu",
-                "replaces": replaces, "launches": launches, "launches_by_path": by_path,
+                "source": f"headct_foundation_tpu_torch/csrc/{source}",
+                "replaces": f"headct_foundation_tpu/ops/flash_attention.py:{replaces}",
+                "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],
                 "shape": list(shape), "dtype": str(dtype)[6:],
                 **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                     "library_ms")}}
+                                     "library_ms")}, **extra}
 
-    serving = kernel_rows[(SERVING, torch.float32)]
+    def blocked_row(name, replaces):
+        dec = blocked_rows[(name, STRETCH_DECODER, torch.bfloat16)]
+        enc = blocked_rows[(name, STRETCH_ENCODER, torch.bfloat16)]
+        err = max(r["max_abs_err"] for (n, _, _), r in blocked_rows.items() if n == name)
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "backward_ms",
+                "library_backward_ms")
+        return row(name, "flash_attention_blocked_" + ("fwd.cu" if name == blocked[0] else
+                                                      "bwd.cu"),
+                   replaces, {**dec, "max_abs_err": err}, STRETCH_DECODER, torch.bfloat16,
+                   at_encoder_shape={"shape": list(STRETCH_ENCODER),
+                                     **{k: enc[k] for k in keys if k in enc}},
+                   **{k: dec[k] for k in keys[5:] if k in dec})
+
     print(json.dumps({"kernels": [
-        row("flash_attention_fwd", "headct_foundation_tpu/ops/flash_attention.py:60",
-            sum(fwd_launches.values()), fwd_launches, serving, SERVING, torch.float32),
-        row("flash_attention_bwd", "headct_foundation_tpu/ops/flash_attention.py:86",
-            bwd_launches["training"], bwd_launches, bwd_mae, MAE_DECODER, torch.bfloat16),
+        row("flash_attention_fwd", "flash_attention_fwd.cu", 60,
+            kernel_rows[(SERVING, torch.float32)], SERVING, torch.float32),
+        row("flash_attention_bwd", "flash_attention_bwd.cu", 86, bwd_mae, MAE_DECODER,
+            torch.bfloat16),
+        blocked_row(blocked[0], 256),
+        blocked_row(blocked[1], 292),
+        blocked_row(blocked[2], 342),
     ]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

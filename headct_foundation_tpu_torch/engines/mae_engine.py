@@ -74,7 +74,7 @@ def build_mae_model(config, dtype: torch.dtype = torch.bfloat16) -> MaskedAutoen
         decoder_embed_dim=m.DECODER_EMBED_DIM, decoder_mlp_dim=m.DECODER_MLP_DIM,
         decoder_num_heads=m.DECODER_NUM_HEADS, norm_pix_loss=m.NORM_PIX_LOSS,
         loss_dtype=getattr(m, "LOSS_DTYPE", "float32"), use_bias=m.USE_BIAS,
-        norm_layer=m.NORM_LAYER, dtype=dtype,
+        norm_layer=m.NORM_LAYER, remat=config.PARALLEL.REMAT, dtype=dtype,
     )
 
 

@@ -6,7 +6,11 @@ src/models/attentionblock.py:24-99):
 * ``SelfAttention``: one [C, 3C] qkv projection reshaped as (B, N, 3, H, D),
   attention through ``ops.attention``, a ``proj`` that always has a bias.
 * ``MLPBlock``: Linear -> GELU -> Linear (MONAI MLPBlock, biases on).
-* ``AttentionBlock``: x + attn(att_norm(x)); x + mlp(ffn_norm(x)).
+* ``AttentionBlock``: x + attn(att_norm(x)); x + mlp(ffn_norm(x)). With
+  ``remat_mlp`` (config ``PARALLEL.REMAT``, JAX ``models/attention.py:170-213``)
+  the MLP half runs under ``torch.utils.checkpoint``: its [B, T, mlp_dim]
+  activations are recomputed in the backward instead of stored. Attention
+  stays outside the checkpoint, as in JAX, so its kernels are not re-run.
 
 GELU is the tanh approximation unless ``HEADCT_EXACT_GELU=1`` (erf), read
 at call time, as in the JAX package. Every projection is a ``layers.Linear``:
@@ -23,6 +27,7 @@ import os
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from headct_foundation_tpu_torch.models.layers import Linear, make_norm
 from headct_foundation_tpu_torch.ops.attention import dot_product_attention
@@ -75,8 +80,10 @@ class MLPBlock(nn.Module):
 class AttentionBlock(nn.Module):
     def __init__(self, hidden_size: int, mlp_dim: int, num_heads: int,
                  qkv_bias: bool = False, norm_layer: str = "layernorm",
-                 dropout_rate: float = 0.0, dtype: torch.dtype = torch.float32):
+                 dropout_rate: float = 0.0, remat_mlp: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.remat_mlp = remat_mlp
         self.att_norm = make_norm(norm_layer, hidden_size)
         self.attn = SelfAttention(hidden_size, num_heads, qkv_bias=qkv_bias,
                                   dropout=dropout_rate, dtype=dtype)
@@ -85,4 +92,7 @@ class AttentionBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.att_norm(x))
-        return x + self.mlp(self.ffn_norm(x))
+        h = self.ffn_norm(x)
+        if self.remat_mlp and torch.is_grad_enabled():
+            return x + checkpoint(self.mlp, h, use_reentrant=False)
+        return x + self.mlp(h)

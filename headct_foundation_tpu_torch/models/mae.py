@@ -18,6 +18,9 @@ names are those ``utils/torch_interop.state_dict_from_jax`` emits for the
 JAX model's tree. The sincos position embeddings are frozen parameters
 (``requires_grad=False``), as in the reference.
 
+``remat`` (config ``PARALLEL.REMAT``) recomputes the MLP half of every
+encoder and decoder block in the backward (JAX ``models/mae.py:54,70,149``).
+
 ``forward(imgs, noise=None, generator=None)`` returns (loss, pred, mask).
 The masking noise [B, L] is drawn from ``generator`` unless passed in.
 """
@@ -69,6 +72,7 @@ class MaskedAutoencoderViT(nn.Module):
         loss_dtype: str = "float32",
         use_bias: bool = False,
         norm_layer: str = "layernorm",
+        remat: bool = False,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
@@ -102,12 +106,12 @@ class MaskedAutoencoderViT(nn.Module):
         self.blocks = nn.ModuleList(
             AttentionBlock(encoder_embed_dim, encoder_mlp_dim, encoder_num_heads,
                            qkv_bias=use_bias, norm_layer=norm_layer,
-                           dropout_rate=dropout_rate, dtype=dtype)
+                           dropout_rate=dropout_rate, remat_mlp=remat, dtype=dtype)
             for _ in range(encoder_depth))
         self.decoder_blocks = nn.ModuleList(
             AttentionBlock(decoder_embed_dim, decoder_mlp_dim, decoder_num_heads,
                            qkv_bias=use_bias, norm_layer=norm_layer,
-                           dropout_rate=dropout_rate, dtype=dtype)
+                           dropout_rate=dropout_rate, remat_mlp=remat, dtype=dtype)
             for _ in range(decoder_depth))
         self.norm = make_norm(norm_layer, encoder_embed_dim)
         self.decoder_norm = make_norm(norm_layer, decoder_embed_dim)

@@ -26,9 +26,12 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
 
-# kernel name -> source file under csrc/
+# library name -> source file under csrc/ (flash_attention_blocked_bwd holds
+# two kernels, B4 and B5, each with its own C entry)
 SOURCES = {"flash_attention_fwd": "flash_attention_fwd.cu",
-           "flash_attention_bwd": "flash_attention_bwd.cu"}
+           "flash_attention_bwd": "flash_attention_bwd.cu",
+           "flash_attention_blocked_fwd": "flash_attention_blocked_fwd.cu",
+           "flash_attention_blocked_bwd": "flash_attention_blocked_bwd.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

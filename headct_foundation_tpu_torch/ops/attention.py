@@ -1,14 +1,17 @@
-"""Attention dispatch: the hand-written kernel or the plain version.
+"""Attention dispatch: the hand-written kernels or the plain version.
 
-Port of the JAX package's ``ops/attention.py:189-216``. Under the kernel
-backend, a square sequence with ``pallas_min_t() <= T <= 1024`` goes to
-``FusedAttention`` (the CUDA forward and backward kernels on a CUDA tensor,
-their plain versions on a CPU tensor). Shorter sequences take the plain PyTorch attention, where the
-JAX package takes XLA's ``jax.nn.dot_product_attention``. Longer or
-rectangular sequences need the blocked kernel, which is not ported yet:
-on CUDA they raise ``NotImplementedError``.
+Port of the JAX package's ``ops/attention.py:120-137, 189-216`` on one
+device. Under the kernel backend, a sequence with ``Tq >= pallas_min_t()``
+goes to ``ops.flash_attention.flash_attention``, which picks the kernels:
+``FusedAttention`` (whole-sequence) when the sequence is square with
+``T <= VMEM_PATH_MAX_T`` (read at call time), ``BlockedFusedAttention``
+otherwise, for longer sequences (the 192^3 MAE's 1025 and 4097 tokens) and
+rectangular ones. Both run their CUDA kernels on a CUDA tensor and their
+plain versions on a CPU tensor. Shorter sequences take the plain PyTorch
+attention, where the JAX package takes XLA's ``jax.nn.dot_product_attention``.
 
-The sharding/mesh machinery of the JAX module is not ported yet.
+The sharded and context-parallel branches of the JAX module (``:139-186``)
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,11 +21,8 @@ from typing import Optional
 
 import torch
 
-from headct_foundation_tpu_torch.ops.flash_attention import (
-    VMEM_PATH_MAX_T,
-    FusedAttention,
-    fused_attention_reference,
-)
+from headct_foundation_tpu_torch.ops import flash_attention as _fa
+from headct_foundation_tpu_torch.ops.flash_attention import fused_attention_reference
 
 # "kernel" | "plain" | None (auto: the kernel on CUDA tensors, plain on CPU).
 _BACKEND: Optional[str] = None
@@ -67,14 +67,8 @@ def dot_product_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: Optional[float] = None
 ) -> torch.Tensor:
     """Multi-head attention over [B, T, H, D] tensors -> [B, Tq, H, D] in q.dtype.
-    Differentiable on both branches: the kernel branch through its own
+    Differentiable on every branch: the kernel branches through their own
     backward, the plain branch through autograd."""
-    tq, tk = q.shape[1], k.shape[1]
-    if get_attention_backend(q.device) == "kernel" and tq >= pallas_min_t():
-        if tq == tk and tq <= VMEM_PATH_MAX_T:
-            return FusedAttention.apply(q, k, v, scale)[0]
-        if q.device.type == "cuda":
-            raise NotImplementedError(
-                f"attention at Tq={tq}, Tk={tk} needs the blocked kernel "
-                "(ops/flash_attention.py:256 _blocked_fwd_kernel), not ported yet")
+    if get_attention_backend(q.device) == "kernel" and q.shape[1] >= pallas_min_t():
+        return _fa.flash_attention(q, k, v, scale=scale)
     return fused_attention_reference(q, k, v, scale)[0]

@@ -18,6 +18,7 @@ import torch
 from headct_foundation_tpu.ops.flash_attention import _fused_bwd, _fused_fwd_impl
 from headct_foundation_tpu.ops.flash_attention import fused_attention as jax_fused_attention
 from headct_foundation_tpu_torch.ops import attention as port_attn
+from headct_foundation_tpu_torch.ops import flash_attention as port_fa
 from headct_foundation_tpu_torch.ops.flash_attention import (
     FusedAttention,
     fused_attention,
@@ -106,7 +107,7 @@ def test_dispatch_on_cpu(monkeypatch):
             calls.append(q.shape[1])
             return FusedAttention.apply(q, k, v, scale)
 
-    monkeypatch.setattr(port_attn, "FusedAttention", Spy)
+    monkeypatch.setattr(port_fa, "FusedAttention", Spy)
     monkeypatch.delenv("HEADCT_PALLAS_MIN_T", raising=False)
     prev_backend = port_attn.set_attention_backend(None)
     prev_min_t = port_attn.set_pallas_min_t(None)
@@ -133,7 +134,7 @@ def test_dispatch_on_cpu(monkeypatch):
         assert port_attn.set_pallas_min_t(300) is None
         port_attn.dot_product_attention(x200, x200, x200)
         assert calls == [200, 9]                # explicit value beats the env
-        # beyond the whole-sequence kernel the CPU stays on the plain version
+        # beyond the whole-sequence kernel: the blocked path, not FusedAttention
         port_attn.dot_product_attention(x1100, x1100, x1100)
         assert calls == [200, 9]
         assert fused_attention.launches == launches

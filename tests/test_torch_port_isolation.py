@@ -1,6 +1,7 @@
 """PyTorch port: imports no JAX and nothing of the JAX package (it imports
-every module and runs a serving forward and a tiny MAE train step with those
-imports blocked), defaults to CUDA, and builds from its own config copy.
+every module and runs a serving forward and tiny MAE train steps, one of them
+on the blocked attention path, with those imports blocked), defaults to CUDA,
+and builds from its own config copy.
 
 The subprocess blocks the imports with a ``sys.meta_path`` finder rather than
 ``sys.modules["jax"] = None``: scipy's array-API helpers look ``jax`` up in
@@ -67,6 +68,23 @@ step = mae_engine.make_train_step(augment=True, config=cfg)
 wire = torch.from_numpy(hu16_encode(np.random.RandomState(0).uniform(-900, 1500, (2, 1, 24, 24, 24))))
 state, metrics = step(state, wire, seed=0)
 assert state.step == 1 and bool(torch.isfinite(metrics["loss"]))
+
+# one step on the blocked path: the decoder's T = 9 beyond a lowered VMEM_PATH_MAX_T
+from headct_foundation_tpu_torch.ops import flash_attention
+
+seen = []
+Blocked = flash_attention.BlockedFusedAttention
+
+class Spy(Blocked):
+    @staticmethod
+    def forward(ctx, q, k, v, scale=None, kv_len=None):
+        seen.append(q.shape[1])
+        return Blocked.forward(ctx, q, k, v, scale, kv_len)
+
+flash_attention.VMEM_PATH_MAX_T = 4
+flash_attention.BlockedFusedAttention = Spy
+state, metrics = step(state, wire, seed=0)
+assert state.step == 2 and bool(torch.isfinite(metrics["loss"])) and seen == [9], seen
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("imported", len(names), "modules")
@@ -84,7 +102,7 @@ def test_port_imports_and_runs_without_jax():
 
 def test_port_sources_name_no_jax():
     pattern = re.compile(r"^\s*(import jax|from jax)\b|headct_foundation_tpu\.", re.M)
-    files = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) + [ROOT / "chip_smoke.py", ROOT / "chip_fault_check.py"]
     assert len(files) >= 20
     hits = [f"{f.relative_to(ROOT)}: {m.group(0)!r}"
             for f in files for m in pattern.finditer(f.read_text())]
