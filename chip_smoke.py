@@ -44,7 +44,23 @@ Phases, each printing a line; any failure raises and exits non-zero:
              train steps and 1 eval batch with exactly 20 B3 + 20 B4 + 20 B5
              launches per train step, 20 B3 per eval batch and no B1 or B2;
              then the same timings as the train phase.
-7. report  - a JSON line of the kernels, the card line, then the result line.
+7. lion    - the 96^3 MAE of the train phase trained by the fused Lion update
+             (TRAIN.OPTIMIZER Lion, LION_FUSED True, GRAD_CLIP 1.0): kernel B6
+             against its plain version first (bit for bit, at the model's
+             shapes and at ragged ones), then 6 train steps and 1 eval batch
+             with exactly one B6 launch per trainable tensor per step and 8
+             B1 + 8 B2 per step (the attention comparison is the train
+             phase's); on the run's state, every tensor's B6 output bit for
+             bit against its plain version and the fused optimizer step bit
+             for bit against those outputs, then the unfused step against
+             it; B6 timed over every trainable tensor; the same timings as
+             the train phase.
+8. tm      - the token-major attention tool: kernels B7 and B8 against their
+             plain versions at the tool's four shapes (bf16) and at float32
+             and ragged ones, and against B1 and B2 on the same inputs (bit
+             for bit: the same tile code), then ``tools.bench_tm_attention``
+             at its four shapes.
+9. report  - a JSON line of the kernels, the card line, then the result line.
 
 Float32 matmuls and convolutions are pinned to full float32 (TF32 off for
 cuBLAS and cuDNN): the serving forward is float32, like the JAX package's.
@@ -67,6 +83,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from headct_foundation_tpu_torch.tools.bench_tm_attention import SHAPES as TM_BENCH_SHAPES
+from headct_foundation_tpu_torch.tools.bench_tm_attention import cuda_ms
 
 ROOT = Path(__file__).resolve().parent
 
@@ -115,6 +134,29 @@ BLOCKED_BWD_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
 # |dk|, |dv| at 4097 keys (about 0.026), so it would pass a kernel that skips
 # one 64-key or 64-query tile (about 1/8 of the norm at 4097 tokens).
 BF16_REL_L2 = 1e-2
+# Kernel B6 (fused Lion) against its plain version, bit for bit: (shape, p and
+# g dtype). [3072, 768] and [768] are the MAE's MLP weight and a bias, [2359299]
+# an odd length (a scalar tail of 3), [700] and [1] ragged ones.
+LION_CASES = [((3072, 768), torch.float32), ((768,), torch.float32), ((700,), torch.float32),
+              ((1,), torch.float32), ((2359299,), torch.float32), ((3072, 768), torch.bfloat16)]
+LION_SCALARS = (1.5e-4, 0.05, 0.9, 0.95)  # lr, wd, b1, b2 of the MAE recipe
+# Unfused against fused Lion on one step: the unfused branch forms 1 - b1 in
+# float64 (as the JAX package's does), one float32 step from the kernel's, so
+# a sign within an ulp of 0 may flip: this share of parameter elements may
+# differ (15 of the MAE's 150.3 M), and the momenta agree within LION_M_REL *
+# max|m|. The fused step itself is held bit for bit.
+LION_FLIP_SHARE, LION_M_REL = 1e-7, 1e-6
+# Device-side sleep queued before timing B6 (cuda_ms ``ahead``), in clock
+# cycles: about 1 ms and 15 ms at the H100's 1.98 GHz, above the host's time to
+# launch one B6 call (tens of microseconds) and one per trainable tensor (~6 ms).
+AHEAD_ONE, AHEAD_ALL = 2_000_000, 30_000_000
+# Kernels B7, B8 (token-major): (shape, dtype, forward atol, rtol, backward atol,
+# rtol). Every shape of the tm bench (its main path) in bf16, MAE_DECODER
+# among them, then float32 and ragged ones.
+TM_CASES = [(shape, torch.bfloat16, 2e-2, 2e-2, 2e-2, 2e-2) for _, shape in TM_BENCH_SHAPES] + [
+    ((8, 513, 12, 64), torch.float32, 2e-5, 1e-4, 1e-4, 1e-3),
+    ((2, 70, 4, 32), torch.float32, 2e-5, 1e-4, 1e-4, 1e-3),
+    ((2, 129, 2, 128), torch.bfloat16, 2e-2, 2e-2, 2e-2, 2e-2)]
 MAE_CONFIG = "configs/mae/mae_HeadCT.yaml"
 STRETCH_CONFIG = "configs/mae/mae_HeadCT_192.yaml"
 TRAIN_BATCH = 32          # the JAX bench's batch per chip (bench.py:54)
@@ -156,22 +198,6 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     return out.splitlines()[0]
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call, from CUDA events around each call."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(iters):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        events.append((a, b))
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
 def attention_bound_ms(shape, dtype, backward: bool = False) -> tuple:
@@ -429,6 +455,231 @@ def time_blocked(fa, rows, q, k, v, o, do, lse, delta, shape, dtype) -> None:
           flush=True)
 
 
+def lion_bound_ms(n: int, dtype) -> tuple:
+    """Least time of B6 over n elements: p, g, m read and delta, m_new written
+    once (20 bytes per element with float32 p and g, 14 with bfloat16), and
+    8 float32 operations per element."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    return bound_ms(8 * n, n * (3 * elt + 8), torch.float32)
+
+
+def phase_lion_kernel() -> dict:
+    """B6 against its plain version at every LION_CASES case, bit for bit,
+    with m_new written to a new tensor and over m in place; timed at the
+    MAE's [3072, 768] float32 weight."""
+    from headct_foundation_tpu_torch.ops.lion_kernel import (
+        lion_update_leaf,
+        lion_update_leaf_reference,
+    )
+
+    row = {"max_abs_err": 0.0}
+    for shape, dtype in LION_CASES:
+        g = torch.Generator(device="cuda").manual_seed(5)
+        p = torch.randn(shape, device="cuda", generator=g).to(dtype)
+        grad = (1e-2 * torch.randn(shape, device="cuda", generator=g)).to(dtype)
+        m = 1e-3 * torch.randn(shape, device="cuda", generator=g)
+        delta, m_new = lion_update_leaf(p, grad, m, *LION_SCALARS)
+        m_in_place = m.clone()
+        delta_in_place, _ = lion_update_leaf(p, grad, m_in_place, *LION_SCALARS, m_out=m_in_place)
+        torch.cuda.synchronize()
+        want = lion_update_leaf_reference(p, grad, m, *LION_SCALARS)
+        errs = [(a.float() - b.float()).abs().max().item() for a, b in zip((delta, m_new), want)]
+        differ = (delta != want[0]).float().mean().item()
+        same = (torch.equal(delta, want[0]) and torch.equal(m_new, want[1])
+                and torch.equal(delta_in_place, delta) and torch.equal(m_in_place, m_new))
+        print(f"kernel lion_update {list(shape)} p/g {str(dtype)[6:]}: max_abs_err "
+              f"delta={errs[0]:.3e} m_new={errs[1]:.3e}, share of delta elements differing "
+              f"{differ:.3e}; bit-identical to the plain version, in place over m too: {same} "
+              f"{'ok' if same else 'FAILED'}", flush=True)
+        check(same, f"lion_update disagrees with its plain version at {shape} {dtype}")
+        row["max_abs_err"] = max(row["max_abs_err"], *errs)
+        if shape == LION_CASES[0][0] and dtype == torch.float32:
+            row["ms"] = cuda_ms(lambda: lion_update_leaf(p, grad, m, *LION_SCALARS),
+                                ahead=AHEAD_ONE)
+            row["plain_ms"] = cuda_ms(
+                lambda: lion_update_leaf_reference(p, grad, m, *LION_SCALARS), ahead=AHEAD_ONE)
+            # on an idle stream, with the host's launch work
+            row["ms_idle_stream"] = cuda_ms(lambda: lion_update_leaf(p, grad, m, *LION_SCALARS))
+            row["bound_ms"], row["bound_by"] = lion_bound_ms(p.numel(), dtype)
+            row["library_ms"] = None  # no one PyTorch call computes a Lion update
+            print(f"timing lion_update {list(shape)} float32: kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms (launches queued behind a device sleep), no "
+                  f"library call; kernel {row['ms_idle_stream']:.4f} ms on an idle stream "
+                  f"(host launch work included); bound {row['bound_ms']:.4f} ms by "
+                  f"{row['bound_by']} ({100 * row['bound_ms'] / row['ms']:.1f}% of bound)",
+                  flush=True)
+    return row
+
+
+def phase_tm_kernels() -> dict:
+    """B7 and B8 against their plain versions (held as B1 and B2 are) at every
+    TM_CASES case, the tm bench's four shapes among them, and against B1 and
+    B2 on the same contiguous inputs, bit for bit (the same tile code over the
+    same strides); two runs of B8 bit-identical. Timed at the MAE decoder's
+    shape. Returns {kernel: row}."""
+    from headct_foundation_tpu_torch.ops import flash_attention as fa
+    from headct_foundation_tpu_torch.tools import experimental_tm_attention as tm
+
+    rows = {"tm_attention_fwd": {"max_abs_err": 0.0}, "tm_attention_bwd": {"max_abs_err": 0.0}}
+    for shape, dtype, fatol, frtol, batol, brtol in TM_CASES:
+        g = torch.Generator(device="cuda").manual_seed(6)
+        q, k, v, do = (torch.randn(shape, device="cuda", generator=g).to(dtype) for _ in range(4))
+        o, lse = tm.tm_attention_fwd(q, k, v)
+        grads = tm.tm_attention_bwd(q, k, v, o, do, lse)
+        again = tm.tm_attention_bwd(q, k, v, o, do, lse)
+        o_b1, lse_b1 = fa.fused_attention(q, k, v)
+        grads_b2 = fa.fused_attention_bwd(q, k, v, o_b1, do, lse_b1)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = tm.tm_attention_fwd_reference(q, k, v)
+        want = tm.tm_attention_bwd_reference(q, k, v, o, do, lse)
+        res = [within(o, o_ref, fatol, frtol, dtype)] + [
+            within(a, b, batol, brtol, dtype) for a, b in zip(grads, want)]
+        err_lse = (lse - lse_ref).abs()
+        elem_ok = all(r[0] for r in res) and bool((err_lse <= 1e-4 + 1e-4 * lse_ref.abs()).all())
+        norm_ok = all(r[1] for r in res)
+        rerun = all(torch.equal(a, b) for a, b in zip(grads, again))
+        as_b1_b2 = (torch.equal(o, o_b1) and torch.equal(lse.flatten(), lse_b1.flatten())
+                    and all(torch.equal(a, b) for a, b in zip(grads, grads_b2)))
+        ok = elem_ok and norm_ok and rerun and as_b1_b2
+        errs, rels = [r[2] for r in res], [r[3] for r in res]
+        print(f"kernel tm_attention B7/B8 {list(shape)} {str(dtype)[6:]}: max_abs_err "
+              f"o={errs[0]:.3e} lse={err_lse.max().item():.3e} dq={errs[1]:.3e} "
+              f"dk={errs[2]:.3e} dv={errs[3]:.3e}, rel_l2 o={rels[0]:.3e} dq={rels[1]:.3e} "
+              f"dk={rels[2]:.3e} dv={rels[3]:.3e} (tolerance o atol {fatol} rtol {frtol}, lse "
+              f"1e-4/1e-4, grads atol {batol} rtol {brtol}: {'ok' if elem_ok else 'FAILED'}"
+              f"{norm_note(dtype)}: {'ok' if norm_ok else 'FAILED'}); B8 reruns bit-identical "
+              f"{rerun}; equal to B1/B2 bit for bit {as_b1_b2} {'ok' if ok else 'FAILED'}",
+              flush=True)
+        check(ok, f"tm_attention kernels disagree at {shape} {dtype}")
+        rows["tm_attention_fwd"]["max_abs_err"] = max(rows["tm_attention_fwd"]["max_abs_err"],
+                                                      errs[0])
+        rows["tm_attention_bwd"]["max_abs_err"] = max(rows["tm_attention_bwd"]["max_abs_err"],
+                                                      *errs[1:])
+        if shape == MAE_DECODER and dtype == torch.bfloat16:
+            time_tm(tm, rows, q, k, v, o, do, lse, shape, dtype)
+        del q, k, v, do, o, lse, grads, again, o_b1, lse_b1, grads_b2, want, o_ref, lse_ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def time_tm(tm, rows, q, k, v, o, do, lse, shape, dtype) -> None:
+    """Kernel, plain version, bound and library call of B7 and B8: the
+    library call is scaled_dot_product_attention's forward for B7 and its
+    backward (forward+backward minus forward) for B8."""
+    fwd, bwd = rows["tm_attention_fwd"], rows["tm_attention_bwd"]
+    fwd["ms"] = cuda_ms(lambda: tm.tm_attention_fwd(q, k, v))
+    fwd["plain_ms"] = cuda_ms(lambda: tm.tm_attention_fwd_reference(q, k, v))
+    bwd["ms"] = cuda_ms(lambda: tm.tm_attention_bwd(q, k, v, o, do, lse))
+    bwd["plain_ms"] = cuda_ms(lambda: tm.tm_attention_bwd_reference(q, k, v, o, do, lse),
+                              iters=10)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    fwd["library_ms"] = cuda_ms(lambda: sdpa(qt, kt, vt))
+    bwd["library_ms"] = cuda_ms(lambda: sdpa(qt, kt, vt).backward(dot)) - fwd["library_ms"]
+    for r, backward in ((fwd, False), (bwd, True)):
+        r["bound_ms"], r["bound_by"] = attention_bound_ms(shape, dtype, backward)
+    for name, r in rows.items():
+        print(f"timing {name} {list(shape)} {str(dtype)[6:]}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, scaled_dot_product_attention "
+              f"{'backward' if r is bwd else 'forward'} {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']} "
+              f"({100 * r['bound_ms'] / r['ms']:.1f}% of bound)", flush=True)
+
+
+def phase_tm_bench() -> dict:
+    """The token-major A/B tool at its four shapes; every shape's out and
+    gradients must equal the whole-sequence kernels' bit for bit. Returns
+    each kernel's launches in it."""
+    from headct_foundation_tpu_torch.tools import bench_tm_attention
+
+    zero_launches()  # the tool's run: every kernel count is 0 just before it
+    t0 = time.perf_counter()
+    shapes = bench_tm_attention.run()
+    counts = launches()
+    bad = [n for n, r in shapes.items() if not r["bit_identical"]]
+    check(not bad, f"bench_tm_attention: FusedAttentionTM differs from FusedAttention at {bad}")
+    print(f"tm bench: {len(shapes)} shapes in {time.perf_counter() - t0:.2f} s, every one "
+          f"bit-identical to FusedAttention; launches {counts}; speedup of FusedAttentionTM "
+          f"{ {n: round(r['speedup_tm'], 4) for n, r in shapes.items()} }", flush=True)
+    return counts
+
+
+def lion_step_checks(state) -> dict:
+    """On the Lion path's state and gradients: each trainable tensor's B6
+    output (delta and m_new) bit for bit against its plain version; one
+    optimizer step fused from cloned parameters, gradients and momenta, whose
+    parameters and momenta must be p + delta and m_new of those B6 outputs
+    bit for bit; the same step unfused (at most LION_FLIP_SHARE of the
+    parameter elements differ, the momenta within LION_M_REL * max|m|); then
+    B6 timed over every trainable tensor, one launch each as the optimizer
+    makes them."""
+    from headct_foundation_tpu_torch.ops.lion_kernel import (
+        lion_update_leaf,
+        lion_update_leaf_reference,
+    )
+    from headct_foundation_tpu_torch.optim.optimizers import Lion
+
+    group = state.optimizer.param_groups[0]
+    lr, wd, (b1, b2) = group["lr"], group["weight_decay"], group["betas"]
+    params = [p for p in group["params"] if p.grad is not None]
+    after = []
+    for fused in (True, False):
+        clones = [p.detach().clone() for p in params]
+        opt = Lion(clones, lr=lr, betas=group["betas"], weight_decay=wd, fused=fused)
+        for c, p in zip(clones, params):
+            c.grad = p.grad.clone()
+            opt.state[c]["exp_avg"] = state.optimizer.state[p]["exp_avg"].clone()
+        opt.step()
+        after.append((clones, [opt.state[c]["exp_avg"] for c in clones]))
+        del opt
+    (p_f, m_f), (p_u, m_u) = after
+    as_plain = as_step = 0
+    for p, pf, mf in zip(params, p_f, m_f):
+        m = state.optimizer.state[p]["exp_avg"]
+        delta, m_new = lion_update_leaf(p, p.grad, m, lr, wd, b1, b2)
+        want = lion_update_leaf_reference(p, p.grad, m, lr, wd, b1, b2)
+        as_plain += torch.equal(delta, want[0]) and torch.equal(m_new, want[1])
+        as_step += torch.equal(pf, p + delta) and torch.equal(mf, m_new)
+    n = sum(p.numel() for p in params)
+    differ = sum(int((a != b).sum()) for a, b in zip(p_f, p_u))
+    m_rel = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                for a, b in zip(m_f, m_u))
+    ok = (as_plain == as_step == len(params) and differ <= LION_FLIP_SHARE * n
+          and m_rel <= LION_M_REL)
+    print(f"lion: B6 on the run's state, bit-identical to its plain version in {as_plain} of "
+          f"{len(params)} tensors (delta and m_new), and the fused step's parameters and "
+          f"momenta equal p + delta and m_new bit for bit in {as_step}; unfused against fused "
+          f"from cloned state: {differ} of {n} parameter elements differ ({differ / n:.3e}, "
+          f"tolerance {LION_FLIP_SHARE}), momenta max |dm|/max|m| {m_rel:.3e} (tolerance "
+          f"{LION_M_REL}) {'ok' if ok else 'FAILED'}", flush=True)
+    check(ok, "B6, the fused Lion step and the unfused one disagree on the run's state")
+    del after, p_f, m_f, p_u, m_u
+
+    moms = [state.optimizer.state[p]["exp_avg"].clone() for p in params]
+
+    def every_tensor():
+        for p, m in zip(params, moms):
+            lion_update_leaf(p, p.grad, m, lr, wd, b1, b2, m_out=m)
+
+    all_ms = cuda_ms(every_tensor, iters=5, warmup=1, ahead=AHEAD_ALL)
+    idle_ms = cuda_ms(every_tensor, iters=5, warmup=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    every_tensor()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    bound, by = lion_bound_ms(n, torch.float32)
+    print(f"lion: B6 over all {len(params)} trainable tensors ({n} float32 elements), one "
+          f"launch each: {all_ms:.4f} ms of device time (CUDA events, launches queued behind a "
+          f"device sleep), {idle_ms:.4f} ms from the first launch to the last on an idle "
+          f"stream, {host_ms:.2f} ms on the host clock to launch and finish them; bound "
+          f"{bound:.4f} ms by {by} ({100 * bound / all_ms:.1f}% of bound)", flush=True)
+    return {"tensors": len(params), "elements": n, "ms": all_ms, "ms_idle_stream": idle_ms,
+            "host_ms": host_ms, "bound_ms": bound, "bit_identical_tensors": as_plain,
+            "flip_share": differ / n, "m_rel": m_rel}
+
+
 def post_scans(port: int, blobs) -> list:
     out = [None] * len(blobs)
 
@@ -610,7 +861,9 @@ PROFILE_GROUPS = [  # (group, substrings of a kernel name), first match wins
     ("attention kernels B3/B4/B5", ("blocked",)),
     ("attention kernels B1/B2", ("flash_fwd", "dkv_", "dq_", "delta_kernel")),
     ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "matmul")),
+    ("per-parameter clip norms", ("lpnorm",)),
     ("AdamW", ("adam", "multi_tensor")),
+    ("fused Lion B6", ("lion_kernel",)),
     ("softmax / norms / reductions", ("softmax", "norm", "reduce")),
 ]
 
@@ -661,12 +914,17 @@ def profile_steps(step, state, wire, step_ms: float, n: int = 2) -> None:
 def kernel_wrappers() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its CUDA launches."""
     from headct_foundation_tpu_torch.ops import flash_attention as fa
+    from headct_foundation_tpu_torch.ops.lion_kernel import lion_update_leaf
+    from headct_foundation_tpu_torch.tools import experimental_tm_attention as tm
 
     return {"flash_attention_fwd": fa.fused_attention,
             "flash_attention_bwd": fa.fused_attention_bwd,
             "flash_attention_blocked_fwd": fa.blocked_fused_attention,
             "flash_attention_blocked_dkv": fa.blocked_attention_dkv,
-            "flash_attention_blocked_dq": fa.blocked_attention_dq}
+            "flash_attention_blocked_dq": fa.blocked_attention_dq,
+            "lion_update": lion_update_leaf,
+            "tm_attention_fwd": tm.tm_attention_fwd,
+            "tm_attention_bwd": tm.tm_attention_bwd}
 
 
 def zero_launches() -> None:
@@ -679,14 +937,18 @@ def launches() -> dict:
 
 
 def phase_train(label: str, config: str, batch: int, compare_batch: int, seed0: int,
-                per_step: dict, per_eval: dict, kernel_note: str) -> dict:
+                per_step: dict, per_eval: dict, kernel_note: str, overrides=(),
+                compare: bool = True) -> dict:
     """Drive one MAE pretraining configuration at full width; returns every
-    kernel's launches in the train and eval runs. ``per_step`` and
-    ``per_eval`` are the launches expected of each kernel per train step and
-    per eval batch (0 for a kernel not named); ``compare_batch`` is the batch
-    of the kernel-vs-plain step. That step checks every trainable gradient
-    where the blocked kernels run (in the 192^3 encoder and decoder), the
-    decoder's otherwise (the 96^3 encoder takes the plain attention)."""
+    kernel's launches in the train and eval runs. ``overrides`` are config
+    keys and values merged over the YAML. ``per_step`` and ``per_eval`` are
+    the launches expected of each kernel per train step and per eval batch (0
+    for a kernel not named); the fused Lion update adds one B6 launch per
+    trainable tensor per step. ``compare_batch`` is the batch of the
+    kernel-vs-plain attention step, run when ``compare``. That step checks
+    every trainable gradient where the blocked kernels run (in the 192^3
+    encoder and decoder), the decoder's otherwise (the 96^3 encoder takes the
+    plain attention)."""
     from headct_foundation_tpu_torch.config import default_config
     from headct_foundation_tpu_torch.data.augment import apply_mae_augment, draw_mae_augment
     from headct_foundation_tpu_torch.data.device_preprocess import wire_to_compute
@@ -694,12 +956,16 @@ def phase_train(label: str, config: str, batch: int, compare_batch: int, seed0: 
 
     cfg = default_config()
     cfg.merge_from_file(str(ROOT / config))
-    cfg.DATA.WIRE_FORMAT = "hu16"
+    cfg.merge_from_list(["DATA.WIRE_FORMAT", "hu16", *overrides])
     total = TRAIN_BATCHES + 5  # the epoch, then the timed steps
     t0 = time.perf_counter()
     dev = torch.device("cuda")
     state, _ = mae_engine.create_train_state(cfg, total, WARMUP_STEPS, seed=0, device=dev)
     n_params = sum(p.numel() for p in state.model.parameters() if p.requires_grad)
+    n_tensors = sum(p.requires_grad for p in state.model.parameters())
+    optimizer = type(state.optimizer).__name__
+    if optimizer == "Lion" and cfg.TRAIN.LION_FUSED:
+        per_step = {**per_step, "lion_update": n_tensors}
     wires = [head_phantoms(seed0 + i, batch, cfg.MAE.INPUT_SIZE)
              for i in range(TRAIN_BATCHES + VAL_BATCHES)]
     torch.cuda.synchronize()
@@ -707,27 +973,29 @@ def phase_train(label: str, config: str, batch: int, compare_batch: int, seed0: 
     print(f"{label} set-up: MAE from {config} (encoder {m.ENCODER_DEPTH}x"
           f"{m.ENCODER_EMBED_DIM}/{m.ENCODER_NUM_HEADS} heads, decoder {m.DECODER_DEPTH}x"
           f"{m.DECODER_EMBED_DIM}/{m.DECODER_NUM_HEADS} heads, {m.INPUT_SIZE}^3 patch "
-          f"{m.PATCH_SIZE}, {m.IN_CHANS} channels), {n_params} trainable parameters, "
-          f"seed 0, bf16 compute; {len(wires)} synthetic hu16 batches of "
+          f"{m.PATCH_SIZE}, {m.IN_CHANS} channels), {n_params} trainable parameters in "
+          f"{n_tensors} tensors, seed 0, bf16 compute, {optimizer} (TRAIN.GRAD_CLIP "
+          f"{cfg.TRAIN.GRAD_CLIP}, LION_FUSED {cfg.TRAIN.LION_FUSED}); {len(wires)} synthetic "
+          f"hu16 batches of "
           f"{list(wires[0].shape)} int16 in {time.perf_counter() - t0:.2f} s", flush=True)
 
-    # Kernel against plain attention on one step, same weights and randomness.
-    every = per_step.get("flash_attention_blocked_fwd", 0) > 0  # the encoder runs kernels too
     g = mae_engine.step_generator(dev, 7, 0, 0)
     n_tok = int(np.prod(state.model.grid_size))
-    draws = {"noise": torch.rand((compare_batch, n_tok), generator=g, device=dev),
-             "augment": draw_mae_augment(compare_batch, g, dev)}
-    wire0 = torch.from_numpy(wires[0][:compare_batch]).to(dev)
-    compare = {torch.bfloat16: compare_backends(state.model, wire0, cfg, draws, torch.bfloat16,
-                                                every, label)}
-    m32 = mae_engine.build_mae_model(cfg, dtype=torch.float32).to(dev)
-    m32.load_state_dict(state.model.state_dict())
-    for n, p in m32.named_parameters():
-        p.requires_grad_(dict(state.model.named_parameters())[n].requires_grad)
-    compare[torch.float32] = compare_backends(m32, wire0, cfg, draws, torch.float32, every,
-                                              label)
-    del m32
-    torch.cuda.empty_cache()
+    if compare:  # kernel against plain attention on one step, same weights and randomness
+        every = per_step.get("flash_attention_blocked_fwd", 0) > 0  # the encoder runs kernels
+        draws = {"noise": torch.rand((compare_batch, n_tok), generator=g, device=dev),
+                 "augment": draw_mae_augment(compare_batch, g, dev)}
+        wire0 = torch.from_numpy(wires[0][:compare_batch]).to(dev)
+        compare = {torch.bfloat16: compare_backends(state.model, wire0, cfg, draws,
+                                                    torch.bfloat16, every, label)}
+        m32 = mae_engine.build_mae_model(cfg, dtype=torch.float32).to(dev)
+        m32.load_state_dict(state.model.state_dict())
+        for n, p in m32.named_parameters():
+            p.requires_grad_(dict(state.model.named_parameters())[n].requires_grad)
+        compare[torch.float32] = compare_backends(m32, wire0, cfg, draws, torch.float32, every,
+                                                  label)
+        del m32
+        torch.cuda.empty_cache()
 
     # The main path's run: every kernel count is 0 just before it.
     log = logging.getLogger(f"chip_smoke.{label}")
@@ -788,15 +1056,21 @@ def phase_train(label: str, config: str, batch: int, compare_batch: int, seed0: 
         model(vols, noise=noise)[0].backward()
 
     fb_ms = cuda_ms(fwd_bwd, iters=5, warmup=1)
+    lion = lion_step_checks(state) if optimizer == "Lion" and cfg.TRAIN.LION_FUSED else None
     opt_ms = cuda_ms(state.optimizer.step, iters=5, warmup=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state.optimizer.step()
+    torch.cuda.synchronize()
+    opt_host_ms = (time.perf_counter() - t0) * 1e3
     state.optimizer.zero_grad(set_to_none=True)
     print(f"{label}: median step {step_ms:.2f} ms over {len(times)} synchronised steps "
           f"({', '.join(f'{t:.1f}' for t in times)}), {batch / step_ms * 1e3:.2f} volumes/s; "
           f"breakdown: window+augment {prep_ms:.2f} ms, forward+backward {fb_ms:.2f} ms "
-          f"(of which {kernel_note}, from the kernel timings), AdamW step {opt_ms:.2f} ms",
-          flush=True)
+          f"(of which {kernel_note}, from the kernel timings), {optimizer} step {opt_ms:.2f} ms "
+          f"(CUDA events; {opt_host_ms:.2f} ms on the host clock, synchronised)", flush=True)
     profile_steps(step, state, wire, step_ms)
-    return {"train": train_launches, "eval": val_launches, "compare": compare}
+    return {"train": train_launches, "eval": val_launches, "compare": compare, "lion": lion}
 
 
 def main() -> int:
@@ -833,6 +1107,8 @@ def main() -> int:
     bwd_rows = phase_bwd_kernels(fused_attention, fused_attention_bwd,
                                  fused_attention_bwd_reference)
     blocked_rows = phase_blocked_kernels()
+    lion_row = phase_lion_kernel()
+    tm_rows = phase_tm_kernels()
     build_dir = ROOT / "build"
     build_dir.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
@@ -861,25 +1137,48 @@ def main() -> int:
     stretch = phase_train(
         "stretch", STRETCH_CONFIG, STRETCH_DECODER[0], STRETCH_COMPARE_BATCH, 200,
         {n: depth + enc_blocks for n in blocked}, {blocked[0]: depth + enc_blocks}, note)
+    torch.cuda.empty_cache()
+
+    # The 96^3 MAE trained by the fused Lion update; the train phase has
+    # already held its attention kernels against the plain attention.
+    lion = phase_train(
+        "lion", MAE_CONFIG, TRAIN_BATCH, TRAIN_BATCH, 300,
+        {"flash_attention_fwd": depth, "flash_attention_bwd": depth},
+        {"flash_attention_fwd": depth},
+        "flash_attention_fwd and flash_attention_bwd as in the train phase",
+        overrides=["TRAIN.OPTIMIZER", "Lion", "TRAIN.LION_FUSED", True, "TRAIN.GRAD_CLIP", 1.0],
+        compare=False)
+    torch.cuda.empty_cache()
+    tm_launches = phase_tm_bench()
 
     by_path = {
         "flash_attention_fwd": {"serving": serve_launches,
                                 "training": train["train"]["flash_attention_fwd"],
-                                "eval": train["eval"]["flash_attention_fwd"]},
-        "flash_attention_bwd": {"training": train["train"]["flash_attention_bwd"]},
+                                "eval": train["eval"]["flash_attention_fwd"],
+                                "lion training": lion["train"]["flash_attention_fwd"],
+                                "lion eval": lion["eval"]["flash_attention_fwd"]},
+        "flash_attention_bwd": {"training": train["train"]["flash_attention_bwd"],
+                                "lion training": lion["train"]["flash_attention_bwd"]},
         "flash_attention_blocked_fwd": {"stretch training": stretch["train"][blocked[0]],
                                         "stretch eval": stretch["eval"][blocked[0]]},
         "flash_attention_blocked_dkv": {"stretch training": stretch["train"][blocked[1]]},
         "flash_attention_blocked_dq": {"stretch training": stretch["train"][blocked[2]]},
+        "lion_update": {"lion training": lion["train"]["lion_update"]},
+        "tm_attention_fwd": {"tm bench": tm_launches["tm_attention_fwd"]},
+        "tm_attention_bwd": {"tm bench": tm_launches["tm_attention_bwd"]},
     }
     for name, paths in by_path.items():
         check(all(n > 0 for n in paths.values()),
               f"{name} was not launched on every main path: {paths}")
 
     def row(name, source, replaces, r, shape, dtype, **extra):
+        """``replaces`` is a line of the JAX package's ops/flash_attention.py
+        or a "file:line" of another TPU kernel."""
+        if isinstance(replaces, int):
+            replaces = f"headct_foundation_tpu/ops/flash_attention.py:{replaces}"
         return {"name": name, "route": "cuda",
                 "source": f"headct_foundation_tpu_torch/csrc/{source}",
-                "replaces": f"headct_foundation_tpu/ops/flash_attention.py:{replaces}",
+                "replaces": replaces,
                 "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],
                 "shape": list(shape), "dtype": str(dtype)[6:],
                 **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -906,6 +1205,12 @@ def main() -> int:
         blocked_row(blocked[0], 256),
         blocked_row(blocked[1], 292),
         blocked_row(blocked[2], 342),
+        row("lion_update", "lion_update.cu", "headct_foundation_tpu/ops/lion_kernel.py:31",
+            lion_row, LION_CASES[0][0], torch.float32, all_trainable_tensors=lion["lion"]),
+        row("tm_attention_fwd", "tm_attention.cu", "tools/experimental_tm_attention.py:55",
+            tm_rows["tm_attention_fwd"], MAE_DECODER, torch.bfloat16),
+        row("tm_attention_bwd", "tm_attention.cu", "tools/experimental_tm_attention.py:80",
+            tm_rows["tm_attention_bwd"], MAE_DECODER, torch.bfloat16),
     ]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

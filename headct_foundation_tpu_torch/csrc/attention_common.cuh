@@ -1,7 +1,7 @@
 // Pieces shared by the attention kernels (flash_fwd.cuh, flash_bwd.cuh):
-// operand strides, the tags that tell the whole-sequence kernels (B1, B2)
-// from the blocked ones (B3, B4, B5) in a profile, and vector loads of
-// float32 and bfloat16 operands.
+// operand strides, the tags that tell the whole-sequence kernels (B1, B2),
+// the blocked ones (B3, B4, B5) and the token-major ones (B7, B8) apart in a
+// profile, and vector loads of float32 and bfloat16 operands.
 
 #pragma once
 
@@ -13,8 +13,9 @@ namespace {
 
 // Which kernel an instantiation belongs to. The shared kernel templates take
 // the tag as their first argument, so it shows in the kernel's name.
-struct WholeSequence {};
-struct Blocked {};
+struct WholeSequence {};  // B1, B2
+struct Blocked {};        // B3, B4, B5
+struct TokenMajor {};     // B7, B8
 
 // Strides of one [B, T, H, D] operand in elements; the head-dim stride is 1.
 struct Strides {

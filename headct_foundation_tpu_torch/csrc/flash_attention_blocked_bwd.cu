@@ -62,10 +62,10 @@ extern "C" int headct_flash_attention_blocked_dkv(
     long long g_sb, long long g_st, long long g_sh,
     float scale, int dtype, void* stream) {
   if (bad_shape(B, tq, tk, kv_len, n_heads, d)) return (int)cudaErrorInvalidValue;
-  const BwdArgs a{q, k, v, dout, lse, delta, nullptr, dk, dv, B, tq, tk, kv_len, n_heads, d,
-                  {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh}, {v_sb, v_st, v_sh},
-                  {g_sb, g_st, g_sh}, scale};
-  return (int)launch_dkv<Blocked>(a, dtype, static_cast<cudaStream_t>(stream));
+  const bwd::BwdArgs a{q, k, v, dout, lse, delta, nullptr, dk, dv, B, tq, tk, kv_len, n_heads, d,
+                       {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh}, {v_sb, v_st, v_sh},
+                       {g_sb, g_st, g_sh}, scale};
+  return (int)bwd::launch_dkv<Blocked>(a, dtype, static_cast<cudaStream_t>(stream));
 }
 
 // B5: dQ.
@@ -79,8 +79,8 @@ extern "C" int headct_flash_attention_blocked_dq(
     long long g_sb, long long g_st, long long g_sh,
     float scale, int dtype, void* stream) {
   if (bad_shape(B, tq, tk, kv_len, n_heads, d)) return (int)cudaErrorInvalidValue;
-  const BwdArgs a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, tq, tk, kv_len, n_heads,
-                  d, {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh}, {v_sb, v_st, v_sh},
-                  {g_sb, g_st, g_sh}, scale};
-  return (int)launch_dq<Blocked>(a, dtype, static_cast<cudaStream_t>(stream));
+  const bwd::BwdArgs a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, tq, tk, kv_len, n_heads,
+                       d, {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh}, {v_sb, v_st, v_sh},
+                       {g_sb, g_st, g_sh}, scale};
+  return (int)bwd::launch_dq<Blocked>(a, dtype, static_cast<cudaStream_t>(stream));
 }

@@ -51,7 +51,7 @@ extern "C" int headct_flash_attention_blocked_fwd(
       kv_len > tk || tk > 2147483647LL - 64 || B < 1 || n_heads < 1 || B * n_heads > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  const FwdArgs a{q, k, v, o, lse, B, tq, kv_len, n_heads, d,
-                  {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh}, {v_sb, v_st, v_sh}, scale};
-  return (int)flash_fwd<Blocked>(a, dtype, static_cast<cudaStream_t>(stream));
+  const fwd::FwdArgs a{q, k, v, o, lse, B, tq, kv_len, n_heads, d,
+                       {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh}, {v_sb, v_st, v_sh}, scale};
+  return (int)fwd::flash_fwd<Blocked>(a, dtype, static_cast<cudaStream_t>(stream));
 }

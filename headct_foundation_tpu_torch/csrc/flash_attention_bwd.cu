@@ -16,8 +16,8 @@
 // in VMEM; a Hopper block has 227 KB of shared memory, so this follows the
 // FlashAttention-2 backward split (Dao, arXiv 2307.08691), which needs no
 // float atomics and so gives bit-identical gradients from run to run:
-//   1. delta_kernel: d = rowsum(dO * O), one warp per query row, into a
-//      float32 [B*H, T] scratch.
+//   1. delta_kernel of flash_bwd.cuh: d = rowsum(dO * O), one warp per query
+//      row, into a float32 [B*H, T] scratch.
 //   2. the dK/dV pass of flash_bwd.cuh: one block per (64-key tile,
 //      batch*head), walking over all query tiles.
 //   3. the dQ pass of flash_bwd.cuh: one block per (64-query tile,
@@ -38,55 +38,6 @@
 
 #include "flash_bwd.cuh"
 
-namespace {
-
-// d[bh][t] = sum_c dO[b, t, h, c] * O[b, t, h, c] in float32; one warp per row.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
-             long long rows, int t_len, int n_heads, int d, Strides os, Strides gs) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * (kThreads / 32) + warp;  // over B*H*T
-  if (row >= rows) return;
-  const int bh = (int)(row / t_len);
-  const int t = (int)(row - (long long)bh * t_len);
-  const int b = bh / n_heads;
-  const int h = bh - b * n_heads;
-  const T* orow = o + b * os.b + t * os.t + h * os.h;
-  const T* grow = dout + b * gs.b + t * gs.t + h * gs.h;
-  float s = 0.f;
-  for (int c = lane * 4; c < d; c += 128) {
-    const float4 x = load4(orow + c);
-    const float4 y = load4(grow + c);
-    s = fmaf(x.x, y.x, s);
-    s = fmaf(x.y, y.y, s);
-    s = fmaf(x.z, y.z, s);
-    s = fmaf(x.w, y.w, s);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) delta[row] = s;
-}
-
-template <typename T>
-cudaError_t launch(const BwdArgs& a, const void* o, const Strides& os, void* delta, int dtype,
-                   cudaStream_t stream) {
-  const long long rows = a.B * a.n_heads * a.tq;  // one warp per (b, h, t) row
-  const unsigned delta_blocks = (unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32));
-  delta_kernel<T><<<delta_blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(a.dout),
-      static_cast<float*>(delta), rows, (int)a.tq, (int)a.n_heads,
-      (int)a.d, os, a.gs);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = launch_dkv<WholeSequence>(a, dtype, stream);
-  if (err != cudaSuccess) return err;
-  return launch_dq<WholeSequence>(a, dtype, stream);
-}
-
-}  // namespace
-
 // C entry point, bound with ctypes. Strides are in elements, in (batch,
 // token, head) order; every head-dim stride must be 1. `delta` is a float32
 // scratch of B*H*T elements that the caller allocates. dtype: 0 = float32,
@@ -105,12 +56,9 @@ extern "C" int headct_flash_attention_bwd(
       B * n_heads > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  const BwdArgs a{q, k, v, dout, lse, delta, dq, dk, dv, B, t_len, t_len, t_len, n_heads, d,
-                  {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh}, {v_sb, v_st, v_sh},
-                  {g_sb, g_st, g_sh}, scale};
-  const Strides os{o_sb, o_st, o_sh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(a, o, os, delta, dtype, s);
-  if (dtype == 1) return (int)launch<__nv_bfloat16>(a, o, os, delta, dtype, s);
-  return (int)cudaErrorInvalidValue;
+  const bwd::BwdArgs a{q, k, v, dout, lse, delta, dq, dk, dv, B, t_len, t_len, t_len, n_heads, d,
+                       {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh}, {v_sb, v_st, v_sh},
+                       {g_sb, g_st, g_sh}, scale};
+  return (int)bwd::flash_bwd<WholeSequence>(a, o, {o_sb, o_st, o_sh}, delta, dtype,
+                                             static_cast<cudaStream_t>(stream));
 }

@@ -43,7 +43,7 @@ extern "C" int headct_flash_attention_fwd(
       B * n_heads > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  const FwdArgs a{q, k, v, o, lse, B, t_len, t_len, n_heads, d,
-                  {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh}, {v_sb, v_st, v_sh}, scale};
-  return (int)flash_fwd<WholeSequence>(a, dtype, static_cast<cudaStream_t>(stream));
+  const fwd::FwdArgs a{q, k, v, o, lse, B, t_len, t_len, n_heads, d,
+                       {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh}, {v_sb, v_st, v_sh}, scale};
+  return (int)fwd::flash_fwd<WholeSequence>(a, dtype, static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,7 @@
 // Backward attention kernels shared by the whole-sequence backward B2
-// (flash_attention_bwd.cu) and the blocked backward B4/B5
-// (flash_attention_blocked_bwd.cu). For q [B, Tq, H, D] against the first
+// (flash_attention_bwd.cu), the blocked backward B4/B5
+// (flash_attention_blocked_bwd.cu) and the token-major backward B8
+// (tm_attention.cu). For q [B, Tq, H, D] against the first
 // kv_len keys of k, v [B, Tk, H, D], with the forward's LSE and
 // delta = rowsum(dO * O), both float32 [B*H, Tq]:
 //   P    = exp(scale * Q K^T - LSE)                  (float32; 0 at keys >= kv_len)
@@ -31,6 +32,11 @@
 // them on the float32 CUDA cores through one shared-memory tile-product helper
 // (4x4 register micro-tiles; dkv_kernel, dq_kernel), which keeps full float32
 // products, as the TPU kernels do for float32 inputs.
+//
+// B2 and B8 take delta from the stored O themselves: flash_bwd runs
+// delta_kernel, then the two passes. B4/B5 get delta from the caller.
+// Everything here lives in namespace `bwd`, so that one source can include
+// this header and flash_fwd.cuh together (tm_attention.cu does).
 
 #pragma once
 
@@ -43,6 +49,7 @@
 #include "bf16_mma.cuh"
 
 namespace {
+namespace bwd {
 
 using namespace headct_mma;
 
@@ -556,4 +563,61 @@ cudaError_t launch_dq(const BwdArgs& a, int dtype, cudaStream_t s) {
 #undef HEADCT_DQ
 }
 
+// delta[bh][t] = sum_c dO[b, t, h, c] * O[b, t, h, c] in float32; one warp per row.
+template <typename Tag, typename T>
+__global__ void __launch_bounds__(kThreads)
+delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
+             long long rows, int t_len, int n_heads, int d, Strides os, Strides gs) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * (kThreads / 32) + warp;  // over B*H*T
+  if (row >= rows) return;
+  const int bh = (int)(row / t_len);
+  const int t = (int)(row - (long long)bh * t_len);
+  const int b = bh / n_heads;
+  const int h = bh - b * n_heads;
+  const T* orow = o + b * os.b + t * os.t + h * os.h;
+  const T* grow = dout + b * gs.b + t * gs.t + h * gs.h;
+  float s = 0.f;
+  for (int c = lane * 4; c < d; c += 128) {
+    const float4 x = load4(orow + c);
+    const float4 y = load4(grow + c);
+    s = fmaf(x.x, y.x, s);
+    s = fmaf(x.y, y.y, s);
+    s = fmaf(x.z, y.z, s);
+    s = fmaf(x.w, y.w, s);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) delta[row] = s;
+}
+
+// The whole backward on `stream` (B2, B8): delta = rowsum(dO * O) of the
+// stored O (strides `os`) into the caller's float32 [B*H, Tq] scratch
+// `delta` (also a.delta), then the dK/dV and dQ passes; dtype as for
+// launch_dkv. Square: a.tq = a.tk = a.kv_len.
+template <typename Tag>
+cudaError_t flash_bwd(const BwdArgs& a, const void* o, const Strides& os, void* delta, int dtype,
+                      cudaStream_t stream) {
+  const long long rows = a.B * a.n_heads * a.tq;  // one warp per (b, h, t) row
+  const unsigned blocks = (unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32));
+  if (dtype == 0) {
+    delta_kernel<Tag, float><<<blocks, kThreads, 0, stream>>>(
+        static_cast<const float*>(o), static_cast<const float*>(a.dout),
+        static_cast<float*>(delta), rows, (int)a.tq, (int)a.n_heads, (int)a.d, os, a.gs);
+  } else if (dtype == 1) {
+    delta_kernel<Tag, bf16><<<blocks, kThreads, 0, stream>>>(
+        static_cast<const bf16*>(o), static_cast<const bf16*>(a.dout),
+        static_cast<float*>(delta), rows, (int)a.tq, (int)a.n_heads, (int)a.d, os, a.gs);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = launch_dkv<Tag>(a, dtype, stream);
+  if (err != cudaSuccess) return err;
+  return launch_dq<Tag>(a, dtype, stream);
+}
+
+}  // namespace bwd
 }  // namespace

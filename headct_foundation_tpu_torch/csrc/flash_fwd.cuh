@@ -1,6 +1,7 @@
 // Forward attention kernels shared by the whole-sequence kernel B1
-// (flash_attention_fwd.cu) and the blocked kernel B3
-// (flash_attention_blocked_fwd.cu). For every (batch, head) and query row t
+// (flash_attention_fwd.cu), the blocked kernel B3
+// (flash_attention_blocked_fwd.cu) and the token-major kernel B7
+// (tm_attention.cu). For every (batch, head) and query row t
 // of q [B, Tq, H, D], against the first kv_len keys of k, v [B, Tk, H, D]:
 //   S = scale * q_t K^T            (float32 accumulation of operand-dtype products)
 //   P = exp(S - m) with m the running row max, l = sum P
@@ -24,6 +25,8 @@
 // (flash_fwd_kernel); bfloat16 operands run them on the tensor cores with
 // mma.sync (flash_fwd_tc_kernel, bf16_mma.cuh), P (rounded to bf16) feeding
 // the P.V product straight from the S accumulator fragments. No wgmma, no TMA.
+// Everything here lives in namespace `fwd`, so that one source can include
+// this header and flash_bwd.cuh together (tm_attention.cu does).
 
 #pragma once
 
@@ -36,6 +39,7 @@
 #include "bf16_mma.cuh"
 
 namespace {
+namespace fwd {
 
 constexpr int kBlockM = 64;                    // query rows per block
 constexpr int kBlockN = 64;                    // keys per staged tile
@@ -379,4 +383,5 @@ cudaError_t flash_fwd(const FwdArgs& a, int dtype, cudaStream_t s) {
   return cudaErrorInvalidValue;
 }
 
+}  // namespace fwd
 }  // namespace

@@ -7,15 +7,20 @@ Port of the JAX package's ``engines/mae_engine.py:44-163, 226-491``
 * ``create_train_state`` builds the MAE (bfloat16 compute, float32
   parameters), draws its weights from a seeded generator on the CPU (so a
   seed gives the same weights on any device), moves it to the device,
-  freezes the sincos position embeddings and builds AdamW and the LR
-  schedule.
+  freezes the sincos position embeddings and builds the optimizer of
+  ``TRAIN.OPTIMIZER`` (SGD, AdamW, Lamb or Lion; Lion through the fused
+  kernel B6 with ``TRAIN.LION_FUSED``) and the LR schedule; it keeps
+  ``TRAIN.GRAD_CLIP``.
 * ``make_train_step(augment, accum_steps, config)`` returns
   ``step(state, batch, seed, draws=None)``: window the wire batch and cast it
   to bfloat16 (whatever the model's compute dtype, as the JAX step's
   ``wire_to_compute`` does), then per micro-batch augment, mask, forward and
-  backward, then one AdamW update with ``lr(step)``. With ``accum_steps > 1``
-  the micro-batch gradients are summed in float32 and divided by
-  ``accum_steps`` before the update (JAX ``:294-323``).
+  backward, then one optimizer update with ``lr(step)``. With ``accum_steps >
+  1`` the micro-batch gradients are summed in float32 and divided by
+  ``accum_steps`` (JAX ``:294-323``). A nonzero ``TRAIN.GRAD_CLIP`` then clips
+  each trainable gradient to that L2 norm (``clip_by_per_param_norm``), since
+  the JAX chain clips the averaged gradients first (``:319-325``, then
+  ``tx``).
 * Randomness is explicit: micro-batch ``i`` of update ``step`` draws its mask
   noise and then its augmentation decisions from a generator seeded from
   (seed, step, i). ``draws`` lets a caller inject both instead (one dict per
@@ -45,7 +50,7 @@ from headct_foundation_tpu_torch.feature_extraction import resolve_device
 from headct_foundation_tpu_torch.models.mae import MaskedAutoencoderViT
 from headct_foundation_tpu_torch.ops.attention import set_pallas_min_t
 from headct_foundation_tpu_torch.optim.lr_sched import Schedule, get_lr_schedule
-from headct_foundation_tpu_torch.optim.optimizers import get_optimizer
+from headct_foundation_tpu_torch.optim.optimizers import clip_by_per_param_norm, get_optimizer
 
 LOSS_FLUSH = 8  # steps between batched loss fetches (see train_one_epoch)
 
@@ -56,6 +61,7 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     lr_schedule: Schedule
     step: int = 0  # optimizer updates taken
+    grad_clip: float = 0.0  # per-parameter gradient L2 clip before each update; 0 = off
 
     @property
     def device(self) -> torch.device:
@@ -90,7 +96,7 @@ def create_train_state(
     config, total_steps: int, num_warmup_steps: int, seed: int = 0,
     dtype: torch.dtype = torch.bfloat16, device: Union[None, str, torch.device] = None,
 ) -> Tuple[TrainState, Schedule]:
-    """Model, AdamW and LR schedule on ``device`` (default cuda)."""
+    """Model, optimizer and LR schedule on ``device`` (default cuda)."""
     device = resolve_device(device)
     set_pallas_min_t(config.PARALLEL.PALLAS_MIN_T)
     model = build_mae_model(config, dtype=dtype)
@@ -100,9 +106,9 @@ def create_train_state(
         p.requires_grad_(trainable[name])
     lr_schedule = get_lr_schedule(config, config.TRAIN.BASE_LR, num_warmup_steps, total_steps,
                                   config.TRAIN.MIN_LR)
-    optimizer = get_optimizer(config, model.parameters(),
-                              grad_clip=config.TRAIN.GRAD_CLIP or None)
-    return TrainState(model, optimizer, lr_schedule), lr_schedule
+    optimizer = get_optimizer(config, model.parameters())
+    return (TrainState(model, optimizer, lr_schedule, grad_clip=float(config.TRAIN.GRAD_CLIP)),
+            lr_schedule)
 
 
 def step_generator(device: torch.device, *keys: int) -> torch.Generator:
@@ -146,6 +152,8 @@ def make_train_step(augment: bool = False, accum_steps: int = 1, config=None) ->
             for p in model.parameters():
                 if p.grad is not None:
                     p.grad.div_(accum_steps)
+        if state.grad_clip:
+            clip_by_per_param_norm(model.parameters(), state.grad_clip)
         lr = state.lr_schedule(state.step)  # optax's count before the increment
         for group in state.optimizer.param_groups:
             group["lr"] = lr

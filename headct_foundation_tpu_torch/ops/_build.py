@@ -27,11 +27,14 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
 
 # library name -> source file under csrc/ (flash_attention_blocked_bwd holds
-# two kernels, B4 and B5, each with its own C entry)
+# two kernels, B4 and B5, and tm_attention two, B7 and B8, each with its own
+# C entry)
 SOURCES = {"flash_attention_fwd": "flash_attention_fwd.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu",
            "flash_attention_blocked_fwd": "flash_attention_blocked_fwd.cu",
-           "flash_attention_blocked_bwd": "flash_attention_blocked_bwd.cu"}
+           "flash_attention_blocked_bwd": "flash_attention_blocked_bwd.cu",
+           "lion_update": "lion_update.cu",
+           "tm_attention": "tm_attention.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

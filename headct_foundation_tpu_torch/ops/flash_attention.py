@@ -69,6 +69,9 @@ _C_ENTRIES = {
     "flash_attention_blocked_fwd": ("flash_attention_blocked_fwd", 5, 15),
     "flash_attention_blocked_dkv": ("flash_attention_blocked_bwd", 8, 18),
     "flash_attention_blocked_dq": ("flash_attention_blocked_bwd", 7, 18),
+    # the token-major pair of tools/experimental_tm_attention.py (B7, B8)
+    "tm_attention_fwd": ("tm_attention", 5, 4),
+    "tm_attention_bwd": ("tm_attention", 10, 4),
 }
 
 

@@ -1,38 +1,151 @@
-"""Optimizer factory.
+"""The optimizer zoo and the per-parameter gradient clip.
 
-Port of the JAX package's ``optim/optimizers.py:215-287`` for AdamW. The JAX
-chain is ``scale_by_adam(b1, b2, eps=1e-8)``, then ``+ wd * p``, then
-``* (-lr)``, applied to every trainable leaf (biases and norms included;
-frozen leaves get no update). That is ``torch.optim.AdamW`` over every
-parameter with ``requires_grad``, in one group with no decay exclusions:
-torch's ``p * (1 - lr wd) - lr m_hat / (sqrt(v_hat) + eps)`` is the same
-update. The learning rate is set by the caller before each
+Port of the JAX package's ``optim/optimizers.py:38-287`` as MAE training
+reads it. The JAX chain runs inside the ``"train"`` branch of
+``multi_transform``; here that branch is the set of parameters with
+``requires_grad``, in one group with no decay exclusions (frozen parameters
+get no update). The learning rate is set by the caller before each
 ``optimizer.step()`` from the update count (``engines/mae_engine.py``), so
 the first update uses ``lr(0)``, as optax does.
 
-SGD, Lamb and Lion, and the per-parameter gradient clip, are not ported yet
-(ROADMAP A.12); they raise.
+* ``clip_by_per_param_norm`` (``:38-55``): each trainable gradient scaled in
+  place to L2 norm <= clip, the norm in float32. The engine calls it on the
+  averaged gradients before ``optimizer.step()``, where the JAX chain puts
+  it first.
+* AdamW: ``scale_by_adam(b1, b2, eps=1e-8)``, ``+ wd * p``, ``* (-lr)`` is
+  ``torch.optim.AdamW`` (``p (1 - lr wd) - lr m_hat / (sqrt(v_hat) + eps)``).
+* SGD: ``optax.trace(momentum, nesterov=False)`` then ``* (-lr)``, with no
+  weight decay (``:242-247``), is ``torch.optim.SGD(momentum, dampening=0,
+  nesterov=False, weight_decay=0)``: both keep t = g + momentum t and take
+  p - lr t, with t = g on the first step.
+* ``Lamb`` ports ``scale_by_lamb`` (``:95-149``) then ``* (-lr)``.
+* ``Lion`` ports ``scale_by_lion_with_wd`` (``:161-208``): with ``fused`` it
+  calls the kernel B6 (``ops.lion_kernel.lion_update_leaf``) once per
+  tensor, else the JAX package's unfused branch in plain torch ops; either
+  way ``p += delta`` (``optax.apply_updates``).
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Optional
+from typing import Iterable, Tuple
 
 import torch
 
+from headct_foundation_tpu_torch.ops.lion_kernel import lion_update_leaf, sign_keep_nan
 
-def get_optimizer(
-    config, params: Iterable[torch.nn.Parameter], grad_clip: Optional[float] = None,
-) -> torch.optim.Optimizer:
-    """AdamW over the trainable ``params``, per ``config.TRAIN``."""
-    name = config.TRAIN.OPTIMIZER
-    if grad_clip:
-        raise NotImplementedError(
-            f"TRAIN.GRAD_CLIP={grad_clip}: clip_by_per_param_norm is not ported yet "
-            "(ROADMAP A.12); set TRAIN.GRAD_CLIP 0")
-    if name != "AdamW":
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet (ROADMAP A.12); the port has AdamW")
+
+@torch.no_grad()
+def clip_by_per_param_norm(params: Iterable[torch.nn.Parameter], clip: float,
+                           eps: float = 1e-6) -> None:
+    """Scale each trainable ``.grad`` in place by min(clip / (||g||_2 + eps), 1),
+    the norm taken in float32 (the reference clip_gradients: each
+    parameter's gradient on its own, not the global norm)."""
+    grads = [p.grad for p in params if p.requires_grad and p.grad is not None]
+    if not grads:
+        return
+    norms = torch.stack(torch._foreach_norm([g.float() for g in grads]))
+    coefs = torch.clamp(clip / (norms + eps), max=1.0)
+    torch._foreach_mul_(grads, list(coefs))  # in float32, rounded to g's dtype
+
+
+class Lamb(torch.optim.Optimizer):
+    """Lamb (arXiv 1904.00962) as the JAX package's ``scale_by_lamb`` followed
+    by ``scale_by_learning_rate``: no bias correction, the weight norm clipped
+    to [0, 10], the trust ratio 1 where either norm is 0. ``exp_avg_quirk``
+    takes the reference's first moment ``m = b1 m + (1 - b1) g^2``."""
+
+    def __init__(self, params, lr: float = 0.0, betas: Tuple[float, float] = (0.9, 0.999),
+                 eps: float = 1e-6, weight_decay: float = 0.0, exp_avg_quirk: bool = False):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay,
+                                      exp_avg_quirk=exp_avg_quirk))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            eps, wd = group["eps"], group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["exp_avg"] = torch.zeros_like(p, dtype=torch.float32)
+                    state["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
+                m, v = state["exp_avg"], state["exp_avg_sq"]
+                g = p.grad.float()
+                m.mul_(b1).add_((1 - b1) * (g * g if group["exp_avg_quirk"] else g))
+                v.mul_(b2).add_((1 - b2) * g * g)
+                p32 = p.float()
+                adam_step = m / (v.sqrt() + eps) + wd * p32
+                w_norm = torch.clamp(torch.linalg.vector_norm(p32), 0.0, 10.0)
+                a_norm = torch.linalg.vector_norm(adam_step)
+                trust = torch.where((w_norm == 0) | (a_norm == 0), 1.0, w_norm / (a_norm + eps))
+                p.add_((trust * adam_step).to(p.dtype) * -group["lr"])
+
+
+class Lion(torch.optim.Optimizer):
+    """Lion with decoupled weight decay, the JAX package's
+    ``scale_by_lion_with_wd``: delta = -lr wd p - lr sign(b1 m + (1 - b1) g),
+    m = b2 m + (1 - b2) g, p += delta. The momentum (float32) is the state
+    ``exp_avg``, the reference torch Lion's name. ``fused`` runs the kernel
+    B6 per tensor (its plain version on a CPU tensor), updating ``exp_avg``
+    in place."""
+
+    def __init__(self, params, lr: float = 0.0, betas: Tuple[float, float] = (0.9, 0.99),
+                 weight_decay: float = 0.0, fused: bool = False):
+        super().__init__(params, dict(lr=lr, betas=betas, weight_decay=weight_decay, fused=fused))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["exp_avg"] = torch.zeros_like(p, dtype=torch.float32,
+                                                        memory_format=torch.contiguous_format)
+                m = state["exp_avg"]
+                if group["fused"]:
+                    delta, _ = lion_update_leaf(p, p.grad, m, group["lr"],
+                                                group["weight_decay"], b1, b2, m_out=m)
+                else:
+                    delta = _lion_unfused(p, p.grad, m, group["lr"], group["weight_decay"],
+                                          b1, b2)
+                p.add_(delta)
+
+
+def _lion_unfused(p, g, m, lr, wd, b1, b2) -> torch.Tensor:
+    """The JAX package's unfused Lion leaf (``:195-201``): lr and wd as
+    float32 scalars, b1 and b2 as Python floats (weakly typed there, float32
+    here once they meet a float32 tensor). Updates m in place; returns delta
+    in p's dtype."""
+    lr, wd = (torch.tensor(float(x), dtype=torch.float32, device=p.device) for x in (lr, wd))
+    p32, g32 = p.float(), g.float()
+    update = sign_keep_nan(m * b1 + (1 - b1) * g32)
+    delta = -lr * wd * p32 - lr * update
+    m.mul_(b2).add_((1 - b2) * g32)
+    return delta.to(p.dtype)
+
+
+def get_optimizer(config, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
+    """The optimizer of ``config.TRAIN.OPTIMIZER`` (SGD, AdamW, Lamb, Lion)
+    over the trainable ``params``; the learning rate is set before each step.
+    The gradient clip is the caller's (``clip_by_per_param_norm``)."""
+    t = config.TRAIN
+    name = t.OPTIMIZER
     trainable = [p for p in params if p.requires_grad]
-    return torch.optim.AdamW(trainable, lr=0.0, betas=(config.TRAIN.BETA1, config.TRAIN.BETA2),
-                             eps=1e-8, weight_decay=float(config.TRAIN.WEIGHT_DECAY))
+    wd = float(t.WEIGHT_DECAY)
+    if name == "SGD":  # the reference's SGD has its weight decay commented out
+        return torch.optim.SGD(trainable, lr=0.0, momentum=float(t.MOMENTUM), dampening=0.0,
+                               nesterov=False, weight_decay=0.0)
+    if name == "AdamW":
+        return torch.optim.AdamW(trainable, lr=0.0, betas=(t.BETA1, t.BETA2), eps=1e-8,
+                                 weight_decay=wd)
+    if name == "Lamb":
+        return Lamb(trainable, betas=(t.BETA1, t.BETA2), weight_decay=wd)
+    if name == "Lion":
+        return Lion(trainable, betas=(t.BETA1, t.BETA2), weight_decay=wd,
+                    fused=bool(t.LION_FUSED))
+    raise NotImplementedError(f"Unknown optimizer: {name}")

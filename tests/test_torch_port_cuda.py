@@ -25,6 +25,11 @@ from headct_foundation_tpu_torch.ops.flash_attention import (
     fused_attention_bwd_reference,
     fused_attention_reference,
 )
+from headct_foundation_tpu_torch.ops.lion_kernel import (
+    lion_update_leaf,
+    lion_update_leaf_reference,
+)
+from headct_foundation_tpu_torch.tools import experimental_tm_attention as tm
 
 
 # A bfloat16 output is also held normwise, ||a - b|| / ||b|| <= _BF16_REL_L2:
@@ -218,3 +223,109 @@ def test_cuda_blocked_autograd_function_matches_plain_autograd():
         grads.append((q.grad.clone(), kv.grad.clone()))
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)
+
+
+# Fused Lion kernel B6: (shape, p dtype, g dtype, storage offset). Offset 1
+# misaligns every pointer, so the kernel takes its scalar loop throughout;
+# 2359299 leaves a scalar tail of 3 after the vector loop.
+_LION_CASES = [
+    ((3072, 768), torch.float32, torch.float32, 0),
+    ((768,), torch.float32, torch.float32, 0),
+    ((700,), torch.float32, torch.float32, 0),
+    ((1,), torch.float32, torch.float32, 0),
+    ((2359299,), torch.float32, torch.float32, 0),
+    ((3072, 768), torch.bfloat16, torch.bfloat16, 0),
+    ((701,), torch.float32, torch.bfloat16, 0),
+    ((701,), torch.bfloat16, torch.float32, 0),
+    ((700,), torch.float32, torch.float32, 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,p_dtype,g_dtype,offset", _LION_CASES)
+def test_cuda_lion_kernel_matches_plain_version(shape, p_dtype, g_dtype, offset):
+    """Every operation rounds as in the plain version, so delta and m_new are
+    bit-identical to it, with m_new in a new tensor or over m in place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    n = int(torch.tensor(shape).prod())
+
+    def make(dtype, scale):
+        return (scale * torch.randn(n + offset, device="cuda", generator=g))[offset:].to(
+            dtype).reshape(shape)
+
+    p, grad, m = make(p_dtype, 1.0), make(g_dtype, 1e-2), make(torch.float32, 1e-3)
+    args = (1.5e-4, 0.05, 0.9, 0.95)
+    before = lion_update_leaf.launches
+    delta, m_new = lion_update_leaf(p, grad, m, *args)
+    m_in_place = m.clone()
+    delta2, out = lion_update_leaf(p, grad, m_in_place, *args, m_out=m_in_place)
+    torch.cuda.synchronize()
+    assert lion_update_leaf.launches == before + 2 and out is m_in_place
+    want_delta, want_m = lion_update_leaf_reference(p, grad, m, *args)
+    assert delta.dtype == p_dtype and m_new.dtype == torch.float32
+    assert torch.equal(delta, want_delta), (delta.float() - want_delta.float()).abs().max()
+    assert torch.equal(m_new, want_m), (m_new - want_m).abs().max()
+    assert torch.equal(delta2, delta) and torch.equal(m_in_place, m_new)
+
+
+# Token-major kernels B7, B8: (shape, dtype, forward atol/rtol, backward atol/rtol)
+_TM_CASES = [
+    ((8, 513, 16, 48), torch.bfloat16, (2e-2, 2e-2), (2e-2, 2e-2)),  # MAE decoder, batch 8
+    ((8, 513, 12, 64), torch.float32, (2e-5, 1e-4), (1e-4, 1e-3)),
+    ((2, 70, 4, 32), torch.float32, (2e-5, 1e-4), (1e-4, 1e-3)),
+    ((2, 129, 2, 128), torch.bfloat16, (2e-2, 2e-2), (2e-2, 2e-2)),
+    ((2, 9, 3, 12), torch.bfloat16, (2e-2, 2e-2), (2e-2, 2e-2)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,ftol,btol", _TM_CASES)
+def test_cuda_tm_kernels_match_plain_versions(shape, dtype, ftol, btol):
+    """B7 and B8 against their plain versions, and bit for bit against B1
+    and B2 on the same contiguous inputs (the same tile code); B8 reruns
+    bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    B, T, H, D = shape
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=g).to(dtype) for _ in range(4))
+    before = (tm.tm_attention_fwd.launches, tm.tm_attention_bwd.launches)
+    o, lse = tm.tm_attention_fwd(q, k, v)
+    grads = tm.tm_attention_bwd(q, k, v, o, do, lse)
+    again = tm.tm_attention_bwd(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    assert (tm.tm_attention_fwd.launches, tm.tm_attention_bwd.launches) == \
+        (before[0] + 1, before[1] + 2)
+    assert o.is_contiguous() and lse.shape == (B, H, T)
+    o_ref, lse_ref = tm.tm_attention_fwd_reference(q, k, v)
+    assert_matches(o, o_ref, *ftol, "o")
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-4)
+    want = tm.tm_attention_bwd_reference(q, k, v, o, do, lse)
+    o_b1, lse_b1 = fused_attention(q, k, v)
+    for name, a, b, c, d in zip(("dq", "dk", "dv"), grads, want, again,
+                                fused_attention_bwd(q, k, v, o_b1, do, lse_b1)):
+        assert_matches(a, b, *btol, name)
+        assert torch.equal(a, c), f"{name} differs between two runs"
+        assert torch.equal(a, d), f"{name} differs from B2's"
+    assert torch.equal(o, o_b1) and torch.equal(lse.flatten(), lse_b1.flatten())
+
+
+@pytest.mark.cuda
+def test_cuda_tm_autograd_function_matches_fused_attention():
+    """FusedAttentionTM with a non-contiguous incoming gradient against
+    FusedAttention on the same inputs: equal out and gradients."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    w = torch.randn(2, 200, 32, 4, device="cuda", generator=g).transpose(2, 3)  # strided
+    qkv0 = [torch.randn(2, 200, 4, 32, device="cuda", generator=g) for _ in range(3)]
+    outs = []
+    for apply in (tm.FusedAttentionTM.apply, FusedAttention.apply):
+        qkv = [x.clone().requires_grad_() for x in qkv0]
+        o = apply(*qkv, None)[0]
+        (o * w).sum().backward()
+        outs.append((o.detach(), *(x.grad for x in qkv)))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)

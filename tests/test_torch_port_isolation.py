@@ -1,7 +1,8 @@
 """PyTorch port: imports no JAX and nothing of the JAX package (it imports
-every module and runs a serving forward and tiny MAE train steps, one of them
-on the blocked attention path, with those imports blocked), defaults to CUDA,
-and builds from its own config copy.
+every module, the token-major tool's included, and runs a serving forward and
+tiny MAE train steps, one of them on the blocked attention path and one with
+the fused Lion update, with those imports blocked), defaults to CUDA, and
+builds from its own config copy.
 
 The subprocess blocks the imports with a ``sys.meta_path`` finder rather than
 ``sys.modules["jax"] = None``: scipy's array-API helpers look ``jax`` up in
@@ -85,6 +86,12 @@ flash_attention.VMEM_PATH_MAX_T = 4
 flash_attention.BlockedFusedAttention = Spy
 state, metrics = step(state, wire, seed=0)
 assert state.step == 2 and bool(torch.isfinite(metrics["loss"])) and seen == [9], seen
+
+# the fused Lion path with the gradient clip
+cfg.merge_from_list(["TRAIN.OPTIMIZER", "Lion", "TRAIN.LION_FUSED", True, "TRAIN.GRAD_CLIP", 1.0])
+state, _ = mae_engine.create_train_state(cfg, 10, 0, seed=0, device="cpu")
+state, metrics = mae_engine.make_train_step(config=cfg)(state, wire, seed=0)
+assert type(state.optimizer).__name__ == "Lion" and bool(torch.isfinite(metrics["loss"]))
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("imported", len(names), "modules")
@@ -104,6 +111,10 @@ def test_port_sources_name_no_jax():
     pattern = re.compile(r"^\s*(import jax|from jax)\b|headct_foundation_tpu\.", re.M)
     files = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) + [ROOT / "chip_smoke.py", ROOT / "chip_fault_check.py"]
     assert len(files) >= 20
+    # the token-major tool and the Lion kernel are the port's own copies
+    names = {str(f.relative_to(PKG)) for f in files if PKG in f.parents}
+    assert {"tools/experimental_tm_attention.py", "tools/bench_tm_attention.py",
+            "ops/lion_kernel.py", "csrc/lion_update.cu", "csrc/tm_attention.cu"} <= names
     hits = [f"{f.relative_to(ROOT)}: {m.group(0)!r}"
             for f in files for m in pattern.finditer(f.read_text())]
     assert not hits, hits
