@@ -5,7 +5,7 @@
 
 For each fault in FAULTS, copies the port's package and ``chip_smoke.py``
 into a temporary directory, plants the fault in the copy's CUDA header (one
-skipped 64-token tile in a tensor-core kernel), builds the copy's blocked
+skipped tile of the walk in a bfloat16 kernel), builds the copy's blocked
 kernels there and runs chip_smoke's blocked kernel phase on each of its
 cases alone. A case that comes out FAILED has caught the fault. The faults
 sit in the bfloat16 (tensor-core) kernels, so every bfloat16 case must catch
@@ -28,13 +28,18 @@ import torch
 ROOT = Path(__file__).resolve().parent
 PKG = "headct_foundation_tpu_torch"
 
-FAULTS = [  # (name, header under csrc/, kernel definition, its tile loop, line planted in it)
+FAULTS = [  # (name, header under csrc/, kernel definition, anchor in its tile loop, line
+    # planted after the anchor)
     ("B3 skips key tile 1", "flash_fwd.cuh", "\nflash_fwd_tc_kernel(",
      "for (int n0 = 0; n0 < kv_len; n0 += kBlockN) {", "if (n0 == kBlockN) continue;"),
-    ("B4 skips query tile 1", "flash_bwd.cuh", "\ndkv_tc_kernel(",
-     "for (int q0 = 0; q0 < tq; q0 += kTile) {", "if (q0 == kTile) continue;"),
-    ("B5 skips key tile 1", "flash_bwd.cuh", "\ndq_tc_kernel(",
-     "for (int n0 = 0; n0 < kv_len; n0 += kTile) {", "if (n0 == kTile) continue;"),
+    # B4/B5: the consumer warpgroup takes walked tile 1 off the ring without
+    # using it, so the producer and the mbarriers run on as before
+    ("B4 skips query tile 1", "flash_bwd_sm90.cuh", "\ndkv_wgmma_kernel(",
+     "bar_wait(full + 8 * st, (i / kStages) & 1);",
+     "if (i == 1) { bar_arrive(empty + 8 * st); continue; }"),
+    ("B5 skips key tile 1", "flash_bwd_sm90.cuh", "\ndq_wgmma_kernel(",
+     "bar_wait(full + 8 * st, (i / kStages) & 1);",
+     "if (i == 1) { bar_arrive(empty + 8 * st); continue; }"),
 ]
 
 # Run inside the copy: each blocked case alone; prints which ones failed.
@@ -56,7 +61,7 @@ print("CAUGHT " + json.dumps(caught), flush=True)
 
 
 def plant(source: str, kernel: str, loop: str, line: str) -> str:
-    """``line`` as the first statement of the first ``loop`` in ``kernel``."""
+    """``line`` right after the first ``loop`` anchor in ``kernel``."""
     at = source.index(kernel)
     at = source.index(loop, at) + len(loop)
     return source[:at] + " " + line + source[at:]

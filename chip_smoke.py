@@ -13,11 +13,15 @@ Phases, each printing a line; any failure raises and exits non-zero:
              kernel, the plain version and the one PyTorch call that computes
              the same function (``library_ms``; the port never calls it).
              Every output is held elementwise; a bfloat16 one also normwise,
-             ||kernel - plain|| / ||plain|| <= BF16_REL_L2. The blocked kernels B3 (forward), B4 (dK, dV) and B5 (dQ) are
-             held at the 192^3 MAE's shapes, in float32, with rectangular
-             q/k and a kv_len that masks whole key tiles, at head dims 12 and
-             128; their masked dK, dV must be exactly 0 and two runs of B4
-             and B5 bit-identical.
+             ||kernel - plain|| / ||plain|| <= BF16_REL_L2. The blocked
+             kernels B3 (forward), B4 (dK, dV) and B5 (dQ) are held at the
+             192^3 MAE's shapes, in float32, with rectangular q/k and a kv_len
+             that masks whole key tiles, at head dims 12 to 128, at the
+             edges of B4/B5's 64-row blocks and on misaligned views; their
+             masked dK, dV must be exactly 0 and two runs of B4 and B5
+             bit-identical. B4/B5's ptxas report (registers, spills, shared
+             memory) is printed after the build, and each is timed beside its
+             bound and its exponentials' floor.
 4. slice   - the embedding server at full width: ViT-B/12 at 96^3, 3
              channels, random weights from a seeded generator, behind
              ``build_server(max_batch=8)``; 8 concurrent POSTs of synthetic
@@ -115,18 +119,31 @@ BWD_CASES = [  # (shape, dtype, atol, rtol) for dq, dk, dv against the plain bac
 ]
 STRETCH_DECODER = (2, 4097, 16, 48)   # 192^3 MAE: 4096 patches + CLS, 16 heads x 48
 STRETCH_ENCODER = (2, 1025, 12, 64)   # 1024 kept after 75% masking + CLS, 12 heads x 64
-BLOCKED_CASES = [  # (q [B, Tq, H, D], Tk, kv_len, dtype, atol, rtol) for O; LSE at 1e-4 /
-    # 1e-4; dq, dk, dv at BLOCKED_BWD_TOL. kv_len 70 of 700 masks ten whole 64-key tiles.
-    (STRETCH_DECODER, 4097, None, torch.bfloat16, 2e-2, 2e-2),  # every stretch decoder block
-    (STRETCH_ENCODER, 1025, None, torch.bfloat16, 2e-2, 2e-2),  # every stretch encoder block
-    (STRETCH_ENCODER, 1025, None, torch.float32, 2e-5, 1e-4),
-    ((2, 300, 3, 32), 700, 650, torch.float32, 2e-5, 1e-4),     # rectangular, kv_len
-    ((2, 300, 3, 32), 700, 70, torch.float32, 2e-5, 1e-4),
-    ((2, 300, 3, 32), 700, 650, torch.bfloat16, 2e-2, 2e-2),
-    ((2, 300, 3, 32), 700, 70, torch.bfloat16, 2e-2, 2e-2),
-    ((2, 1100, 2, 12), 1100, None, torch.bfloat16, 2e-2, 2e-2),  # head dims 12 and 128
-    ((2, 200, 2, 128), 1500, 1300, torch.bfloat16, 2e-2, 2e-2),
-    ((2, 200, 2, 128), 1500, 1300, torch.float32, 2e-5, 1e-4),
+BLOCKED_CASES = [  # (q [B, Tq, H, D], Tk, kv_len, dtype, atol, rtol, storage offset) for O;
+    # LSE at 1e-4 / 1e-4; dq, dk, dv at BLOCKED_BWD_TOL. kv_len 70 of 700 masks ten whole
+    # 64-key tiles. The bf16 cases from the block edges on hold B4/B5's 64-row blocks: Tq
+    # and kv_len one below, at and one above a multiple of 64 and 128, head dims 16 to 128,
+    # and the 8-byte copy route (D = 12; an offset of 4 elements breaks the 16-byte
+    # alignment of every operand). Square q, k, v are strided views of one [B, T, 3, H, D].
+    (STRETCH_DECODER, 4097, None, torch.bfloat16, 2e-2, 2e-2, 0),  # every stretch decoder block
+    (STRETCH_ENCODER, 1025, None, torch.bfloat16, 2e-2, 2e-2, 0),  # every stretch encoder block
+    (STRETCH_ENCODER, 1025, None, torch.float32, 2e-5, 1e-4, 0),
+    ((2, 300, 3, 32), 700, 650, torch.float32, 2e-5, 1e-4, 0),     # rectangular, kv_len
+    ((2, 300, 3, 32), 700, 70, torch.float32, 2e-5, 1e-4, 0),
+    ((2, 300, 3, 32), 700, 650, torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 300, 3, 32), 700, 70, torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 1100, 2, 12), 1100, None, torch.bfloat16, 2e-2, 2e-2, 0),  # head dims 12 and 128
+    ((2, 200, 2, 128), 1500, 1300, torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 200, 2, 128), 1500, 1300, torch.float32, 2e-5, 1e-4, 0),
+    ((2, 127, 2, 64), 257, 128, torch.bfloat16, 2e-2, 2e-2, 0),    # block edges
+    ((2, 128, 2, 64), 257, 129, torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 129, 2, 64), 257, 127, torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 129, 2, 16), 129, None, torch.bfloat16, 2e-2, 2e-2, 0),   # head dims 16 to 128
+    ((2, 200, 2, 32), 200, None, torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 300, 2, 48), 300, None, torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 130, 2, 128), 130, None, torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 129, 3, 64), 129, None, torch.bfloat16, 2e-2, 2e-2, 4),   # misaligned views
+    ((2, 100, 2, 64), 300, 250, torch.bfloat16, 2e-2, 2e-2, 4),
 ]
 BLOCKED_BWD_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
 # A bfloat16 output is also held normwise: ||a - b|| / ||b|| against its plain
@@ -146,9 +163,10 @@ LION_SCALARS = (1.5e-4, 0.05, 0.9, 0.95)  # lr, wd, b1, b2 of the MAE recipe
 # differ (15 of the MAE's 150.3 M), and the momenta agree within LION_M_REL *
 # max|m|. The fused step itself is held bit for bit.
 LION_FLIP_SHARE, LION_M_REL = 1e-7, 1e-6
-# Device-side sleep queued before timing B6 (cuda_ms ``ahead``), in clock
-# cycles: about 1 ms and 15 ms at the H100's 1.98 GHz, above the host's time to
-# launch one B6 call (tens of microseconds) and one per trainable tensor (~6 ms).
+# Device-side sleep queued before timing B6 and the blocked kernels (cuda_ms
+# ``ahead``), in clock cycles: about 1 ms and 15 ms at the H100's 1.98 GHz,
+# above the host's time to launch one kernel call (tens of microseconds) and
+# one B6 call per trainable tensor (~6 ms).
 AHEAD_ONE, AHEAD_ALL = 2_000_000, 30_000_000
 # Kernels B7, B8 (token-major): (shape, dtype, forward atol, rtol, backward atol,
 # rtol). Every shape of the tm bench (its main path) in bf16, MAE_DECODER
@@ -235,6 +253,18 @@ def blocked_bound_ms(name: str, q_shape, tk: int, kv_len, dtype) -> tuple:
         "flash_attention_blocked_dq": (6, (3 * Tq + 2 * L) * row + 2 * rows_f32),
     }[name]
     return bound_ms(mult * B * H * Tq * L * D, nbytes, dtype)
+
+
+def exp_floor_ms(q_shape, n_keys: int) -> float:
+    """Least time of the exponentials of one blocked backward pass: one per
+    P element, B*H*Tq*n_keys, at 16 a clock on each SM's special function
+    units (the card's SM count and its maximum SM clock)."""
+    B, Tq, H, _ = q_shape
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return B * H * Tq * n_keys / (sms * 16 * mhz * 1e6) * 1e3
 
 
 def synthetic_scan(seed: int) -> np.ndarray:
@@ -342,18 +372,25 @@ def phase_bwd_kernels(fused_attention, fused_attention_bwd, fused_attention_bwd_
     return results
 
 
-def blocked_inputs(shape, tk: int, dtype, seed: int) -> tuple:
+def randn_at(shape, offset: int, g, dtype) -> torch.Tensor:
+    """A [shape] tensor on the card starting ``offset`` elements into its storage."""
+    n = math.prod(shape)
+    return torch.randn(n + offset, device="cuda", generator=g).to(dtype)[offset:].view(shape)
+
+
+def blocked_inputs(shape, tk: int, dtype, seed: int, offset: int = 0) -> tuple:
     """q, k, v (strided views of one [B, T, 3, H, D] tensor when square, as
-    the model passes them) and an incoming gradient, on the card."""
+    the model passes them) and an incoming gradient, on the card, each
+    starting ``offset`` elements into its storage."""
     B, T, H, D = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
     if tk == T:
-        qkv = torch.randn(B, T, 3, H, D, device="cuda", generator=g).to(dtype)
+        qkv = randn_at((B, T, 3, H, D), offset, g, dtype)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     else:
-        q = torch.randn(B, T, H, D, device="cuda", generator=g).to(dtype)
-        k, v = (torch.randn(B, tk, H, D, device="cuda", generator=g).to(dtype) for _ in range(2))
-    return q, k, v, torch.randn(B, T, H, D, device="cuda", generator=g).to(dtype)
+        q = randn_at((B, T, H, D), offset, g, dtype)
+        k, v = (randn_at((B, tk, H, D), offset, g, dtype) for _ in range(2))
+    return q, k, v, randn_at((B, T, H, D), offset, g, dtype)
 
 
 def phase_blocked_kernels() -> dict:
@@ -362,8 +399,8 @@ def phase_blocked_kernels() -> dict:
     from headct_foundation_tpu_torch.ops import flash_attention as fa
 
     results = {}
-    for shape, tk, kv_len, dtype, atol, rtol in BLOCKED_CASES:
-        q, k, v, do = blocked_inputs(shape, tk, dtype, seed=3)
+    for shape, tk, kv_len, dtype, atol, rtol, offset in BLOCKED_CASES:
+        q, k, v, do = blocked_inputs(shape, tk, dtype, seed=3, offset=offset)
         o, lse = fa.blocked_fused_attention(q, k, v, kv_len=kv_len)
         delta = fa.attention_delta(o, do)
         dk, dv = fa.blocked_attention_dkv(q, k, v, do, lse, delta, kv_len=kv_len)
@@ -386,8 +423,9 @@ def phase_blocked_kernels() -> dict:
         same = all(torch.equal(a, b) for a, b in zip((dk, dv, dq), again))
         masked_zero = kv_len is None or not (dk[:, kv_len:].any() or dv[:, kv_len:].any())
         ok = elem_ok and norm_ok and same and masked_zero
+        at = f" offset {offset}" if offset else ""
         print(f"kernel blocked B3/B4/B5 q {list(shape)} k/v length {tk} kv_len {kv_len} "
-              f"{str(dtype)[6:]}: max_abs_err o={errs[0]:.3e} lse={err_lse.max().item():.3e} "
+              f"{str(dtype)[6:]}{at}: max_abs_err o={errs[0]:.3e} lse={err_lse.max().item():.3e} "
               f"dk={errs[1]:.3e} dv={errs[2]:.3e} dq={errs[3]:.3e}, rel_l2 o={rels[0]:.3e} "
               f"dk={rels[1]:.3e} dv={rels[2]:.3e} dq={rels[3]:.3e} (tolerance o atol {atol} "
               f"rtol {rtol}, lse 1e-4/1e-4, grads atol {batol} rtol {brtol}: "
@@ -395,7 +433,7 @@ def phase_blocked_kernels() -> dict:
               f"{'ok' if norm_ok else 'FAILED'}); B4/B5 reruns bit-identical {same}; masked "
               f"dk/dv exactly 0 {masked_zero} {'ok' if ok else 'FAILED'}", flush=True)
         check(ok, f"blocked kernels disagree with their plain versions at {shape} {tk} "
-                  f"{kv_len} {dtype}")
+                  f"{kv_len} {dtype} offset {offset}")
         rows = {"flash_attention_blocked_fwd": {"max_abs_err": errs[0]},
                 "flash_attention_blocked_dkv": {"max_abs_err": max(errs[1:3])},
                 "flash_attention_blocked_dq": {"max_abs_err": errs[3]}}
@@ -411,7 +449,15 @@ def phase_blocked_kernels() -> dict:
 def time_blocked(fa, rows, q, k, v, o, do, lse, delta, shape, dtype) -> None:
     """Kernel, plain version and bound of B3, B4 and B5 at a main-path shape;
     the library call: scaled_dot_product_attention's forward for B3, and its
-    backward against delta + B4 + B5 together."""
+    backward against delta + B4 + B5 together. Kernels, library calls and
+    the port's backward are timed on an idle stream (``ms``, ``library_ms``,
+    ``backward_ms``, ``library_backward_ms``: events that bracket the host's
+    launch work too) and behind a device sleep (the same keys with
+    ``_device``: device time alone; at the encoder's shape a launch from the
+    host takes about as long as the kernel)."""
+    def both(fn):
+        return cuda_ms(fn, iters=10), cuda_ms(fn, iters=10, ahead=AHEAD_ONE)
+
     calls = {
         "flash_attention_blocked_fwd": (lambda: fa.blocked_fused_attention(q, k, v),
                                         lambda: fa.blocked_attention_reference(q, k, v)),
@@ -423,7 +469,7 @@ def time_blocked(fa, rows, q, k, v, o, do, lse, delta, shape, dtype) -> None:
             lambda: fa.blocked_attention_dq_reference(q, k, v, do, lse, delta)),
     }
     for name, (kernel, plain) in calls.items():
-        rows[name]["ms"] = cuda_ms(kernel, iters=10)
+        rows[name]["ms"], rows[name]["ms_device"] = both(kernel)
         rows[name]["plain_ms"] = cuda_ms(plain, iters=3, warmup=1)
         rows[name]["bound_ms"], rows[name]["bound_by"] = blocked_bound_ms(
             name, shape, shape[1], None, dtype)
@@ -431,26 +477,40 @@ def time_blocked(fa, rows, q, k, v, o, do, lse, delta, shape, dtype) -> None:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     dot = do.transpose(1, 2)
-    fwd_ms = cuda_ms(lambda: sdpa(qt, kt, vt), iters=10)
+    fwd_ms, fwd_dev = both(lambda: sdpa(qt, kt, vt))
     rows["flash_attention_blocked_fwd"]["library_ms"] = fwd_ms
-    sdpa_bwd_ms = cuda_ms(lambda: sdpa(qt, kt, vt).backward(dot), iters=10) - fwd_ms
+    rows["flash_attention_blocked_fwd"]["library_ms_device"] = fwd_dev
+    sdpa_bwd_ms, sdpa_bwd_dev = (t - f for t, f in
+                                 zip(both(lambda: sdpa(qt, kt, vt).backward(dot)),
+                                     (fwd_ms, fwd_dev)))
 
     def port_bwd():
         d = fa.attention_delta(o, do)
         fa.blocked_attention_dkv(q, k, v, do, lse, d)
         fa.blocked_attention_dq(q, k, v, do, lse, d)
 
-    bwd_ms = cuda_ms(port_bwd, iters=10)
+    bwd_ms, bwd_dev = both(port_bwd)
     for name in ("flash_attention_blocked_dkv", "flash_attention_blocked_dq"):
-        rows[name]["backward_ms"] = bwd_ms   # delta + B4 + B5, the whole backward
-        rows[name]["library_backward_ms"] = sdpa_bwd_ms
+        rows[name].update(backward_ms=bwd_ms, backward_ms_device=bwd_dev,  # delta + B4 + B5
+                          library_backward_ms=sdpa_bwd_ms,
+                          library_backward_ms_device=sdpa_bwd_dev)
+    floor = exp_floor_ms(shape, shape[1])
     for name, r in rows.items():
-        print(f"timing {name} {list(shape)} {str(dtype)[6:]}: kernel {r['ms']:.4f} ms, plain "
+        print(f"timing {name} {list(shape)} {str(dtype)[6:]}: kernel {r['ms']:.4f} ms on an "
+              f"idle stream ({r['ms_device']:.4f} ms behind a device sleep), plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
-              f"({100 * r['bound_ms'] / r['ms']:.1f}% of bound)", flush=True)
+              f"({100 * r['bound_ms'] / r['ms']:.1f}% of bound; "
+              f"{100 * r['bound_ms'] / r['ms_device']:.1f}% of the device time)", flush=True)
+        if name != "flash_attention_blocked_fwd":
+            print(f"timing {name} {list(shape)} {str(dtype)[6:]}: exp floor {floor:.4f} ms "
+                  f"(one exponential per P element, B*H*Tq*Tk = "
+                  f"{shape[0] * shape[2] * shape[1] ** 2}, at 16 per SM per clock), "
+                  f"{100 * floor / r['ms_device']:.1f}% of the kernel's device time", flush=True)
     print(f"timing blocked backward {list(shape)} {str(dtype)[6:]}: delta (torch) + B4 + B5 "
-          f"{bwd_ms:.4f} ms against the backward of scaled_dot_product_attention "
-          f"{sdpa_bwd_ms:.4f} ms (its forward+backward minus its forward, {fwd_ms:.4f} ms); "
+          f"{bwd_ms:.4f} ms ({bwd_ms / sdpa_bwd_ms:.2f}x) against the backward of "
+          f"scaled_dot_product_attention {sdpa_bwd_ms:.4f} ms (its forward+backward minus its "
+          f"forward, {fwd_ms:.4f} ms), on an idle stream; behind a device sleep {bwd_dev:.4f} "
+          f"ms ({bwd_dev / sdpa_bwd_dev:.2f}x) against {sdpa_bwd_dev:.4f} ms ({fwd_dev:.4f} ms); "
           f"B3 {rows['flash_attention_blocked_fwd']['ms']:.4f} ms against its forward",
           flush=True)
 
@@ -1073,6 +1133,34 @@ def phase_train(label: str, config: str, batch: int, compare_batch: int, seed0: 
     return {"train": train_launches, "eval": val_launches, "compare": compare, "lion": lion}
 
 
+def report_blocked_bwd_build(_build) -> None:
+    """ptxas's registers and spills of each instantiation of B4 and B5
+    (csrc/flash_bwd_sm90.cuh: head dim padded to DP, walked tile NT, copy
+    width), with its dynamic shared memory; a spill fails the run. A library
+    built before this run is held by the report saved beside it."""
+    import ctypes
+
+    log = _build.ptxas_log("flash_attention_blocked_bwd")
+    smem = _build.load("flash_attention_blocked_bwd").headct_flash_attention_blocked_bwd_smem
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_longlong], ctypes.c_longlong
+    seen = 0
+    for entry in log.split("Compiling entry function '")[1:]:
+        name = entry.split("'")[0]
+        kind = next((k for k in ("dkv_wgmma_kernel", "dq_wgmma_kernel") if k in name), None)
+        if kind is None:
+            continue
+        dp, nt, ch = (int(x) for x in re.findall(r"Li(\d+)E", name)[:3])
+        regs = int(re.search(r"Used (\d+) registers", entry).group(1))
+        spills = int(re.search(r"(\d+) bytes spill stores", entry).group(1))
+        print(f"build: {'B4' if kind.startswith('dkv') else 'B5'} {kind}<DP {dp}, NT {nt}, "
+              f"{2 * ch}-byte copies>: {regs} registers, {spills} bytes spill stores, "
+              f"{smem(int(kind.startswith('dkv')), dp)} bytes dynamic shared memory per block",
+              flush=True)
+        check(spills == 0, f"{kind} at DP {dp} spills {spills} bytes")
+        seen += 1
+    check(seen == 20, f"ptxas reported {seen} instantiations of B4/B5; expected 20")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -1102,6 +1190,8 @@ def main() -> int:
         used = re.findall(r"Used (\d+) registers", log)
         spills = re.findall(r"(\d+) bytes spill stores", log)
         print(f"build: {name} ptxas registers {used} spill-store bytes {spills}", flush=True)
+
+    report_blocked_bwd_build(_build)
 
     kernel_rows = phase_kernels(fused_attention, fused_attention_reference)
     bwd_rows = phase_bwd_kernels(fused_attention, fused_attention_bwd,
@@ -1188,14 +1278,17 @@ def main() -> int:
         dec = blocked_rows[(name, STRETCH_DECODER, torch.bfloat16)]
         enc = blocked_rows[(name, STRETCH_ENCODER, torch.bfloat16)]
         err = max(r["max_abs_err"] for (n, _, _), r in blocked_rows.items() if n == name)
-        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "backward_ms",
-                "library_backward_ms")
-        return row(name, "flash_attention_blocked_" + ("fwd.cu" if name == blocked[0] else
-                                                      "bwd.cu"),
-                   replaces, {**dec, "max_abs_err": err}, STRETCH_DECODER, torch.bfloat16,
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_device",
+                "library_ms_device", "backward_ms", "backward_ms_device",
+                "library_backward_ms", "library_backward_ms_device")
+        # B4/B5: the kernels are in flash_bwd_sm90.cuh, their C entries in the .cu
+        source, entry = (("flash_attention_blocked_fwd.cu", {}) if name == blocked[0] else
+                         ("flash_bwd_sm90.cuh", {"entry": "headct_foundation_tpu_torch/csrc/"
+                                                          "flash_attention_blocked_bwd.cu"}))
+        return row(name, source, replaces, {**dec, "max_abs_err": err}, STRETCH_DECODER, torch.bfloat16,
                    at_encoder_shape={"shape": list(STRETCH_ENCODER),
                                      **{k: enc[k] for k in keys if k in enc}},
-                   **{k: dec[k] for k in keys[5:] if k in dec})
+                   **{k: dec[k] for k in keys[5:] if k in dec}, **entry)
 
     print(json.dumps({"kernels": [
         row("flash_attention_fwd", "flash_attention_fwd.cu", 60,

@@ -14,27 +14,29 @@
 //
 // Design. The Pallas kernels run one program per (batch*head, 512-key block)
 // holding the whole padded Q/dO slab in VMEM (B4), and per (batch*head, Q
-// block) holding the whole K/V slab (B5). Here each is one launch of the
-// matching pass of flash_bwd.cuh (B2's FlashAttention-2 split): B4 one block
-// of 128 threads per (64-key tile, batch*head) walking the query tiles, B5 one
-// per (64-query tile, batch*head) walking the key tiles up to kv_len. Neither
-// uses atomics, so reruns are bit-identical. The TPU block sizes play no
-// part. A key tile wholly at or past kv_len skips its walk and writes dK =
-// dV = 0 (the outputs come from torch.empty); the JAX code zero-pads Q and
-// relies on dO = 0, delta = 0 in the padded rows, while here query rows >= Tq
-// get LSE = +inf, so P = dS = 0 there. bfloat16 runs on the tensor cores
-// (mma.sync), float32 on the CUDA cores. All offsets are 64-bit.
+// block) holding the whole K/V slab (B5). Here bfloat16 takes the Hopper
+// kernels of flash_bwd_sm90.cuh: B4 one block per (64-key tile, batch*head)
+// walking the query tiles, B5 one per (64-query tile, batch*head) walking the
+// key tiles up to kv_len, every product on wgmma and the walked tiles staged
+// by a producer warp through an mbarrier ring. float32 takes the CUDA-core
+// passes of flash_bwd.cuh (dkv_kernel, dq_kernel), which keep full float32
+// products as the TPU kernels do for float32 inputs. Neither uses atomics, so
+// reruns are bit-identical. The TPU block sizes play no part. A key tile
+// wholly at or past kv_len skips its walk and writes dK = dV = 0 (the outputs
+// come from torch.empty); the JAX code zero-pads Q and relies on dO = 0,
+// delta = 0 in the padded rows, while here query rows >= Tq get LSE = +inf,
+// so P = dS = 0 there. All offsets are 64-bit.
 //
 // Bound at the decoder shape [2, 4097, 16, 48] bfloat16: B4's 4 products
 // (S, dP, dV, dK) are 8*B*H*Tq*Tk*D = 2.06e11 operations, 0.209 ms at the dense
 // bf16 peak of 989 TFLOP/s; B5's 3 (S, dP, dQ) 1.55e11, 0.156 ms. Their bytes
 // (q, k, v, dO, LSE, delta read once, the gradients written once) are 76.6 MB
 // and 64.0 MB, 0.023 and 0.019 ms at 3.35 TB/s: both are bound by
-// operations. mma.sync reaches part of that peak and every P element takes
-// an exp on the special function units in both passes; wgmma, TMA and a
-// single pass with atomics for dQ are later work.
+// operations. Each pass also takes one exponential per P element, 5.37e8,
+// 0.128 ms on the special function units (flash_bwd_sm90.cuh).
 
 #include "flash_bwd.cuh"
+#include "flash_bwd_sm90.cuh"
 
 namespace {
 
@@ -65,7 +67,11 @@ extern "C" int headct_flash_attention_blocked_dkv(
   const bwd::BwdArgs a{q, k, v, dout, lse, delta, nullptr, dk, dv, B, tq, tk, kv_len, n_heads, d,
                        {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh}, {v_sb, v_st, v_sh},
                        {g_sb, g_st, g_sh}, scale};
-  return (int)bwd::launch_dkv<Blocked>(a, dtype, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return (int)bwd90::launch_dkv<Blocked>(a, s);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return (int)bwd::launch_dkv_kernel<float>(bwd::dkv_kernel<Blocked>, bwd::f32_bwd_smem(d, 6), a,
+                                            s);
 }
 
 // B5: dQ.
@@ -82,5 +88,14 @@ extern "C" int headct_flash_attention_blocked_dq(
   const bwd::BwdArgs a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, tq, tk, kv_len, n_heads,
                        d, {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh}, {v_sb, v_st, v_sh},
                        {g_sb, g_st, g_sh}, scale};
-  return (int)bwd::launch_dq<Blocked>(a, dtype, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return (int)bwd90::launch_dq<Blocked>(a, s);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return (int)bwd::launch_dq_kernel<float>(bwd::dq_kernel<Blocked>, bwd::f32_bwd_smem(d, 5), a, s);
+}
+
+// Dynamic shared memory of one bfloat16 block of B4 (dkv != 0) or B5 at head
+// dim d, in bytes (for reports).
+extern "C" long long headct_flash_attention_blocked_bwd_smem(int dkv, long long d) {
+  return (long long)bwd90::smem_bytes(dkv != 0, d);
 }

@@ -1,7 +1,8 @@
 // Backward attention kernels shared by the whole-sequence backward B2
-// (flash_attention_bwd.cu), the blocked backward B4/B5
-// (flash_attention_blocked_bwd.cu) and the token-major backward B8
-// (tm_attention.cu). For q [B, Tq, H, D] against the first
+// (flash_attention_bwd.cu), the token-major backward B8 (tm_attention.cu)
+// and the float32 route of the blocked backward B4/B5
+// (flash_attention_blocked_bwd.cu; its bfloat16 route is the wgmma kernels of
+// flash_bwd_sm90.cuh). For q [B, Tq, H, D] against the first
 // kv_len keys of k, v [B, Tk, H, D], with the forward's LSE and
 // delta = rowsum(dO * O), both float32 [B*H, Tq]:
 //   P    = exp(scale * Q K^T - LSE)                  (float32; 0 at keys >= kv_len)

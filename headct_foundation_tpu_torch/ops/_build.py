@@ -5,8 +5,9 @@ plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 -Xcompiler -fPIC``), loaded with ``ctypes``. The library lands in
 ``<repo>/build/kernels/<name>-<hash of the source>/``, a directory that
 ``.gitignore`` lists, so an edited source (or shared ``.cuh`` header) builds
-anew and an unchanged one is reused. ``build_all`` starts one ``nvcc`` per
-source, all at once.
+anew and an unchanged one is reused; ptxas's report of the build is saved
+beside it (``ptxas_log``). ``build_all`` starts one ``nvcc`` per source, all
+at once.
 
 Nothing falls back: a missing ``nvcc`` or a failed build raises.
 """
@@ -86,6 +87,7 @@ def _finish(name: str, started) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed on {SOURCES[name]} (exit {proc.returncode}):\n{log}")
+    out.with_suffix(".ptxas.log").write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
 
 
@@ -106,6 +108,20 @@ def build_all(names: Iterable[str] = tuple(SOURCES)) -> None:
                     failures.append(e)
         if failures:
             raise failures[0]
+
+
+def ptxas_log(name: str) -> str:
+    """ptxas's report of the library's build: this process's, else the one
+    saved beside the library; a library cached without one is built anew."""
+    build_all([name])
+    if name in build_logs:
+        return build_logs[name]
+    saved = library_path(name).with_suffix(".ptxas.log")
+    if not saved.exists():
+        with _lock:
+            library_path(name).unlink(missing_ok=True)
+        build_all([name])
+    return saved.read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -24,8 +24,9 @@ package's ``:245-517``:
   residual is padded to its block size; this one is not).
 * ``blocked_attention_dkv`` (kernel ``_blocked_dkv_kernel``, ``:292``) and
   ``blocked_attention_dq`` (``_blocked_dq_kernel``, ``:342``) port the two
-  backward passes of ``_blocked_bwd`` (``:455``); both are in
-  ``csrc/flash_attention_blocked_bwd.cu``.
+  backward passes of ``_blocked_bwd`` (``:455``); both are entries of
+  ``csrc/flash_attention_blocked_bwd.cu``, whose bfloat16 kernels (wgmma, an
+  mbarrier ring of cp.async tiles) are in ``csrc/flash_bwd_sm90.cuh``.
 * ``BlockedFusedAttention`` wires them as a ``torch.autograd.Function`` with
   the JAX custom VJP's residuals; its backward computes delta = rowsum(dO * O)
   once from the stored O with one torch reduction (``attention_delta``), as
@@ -35,9 +36,9 @@ package's ``:245-517``:
 
 The JAX package's block sizes (``_blocked_block_sizes``, ``BLOCK_Q`` and
 ``BLOCK_K``) are TPU tuning and no spec for the port: the CUDA kernels use
-their own 64-row tiles. On the CPU every backward is the plain backward, so
-the CPU tests exercise the kernels' contract rather than autograd through
-matmuls. The blocked plain versions walk the sequence in chunks of
+their own 64-row tiles (32-row walked tiles in B4 at head dims above 64).
+On the CPU every backward is the plain backward, so the CPU tests exercise
+the kernels' contract rather than autograd through matmuls. The blocked plain versions walk the sequence in chunks of
 ``_REF_CHUNK`` rows, so no [T, T] tensor of a long sequence is made whole.
 
 Each wrapper counts its CUDA launches in ``<wrapper>.launches``; the plain

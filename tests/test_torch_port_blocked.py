@@ -44,9 +44,14 @@ from headct_foundation_tpu_torch.utils.torch_interop import state_dict_from_jax
 
 ROOT = Path(__file__).resolve().parent.parent
 # (B, Tq, Tk, H, D, kv_len): square beyond one JAX block, rectangular with a
-# kv_len inside the last 64-key tile and one that masks whole tiles
-CASES = [(2, 300, 300, 3, 32, None), (2, 100, 300, 3, 32, 250), (2, 100, 300, 3, 32, 40)]
-IDS = ["square300", "rect_kv250", "rect_kv40"]
+# kv_len inside the last 64-key tile and one that masks whole tiles; then the
+# main path's head dims, 48 (the 192^3 decoder) and 64 (its encoder), each
+# rectangular with kv_len inside a tile and square over several tiles
+CASES = [(2, 300, 300, 3, 32, None), (2, 100, 300, 3, 32, 250), (2, 100, 300, 3, 32, 40),
+         (2, 100, 300, 2, 48, 250), (1, 200, 200, 2, 48, None),
+         (2, 100, 300, 2, 64, 250), (1, 200, 200, 2, 64, None)]
+IDS = ["square300", "rect_kv250", "rect_kv40", "d48_rect_kv250", "d48_square200",
+       "d64_rect_kv250", "d64_square200"]
 TOL = {"float32": dict(atol=2e-5, rtol=1e-4), "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 LSE_TOL = dict(atol=1e-4, rtol=1e-4)
 GRAD_TOL = dict(atol=1e-4, rtol=1e-3)

@@ -6,6 +6,8 @@ imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 """
 
+import math
+
 import pytest
 import torch
 
@@ -142,44 +144,65 @@ def test_cuda_autograd_function_matches_plain_autograd():
 
 
 # Blocked kernels B3 (forward), B4 (dK, dV) and B5 (dQ): (q shape, Tk, kv_len,
-# dtype, forward atol/rtol, backward atol/rtol). kv_len 70 of 700 leaves ten
-# whole 64-key tiles masked.
+# dtype, forward atol/rtol, backward atol/rtol, storage offset in elements).
+# Square q, k, v are strided views of one [B, T, 3, H, D] tensor, as the model
+# passes them. kv_len 70 of 700 leaves ten whole 64-key tiles masked. The
+# bfloat16 cases after the 192^3 ones hold B4/B5's edges: Tq and kv_len one
+# below, at and one above a multiple of their 64-row blocks, head dims 16 to
+# 128, and the 8-byte copy route (D = 12, and an offset of 4 elements, which
+# breaks the 16-byte alignment of every operand).
 _BLOCKED_CASES = [
-    ((2, 4097, 16, 48), 4097, None, torch.bfloat16, 2e-2, 2e-2),   # 192^3 MAE decoder
-    ((2, 1025, 12, 64), 1025, None, torch.bfloat16, 2e-2, 2e-2),   # 192^3 MAE encoder
-    ((2, 1025, 12, 64), 1025, None, torch.float32, 2e-5, 1e-4),
-    ((2, 300, 3, 32), 700, 650, torch.float32, 2e-5, 1e-4),
-    ((2, 300, 3, 32), 700, 70, torch.float32, 2e-5, 1e-4),
-    ((2, 300, 3, 32), 700, 650, torch.bfloat16, 2e-2, 2e-2),
-    ((2, 300, 3, 32), 700, 70, torch.bfloat16, 2e-2, 2e-2),
-    ((2, 1100, 2, 12), 1100, None, torch.bfloat16, 2e-2, 2e-2),    # head dims 12, 128
-    ((2, 200, 2, 128), 1500, 1300, torch.bfloat16, 2e-2, 2e-2),
-    ((2, 200, 2, 128), 1500, 1300, torch.float32, 2e-5, 1e-4),
+    ((2, 4097, 16, 48), 4097, None, torch.bfloat16, 2e-2, 2e-2, 0),   # 192^3 MAE decoder
+    ((2, 1025, 12, 64), 1025, None, torch.bfloat16, 2e-2, 2e-2, 0),   # 192^3 MAE encoder
+    ((2, 1025, 12, 64), 1025, None, torch.float32, 2e-5, 1e-4, 0),
+    ((2, 300, 3, 32), 700, 650, torch.float32, 2e-5, 1e-4, 0),
+    ((2, 300, 3, 32), 700, 70, torch.float32, 2e-5, 1e-4, 0),
+    ((2, 300, 3, 32), 700, 650, torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 300, 3, 32), 700, 70, torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 1100, 2, 12), 1100, None, torch.bfloat16, 2e-2, 2e-2, 0),    # head dims 12, 128
+    ((2, 200, 2, 128), 1500, 1300, torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 200, 2, 128), 1500, 1300, torch.float32, 2e-5, 1e-4, 0),
+    ((2, 127, 2, 64), 257, 128, torch.bfloat16, 2e-2, 2e-2, 0),       # block edges
+    ((2, 128, 2, 64), 257, 129, torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 129, 2, 64), 257, 127, torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 129, 2, 16), 129, None, torch.bfloat16, 2e-2, 2e-2, 0),      # head dims 16 to 128
+    ((2, 200, 2, 32), 200, None, torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 300, 2, 48), 300, None, torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 130, 2, 128), 130, None, torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 129, 3, 64), 129, None, torch.bfloat16, 2e-2, 2e-2, 4),      # misaligned views
+    ((2, 100, 2, 64), 300, 250, torch.bfloat16, 2e-2, 2e-2, 4),
 ]
 _BWD_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
 
 
-def blocked_inputs(shape, tk, dtype, seed):
+def _randn(shape, offset, g, dtype):
+    """A [shape] tensor starting `offset` elements into its storage."""
+    n = math.prod(shape)
+    return torch.randn(n + offset, device="cuda", generator=g).to(dtype)[offset:].view(shape)
+
+
+def blocked_inputs(shape, tk, dtype, seed, offset=0):
     """q, k, v (strided views of one [B, T, 3, H, D] tensor when square, as
-    the model passes them) and an incoming gradient, on the card."""
+    the model passes them) and an incoming gradient, on the card, each
+    starting ``offset`` elements into its storage."""
     B, T, H, D = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
     if tk == T:
-        qkv = torch.randn(B, T, 3, H, D, device="cuda", generator=g).to(dtype)
+        qkv = _randn((B, T, 3, H, D), offset, g, dtype)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     else:
-        q = torch.randn(B, T, H, D, device="cuda", generator=g).to(dtype)
-        k, v = (torch.randn(B, tk, H, D, device="cuda", generator=g).to(dtype) for _ in range(2))
-    do = torch.randn(B, T, H, D, device="cuda", generator=g).to(dtype)
+        q = _randn((B, T, H, D), offset, g, dtype)
+        k, v = (_randn((B, tk, H, D), offset, g, dtype) for _ in range(2))
+    do = _randn((B, T, H, D), offset, g, dtype)
     return q, k, v, do
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,tk,kv_len,dtype,atol,rtol", _BLOCKED_CASES)
-def test_cuda_blocked_kernels_match_plain_versions(shape, tk, kv_len, dtype, atol, rtol):
+@pytest.mark.parametrize("shape,tk,kv_len,dtype,atol,rtol,offset", _BLOCKED_CASES)
+def test_cuda_blocked_kernels_match_plain_versions(shape, tk, kv_len, dtype, atol, rtol, offset):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
-    q, k, v, do = blocked_inputs(shape, tk, dtype, seed=3)
+    q, k, v, do = blocked_inputs(shape, tk, dtype, seed=3, offset=offset)
     before = (blocked_fused_attention.launches, blocked_attention_dkv.launches,
               blocked_attention_dq.launches)
     o, lse = blocked_fused_attention(q, k, v, kv_len=kv_len)
