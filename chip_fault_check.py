@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""Planted-fault check of the blocked kernels' comparison in chip_smoke.py.
+"""Planted-fault check of the bfloat16 kernels' comparisons in chip_smoke.py.
 
     python3 chip_fault_check.py    (from the repository root; needs one CUDA card and nvcc)
 
 For each fault in FAULTS, copies the port's package and ``chip_smoke.py``
 into a temporary directory, plants the fault in the copy's CUDA header (one
-skipped tile of the walk in a bfloat16 kernel), builds the copy's blocked
-kernels there and runs chip_smoke's blocked kernel phase on each of its
-cases alone. A case that comes out FAILED has caught the fault. The faults
-sit in the bfloat16 (tensor-core) kernels, so every bfloat16 case must catch
-each of them and every float32 case (the CUDA-core kernels) must pass; the
-script exits non-zero otherwise. The repository's own files are not touched.
+skipped tile of the walk in a bfloat16 wgmma kernel), builds the copy's
+attention kernels there and runs chip_smoke's whole-sequence forward phase
+(B1) on each of its cases alone, then its blocked kernel phase (B3, B4, B5)
+on each of its cases alone. A case that comes out FAILED has caught the
+fault. The forward's fault shows on both paths (B1 and B3 run the same
+kernel), B4's and B5's on the blocked one. A case must catch a fault exactly
+when it is bfloat16 and the faulty kernel walks more than one tile in it: a
+walk of one tile never reaches the skipped tile (the forward at (2, 9, 3,
+12) walks one 64-key tile, so no planted tile can show there), and the
+float32 cases run the CUDA-core kernels. The script exits non-zero
+otherwise. The repository's own files are not touched.
 """
 
 from __future__ import annotations
@@ -28,43 +33,86 @@ import torch
 ROOT = Path(__file__).resolve().parent
 PKG = "headct_foundation_tpu_torch"
 
-FAULTS = [  # (name, header under csrc/, kernel definition, anchor in its tile loop, line
-    # planted after the anchor)
-    ("B3 skips key tile 1", "flash_fwd.cuh", "\nflash_fwd_tc_kernel(",
-     "for (int n0 = 0; n0 < kv_len; n0 += kBlockN) {", "if (n0 == kBlockN) continue;"),
-    # B4/B5: the consumer warpgroup takes walked tile 1 off the ring without
-    # using it, so the producer and the mbarriers run on as before
+# Rows of the walked tiles: the forward's 64-key tiles (csrc/flash_fwd_sm90.cuh
+# kKeys), B5's 64-key and B4's 64-query tiles, 32 above a padded head dim of 64
+# (csrc/flash_bwd_sm90.cuh walk_rows).
+FWD_KEYS, BWD_ROWS = 64, 64
+
+
+def padded(d: int) -> int:
+    return next(p for p in (16, 32, 48, 64, 128) if d <= p)
+
+
+def tiles(n: int, rows: int) -> int:
+    return -(-n // rows)
+
+
+FAULTS = [  # (name, header under csrc/, kernel definition, anchor in its consumers' walk,
+    # line planted after the anchor, paths it shows on, tiles the kernel walks for q
+    # [B, Tq, H, D] against kv_len keys). The consumer warpgroups take walked tile 1
+    # off the ring without using it, so the producers and the mbarriers run on as
+    # before.
+    ("B1/B3 skip key tile 1", "flash_fwd_sm90.cuh", "\nflash_fwd_wgmma_kernel(",
+     "bar_wait(full + 8 * st, (i / kStages) & 1);",
+     "if (i == 1) { bar_arrive(empty + 8 * st); continue; }", ("whole", "blocked"),
+     lambda shape, kv_len: tiles(kv_len, FWD_KEYS)),
     ("B4 skips query tile 1", "flash_bwd_sm90.cuh", "\ndkv_wgmma_kernel(",
      "bar_wait(full + 8 * st, (i / kStages) & 1);",
-     "if (i == 1) { bar_arrive(empty + 8 * st); continue; }"),
+     "if (i == 1) { bar_arrive(empty + 8 * st); continue; }", ("blocked",),
+     lambda shape, kv_len: tiles(shape[1],
+                                 BWD_ROWS // 2 if padded(shape[3]) > 64 else BWD_ROWS)),
     ("B5 skips key tile 1", "flash_bwd_sm90.cuh", "\ndq_wgmma_kernel(",
      "bar_wait(full + 8 * st, (i / kStages) & 1);",
-     "if (i == 1) { bar_arrive(empty + 8 * st); continue; }"),
+     "if (i == 1) { bar_arrive(empty + 8 * st); continue; }", ("blocked",),
+     lambda shape, kv_len: tiles(kv_len, BWD_ROWS)),
 ]
 
-# Run inside the copy: each blocked case alone; prints which ones failed.
+# Run inside the copy: each case of both phases alone; prints which ones failed.
 RUN = r"""
 import json, chip_smoke
 from headct_foundation_tpu_torch.ops import _build
+from headct_foundation_tpu_torch.ops.flash_attention import fused_attention, fused_attention_reference
 
-_build.build_all(["flash_attention_blocked_fwd", "flash_attention_blocked_bwd"])
-caught = []
+_build.build_all(["flash_attention_fwd", "flash_attention_blocked_fwd", "flash_attention_blocked_bwd"])
+caught = {"whole": [], "blocked": []}
+for case in list(chip_smoke.KERNEL_CASES):
+    chip_smoke.KERNEL_CASES = [case]
+    try:
+        chip_smoke.phase_kernels(fused_attention, fused_attention_reference)
+        caught["whole"].append(False)
+    except RuntimeError:
+        caught["whole"].append(True)
 for case in list(chip_smoke.BLOCKED_CASES):
     chip_smoke.BLOCKED_CASES = [case]
     try:
         chip_smoke.phase_blocked_kernels()
-        caught.append(False)
+        caught["blocked"].append(False)
     except RuntimeError:
-        caught.append(True)
+        caught["blocked"].append(True)
 print("CAUGHT " + json.dumps(caught), flush=True)
 """
 
 
 def plant(source: str, kernel: str, loop: str, line: str) -> str:
-    """``line`` right after the first ``loop`` anchor in ``kernel``."""
+    """``line`` right after the first ``loop`` anchor in ``kernel``'s body
+    (before the next kernel definition); raises ValueError where the anchor
+    is not there."""
     at = source.index(kernel)
-    at = source.index(loop, at) + len(loop)
+    end = source.find("__global__", at)
+    at = source.index(loop, at, len(source) if end < 0 else end) + len(loop)
     return source[:at] + " " + line + source[at:]
+
+
+def expected(paths, walked) -> dict:
+    """Per path, per chip_smoke case: whether the fault must be caught."""
+    import chip_smoke
+
+    whole = [("whole" in paths and dtype == torch.bfloat16 and walked(shape, shape[1]) > 1)
+             for shape, dtype, *_ in chip_smoke.KERNEL_CASES]
+    blocked = [("blocked" in paths and dtype == torch.bfloat16
+                and walked(shape, tk if kv_len is None else kv_len) > 1)
+               for shape, tk, kv_len, dtype, *_ in chip_smoke.BLOCKED_CASES]
+    return {"whole": whole, "blocked": blocked}
 
 
 def main() -> int:
@@ -73,11 +121,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    import chip_smoke
 
-    want = [case[3] == torch.bfloat16 for case in chip_smoke.BLOCKED_CASES]
     ok = True
-    for name, header, kernel, loop, line in FAULTS:
+    for name, header, kernel, loop, line, paths, walked in FAULTS:
+        want = expected(paths, walked)
         with tempfile.TemporaryDirectory() as tmp:
             copy = Path(tmp)
             shutil.copytree(ROOT / PKG, copy / PKG,
@@ -100,8 +147,11 @@ def main() -> int:
         caught = json.loads(done[-1][len("CAUGHT "):])
         right = caught == want
         ok &= right
-        print(f"fault {name}: caught by {sum(caught)} of {len(caught)} cases, every bfloat16 "
-              f"case and no float32 one: {'ok' if right else 'FAILED'}", flush=True)
+        counts = ", ".join(f"{path} {sum(caught[path])} of {len(caught[path])} cases "
+                           f"(expected {sum(want[path])})" for path in caught)
+        print(f"fault {name}: caught by {counts}: every bfloat16 case walking more than one "
+              f"tile of the faulty kernel and no other: {'ok' if right else 'FAILED'}",
+              flush=True)
     print(json.dumps({"ok": ok}), flush=True)
     return 0 if ok else 1
 

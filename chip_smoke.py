@@ -13,15 +13,21 @@ Phases, each printing a line; any failure raises and exits non-zero:
              kernel, the plain version and the one PyTorch call that computes
              the same function (``library_ms``; the port never calls it).
              Every output is held elementwise; a bfloat16 one also normwise,
-             ||kernel - plain|| / ||plain|| <= BF16_REL_L2. The blocked
+             ||kernel - plain|| / ||plain|| <= BF16_REL_L2. The forward (B1;
+             bf16 on the wgmma kernel of csrc/flash_fwd_sm90.cuh) is held at
+             the serving and MAE decoder shapes and at the edges of its
+             64-key tiles and 128-row blocks, head dims 12 to 128 and a
+             misaligned view; two runs must be bit-identical. The blocked
              kernels B3 (forward), B4 (dK, dV) and B5 (dQ) are held at the
              192^3 MAE's shapes, in float32, with rectangular q/k and a kv_len
              that masks whole key tiles, at head dims 12 to 128, at the
-             edges of B4/B5's 64-row blocks and on misaligned views; their
-             masked dK, dV must be exactly 0 and two runs of B4 and B5
-             bit-identical. B4/B5's ptxas report (registers, spills, shared
-             memory) is printed after the build, and each is timed beside its
-             bound and its exponentials' floor.
+             edges of their 64-row tiles and on misaligned views; their
+             masked dK, dV must be exactly 0 and two runs of B3, B4 and B5
+             bit-identical. ptxas's report (registers, spills, shared memory)
+             of every wgmma instantiation (the forward, B4, B5) is printed
+             after the build, a spill failing the run. B1 bf16 and B3-B5 are
+             timed on an idle stream and behind a device sleep, beside their
+             bound and their exponentials' floor.
 4. slice   - the embedding server at full width: ViT-B/12 at 96^3, 3
              channels, random weights from a seeded generator, behind
              ``build_server(max_batch=8)``; 8 concurrent POSTs of synthetic
@@ -97,15 +103,28 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # H100 SXM, dense
 PEAK_BYTES = 3.35e12
 SERVING = (8, 513, 12, 64)
 MAE_DECODER = (32, 513, 16, 48)
-KERNEL_CASES = [  # (shape [B, T, H, D], dtype, atol, rtol) for O; LSE at 1e-4 / 1e-4
-    (SERVING, torch.float32, 2e-5, 1e-4),               # serving path, every ViT-B block
-    (MAE_DECODER, torch.bfloat16, 2e-2, 2e-2),          # MAE decoder, every block
-    ((2, 129, 3, 32), torch.float32, 2e-5, 1e-4),       # ragged tiles
-    ((2, 9, 3, 12), torch.float32, 2e-5, 1e-4),
-    ((2, 129, 3, 32), torch.bfloat16, 2e-2, 2e-2),      # the tensor-core path's other
-    ((2, 9, 3, 12), torch.bfloat16, 2e-2, 2e-2),        # head-dim paddings (32, 16,
-    ((2, 200, 2, 64), torch.bfloat16, 2e-2, 2e-2),      # 64, 128)
-    ((2, 70, 2, 128), torch.bfloat16, 2e-2, 2e-2),
+KERNEL_CASES = [  # (shape [B, T, H, D], dtype, atol, rtol, storage offset) for O; LSE at
+    # 1e-4 / 1e-4; reruns bit-identical. q, k, v are strided views of one [B, T, 3, H, D].
+    # The bf16 cases from the block edges on hold the wgmma forward's 64-key tiles and
+    # 128-row blocks (T one below, at and one above each), head dims 12 (the 8-byte copy
+    # route, several key tiles) and 128, and a view whose start (4 elements in) breaks the
+    # 16-byte alignment of every operand.
+    (SERVING, torch.float32, 2e-5, 1e-4, 0),               # serving path, every ViT-B block
+    (MAE_DECODER, torch.bfloat16, 2e-2, 2e-2, 0),          # MAE decoder, every block
+    ((2, 129, 3, 32), torch.float32, 2e-5, 1e-4, 0),       # ragged tiles
+    ((2, 9, 3, 12), torch.float32, 2e-5, 1e-4, 0),
+    ((2, 129, 3, 32), torch.bfloat16, 2e-2, 2e-2, 0),      # the tensor-core path's other
+    ((2, 9, 3, 12), torch.bfloat16, 2e-2, 2e-2, 0),        # head-dim paddings (32, 16,
+    ((2, 200, 2, 64), torch.bfloat16, 2e-2, 2e-2, 0),      # 64, 128)
+    ((2, 70, 2, 128), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 63, 2, 48), torch.bfloat16, 2e-2, 2e-2, 0),       # block edges
+    ((2, 64, 2, 48), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 65, 2, 48), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 127, 2, 64), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 128, 2, 64), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 200, 2, 12), torch.bfloat16, 2e-2, 2e-2, 0),      # head dims 12 and 128
+    ((2, 130, 2, 128), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 129, 3, 64), torch.bfloat16, 2e-2, 2e-2, 4),      # misaligned view
 ]
 BWD_CASES = [  # (shape, dtype, atol, rtol) for dq, dk, dv against the plain backward
     (MAE_DECODER, torch.bfloat16, 2e-2, 2e-2),          # MAE decoder (main path)
@@ -144,6 +163,9 @@ BLOCKED_CASES = [  # (q [B, Tq, H, D], Tk, kv_len, dtype, atol, rtol, storage of
     ((2, 130, 2, 128), 130, None, torch.bfloat16, 2e-2, 2e-2, 0),
     ((2, 129, 3, 64), 129, None, torch.bfloat16, 2e-2, 2e-2, 4),   # misaligned views
     ((2, 100, 2, 64), 300, 250, torch.bfloat16, 2e-2, 2e-2, 4),
+    ((2, 63, 2, 48), 130, 65, torch.bfloat16, 2e-2, 2e-2, 0),      # the forward's 64-key
+    ((2, 64, 2, 48), 130, 63, torch.bfloat16, 2e-2, 2e-2, 0),      # tile edges
+    ((2, 65, 2, 48), 130, 64, torch.bfloat16, 2e-2, 2e-2, 0),
 ]
 BLOCKED_BWD_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
 # A bfloat16 output is also held normwise: ||a - b|| / ||b|| against its plain
@@ -256,9 +278,9 @@ def blocked_bound_ms(name: str, q_shape, tk: int, kv_len, dtype) -> tuple:
 
 
 def exp_floor_ms(q_shape, n_keys: int) -> float:
-    """Least time of the exponentials of one blocked backward pass: one per
-    P element, B*H*Tq*n_keys, at 16 a clock on each SM's special function
-    units (the card's SM count and its maximum SM clock)."""
+    """Least time of the exponentials of one attention pass (the forward, B4
+    or B5): one per P element, B*H*Tq*n_keys, at 16 a clock on each SM's
+    special function units (the card's SM count and its maximum SM clock)."""
     B, Tq, H, _ = q_shape
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -289,37 +311,62 @@ def norm_note(dtype) -> str:
 
 def phase_kernels(fused_attention, fused_attention_reference) -> dict:
     results = {}
-    for shape, dtype, atol, rtol in KERNEL_CASES:
+    for shape, dtype, atol, rtol, offset in KERNEL_CASES:
         B, T, H, D = shape
         g = torch.Generator(device="cuda").manual_seed(1)
-        qkv = torch.randn(B, T, 3, H, D, device="cuda", generator=g).to(dtype)
+        qkv = randn_at((B, T, 3, H, D), offset, g, dtype)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # strided, as the model passes them
         o, lse = fused_attention(q, k, v)
+        again = fused_attention(q, k, v)
         torch.cuda.synchronize()
         o_ref, lse_ref = fused_attention_reference(q, k, v)
         elem_ok, norm_ok, err_o, rel_o = within(o, o_ref, atol, rtol, dtype)
         err_lse = (lse - lse_ref).abs()
-        ok = elem_ok and norm_ok and bool((err_lse <= 1e-4 + 1e-4 * lse_ref.abs()).all())
-        print(f"kernel flash_attention_fwd {list(shape)} {str(dtype)[6:]}: max_abs_err "
+        same = torch.equal(o, again[0]) and torch.equal(lse, again[1])
+        ok = (elem_ok and norm_ok and same
+              and bool((err_lse <= 1e-4 + 1e-4 * lse_ref.abs()).all()))
+        at = f" offset {offset}" if offset else ""
+        print(f"kernel flash_attention_fwd {list(shape)} {str(dtype)[6:]}{at}: max_abs_err "
               f"o={err_o:.3e} lse={err_lse.max().item():.3e}, rel_l2 o={rel_o:.3e} "
               f"(tolerance o atol {atol} rtol {rtol}{norm_note(dtype)}, lse atol 1e-4 rtol "
-              f"1e-4) {'ok' if ok else 'FAILED'}", flush=True)
-        check(ok, f"flash_attention_fwd disagrees with its plain version at {shape} {dtype}")
+              f"1e-4); reruns bit-identical {same} {'ok' if ok else 'FAILED'}", flush=True)
+        check(ok, f"flash_attention_fwd disagrees with its plain version at {shape} {dtype} "
+                  f"offset {offset}")
         row = {"max_abs_err": err_o}
         if T == 513:  # the main path's shapes: time kernel, plain version and library call
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            row["ms"] = cuda_ms(lambda: fused_attention(q, k, v))
-            row["plain_ms"] = cuda_ms(lambda: fused_attention_reference(q, k, v))
-            row["library_ms"] = cuda_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
-            row["bound_ms"], row["bound_by"] = attention_bound_ms(shape, dtype)
-            print(f"timing flash_attention_fwd {list(shape)} {str(dtype)[6:]}: "
-                  f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-                  f"scaled_dot_product_attention {row['library_ms']:.4f} ms, bound "
-                  f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
-                  f"({100 * row['bound_ms'] / row['ms']:.1f}% of bound)", flush=True)
+            time_fwd(fused_attention, fused_attention_reference, row, q, k, v, shape, dtype)
         results[(shape, dtype)] = row
     return results
+
+
+def time_fwd(fused_attention, fused_attention_reference, row, q, k, v, shape, dtype) -> None:
+    """Kernel, plain version, bound and library call (scaled_dot_product_attention's
+    forward) of B1 at a main-path shape, on an idle stream (``ms``,
+    ``library_ms``); at bfloat16 also behind a device sleep (``ms_device``,
+    ``library_ms_device``: the device's time alone) beside the exp floor."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    row["ms"] = cuda_ms(lambda: fused_attention(q, k, v))
+    row["plain_ms"] = cuda_ms(lambda: fused_attention_reference(q, k, v))
+    row["library_ms"] = cuda_ms(lambda: sdpa(qt, kt, vt))
+    row["bound_ms"], row["bound_by"] = attention_bound_ms(shape, dtype)
+    device = ""
+    if dtype == torch.bfloat16:
+        row["ms_device"] = cuda_ms(lambda: fused_attention(q, k, v), ahead=AHEAD_ONE)
+        row["library_ms_device"] = cuda_ms(lambda: sdpa(qt, kt, vt), ahead=AHEAD_ONE)
+        floor = exp_floor_ms(shape, shape[1])
+        device = (f"; behind a device sleep kernel {row['ms_device']:.4f} ms, "
+                  f"scaled_dot_product_attention {row['library_ms_device']:.4f} ms "
+                  f"({row['ms_device'] / row['library_ms_device']:.2f}x); exp floor "
+                  f"{floor:.4f} ms (one exponential per P element, B*H*T^2 = "
+                  f"{shape[0] * shape[2] * shape[1] ** 2}, at 16 per SM per clock), "
+                  f"{100 * floor / row['ms_device']:.1f}% of the kernel's device time")
+    print(f"timing flash_attention_fwd {list(shape)} {str(dtype)[6:]}: "
+          f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+          f"scaled_dot_product_attention {row['library_ms']:.4f} ms "
+          f"({row['ms'] / row['library_ms']:.2f}x), on an idle stream; bound "
+          f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
+          f"({100 * row['bound_ms'] / row['ms']:.1f}% of bound){device}", flush=True)
 
 
 def phase_bwd_kernels(fused_attention, fused_attention_bwd, fused_attention_bwd_reference) -> dict:
@@ -405,7 +452,8 @@ def phase_blocked_kernels() -> dict:
         delta = fa.attention_delta(o, do)
         dk, dv = fa.blocked_attention_dkv(q, k, v, do, lse, delta, kv_len=kv_len)
         dq = fa.blocked_attention_dq(q, k, v, do, lse, delta, kv_len=kv_len)
-        again = (*fa.blocked_attention_dkv(q, k, v, do, lse, delta, kv_len=kv_len),
+        again = (*fa.blocked_fused_attention(q, k, v, kv_len=kv_len),
+                 *fa.blocked_attention_dkv(q, k, v, do, lse, delta, kv_len=kv_len),
                  fa.blocked_attention_dq(q, k, v, do, lse, delta, kv_len=kv_len))
         torch.cuda.synchronize()
         o_ref, lse_ref = fa.blocked_attention_reference(q, k, v, kv_len=kv_len)
@@ -420,7 +468,7 @@ def phase_blocked_kernels() -> dict:
         elem_ok = all(r[0] for r in res) and bool((err_lse <= 1e-4 + 1e-4 * lse_ref.abs()).all())
         norm_ok = all(r[1] for r in res)
         errs, rels = [r[2] for r in res], [r[3] for r in res]
-        same = all(torch.equal(a, b) for a, b in zip((dk, dv, dq), again))
+        same = all(torch.equal(a, b) for a, b in zip((o, lse, dk, dv, dq), again))
         masked_zero = kv_len is None or not (dk[:, kv_len:].any() or dv[:, kv_len:].any())
         ok = elem_ok and norm_ok and same and masked_zero
         at = f" offset {offset}" if offset else ""
@@ -430,7 +478,7 @@ def phase_blocked_kernels() -> dict:
               f"dk={rels[1]:.3e} dv={rels[2]:.3e} dq={rels[3]:.3e} (tolerance o atol {atol} "
               f"rtol {rtol}, lse 1e-4/1e-4, grads atol {batol} rtol {brtol}: "
               f"{'ok' if elem_ok else 'FAILED'}{norm_note(dtype)}: "
-              f"{'ok' if norm_ok else 'FAILED'}); B4/B5 reruns bit-identical {same}; masked "
+              f"{'ok' if norm_ok else 'FAILED'}); B3/B4/B5 reruns bit-identical {same}; masked "
               f"dk/dv exactly 0 {masked_zero} {'ok' if ok else 'FAILED'}", flush=True)
         check(ok, f"blocked kernels disagree with their plain versions at {shape} {tk} "
                   f"{kv_len} {dtype} offset {offset}")
@@ -501,11 +549,10 @@ def time_blocked(fa, rows, q, k, v, o, do, lse, delta, shape, dtype) -> None:
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
               f"({100 * r['bound_ms'] / r['ms']:.1f}% of bound; "
               f"{100 * r['bound_ms'] / r['ms_device']:.1f}% of the device time)", flush=True)
-        if name != "flash_attention_blocked_fwd":
-            print(f"timing {name} {list(shape)} {str(dtype)[6:]}: exp floor {floor:.4f} ms "
-                  f"(one exponential per P element, B*H*Tq*Tk = "
-                  f"{shape[0] * shape[2] * shape[1] ** 2}, at 16 per SM per clock), "
-                  f"{100 * floor / r['ms_device']:.1f}% of the kernel's device time", flush=True)
+        print(f"timing {name} {list(shape)} {str(dtype)[6:]}: exp floor {floor:.4f} ms "
+              f"(one exponential per P element, B*H*Tq*Tk = "
+              f"{shape[0] * shape[2] * shape[1] ** 2}, at 16 per SM per clock), "
+              f"{100 * floor / r['ms_device']:.1f}% of the kernel's device time", flush=True)
     print(f"timing blocked backward {list(shape)} {str(dtype)[6:]}: delta (torch) + B4 + B5 "
           f"{bwd_ms:.4f} ms ({bwd_ms / sdpa_bwd_ms:.2f}x) against the backward of "
           f"scaled_dot_product_attention {sdpa_bwd_ms:.4f} ms (its forward+backward minus its "
@@ -1133,32 +1180,51 @@ def phase_train(label: str, config: str, batch: int, compare_batch: int, seed0: 
     return {"train": train_launches, "eval": val_launches, "compare": compare, "lion": lion}
 
 
-def report_blocked_bwd_build(_build) -> None:
-    """ptxas's registers and spills of each instantiation of B4 and B5
-    (csrc/flash_bwd_sm90.cuh: head dim padded to DP, walked tile NT, copy
-    width), with its dynamic shared memory; a spill fails the run. A library
-    built before this run is held by the report saved beside it."""
+# Libraries holding wgmma kernels -> instantiations ptxas must report: the
+# forward at 5 padded head dims x 2 copy widths in each of B1's, B3's and B7's
+# library, B4 and B5 at 5 x 2 each.
+WGMMA_BUILDS = {"flash_attention_fwd": 10, "flash_attention_blocked_fwd": 10,
+                "tm_attention": 10, "flash_attention_blocked_bwd": 20}
+
+
+def report_wgmma_build(_build) -> None:
+    """ptxas's registers and spills of each instantiation of the wgmma
+    kernels -- the forward (csrc/flash_fwd_sm90.cuh) and B4/B5
+    (csrc/flash_bwd_sm90.cuh): head dim padded to DP, walked tile NT, copy
+    width -- with its dynamic shared memory, and any line where ptxas says
+    it serialized wgmma. A spill fails the run. A library built before this
+    run is held by the report saved beside it."""
     import ctypes
 
-    log = _build.ptxas_log("flash_attention_blocked_bwd")
-    smem = _build.load("flash_attention_blocked_bwd").headct_flash_attention_blocked_bwd_smem
-    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_longlong], ctypes.c_longlong
-    seen = 0
-    for entry in log.split("Compiling entry function '")[1:]:
-        name = entry.split("'")[0]
-        kind = next((k for k in ("dkv_wgmma_kernel", "dq_wgmma_kernel") if k in name), None)
-        if kind is None:
-            continue
-        dp, nt, ch = (int(x) for x in re.findall(r"Li(\d+)E", name)[:3])
-        regs = int(re.search(r"Used (\d+) registers", entry).group(1))
-        spills = int(re.search(r"(\d+) bytes spill stores", entry).group(1))
-        print(f"build: {'B4' if kind.startswith('dkv') else 'B5'} {kind}<DP {dp}, NT {nt}, "
-              f"{2 * ch}-byte copies>: {regs} registers, {spills} bytes spill stores, "
-              f"{smem(int(kind.startswith('dkv')), dp)} bytes dynamic shared memory per block",
-              flush=True)
-        check(spills == 0, f"{kind} at DP {dp} spills {spills} bytes")
-        seen += 1
-    check(seen == 20, f"ptxas reported {seen} instantiations of B4/B5; expected 20")
+    fwd_smem = _build.load("flash_attention_blocked_fwd").headct_flash_attention_blocked_fwd_smem
+    fwd_smem.argtypes, fwd_smem.restype = [ctypes.c_longlong], ctypes.c_longlong
+    bwd_smem = _build.load("flash_attention_blocked_bwd").headct_flash_attention_blocked_bwd_smem
+    bwd_smem.argtypes, bwd_smem.restype = [ctypes.c_int, ctypes.c_longlong], ctypes.c_longlong
+    kinds = {"flash_fwd_wgmma_kernel": ("forward", fwd_smem),
+             "dkv_wgmma_kernel": ("B4", lambda dp: bwd_smem(1, dp)),
+             "dq_wgmma_kernel": ("B5", lambda dp: bwd_smem(0, dp))}
+    seen = {}
+    for lib in WGMMA_BUILDS:
+        log = _build.ptxas_log(lib)
+        for line in log.splitlines():
+            if "wgmma" in line and "serialized" in line:
+                print(f"build: {lib}: ptxas: {line.strip()}", flush=True)
+        for entry in log.split("Compiling entry function '")[1:]:
+            name = entry.split("'")[0]
+            kind = next((k for k in kinds if k in name), None)
+            if kind is None:
+                continue
+            label, smem = kinds[kind]
+            dp, nt, ch = (int(x) for x in re.findall(r"Li(\d+)E", name)[:3])
+            regs = int(re.search(r"Used (\d+) registers", entry).group(1))
+            spills = int(re.search(r"(\d+) bytes spill stores", entry).group(1))
+            print(f"build: {lib} {label} {kind}<DP {dp}, NT {nt}, {2 * ch}-byte copies>: "
+                  f"{regs} registers, {spills} bytes spill stores, {smem(dp)} bytes dynamic "
+                  f"shared memory per block", flush=True)
+            check(spills == 0, f"{kind} at DP {dp} in {lib} spills {spills} bytes")
+            seen[lib] = seen.get(lib, 0) + 1
+    check(seen == WGMMA_BUILDS,
+          f"ptxas reported {seen} instantiations of the wgmma kernels; expected {WGMMA_BUILDS}")
 
 
 def main() -> int:
@@ -1191,7 +1257,7 @@ def main() -> int:
         spills = re.findall(r"(\d+) bytes spill stores", log)
         print(f"build: {name} ptxas registers {used} spill-store bytes {spills}", flush=True)
 
-    report_blocked_bwd_build(_build)
+    report_wgmma_build(_build)
 
     kernel_rows = phase_kernels(fused_attention, fused_attention_reference)
     bwd_rows = phase_bwd_kernels(fused_attention, fused_attention_bwd,
@@ -1281,10 +1347,11 @@ def main() -> int:
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_device",
                 "library_ms_device", "backward_ms", "backward_ms_device",
                 "library_backward_ms", "library_backward_ms_device")
-        # B4/B5: the kernels are in flash_bwd_sm90.cuh, their C entries in the .cu
-        source, entry = (("flash_attention_blocked_fwd.cu", {}) if name == blocked[0] else
-                         ("flash_bwd_sm90.cuh", {"entry": "headct_foundation_tpu_torch/csrc/"
-                                                          "flash_attention_blocked_bwd.cu"}))
+        # the bf16 kernels are in the sm_90a headers, their C entries in the .cu
+        source, entry = (("flash_fwd_sm90.cuh", "flash_attention_blocked_fwd.cu")
+                         if name == blocked[0] else
+                         ("flash_bwd_sm90.cuh", "flash_attention_blocked_bwd.cu"))
+        entry = {"entry": f"headct_foundation_tpu_torch/csrc/{entry}"}
         return row(name, source, replaces, {**dec, "max_abs_err": err}, STRETCH_DECODER, torch.bfloat16,
                    at_encoder_shape={"shape": list(STRETCH_ENCODER),
                                      **{k: enc[k] for k in keys if k in enc}},
@@ -1292,7 +1359,13 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         row("flash_attention_fwd", "flash_attention_fwd.cu", 60,
-            kernel_rows[(SERVING, torch.float32)], SERVING, torch.float32),
+            kernel_rows[(SERVING, torch.float32)], SERVING, torch.float32,
+            at_mae_decoder_shape={
+                "shape": list(MAE_DECODER), "dtype": "bfloat16",
+                "kernel_source": "headct_foundation_tpu_torch/csrc/flash_fwd_sm90.cuh",
+                **{k: fwd_mae[k] for k in ("max_abs_err", "ms", "ms_device", "plain_ms",
+                                           "bound_ms", "bound_by", "library_ms",
+                                           "library_ms_device")}}),
         row("flash_attention_bwd", "flash_attention_bwd.cu", 86, bwd_mae, MAE_DECODER,
             torch.bfloat16),
         blocked_row(blocked[0], 256),

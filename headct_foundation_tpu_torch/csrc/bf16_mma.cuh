@@ -1,5 +1,6 @@
-// bfloat16 tensor-core building blocks shared by the attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu): mma.sync.m16n8k16 with
+// bfloat16 tensor-core building blocks of the whole-sequence backward
+// (flash_bwd.cuh: B2, B8; pack_bf16 also serves sm90_common.cuh):
+// mma.sync.m16n8k16 with
 // bf16 operands and float32 accumulation, its fragment loads from padded
 // shared-memory tiles, and the conversion of an accumulator block into an
 // A operand (the m16n8 accumulator layout is the m16n8k16 A-operand layout,

@@ -14,26 +14,28 @@
 // Design. The Pallas kernel walks 512-key blocks of a VMEM-resident K/V slab
 // in one program per (batch*head, 256- or 512-query block), carrying (m, l,
 // acc) through a fori_loop. A Hopper block has 227 KB of shared memory and
-// blocks run in parallel, so this uses the forward kernels of flash_fwd.cuh:
-// one block of 128 threads per (64 query rows, batch*head) -- 2080 blocks at
-// the decoder shape, 408 at the encoder's -- streaming 64-key tiles through
-// shared memory with the online softmax in registers. The TPU block sizes
+// blocks run in parallel, so this uses the forward kernels of flash_fwd.cuh.
+// bfloat16 takes flash_fwd_sm90.cuh's wgmma kernel: one block per (128 query
+// rows, batch*head) -- 1056 blocks at the decoder shape, 216 at the
+// encoder's -- two consumer warpgroups sharing the 64-key K and V tiles that
+// two producer warps stream through a cp.async/mbarrier ring. float32 takes
+// flash_fwd_kernel on the CUDA cores (full float32 products, as the TPU
+// kernel keeps for float32 inputs). The TPU block sizes
 // (`_blocked_block_sizes`, `BLOCK_Q`/`BLOCK_K`) are TPU tuning and play no
-// part here. The key loop stops at kv_len, so no tile is wholly masked and no
-// work is spent past it; query rows >= Tq are not stored. bfloat16 runs on
-// the tensor cores (mma.sync), float32 on the CUDA cores (full float32
-// products, as the TPU kernel keeps for float32 inputs). All offsets are
-// 64-bit. P is rounded to bf16 against the running max of each 64-key tile,
-// where the TPU kernel rounds against that of each 512-key block, so bf16
-// outputs differ from it by about one bf16 step.
+// part here. The key loop stops at the last tile holding a key < kv_len, so
+// no tile is wholly masked and no work is spent past it; query rows >= Tq
+// are not stored. All offsets are 64-bit. P is rounded to bf16 against the
+// running max of the walk so far, where the TPU kernel rounds against that of
+// each 512-key block, so bf16 outputs differ from it by about one bf16 step.
 //
 // Bound at the decoder shape [2, 4097, 16, 48] bfloat16: 4*B*H*Tq*Tk*D =
 // 1.03e11 operations, 0.104 ms at the dense bf16 peak of 989 TFLOP/s, against
 // q, k, v read and o, LSE written once, 50.9 MB, 0.015 ms at 3.35 TB/s: bound
-// by operations (encoder [2, 1025, 12, 64]: 6.45e9, 0.0065 ms). mma.sync
-// reaches part of that peak and every P element takes an exp on the special
-// function units, so the kernel stays well above the bound; wgmma and TMA are
-// later work.
+// by operations (encoder [2, 1025, 12, 64]: 6.45e9, 0.0065 ms). Every P
+// element takes an exponential on the special function units, B*H*Tq*Tk =
+// 5.37e8 at 16 per SM per clock: 0.128 ms at 132 SMs and 1.98 GHz, above the
+// operations bound (encoder: 0.006 ms). That floor, not the tensor cores,
+// limits the kernel at D = 48.
 
 #include "flash_fwd.cuh"
 
@@ -51,7 +53,13 @@ extern "C" int headct_flash_attention_blocked_fwd(
       kv_len > tk || tk > 2147483647LL - 64 || B < 1 || n_heads < 1 || B * n_heads > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  const fwd::FwdArgs a{q, k, v, o, lse, B, tq, kv_len, n_heads, d,
+  const FwdArgs a{q, k, v, o, lse, B, tq, kv_len, n_heads, d,
                        {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh}, {v_sb, v_st, v_sh}, scale};
   return (int)fwd::flash_fwd<Blocked>(a, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory of one bfloat16 block at head dim d, in bytes (for
+// reports; B1 and B7 run the same kernel and take the same).
+extern "C" long long headct_flash_attention_blocked_fwd_smem(long long d) {
+  return (long long)fwd90::smem_bytes(d);
 }

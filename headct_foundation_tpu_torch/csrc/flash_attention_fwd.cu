@@ -12,20 +12,23 @@
 //
 // Design. The Pallas kernel holds the whole [T, T] float32 score slab in VMEM
 // (1 MB at T = 513); a Hopper block has 227 KB of shared memory, so this kernel
-// streams instead: the forward kernels of flash_fwd.cuh (64 query rows per
-// block, 64-key tiles through shared memory, online softmax in registers;
-// float32 on the CUDA cores, bfloat16 on the tensor cores with mma.sync),
-// called with Tq = Tk = kv_len = T. The ragged tail is masked: 513 = 8 * 64 +
-// 1, so the last key tile has one real column and the last query tile one real
-// row. The blocked kernel B3 (flash_attention_blocked_fwd.cu) is the same code
-// without the square, T <= 1024 limits.
+// streams instead, with the forward kernels of flash_fwd.cuh called with Tq =
+// Tk = kv_len = T: bfloat16 on flash_fwd_sm90.cuh's wgmma kernel (128 query
+// rows per block, 64-key tiles through a cp.async/mbarrier ring, online
+// softmax in registers), float32 on the CUDA cores (64 query rows per block). The ragged tail is
+// masked: 513 = 8 * 64 + 1, so the last key tile has one real column and the
+// last query block one real row. The blocked kernel B3
+// (flash_attention_blocked_fwd.cu) is the same code without the square,
+// T <= 1024 limits.
 //
 // Bound at the serving shape [8, 513, 12, 64] float32: 4*B*H*T^2*D = 6.47e9
 // operations, 0.097 ms at the H100 SXM's 67 TFLOP/s of float32 outside the
 // tensor cores; q, k, v read once and o written once are 50.5 MB, 0.015 ms at
 // 3.35 TB/s. So it is bound by operations. At the MAE decoder shape
 // [32, 513, 16, 48] bfloat16: 2.59e10 operations, 0.026 ms at 989 TFLOP/s,
-// against 102 MB, 0.030 ms: bound by bytes.
+// against 102 MB, 0.030 ms: bound by bytes. Its exponentials, one per P
+// element (B*H*T^2 = 1.35e8 at 16 per SM per clock, 132 SMs at 1.98 GHz),
+// take 0.032 ms, as long as the bytes.
 
 #include "flash_fwd.cuh"
 
@@ -43,7 +46,7 @@ extern "C" int headct_flash_attention_fwd(
       B * n_heads > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  const fwd::FwdArgs a{q, k, v, o, lse, B, t_len, t_len, n_heads, d,
+  const FwdArgs a{q, k, v, o, lse, B, t_len, t_len, n_heads, d,
                        {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh}, {v_sb, v_st, v_sh}, scale};
   return (int)fwd::flash_fwd<WholeSequence>(a, dtype, static_cast<cudaStream_t>(stream));
 }

@@ -492,8 +492,7 @@ dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
 
 template <typename T, typename Kernel>
 cudaError_t launch_dkv_kernel(Kernel kernel, size_t smem, const BwdArgs& a, cudaStream_t s) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((a.tk + kTile - 1) / kTile), (unsigned)(a.B * a.n_heads));
   kernel<<<grid, kThreads, smem, s>>>(
@@ -507,8 +506,7 @@ cudaError_t launch_dkv_kernel(Kernel kernel, size_t smem, const BwdArgs& a, cuda
 
 template <typename T, typename Kernel>
 cudaError_t launch_dq_kernel(Kernel kernel, size_t smem, const BwdArgs& a, cudaStream_t s) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((a.tq + kTile - 1) / kTile), (unsigned)(a.B * a.n_heads));
   kernel<<<grid, kThreads, smem, s>>>(

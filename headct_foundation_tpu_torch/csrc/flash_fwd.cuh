@@ -1,4 +1,4 @@
-// Forward attention kernels shared by the whole-sequence kernel B1
+// Forward attention shared by the whole-sequence kernel B1
 // (flash_attention_fwd.cu), the blocked kernel B3
 // (flash_attention_blocked_fwd.cu) and the token-major kernel B7
 // (tm_attention.cu). For every (batch, head) and query row t
@@ -10,21 +10,23 @@
 // Keys at positions >= kv_len carry no weight. B1 calls it with
 // Tq = Tk = kv_len = T.
 //
-// Design: one block of 128 threads per (64 query rows, batch*head). The query
-// tile stays in shared memory (float32 operands) or in registers (bfloat16);
-// key/value tiles of 64 rows are staged through shared memory one after
-// another up to kv_len, and each warp keeps, for its 16 query rows, a running
-// max m, sum l and float32 accumulator (online softmax, Dao et al. arXiv
-// 2205.14135). The loop ends at the last tile holding a real key, so no tile
-// is wholly masked and the running max is finite after the first one (no
-// -inf - -inf). Scores never touch device memory. Ragged tails are masked:
-// key columns >= kv_len score -inf, query rows >= Tq are computed on zeros and
-// not stored. Inputs are read through their (batch, token, head) strides with
-// a unit head-dim stride; every offset into them is 64-bit.
-// float32 operands run every product on the float32 CUDA cores
-// (flash_fwd_kernel); bfloat16 operands run them on the tensor cores with
-// mma.sync (flash_fwd_tc_kernel, bf16_mma.cuh), P (rounded to bf16) feeding
-// the P.V product straight from the S accumulator fragments. No wgmma, no TMA.
+// `flash_fwd` routes bfloat16 operands to the Hopper kernel of
+// flash_fwd_sm90.cuh (wgmma, producer warps feeding a cp.async/mbarrier
+// ring) and float32 operands to flash_fwd_kernel
+// here, which runs every product on the float32 CUDA cores, as the TPU
+// kernels keep full float32 products for float32 inputs.
+//
+// flash_fwd_kernel: one block of 128 threads per (64 query rows,
+// batch*head). The query tile stays in shared memory; key/value tiles of 64
+// rows are staged through shared memory one after another up to kv_len, and
+// each warp keeps, for its 16 query rows, a running max m, sum l and float32
+// accumulator (online softmax, Dao et al. arXiv 2205.14135). The loop ends at
+// the last tile holding a real key, so no tile is wholly masked and the
+// running max is finite after the first one (no -inf - -inf). Scores never
+// touch device memory. Ragged tails are masked: key columns >= kv_len score
+// -inf, query rows >= Tq are computed on zeros and not stored. Inputs are
+// read through their (batch, token, head) strides with a unit head-dim
+// stride; every offset into them is 64-bit.
 // Everything here lives in namespace `fwd`, so that one source can include
 // this header and flash_bwd.cuh together (tm_attention.cu does).
 
@@ -36,7 +38,7 @@
 #include <stdint.h>
 
 #include "attention_common.cuh"
-#include "bf16_mma.cuh"
+#include "flash_fwd_sm90.cuh"
 
 namespace {
 namespace fwd {
@@ -47,18 +49,7 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = kBlockM / kWarps;  // 16
 constexpr int kLdp = kBlockN + 4;              // row stride of the P tile
-static_assert(kBlockM == kBlockN, "load_tile stages kBlockN rows for Q as well");
-static_assert(kBlockM == headct_mma::kMmaRows && kThreads == headct_mma::kMmaThreads,
-              "tiles shared with bf16_mma.cuh");
-
-// Arguments of one forward call; pointers are device pointers.
-struct FwdArgs {
-  const void *q, *k, *v;
-  void *o, *lse;
-  long long B, tq, kv_len, n_heads, d;
-  Strides qs, ks, vs;
-  float scale;
-};
+static_assert(kBlockM == kBlockN, "load_tile_f32 stages kBlockN rows for Q as well");
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -217,170 +208,30 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// bfloat16 on the tensor cores: one block per (64 query rows, batch*head),
-// each warp 16 rows; K tiles row-major and V tiles transposed in shared
-// memory as the two B operands.
-template <typename Tag, int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                    float* __restrict__ lse, int tq, int kv_len, int n_heads, int d, Strides qs,
-                    Strides ks, Strides vs, float scale) {
-  using namespace headct_mma;
-  constexpr int LD = DP + 8;
-  extern __shared__ float4 smem4[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem4);  // [64][LD]
-  bf16* k_s = q_s + kBlockM * LD;               // [64][LD]
-  bf16* vt_s = k_s + kBlockN * LD;              // [DP][kLdt] V^T
-
-  const int bh = blockIdx.y;
-  const int b = bh / n_heads;
-  const int h = bh - b * n_heads;
-  const int q0 = blockIdx.x * kBlockM;
-  const int lane = threadIdx.x & 31;
-  const int m0 = (threadIdx.x >> 5) * 16;  // this warp's 16 query rows
-  const bf16* kb = k + b * ks.b + h * ks.h;
-  const bf16* vb = v + b * vs.b + h * vs.h;
-
-  load_tile_bf16<DP>(q_s, nullptr, q + b * qs.b + h * qs.h, qs.t, q0, tq, d);
-  __syncthreads();
-  uint32_t qf[DP / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) load_a(qf[kk], q_s, LD, m0, kk * 16);
-
-  // rows lane / 4 and lane / 4 + 8 of the warp's 16
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int j = 0; j < DP / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  for (int n0 = 0; n0 < kv_len; n0 += kBlockN) {
-    __syncthreads();  // the previous K/V tiles are consumed
-    load_tile_bf16<DP>(k_s, nullptr, kb, ks.t, n0, kv_len, d);
-    load_tile_bf16<DP>(nullptr, vt_s, vb, vs.t, n0, kv_len, d);
-    __syncthreads();
-
-    // S = Q K^T for 16 rows x 64 keys; element e of tile j is row + 8 (e / 2),
-    // key n0 + j * 8 + 2 (lane % 4) + e % 2.
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        uint32_t b0, b1;
-        load_b(b0, b1, k_s, LD, j * 8, kk * 16);
-        mma_bf16(s[j], qf[kk], b0, b1);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = n0 + j * 8 + 2 * (lane & 3) + (e & 1);
-        s[j][e] = key < kv_len ? s[j][e] * scale : -INFINITY;
-      }
-    }
-
-    // Online softmax; the 4 lanes of a quad share a row.
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * half], s[j][2 * half + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run[half], mx);
-      const float alpha = expf(m_run[half] - m_new);  // 0 on the first tile
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[j][2 * half] = expf(s[j][2 * half] - m_new);
-        s[j][2 * half + 1] = expf(s[j][2 * half + 1] - m_new);
-        sum += s[j][2 * half] + s[j][2 * half + 1];
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l_run[half] = l_run[half] * alpha + sum;
-      m_run[half] = m_new;
-#pragma unroll
-      for (int j = 0; j < DP / 8; ++j) {
-        acc[j][2 * half] *= alpha;
-        acc[j][2 * half + 1] *= alpha;
-      }
-    }
-
-    // acc += P V, P rounded to bf16.
-#pragma unroll
-    for (int kq = 0; kq < 4; ++kq) {
-      uint32_t ap[4];
-      acc_to_a(ap, s, kq);
-#pragma unroll
-      for (int j = 0; j < DP / 8; ++j) {
-        uint32_t b0, b1;
-        load_b(b0, b1, vt_s, kLdt, j * 8, kq * 16);
-        mma_bf16(acc[j], ap, b0, b1);
-      }
-    }
-  }
-
-  // O is written contiguous [B, Tq, H, D]; LSE as [B*H, 1, Tq].
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int t = q0 + m0 + (lane >> 2) + 8 * half;
-    if (t >= tq) continue;
-    const float l_safe = fmaxf(l_run[half], 1e-30f);
-    bf16* orow = o + (((long long)b * tq + t) * n_heads + h) * d;
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      const int c = j * 8 + 2 * (lane & 3);
-      if (c < d)
-        *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(
-            acc[j][2 * half] / l_safe, acc[j][2 * half + 1] / l_safe);
-    }
-    if ((lane & 3) == 0) lse[(long long)bh * tq + t] = m_run[half] + logf(l_safe);
-  }
-}
-
-template <typename T, typename Kernel>
+template <typename Kernel>
 cudaError_t launch_fwd(Kernel kernel, size_t smem, const FwdArgs& a, cudaStream_t stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((a.tq + kBlockM - 1) / kBlockM), (unsigned)(a.B * a.n_heads));
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<T*>(a.o), static_cast<float*>(a.lse), (int)a.tq, (int)a.kv_len,
-      (int)a.n_heads, (int)a.d, a.qs, a.ks, a.vs, a.scale);
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), static_cast<float*>(a.lse),
+      (int)a.tq, (int)a.kv_len, (int)a.n_heads, (int)a.d, a.qs, a.ks, a.vs, a.scale);
   return cudaGetLastError();
 }
 
-template <int DP>
-constexpr size_t tc_fwd_smem() {
-  return (size_t)(kBlockM + kBlockN) * (DP + 8) * sizeof(__nv_bfloat16) +
-         (size_t)DP * headct_mma::kLdt * sizeof(__nv_bfloat16);
-}
-
 // Launch the forward on `stream`. dtype: 0 = float32 (CUDA cores), 1 =
-// bfloat16 (tensor cores, head dim padded to the next of 16, 32, 48, 64, 128).
+// bfloat16 (flash_fwd_sm90.cuh, head dim padded to the next of 16, 32, 48,
+// 64, 128).
 template <typename Tag>
 cudaError_t flash_fwd(const FwdArgs& a, int dtype, cudaStream_t s) {
-  using bf16 = __nv_bfloat16;
-  if (dtype == 0) {
-    const size_t smem = ((size_t)(kBlockM + kBlockN) * (a.d + 4) + (size_t)kBlockN * a.d +
-                         (size_t)kBlockM * kLdp) * sizeof(float);
-    if (a.d <= 32) return launch_fwd<float>(flash_fwd_kernel<Tag, 1>, smem, a, s);
-    if (a.d <= 64) return launch_fwd<float>(flash_fwd_kernel<Tag, 2>, smem, a, s);
-    return launch_fwd<float>(flash_fwd_kernel<Tag, 4>, smem, a, s);
-  }
-  if (dtype == 1) {
-    if (a.d <= 16) return launch_fwd<bf16>(flash_fwd_tc_kernel<Tag, 16>, tc_fwd_smem<16>(), a, s);
-    if (a.d <= 32) return launch_fwd<bf16>(flash_fwd_tc_kernel<Tag, 32>, tc_fwd_smem<32>(), a, s);
-    if (a.d <= 48) return launch_fwd<bf16>(flash_fwd_tc_kernel<Tag, 48>, tc_fwd_smem<48>(), a, s);
-    if (a.d <= 64) return launch_fwd<bf16>(flash_fwd_tc_kernel<Tag, 64>, tc_fwd_smem<64>(), a, s);
-    return launch_fwd<bf16>(flash_fwd_tc_kernel<Tag, 128>, tc_fwd_smem<128>(), a, s);
-  }
-  return cudaErrorInvalidValue;
+  if (dtype == 1) return fwd90::flash_fwd_bf16<Tag>(a, s);
+  if (dtype != 0) return cudaErrorInvalidValue;
+  const size_t smem = ((size_t)(kBlockM + kBlockN) * (a.d + 4) + (size_t)kBlockN * a.d +
+                       (size_t)kBlockM * kLdp) * sizeof(float);
+  if (a.d <= 32) return launch_fwd(flash_fwd_kernel<Tag, 1>, smem, a, s);
+  if (a.d <= 64) return launch_fwd(flash_fwd_kernel<Tag, 2>, smem, a, s);
+  return launch_fwd(flash_fwd_kernel<Tag, 4>, smem, a, s);
 }
 
 }  // namespace fwd

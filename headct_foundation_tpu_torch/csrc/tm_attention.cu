@@ -23,12 +23,14 @@
 // flash_fwd.cuh and B8 the delta pass and the FlashAttention-2 dK/dV and dQ
 // passes of flash_bwd.cuh (no atomics, bit-identical reruns), called with the
 // token-major strides and Tq = Tk = kv_len = T; the tag TokenMajor keeps
-// their names in a profile apart from B1's and B2's. bfloat16 runs on the
-// tensor cores (mma.sync), float32 on the CUDA cores.
+// their names in a profile apart from B1's and B2's. bfloat16 B7 runs
+// flash_fwd_sm90.cuh's wgmma kernel and B8 the tensor cores through mma.sync,
+// float32 both on the CUDA cores.
 //
 // Bounds are B1's and B2's: at the MAE decoder shape [32, 513, 16, 48]
 // bfloat16, B7 moves 102 MB (0.030 ms at 3.35 TB/s) for 2.59e10 operations
-// (0.026 ms at 989 TFLOP/s), bound by bytes; B8's five products are 6.47e10
+// (0.026 ms at 989 TFLOP/s), bound by bytes, with its exponentials as long
+// (0.032 ms, flash_attention_fwd.cu); B8's five products are 6.47e10
 // operations (0.065 ms) against 203 MB (0.061 ms), bound by operations.
 
 #include "flash_bwd.cuh"
@@ -60,7 +62,7 @@ extern "C" int headct_tm_attention_fwd(const void* q, const void* k, const void*
                                        void* stream) {
   if (bad_shape(B, t_len, n_heads, d)) return (int)cudaErrorInvalidValue;
   const Strides s = token_major(t_len, n_heads, d);
-  const fwd::FwdArgs a{q, k, v, o, lse, B, t_len, t_len, n_heads, d, s, s, s, scale};
+  const FwdArgs a{q, k, v, o, lse, B, t_len, t_len, n_heads, d, s, s, s, scale};
   return (int)fwd::flash_fwd<TokenMajor>(a, dtype, static_cast<cudaStream_t>(stream));
 }
 

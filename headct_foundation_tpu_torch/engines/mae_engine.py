@@ -96,7 +96,16 @@ def create_train_state(
     config, total_steps: int, num_warmup_steps: int, seed: int = 0,
     dtype: torch.dtype = torch.bfloat16, device: Union[None, str, torch.device] = None,
 ) -> Tuple[TrainState, Schedule]:
-    """Model, optimizer and LR schedule on ``device`` (default cuda)."""
+    """Model, optimizer and LR schedule on ``device`` (default cuda).
+
+    Raises NotImplementedError for ``PARALLEL.FSDP``, ``TENSOR``, ``SEQ`` or
+    ``PIPE`` above 1: the port trains on one device and has no sharded,
+    sequence-parallel or pipelined trunk yet."""
+    for axis in ("FSDP", "TENSOR", "SEQ", "PIPE"):
+        if int(getattr(config.PARALLEL, axis)) > 1:
+            raise NotImplementedError(
+                f"PARALLEL.{axis} = {getattr(config.PARALLEL, axis)} is not ported; "
+                f"the port trains with FSDP = TENSOR = SEQ = PIPE = 1")
     device = resolve_device(device)
     set_pallas_min_t(config.PARALLEL.PALLAS_MIN_T)
     model = build_mae_model(config, dtype=dtype)

@@ -6,8 +6,13 @@ Whole-sequence path (square T <= ``VMEM_PATH_MAX_T``), the JAX package's
 * ``fused_attention`` ports the forward (``:177 _fused_fwd_impl``, kernel
   ``_vmem_fwd_kernel`` at ``:60``): on a CUDA tensor it launches
   ``csrc/flash_attention_fwd.cu`` or raises; on a CPU tensor it runs
-  ``fused_attention_reference``. Both return ``(o, lse)``: o [B, T, H, D] in
-  q's dtype and the float32 log-sum-exp in the JAX layout [B*H, 1, T].
+  ``fused_attention_reference``. Its bfloat16 kernel is
+  ``flash_fwd_wgmma_kernel`` of ``csrc/flash_fwd_sm90.cuh`` (wgmma, two
+  producer warps feeding an mbarrier ring of cp.async K/V tiles), its
+  float32 kernel ``flash_fwd_kernel`` of ``csrc/flash_fwd.cuh`` on the CUDA
+  cores. Both
+  return ``(o, lse)``: o [B, T, H, D] in q's dtype and the float32
+  log-sum-exp in the JAX layout [B*H, 1, T].
 * ``fused_attention_bwd`` ports the backward (``:215 _fused_bwd``, kernel
   ``_vmem_bwd_kernel`` at ``:86``): ``csrc/flash_attention_bwd.cu`` on a CUDA
   tensor, ``fused_attention_bwd_reference`` on a CPU tensor.
@@ -19,7 +24,8 @@ package's ``:245-517``:
 
 * ``blocked_fused_attention`` ports ``_blocked_fwd_impl`` (``:410``, kernel
   ``_blocked_fwd_kernel`` at ``:256``): ``csrc/flash_attention_blocked_fwd.cu``
-  on a CUDA tensor, ``blocked_attention_reference`` on a CPU tensor; returns
+  on a CUDA tensor (the same two kernels as ``fused_attention``),
+  ``blocked_attention_reference`` on a CPU tensor; returns
   ``(o, lse)`` with o [B, Tq, H, D] and lse float32 [B*H, 1, Tq] (the JAX
   residual is padded to its block size; this one is not).
 * ``blocked_attention_dkv`` (kernel ``_blocked_dkv_kernel``, ``:292``) and
@@ -36,7 +42,8 @@ package's ``:245-517``:
 
 The JAX package's block sizes (``_blocked_block_sizes``, ``BLOCK_Q`` and
 ``BLOCK_K``) are TPU tuning and no spec for the port: the CUDA kernels use
-their own 64-row tiles (32-row walked tiles in B4 at head dims above 64).
+their own tiles: 128 query rows per block and 64-key tiles in the bfloat16
+forward, 64 rows elsewhere (32-row walked tiles in B4 at head dims above 64).
 On the CPU every backward is the plain backward, so the CPU tests exercise
 the kernels' contract rather than autograd through matmuls. The blocked plain versions walk the sequence in chunks of
 ``_REF_CHUNK`` rows, so no [T, T] tensor of a long sequence is made whole.

@@ -13,6 +13,8 @@ as the JAX step does); the decoder (T=9) runs the Pallas kernels in JAX and
 ``FusedAttention`` in the port, the encoder (T=3) plain attention.
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -187,6 +189,30 @@ def test_optimizer_and_engine_guards():
     cfg.TRAIN.OPTIMIZER = "Adafactor"
     with pytest.raises(NotImplementedError, match="Adafactor"):
         mae_engine.create_train_state(cfg, 10, 2, device="cpu")
+
+
+@pytest.mark.parametrize("axis", ["FSDP", "TENSOR", "SEQ", "PIPE"])
+def test_unported_parallel_axes_raise(axis):
+    """PARALLEL.FSDP, TENSOR, SEQ and PIPE above 1 raise, naming the key: the
+    port trains on one device, while the JAX engine shards, splits the
+    sequence or pipelines the trunks for them."""
+    _, cfg = _configs()
+    setattr(cfg.PARALLEL, axis, 2)
+    with pytest.raises(NotImplementedError, match=f"PARALLEL.{axis} = 2"):
+        mae_engine.create_train_state(cfg, 10, 0, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["mae_HeadCT.yaml", "mae_HeadCT_192.yaml"])
+def test_shipped_configs_pass_the_parallel_guard(name):
+    """The shipped MAE configs, their PARALLEL section as shipped and the
+    model cut to the tiny widths, build a train state."""
+    cfg = default_config()
+    cfg.merge_from_file(str(Path(__file__).resolve().parents[1] / "configs" / "mae" / name))
+    assert [getattr(cfg.PARALLEL, a) for a in ("FSDP", "TENSOR", "SEQ", "PIPE")] == [1] * 4
+    cfg.merge_from_list([x for i in range(0, len(TINY), 2) if TINY[i].startswith("MAE.")
+                         for x in TINY[i:i + 2]] + ["MODEL.ROI", [24, 24, 24]])
+    state, _ = mae_engine.create_train_state(cfg, 10, 0, device="cpu")
+    assert state.step == 0 and sum(p.numel() for p in state.model.parameters()) > 0
 
 
 def test_train_one_epoch_and_eval_on_cpu():
