@@ -6,16 +6,19 @@
 For each fault in FAULTS, copies the port's package and ``chip_smoke.py``
 into a temporary directory, plants the fault in the copy's CUDA header (one
 skipped tile of the walk in a bfloat16 wgmma kernel), builds the copy's
-attention kernels there and runs chip_smoke's whole-sequence forward phase
-(B1) on each of its cases alone, then its blocked kernel phase (B3, B4, B5)
-on each of its cases alone. A case that comes out FAILED has caught the
-fault. The forward's fault shows on both paths (B1 and B3 run the same
-kernel), B4's and B5's on the blocked one. A case must catch a fault exactly
-when it is bfloat16 and the faulty kernel walks more than one tile in it: a
-walk of one tile never reaches the skipped tile (the forward at (2, 9, 3,
-12) walks one 64-key tile, so no planted tile can show there), and the
-float32 cases run the CUDA-core kernels. The script exits non-zero
-otherwise. The repository's own files are not touched.
+attention kernels there and runs, each on its cases one at a time,
+chip_smoke's whole-sequence forward phase (B1), its whole-sequence backward
+phase (B2) and its blocked kernel phase (B3, B4, B5). A case that comes out
+FAILED has caught the fault. The forward's fault shows on the B1 and B3
+paths (they run the same kernel); the dK/dV and dQ passes' faults on the B2
+and blocked paths (B2 runs B4's and B5's kernels with Tq = Tk = kv_len = T).
+The backward phase holds B2 against its plain version on the kernel
+forward's own o and lse, so a faulty forward does not show there. A case
+must catch a fault exactly when it is bfloat16 and the faulty kernel walks
+more than one tile in it: a walk of one tile never reaches the skipped tile
+(the forward at (2, 9, 3, 12) walks one 64-key tile, so no planted tile can
+show there), and the float32 cases run the CUDA-core kernels. The script
+exits non-zero otherwise. The repository's own files are not touched.
 """
 
 from __future__ import annotations
@@ -58,37 +61,44 @@ FAULTS = [  # (name, header under csrc/, kernel definition, anchor in its consum
      lambda shape, kv_len: tiles(kv_len, FWD_KEYS)),
     ("B4 skips query tile 1", "flash_bwd_sm90.cuh", "\ndkv_wgmma_kernel(",
      "bar_wait(full + 8 * st, (i / kStages) & 1);",
-     "if (i == 1) { bar_arrive(empty + 8 * st); continue; }", ("blocked",),
+     "if (i == 1) { bar_arrive(empty + 8 * st); continue; }", ("whole_bwd", "blocked"),
      lambda shape, kv_len: tiles(shape[1],
                                  BWD_ROWS // 2 if padded(shape[3]) > 64 else BWD_ROWS)),
     ("B5 skips key tile 1", "flash_bwd_sm90.cuh", "\ndq_wgmma_kernel(",
      "bar_wait(full + 8 * st, (i / kStages) & 1);",
-     "if (i == 1) { bar_arrive(empty + 8 * st); continue; }", ("blocked",),
+     "if (i == 1) { bar_arrive(empty + 8 * st); continue; }", ("whole_bwd", "blocked"),
      lambda shape, kv_len: tiles(kv_len, BWD_ROWS)),
 ]
 
-# Run inside the copy: each case of both phases alone; prints which ones failed.
+# The paths, each a chip_smoke phase run on one of its case lists.
+PATHS = ("whole", "whole_bwd", "blocked")
+
+# Run inside the copy: each case of each phase alone; prints which ones failed.
 RUN = r"""
 import json, chip_smoke
 from headct_foundation_tpu_torch.ops import _build
-from headct_foundation_tpu_torch.ops.flash_attention import fused_attention, fused_attention_reference
+from headct_foundation_tpu_torch.ops.flash_attention import (
+    fused_attention, fused_attention_bwd, fused_attention_bwd_reference, fused_attention_reference)
 
-_build.build_all(["flash_attention_fwd", "flash_attention_blocked_fwd", "flash_attention_blocked_bwd"])
-caught = {"whole": [], "blocked": []}
-for case in list(chip_smoke.KERNEL_CASES):
-    chip_smoke.KERNEL_CASES = [case]
-    try:
-        chip_smoke.phase_kernels(fused_attention, fused_attention_reference)
-        caught["whole"].append(False)
-    except RuntimeError:
-        caught["whole"].append(True)
-for case in list(chip_smoke.BLOCKED_CASES):
-    chip_smoke.BLOCKED_CASES = [case]
-    try:
-        chip_smoke.phase_blocked_kernels()
-        caught["blocked"].append(False)
-    except RuntimeError:
-        caught["blocked"].append(True)
+_build.build_all(["flash_attention_fwd", "flash_attention_bwd", "flash_attention_blocked_fwd",
+                  "flash_attention_blocked_bwd"])
+phases = {
+    "whole": ("KERNEL_CASES", lambda: chip_smoke.phase_kernels(fused_attention,
+                                                                fused_attention_reference)),
+    "whole_bwd": ("BWD_CASES", lambda: chip_smoke.phase_bwd_kernels(
+        fused_attention, fused_attention_bwd, fused_attention_bwd_reference)),
+    "blocked": ("BLOCKED_CASES", chip_smoke.phase_blocked_kernels),
+}
+caught = {}
+for path, (cases, phase) in phases.items():
+    caught[path] = []
+    for case in list(getattr(chip_smoke, cases)):
+        setattr(chip_smoke, cases, [case])
+        try:
+            phase()
+            caught[path].append(False)
+        except RuntimeError:
+            caught[path].append(True)
 print("CAUGHT " + json.dumps(caught), flush=True)
 """
 
@@ -109,10 +119,13 @@ def expected(paths, walked) -> dict:
 
     whole = [("whole" in paths and dtype == torch.bfloat16 and walked(shape, shape[1]) > 1)
              for shape, dtype, *_ in chip_smoke.KERNEL_CASES]
+    whole_bwd = [("whole_bwd" in paths and dtype == torch.bfloat16
+                  and walked(shape, shape[1]) > 1)
+                 for shape, dtype, *_ in chip_smoke.BWD_CASES]
     blocked = [("blocked" in paths and dtype == torch.bfloat16
                 and walked(shape, tk if kv_len is None else kv_len) > 1)
                for shape, tk, kv_len, dtype, *_ in chip_smoke.BLOCKED_CASES]
-    return {"whole": whole, "blocked": blocked}
+    return {"whole": whole, "whole_bwd": whole_bwd, "blocked": blocked}
 
 
 def main() -> int:

@@ -23,11 +23,15 @@ Phases, each printing a line; any failure raises and exits non-zero:
              that masks whole key tiles, at head dims 12 to 128, at the
              edges of their 64-row tiles and on misaligned views; their
              masked dK, dV must be exactly 0 and two runs of B3, B4 and B5
-             bit-identical. ptxas's report (registers, spills, shared memory)
-             of every wgmma instantiation (the forward, B4, B5) is printed
-             after the build, a spill failing the run. B1 bf16 and B3-B5 are
-             timed on an idle stream and behind a device sleep, beside their
-             bound and their exponentials' floor.
+             bit-identical. The backward B2 (bf16 on the wgmma passes of
+             csrc/flash_bwd_sm90.cuh, B4's and B5's kernels) is held at the
+             MAE decoder's shape, at the edges of its 64-row tiles, head dims
+             12 to 128 and a misaligned view; two runs bit-identical.
+             ptxas's report (registers, spills, shared memory) of every
+             wgmma instantiation (the forward, the dK/dV and dQ passes) is
+             printed after the build, a spill failing the run. B1 bf16, B2,
+             B3-B5 and B8 are timed on an idle stream and behind a device
+             sleep, beside their bound and their exponentials' floor.
 4. slice   - the embedding server at full width: ViT-B/12 at 96^3, 3
              channels, random weights from a seeded generator, behind
              ``build_server(max_batch=8)``; 8 concurrent POSTs of synthetic
@@ -126,15 +130,34 @@ KERNEL_CASES = [  # (shape [B, T, H, D], dtype, atol, rtol, storage offset) for 
     ((2, 130, 2, 128), torch.bfloat16, 2e-2, 2e-2, 0),
     ((2, 129, 3, 64), torch.bfloat16, 2e-2, 2e-2, 4),      # misaligned view
 ]
-BWD_CASES = [  # (shape, dtype, atol, rtol) for dq, dk, dv against the plain backward
-    (MAE_DECODER, torch.bfloat16, 2e-2, 2e-2),          # MAE decoder (main path)
-    (MAE_DECODER, torch.float32, 1e-4, 1e-3),
-    ((2, 129, 3, 32), torch.float32, 1e-4, 1e-3),       # ragged tiles
-    ((2, 9, 3, 12), torch.float32, 1e-4, 1e-3),
-    ((2, 129, 3, 32), torch.bfloat16, 2e-2, 2e-2),      # the tensor-core path's other
-    ((2, 9, 3, 12), torch.bfloat16, 2e-2, 2e-2),        # head-dim paddings (32, 16,
-    ((2, 200, 2, 64), torch.bfloat16, 2e-2, 2e-2),      # 64, 128)
-    ((2, 70, 2, 128), torch.bfloat16, 2e-2, 2e-2),
+BWD_CASES = [  # (shape, dtype, atol, rtol, storage offset) for dq, dk, dv against the plain
+    # backward; reruns bit-identical. q, k, v are strided views of one [B, T, 3, H, D]. The
+    # bf16 cases from the block edges on hold the wgmma passes (csrc/flash_bwd_sm90.cuh) at
+    # the whole-sequence shapes: T one below, at and one above their 64-row tiles and the
+    # decoder's T = 513 (one real row in the last tile), head dims 16 to 128, the 8-byte
+    # copy route (D = 12 over several tiles) and a view whose start (4 elements in) breaks
+    # the 16-byte alignment of every operand.
+    (MAE_DECODER, torch.bfloat16, 2e-2, 2e-2, 0),          # MAE decoder (main path)
+    (MAE_DECODER, torch.float32, 1e-4, 1e-3, 0),
+    ((2, 129, 3, 32), torch.float32, 1e-4, 1e-3, 0),       # ragged tiles
+    ((2, 9, 3, 12), torch.float32, 1e-4, 1e-3, 0),
+    ((2, 129, 3, 32), torch.bfloat16, 2e-2, 2e-2, 0),      # the head-dim paddings 32, 16,
+    ((2, 9, 3, 12), torch.bfloat16, 2e-2, 2e-2, 0),        # 64 and 128
+    ((2, 200, 2, 64), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 70, 2, 128), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 63, 2, 48), torch.bfloat16, 2e-2, 2e-2, 0),       # block edges
+    ((2, 64, 2, 48), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 65, 2, 48), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 127, 2, 48), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 128, 2, 48), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 129, 2, 48), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 513, 2, 48), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 200, 2, 12), torch.bfloat16, 2e-2, 2e-2, 0),      # head dims 12 (8-byte copies)
+    ((2, 129, 2, 16), torch.bfloat16, 2e-2, 2e-2, 0),      # to 128
+    ((2, 200, 2, 32), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 130, 2, 64), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 130, 2, 128), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 129, 3, 64), torch.bfloat16, 2e-2, 2e-2, 4),      # misaligned view
 ]
 STRETCH_DECODER = (2, 4097, 16, 48)   # 192^3 MAE: 4096 patches + CLS, 16 heads x 48
 STRETCH_ENCODER = (2, 1025, 12, 64)   # 1024 kept after 75% masking + CLS, 12 heads x 64
@@ -370,16 +393,19 @@ def time_fwd(fused_attention, fused_attention_reference, row, q, k, v, shape, dt
 
 
 def phase_bwd_kernels(fused_attention, fused_attention_bwd, fused_attention_bwd_reference) -> dict:
-    """The backward kernel against its plain version; timed at the main path's shape."""
+    """B2 against its plain version at every BWD_CASES case, on the kernel
+    forward's o and lse; two runs bit-identical. Timed at the main path's
+    shape."""
     results = {}
-    for shape, dtype, atol, rtol in BWD_CASES:
+    for shape, dtype, atol, rtol, offset in BWD_CASES:
         B, T, H, D = shape
         g = torch.Generator(device="cuda").manual_seed(2)
-        qkv = torch.randn(B, T, 3, H, D, device="cuda", generator=g).to(dtype)
+        qkv = randn_at((B, T, 3, H, D), offset, g, dtype)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # strided, as the model passes them
         o, lse = fused_attention(q, k, v)
-        do = torch.randn(B, T, H, D, device="cuda", generator=g).to(dtype)
+        do = randn_at((B, T, H, D), offset, g, dtype)
         got = fused_attention_bwd(q, k, v, o, do, lse)
+        again = fused_attention_bwd(q, k, v, o, do, lse)
         torch.cuda.synchronize()
         want = fused_attention_bwd_reference(q, k, v, o, do, lse)
         errs, rels, ok = [], [], True
@@ -388,35 +414,68 @@ def phase_bwd_kernels(fused_attention, fused_attention_bwd, fused_attention_bwd_
             errs.append(err)
             rels.append(rel)
             ok &= elem_ok and norm_ok
-        print(f"kernel flash_attention_bwd {list(shape)} {str(dtype)[6:]}: max_abs_err "
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        ok &= same
+        at = f" offset {offset}" if offset else ""
+        print(f"kernel flash_attention_bwd {list(shape)} {str(dtype)[6:]}{at}: max_abs_err "
               f"dq={errs[0]:.3e} dk={errs[1]:.3e} dv={errs[2]:.3e}, rel_l2 dq={rels[0]:.3e} "
               f"dk={rels[1]:.3e} dv={rels[2]:.3e} (tolerance atol {atol} rtol {rtol}"
-              f"{norm_note(dtype)}) {'ok' if ok else 'FAILED'}", flush=True)
-        check(ok, f"flash_attention_bwd disagrees with its plain version at {shape} {dtype}")
+              f"{norm_note(dtype)}); reruns bit-identical {same} {'ok' if ok else 'FAILED'}",
+              flush=True)
+        check(ok, f"flash_attention_bwd disagrees with its plain version at {shape} {dtype} "
+                  f"offset {offset}")
         row = {"max_abs_err": max(errs)}
         if shape == MAE_DECODER and dtype == torch.bfloat16:
-            row["ms"] = cuda_ms(lambda: fused_attention_bwd(q, k, v, o, do, lse))
-            row["plain_ms"] = cuda_ms(
-                lambda: fused_attention_bwd_reference(q, k, v, o, do, lse), iters=10)
-            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-            dot = do.transpose(1, 2)
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-
-            def fwd_bwd():
-                sdpa(qt, kt, vt).backward(dot)
-
-            fwd_ms = cuda_ms(lambda: sdpa(qt, kt, vt))
-            row["library_ms"] = cuda_ms(fwd_bwd) - fwd_ms
-            row["bound_ms"], row["bound_by"] = attention_bound_ms(shape, dtype, backward=True)
-            print(f"timing flash_attention_bwd {list(shape)} {str(dtype)[6:]}: kernel "
-                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, backward of "
-                  f"scaled_dot_product_attention {row['library_ms']:.4f} ms (measured as its "
-                  f"forward+backward minus its forward, {fwd_ms:.4f} ms), bound "
-                  f"{row['bound_ms']:.4f} ms "
-                  f"by {row['bound_by']} ({100 * row['bound_ms'] / row['ms']:.1f}% of bound)",
-                  flush=True)
+            time_bwd(fused_attention_bwd, fused_attention_bwd_reference, row, q, k, v, o, do,
+                     lse, shape, dtype)
         results[(shape, dtype)] = row
     return results
+
+
+def time_bwd(fused_attention_bwd, fused_attention_bwd_reference, row, q, k, v, o, do, lse,
+             shape, dtype) -> None:
+    """Kernel, plain version, bound and library call (scaled_dot_product_attention's
+    backward, its forward+backward minus its forward) of B2 at the main path's
+    shape, on an idle stream (``ms``, ``library_ms``) and behind a device sleep
+    (``ms_device``, ``library_ms_device``: the device's time alone) beside the
+    exp floor of its two passes."""
+    row["ms"] = cuda_ms(lambda: fused_attention_bwd(q, k, v, o, do, lse))
+    row["ms_device"] = cuda_ms(lambda: fused_attention_bwd(q, k, v, o, do, lse), ahead=AHEAD_ONE)
+    row["plain_ms"] = cuda_ms(lambda: fused_attention_bwd_reference(q, k, v, o, do, lse),
+                              iters=10)
+    fwd_ms, fwd_dev, row["library_ms"], row["library_ms_device"] = sdpa_backward_ms(q, k, v, do)
+    row["bound_ms"], row["bound_by"] = attention_bound_ms(shape, dtype, backward=True)
+    floor = 2 * exp_floor_ms(shape, shape[1])
+    print(f"timing flash_attention_bwd {list(shape)} {str(dtype)[6:]}: kernel "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, backward of "
+          f"scaled_dot_product_attention {row['library_ms']:.4f} ms "
+          f"({row['ms'] / row['library_ms']:.2f}x; measured as its forward+backward minus its "
+          f"forward, {fwd_ms:.4f} ms), on an idle stream; bound {row['bound_ms']:.4f} ms by "
+          f"{row['bound_by']} ({100 * row['bound_ms'] / row['ms']:.1f}% of bound); behind a "
+          f"device sleep kernel {row['ms_device']:.4f} ms, scaled_dot_product_attention "
+          f"backward {row['library_ms_device']:.4f} ms "
+          f"({row['ms_device'] / row['library_ms_device']:.2f}x; forward {fwd_dev:.4f} ms); exp "
+          f"floor {floor:.4f} ms (one exponential per P element in each of the two passes, "
+          f"2*B*H*T^2 = {2 * shape[0] * shape[2] * shape[1] ** 2}, at 16 per SM per clock), "
+          f"{100 * floor / row['ms_device']:.1f}% of the kernel's device time", flush=True)
+
+
+def sdpa_backward_ms(q, k, v, do) -> tuple:
+    """(forward ms, forward device ms, backward ms, backward device ms) of
+    scaled_dot_product_attention on these inputs: its backward is timed as
+    its forward+backward minus its forward, on an idle stream and behind a
+    device sleep. The port never calls it."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def fwd_bwd():
+        sdpa(qt, kt, vt).backward(dot)
+
+    fwd_ms = cuda_ms(lambda: sdpa(qt, kt, vt))
+    fwd_dev = cuda_ms(lambda: sdpa(qt, kt, vt), ahead=AHEAD_ONE)
+    return (fwd_ms, fwd_dev, cuda_ms(fwd_bwd) - fwd_ms,
+            cuda_ms(fwd_bwd, ahead=AHEAD_ONE) - fwd_dev)
 
 
 def randn_at(shape, offset: int, g, dtype) -> torch.Tensor:
@@ -672,26 +731,29 @@ def phase_tm_kernels() -> dict:
 def time_tm(tm, rows, q, k, v, o, do, lse, shape, dtype) -> None:
     """Kernel, plain version, bound and library call of B7 and B8: the
     library call is scaled_dot_product_attention's forward for B7 and its
-    backward (forward+backward minus forward) for B8."""
+    backward (forward+backward minus forward) for B8, on an idle stream
+    (``ms``, ``library_ms``); B8 and its library call also behind a device
+    sleep (``ms_device``, ``library_ms_device``)."""
     fwd, bwd = rows["tm_attention_fwd"], rows["tm_attention_bwd"]
     fwd["ms"] = cuda_ms(lambda: tm.tm_attention_fwd(q, k, v))
     fwd["plain_ms"] = cuda_ms(lambda: tm.tm_attention_fwd_reference(q, k, v))
     bwd["ms"] = cuda_ms(lambda: tm.tm_attention_bwd(q, k, v, o, do, lse))
+    bwd["ms_device"] = cuda_ms(lambda: tm.tm_attention_bwd(q, k, v, o, do, lse),
+                               ahead=AHEAD_ONE)
     bwd["plain_ms"] = cuda_ms(lambda: tm.tm_attention_bwd_reference(q, k, v, o, do, lse),
                               iters=10)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    dot = do.transpose(1, 2)
-    fwd["library_ms"] = cuda_ms(lambda: sdpa(qt, kt, vt))
-    bwd["library_ms"] = cuda_ms(lambda: sdpa(qt, kt, vt).backward(dot)) - fwd["library_ms"]
+    fwd["library_ms"], _, bwd["library_ms"], bwd["library_ms_device"] = sdpa_backward_ms(
+        q, k, v, do)
     for r, backward in ((fwd, False), (bwd, True)):
         r["bound_ms"], r["bound_by"] = attention_bound_ms(shape, dtype, backward)
     for name, r in rows.items():
+        device = (f"; behind a device sleep kernel {r['ms_device']:.4f} ms, library "
+                  f"{r['library_ms_device']:.4f} ms" if "ms_device" in r else "")
         print(f"timing {name} {list(shape)} {str(dtype)[6:]}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, scaled_dot_product_attention "
               f"{'backward' if r is bwd else 'forward'} {r['library_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']} "
-              f"({100 * r['bound_ms'] / r['ms']:.1f}% of bound)", flush=True)
+              f"({100 * r['bound_ms'] / r['ms']:.1f}% of bound){device}", flush=True)
 
 
 def phase_tm_bench() -> dict:
@@ -1182,9 +1244,10 @@ def phase_train(label: str, config: str, batch: int, compare_batch: int, seed0: 
 
 # Libraries holding wgmma kernels -> instantiations ptxas must report: the
 # forward at 5 padded head dims x 2 copy widths in each of B1's, B3's and B7's
-# library, B4 and B5 at 5 x 2 each.
+# library; the dK/dV and dQ passes at 5 x 2 each in B2's, B4/B5's and B8's.
 WGMMA_BUILDS = {"flash_attention_fwd": 10, "flash_attention_blocked_fwd": 10,
-                "tm_attention": 10, "flash_attention_blocked_bwd": 20}
+                "flash_attention_bwd": 20, "flash_attention_blocked_bwd": 20,
+                "tm_attention": 30}
 
 
 def report_wgmma_build(_build) -> None:
@@ -1201,8 +1264,8 @@ def report_wgmma_build(_build) -> None:
     bwd_smem = _build.load("flash_attention_blocked_bwd").headct_flash_attention_blocked_bwd_smem
     bwd_smem.argtypes, bwd_smem.restype = [ctypes.c_int, ctypes.c_longlong], ctypes.c_longlong
     kinds = {"flash_fwd_wgmma_kernel": ("forward", fwd_smem),
-             "dkv_wgmma_kernel": ("B4", lambda dp: bwd_smem(1, dp)),
-             "dq_wgmma_kernel": ("B5", lambda dp: bwd_smem(0, dp))}
+             "dkv_wgmma_kernel": ("dK/dV pass", lambda dp: bwd_smem(1, dp)),
+             "dq_wgmma_kernel": ("dQ pass", lambda dp: bwd_smem(0, dp))}
     seen = {}
     for lib in WGMMA_BUILDS:
         log = _build.ptxas_log(lib)
@@ -1366,8 +1429,10 @@ def main() -> int:
                 **{k: fwd_mae[k] for k in ("max_abs_err", "ms", "ms_device", "plain_ms",
                                            "bound_ms", "bound_by", "library_ms",
                                            "library_ms_device")}}),
-        row("flash_attention_bwd", "flash_attention_bwd.cu", 86, bwd_mae, MAE_DECODER,
-            torch.bfloat16),
+        # bf16 B2 and B8 run the passes of the sm_90a header; their C entries are in the .cu
+        row("flash_attention_bwd", "flash_bwd_sm90.cuh", 86, bwd_mae, MAE_DECODER,
+            torch.bfloat16, entry="headct_foundation_tpu_torch/csrc/flash_attention_bwd.cu",
+            **{k: bwd_mae[k] for k in ("ms_device", "library_ms_device")}),
         blocked_row(blocked[0], 256),
         blocked_row(blocked[1], 292),
         blocked_row(blocked[2], 342),
@@ -1375,8 +1440,10 @@ def main() -> int:
             lion_row, LION_CASES[0][0], torch.float32, all_trainable_tensors=lion["lion"]),
         row("tm_attention_fwd", "tm_attention.cu", "tools/experimental_tm_attention.py:55",
             tm_rows["tm_attention_fwd"], MAE_DECODER, torch.bfloat16),
-        row("tm_attention_bwd", "tm_attention.cu", "tools/experimental_tm_attention.py:80",
-            tm_rows["tm_attention_bwd"], MAE_DECODER, torch.bfloat16),
+        row("tm_attention_bwd", "flash_bwd_sm90.cuh", "tools/experimental_tm_attention.py:80",
+            tm_rows["tm_attention_bwd"], MAE_DECODER, torch.bfloat16,
+            entry="headct_foundation_tpu_torch/csrc/tm_attention.cu",
+            **{k: tm_rows["tm_attention_bwd"][k] for k in ("ms_device", "library_ms_device")}),
     ]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
 // Pieces shared by the attention kernels (flash_fwd.cuh, flash_bwd.cuh and
 // the sm_90a kernels over sm90_common.cuh): operand strides, the forward's
-// arguments, the tags that tell the whole-sequence kernels (B1, B2), the
-// blocked ones (B3, B4, B5) and the token-major ones (B7, B8) apart in a
-// profile, vector loads of float32 and bfloat16 operands, and the dynamic
-// shared-memory attribute set once per kernel.
+// and the backward's arguments, the tags that tell the whole-sequence
+// kernels (B1, B2), the blocked ones (B3, B4, B5) and the token-major ones
+// (B7, B8) apart in a profile, vector loads of float32 and bfloat16
+// operands, and the dynamic shared-memory attribute set once per kernel.
 
 #pragma once
 
@@ -35,6 +35,16 @@ struct FwdArgs {
   void *o, *lse;
   long long B, tq, kv_len, n_heads, d;
   Strides qs, ks, vs;
+  float scale;
+};
+
+// Arguments of one backward call (B2, B4, B5, B8); pointers are device
+// pointers, lse and delta float32 [B*H, Tq].
+struct BwdArgs {
+  const void *q, *k, *v, *dout, *lse, *delta;
+  void *dq, *dk, *dv;
+  long long B, tq, tk, kv_len, n_heads, d;
+  Strides qs, ks, vs, gs;
   float scale;
 };
 

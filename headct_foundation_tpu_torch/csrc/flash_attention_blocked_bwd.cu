@@ -18,9 +18,11 @@
 // kernels of flash_bwd_sm90.cuh: B4 one block per (64-key tile, batch*head)
 // walking the query tiles, B5 one per (64-query tile, batch*head) walking the
 // key tiles up to kv_len, every product on wgmma and the walked tiles staged
-// by a producer warp through an mbarrier ring. float32 takes the CUDA-core
-// passes of flash_bwd.cuh (dkv_kernel, dq_kernel), which keep full float32
-// products as the TPU kernels do for float32 inputs. Neither uses atomics, so
+// by two producer warps, one for each walked tensor, through an mbarrier
+// ring (the same kernels run the whole-sequence backward B2 and B8). float32
+// takes the CUDA-core passes of flash_bwd.cuh (dkv_kernel, dq_kernel), which
+// keep full float32 products as the TPU kernels do for float32 inputs;
+// bwd::launch_dkv and launch_dq pick the route from the dtype. Neither uses atomics, so
 // reruns are bit-identical. The TPU block sizes play no part. A key tile
 // wholly at or past kv_len skips its walk and writes dK = dV = 0 (the outputs
 // come from torch.empty); the JAX code zero-pads Q and relies on dO = 0,
@@ -36,7 +38,6 @@
 // 0.128 ms on the special function units (flash_bwd_sm90.cuh).
 
 #include "flash_bwd.cuh"
-#include "flash_bwd_sm90.cuh"
 
 namespace {
 
@@ -64,14 +65,10 @@ extern "C" int headct_flash_attention_blocked_dkv(
     long long g_sb, long long g_st, long long g_sh,
     float scale, int dtype, void* stream) {
   if (bad_shape(B, tq, tk, kv_len, n_heads, d)) return (int)cudaErrorInvalidValue;
-  const bwd::BwdArgs a{q, k, v, dout, lse, delta, nullptr, dk, dv, B, tq, tk, kv_len, n_heads, d,
+  const BwdArgs a{q, k, v, dout, lse, delta, nullptr, dk, dv, B, tq, tk, kv_len, n_heads, d,
                        {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh}, {v_sb, v_st, v_sh},
                        {g_sb, g_st, g_sh}, scale};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return (int)bwd90::launch_dkv<Blocked>(a, s);
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  return (int)bwd::launch_dkv_kernel<float>(bwd::dkv_kernel<Blocked>, bwd::f32_bwd_smem(d, 6), a,
-                                            s);
+  return (int)bwd::launch_dkv<Blocked>(a, dtype, static_cast<cudaStream_t>(stream));
 }
 
 // B5: dQ.
@@ -85,13 +82,10 @@ extern "C" int headct_flash_attention_blocked_dq(
     long long g_sb, long long g_st, long long g_sh,
     float scale, int dtype, void* stream) {
   if (bad_shape(B, tq, tk, kv_len, n_heads, d)) return (int)cudaErrorInvalidValue;
-  const bwd::BwdArgs a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, tq, tk, kv_len, n_heads,
+  const BwdArgs a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, tq, tk, kv_len, n_heads,
                        d, {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh}, {v_sb, v_st, v_sh},
                        {g_sb, g_st, g_sh}, scale};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return (int)bwd90::launch_dq<Blocked>(a, s);
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  return (int)bwd::launch_dq_kernel<float>(bwd::dq_kernel<Blocked>, bwd::f32_bwd_smem(d, 5), a, s);
+  return (int)bwd::launch_dq<Blocked>(a, dtype, static_cast<cudaStream_t>(stream));
 }
 
 // Dynamic shared memory of one bfloat16 block of B4 (dkv != 0) or B5 at head

@@ -12,29 +12,33 @@
 // dQ, dK, dV are stored [B, T, H, D] contiguous in the operand dtype; float32
 // or bfloat16 operands, head size D a multiple of 4 up to 128.
 //
-// Design. The Pallas kernel holds the whole [T, T] slab of one (batch, head)
-// in VMEM; a Hopper block has 227 KB of shared memory, so this follows the
-// FlashAttention-2 backward split (Dao, arXiv 2307.08691), which needs no
-// float atomics and so gives bit-identical gradients from run to run:
-//   1. delta_kernel of flash_bwd.cuh: d = rowsum(dO * O), one warp per query
-//      row, into a float32 [B*H, T] scratch.
-//   2. the dK/dV pass of flash_bwd.cuh: one block per (64-key tile,
-//      batch*head), walking over all query tiles.
-//   3. the dQ pass of flash_bwd.cuh: one block per (64-query tile,
-//      batch*head), walking over all key tiles.
-// Both passes are called with Tq = Tk = kv_len = T; bfloat16 operands
-// (training) run on the tensor cores with mma.sync, float32 on the CUDA
-// cores. The blocked backward B4/B5 (flash_attention_blocked_bwd.cu) is the
-// same pair of passes without the square, T <= 1024 limits. wgmma, TMA and a
-// fused dq/dk/dv write are later work.
+// What bounds it. At the MAE decoder shape [32, 513, 16, 48] bfloat16 the
+// function's 5 products are 10*B*H*T^2*D = 6.47e10 operations, 0.065 ms at
+// the bf16 dense peak of 989 TFLOP/s; q, k, v, o, dO read once and dq, dk, dv
+// written once plus LSE are 203 MB, 0.061 ms at 3.35 TB/s: bound by
+// operations, narrowly. The split below recomputes P and dS (7 products) and
+// takes one exponential per P element in each pass, B*H*T^2 = 1.35e8, 0.032
+// ms a pass at 16 per SM per clock. At T = 513 a block walks only 9 tiles of
+// 64, the last holding one real row, so a block's set-up and epilogue weigh
+// about 7 times more per walked tile than at the 192^3 decoder's T = 4097.
 //
-// Bound at the MAE decoder shape [32, 513, 16, 48] bfloat16: the function's
-// 5 products are 10*B*H*T^2*D = 6.47e10 operations, 0.065 ms at the bf16
-// dense peak of 989 TFLOP/s; q, k, v, o, dO read once and dq, dk, dv written
-// once plus LSE are 203 MB, 0.061 ms at 3.35 TB/s. So it is bound by
-// operations, narrowly. mma.sync reaches only part of the dense peak, and the
-// exp of every P element runs on the special-function units, so the kernel
-// stays far from that bound.
+// Design. The Pallas kernel holds the whole [T, T] slab of one (batch, head)
+// in VMEM; a Hopper block has 227 KB of shared memory, so this is the
+// FlashAttention-2 split (Dao, arXiv 2307.08691), which needs no float
+// atomics and so gives bit-identical gradients from run to run, in three
+// launches (flash_bwd in flash_bwd.cuh):
+//   1. delta_kernel: d = rowsum(dO * O), one warp per query row, into a
+//      float32 [B*H, T] scratch.
+//   2. the dK/dV pass: one block per (64-key tile, batch*head), walking the
+//      query tiles.
+//   3. the dQ pass: one block per (64-query tile, batch*head), walking the
+//      key tiles.
+// The passes are called with Tq = Tk = kv_len = T under the tag
+// WholeSequence. bfloat16 operands (training) run the Hopper kernels that
+// the blocked backward B4/B5 runs (flash_bwd_sm90.cuh dkv_wgmma_kernel,
+// dq_wgmma_kernel): every product on wgmma, the walked tiles copied by two
+// producer warps, one for each walked tensor, through a cp.async / mbarrier
+// ring. float32 runs the CUDA-core passes of flash_bwd.cuh.
 
 #include "flash_bwd.cuh"
 
@@ -56,7 +60,7 @@ extern "C" int headct_flash_attention_bwd(
       B * n_heads > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  const bwd::BwdArgs a{q, k, v, dout, lse, delta, dq, dk, dv, B, t_len, t_len, t_len, n_heads, d,
+  const BwdArgs a{q, k, v, dout, lse, delta, dq, dk, dv, B, t_len, t_len, t_len, n_heads, d,
                        {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh}, {v_sb, v_st, v_sh},
                        {g_sb, g_st, g_sh}, scale};
   return (int)bwd::flash_bwd<WholeSequence>(a, o, {o_sb, o_st, o_sh}, delta, dtype,

@@ -1,46 +1,64 @@
-// The blocked attention backward for bfloat16 operands on Hopper (sm_90a):
-// kernels B4 (dkv_wgmma_kernel) and B5 (dq_wgmma_kernel), launched by
-// flash_attention_blocked_bwd.cu.
+// The attention backward for bfloat16 operands on Hopper (sm_90a): the dK/dV
+// pass (dkv_wgmma_kernel) and the dQ pass (dq_wgmma_kernel) of the blocked
+// backward B4/B5 (flash_attention_blocked_bwd.cu), the whole-sequence
+// backward B2 (flash_attention_bwd.cu) and the token-major backward B8
+// (tm_attention.cu), all reached through bwd::launch_dkv / launch_dq
+// (flash_bwd.cuh); B2 and B8 call them with Tq = Tk = kv_len = T.
 //
 // Replaces the TPU kernels headct_foundation_tpu/ops/flash_attention.py:292
-// `_blocked_dkv_kernel` (B4, `pl.pallas_call` at :474) and :342
-// `_blocked_dq_kernel` (B5, :498). For q [B, Tq, H, D] against the first
-// kv_len keys of k, v [B, Tk, H, D], with the forward's LSE and delta =
-// rowsum(dO * O), both float32 [B*H, Tq]:
+// `_blocked_dkv_kernel` (B4, `pl.pallas_call` at :474), :342
+// `_blocked_dq_kernel` (B5, :498), :86 `_vmem_bwd_kernel` (B2, :223) and
+// tools/experimental_tm_attention.py:80 `_tm_bwd_kernel` (B8, :214). For q
+// [B, Tq, H, D] against the first kv_len keys of k, v [B, Tk, H, D], with the
+// forward's LSE and delta = rowsum(dO * O), both float32 [B*H, Tq]:
 //   P = exp(scale * Q K^T - LSE), P_op = P rounded to bf16 (0 at keys >= kv_len)
 //   dS = P * (dO V^T - delta), rounded to bf16
-//   B4: dK = scale * sum_q dS^T Q,  dV = sum_q P_op^T dO   (dK = dV = 0 at keys >= kv_len)
-//   B5: dQ = scale * sum_k dS K
+//   dK/dV pass: dK = scale * sum_q dS^T Q,  dV = sum_q P_op^T dO   (0 at keys >= kv_len)
+//   dQ pass:    dQ = scale * sum_k dS K
 // dQ is stored [B, Tq, H, D], dK and dV [B, Tk, H, D], contiguous bf16.
 //
-// What bounds them. At the decoder shape [2, 4097, 16, 48] B4's four products
-// are 2.06e11 operations (0.209 ms at 989 TFLOP/s) and B5's three 1.55e11
-// (0.156 ms); their bytes take about 0.02 ms at 3.35 TB/s. At D = 48 the
-// exponentials weigh nearly as much: each pass takes one per P element,
-// B*H*Tq*Tk = 5.37e8, and the special function units give 16 per SM per
-// clock (132 SMs at 1.98 GHz: 0.128 ms per pass).
+// What bounds them. At the 192^3 decoder shape [2, 4097, 16, 48] the dK/dV
+// pass's four products are 2.06e11 operations (0.209 ms at 989 TFLOP/s) and
+// the dQ pass's three 1.55e11 (0.156 ms); their bytes take about 0.02 ms at
+// 3.35 TB/s. At D = 48 the exponentials weigh nearly as much: each pass takes
+// one per P element, B*H*Tq*Tk = 5.37e8, and the special function units give
+// 16 per SM per clock (132 SMs at 1.98 GHz: 0.128 ms per pass). At the 96^3
+// decoder shape [32, 513, 16, 48] (B2) the two passes' products are 9.06e10
+// operations (0.092 ms) and their exponentials 0.032 ms a pass; a block
+// there walks 9 tiles, the last with one real row. Measured on an H100
+// (PERF.md; tools/ablate_attention_bwd.py takes one part of the work out at a
+// time), the exponentials hold these kernels back least; the products and
+// the copies that feed them weigh more.
 //
 // Design. The FlashAttention-2 split (Dao, arXiv 2307.08691): no float
 // atomics, so two runs give bit-identical dQ, dK and dV. The one-pass
 // backward with dQ summed by atomics (5 products instead of 7) would give
 // that up and is not done. Each block is one warpgroup of 4 consumer warps
-// that owns 64 rows (B4: keys, B5: queries) and one producer warp.
+// that owns 64 rows (dK/dV: keys, dQ: queries) and two producer warps.
 // - Every product is `wgmma.mma_async` m64nNk16 with float32 accumulators
 //   (the wgmma, swizzle, cp.async and mbarrier pieces are in
-//   sm90_common.cuh, shared with the forward). Tiles sit in shared memory as rows of 64 bf16 (128 bytes) in the 128-byte
-//   swizzle, the head dim zero-padded to DP. B4 takes S^T = K Q^T and
-//   dP^T = V dO^T with K, V as A and the Q, dO tiles as B, both K-major as
-//   stored; dV += P^T dO and dK += dS^T Q take P^T and dS^T as A straight
-//   from the accumulators (rounded to bf16 in registers), and dO, Q as B
-//   through wgmma's transpose bit (MN-major). B5 takes S = Q K^T, dP = dO V^T
+//   sm90_common.cuh, shared with the forward). Tiles sit in shared memory as
+//   rows of 64 bf16 (128 bytes) in the 128-byte swizzle, the head dim
+//   zero-padded to DP. The dK/dV pass takes S^T = K Q^T and dP^T = V dO^T
+//   with K, V as A and the Q, dO tiles as B, both K-major as stored; dV +=
+//   P^T dO and dK += dS^T Q take P^T and dS^T as A straight from the
+//   accumulators (rounded to bf16 in registers), and dO, Q as B through
+//   wgmma's transpose bit (MN-major). The dQ pass takes S = Q K^T, dP = dO V^T
 //   and dQ += dS K the same way. No transposed copy is built.
-// - The walked tiles (B4: Q, dO, LSE, delta; B5: K, V) stream through a
-//   ring of kStages buffers. The producer warp fills a buffer with cp.async
-//   while the consumers work on the one before; each of its lanes waits for
-//   its own copies, fences them to the tensor cores' (async) proxy and
-//   arrives on the buffer's `full` mbarrier. The consumers wait on it and,
-//   once their products have read the buffer, arrive on its `empty`
-//   mbarrier, which the producer waits on before refilling it.
+// - The walked tiles (dK/dV: Q with the LSE and delta rows, and dO; dQ: K and
+//   V) stream through a ring of kStages buffers, one producer warp for each
+//   walked tensor, as in the forward: each lane keeps one column chunk and
+//   steps over the rows (`warp_load_tile`, a few instructions a copy; one
+//   producer warp running `load_tile`, about 25, left the ring short of
+//   tiles). A producer fills a buffer with cp.async while the consumers work
+//   on the one before; each of its lanes waits for its own copies, fences
+//   them to the tensor cores' (async) proxy and arrives on the buffer's
+//   `full` mbarrier. The consumers wait on it and, once their products have
+//   read the buffer, arrive on its `empty` mbarrier, which the producers
+//   wait on before refilling it. The producers copy the block's two fixed
+//   tiles first, onto a `fixed` mbarrier of their own that completes with the
+//   ring's first fill, so that a block's set-up overlaps its first walked
+//   tile (at T = 513 a block walks 9 tiles, so the set-up weighs more there).
 // - The copies are 16 bytes where the head dim is a multiple of 8 and every
 //   operand's strides and start allow it, else 8 bytes (D = 12, a view
 //   whose start breaks 16-byte alignment): the route follows from shape and
@@ -51,8 +69,8 @@
 //   key tile past kv_len has K = V = 0); query rows >= Tq get LSE = +inf and
 //   delta = 0, so P = dS = 0; keys >= kv_len get P = 0; a key tile wholly
 //   past kv_len skips its walk and writes dK = dV = 0. Offsets are 64-bit.
-// The walked tile is 64 rows (32 in B4 at D > 64, to keep its four
-// accumulators in registers).
+// The walked tile is 64 rows (32 in the dK/dV pass at D > 64, to keep its
+// four accumulators in registers).
 
 #pragma once
 
@@ -62,7 +80,6 @@
 #include <stdint.h>
 
 #include "attention_common.cuh"
-#include "flash_bwd.cuh"
 #include "sm90_common.cuh"
 
 namespace {
@@ -72,12 +89,14 @@ using namespace sm90;
 
 constexpr int kRows = 64;       // rows a block owns: one warpgroup's wgmma M
 constexpr int kConsumers = 128;  // one warpgroup
-constexpr int kThreads = kConsumers + 32;  // and a producer warp
+constexpr int kProducers = 64;   // two producer warps, one for each walked tensor
+constexpr int kThreads = kConsumers + kProducers;
 constexpr int kStages = 3;
 
 // Shared memory of one block, in bytes from a 1024-byte aligned base: two
 // fixed [64][DP] tiles, kStages pairs of walked [NT][DP] tiles, kStages pairs
-// of NT float row values (B4's LSE and delta), then the mbarriers.
+// of NT float row values (the dK/dV pass's LSE and delta), then the ring's
+// mbarriers and the fixed tiles' one.
 template <int DP, int NT>
 struct Layout {
   static constexpr int kColBlocks = (DP + 63) / 64;  // 128-byte swizzle blocks of a row
@@ -86,31 +105,27 @@ struct Layout {
   static constexpr int kStage0 = 2 * kFixedTile;
   static constexpr int kRowVals = kStage0 + kStages * 2 * kWalkTile;
   static constexpr int kBars = kRowVals + kStages * 2 * NT * 4;
-  static constexpr size_t kSmem = kBars + 2 * kStages * 8 + 1024;  // + alignment slack
+  static constexpr int kFixedBar = kBars + 2 * kStages * 8;
+  static constexpr size_t kSmem = kFixedBar + 8 + 1024;  // + alignment slack
 };
 
-// Set up the block: barriers, and the two fixed [64][DP] tiles (rows
-// [row0, row0 + 64) of x0 and x1, rows >= t_len zero), loaded by all threads.
-template <int DP, int NT, int CH>
-__device__ __forceinline__ void block_setup(const Smem& sm, const bf16* x0, long long st0,
-                                            const bf16* x1, long long st1, int row0, int t_len,
-                                            int d) {
+// Set up the block: the ring's barriers and the `fixed` barrier of the two
+// fixed [64][DP] tiles, which completes on the producers' lanes.
+template <int DP, int NT>
+__device__ __forceinline__ void block_setup(const Smem& sm) {
   using L = Layout<DP, NT>;
-  if (threadIdx.x == 0) ring_init(sm.base + L::kBars, kStages, 32, kConsumers);
-  load_tile<DP, CH>(sm.base, kRows, x0, st0, row0, t_len, d, threadIdx.x, kThreads);
-  load_tile<DP, CH>(sm.base + L::kFixedTile, kRows, x1, st1, row0, t_len, d, threadIdx.x,
-                    kThreads);
-  cp_commit();
-  cp_wait<0>();
-  proxy_fence();
+  if (threadIdx.x == 0) {
+    bar_init(sm.base + L::kFixedBar, kProducers);
+    ring_init(sm.base + L::kBars, kStages, kProducers, kConsumers);
+  }
   __syncthreads();
 }
 
-// B4: one block per (64-key tile, batch*head), dK and dV of those keys,
-// walking the query tiles NT at a time.
+// The dK/dV pass: one block per (64-key tile, batch*head), dK and dV of
+// those keys, walking the query tiles NT at a time.
 template <typename Tag, int DP, int NT, int CH>
 __global__ void __launch_bounds__(kThreads, DP > 64 ? 1 : 2)
-dkv_wgmma_kernel(const bwd::BwdArgs a) {
+dkv_wgmma_kernel(const BwdArgs a) {
   using L = Layout<DP, NT>;
   const Smem sm = smem_base();
   const int tq = (int)a.tq, tk = (int)a.tk, kv_len = (int)a.kv_len;
@@ -126,35 +141,44 @@ dkv_wgmma_kernel(const bwd::BwdArgs a) {
   // a tile wholly at or past kv_len walks nothing and stores zeros
   const int n_tiles = n0 < kv_len ? (tq + NT - 1) / NT : 0;
 
-  block_setup<DP, NT, CH>(sm, k, a.ks.t, v, a.vs.t, n0, kv_len, d);  // K, V
+  block_setup<DP, NT>(sm);
   const uint32_t full = sm.base + L::kBars, empty = full + 8 * kStages;
+  const uint32_t fixed = sm.base + L::kFixedBar;  // K, V
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  if (warp == kConsumers / 32) {  // the producer warp: Q, dO, LSE, delta
+  if (warp >= kConsumers / 32) {  // the producer warps: Q with the LSE and delta rows, dO
+    const bool is_g = warp > kConsumers / 32;
+    const bf16* src = is_g ? g : q;
+    const long long st = is_g ? a.gs.t : a.qs.t;
     const float* lse = static_cast<const float*>(a.lse) + (long long)bh * tq;
     const float* delta = static_cast<const float*>(a.delta) + (long long)bh * tq;
+    // first the fixed tile (K or V), published as `fixed` with walked tile 0
+    warp_load_tile<DP, CH>(sm.base + (is_g ? L::kFixedTile : 0), kRows, is_g ? v : k,
+                           is_g ? a.vs.t : a.ks.t, n0, kv_len, d, lane);
+    cp_commit();
     for (int i = 0; i < n_tiles; ++i) {
       const int s = i % kStages;
       if (i >= kStages) bar_wait(empty + 8 * s, ((i / kStages) - 1) & 1);
       const uint32_t tile = sm.base + L::kStage0 + s * 2 * L::kWalkTile;
       const int q0 = i * NT;
-      load_tile<DP, CH>(tile, NT, q, a.qs.t, q0, tq, d, lane, 32);
-      load_tile<DP, CH>(tile + L::kWalkTile, NT, g, a.gs.t, q0, tq, d, lane, 32);
-      const uint32_t rows = sm.base + L::kRowVals + s * 2 * NT * 4;
-      float* rows_p = reinterpret_cast<float*>(sm.ptr + L::kRowVals + s * 2 * NT * 4);
-      for (int r = lane; r < NT; r += 32) {
-        if (q0 + r < tq) {
-          cp_async<4>(rows + 4 * r, lse + q0 + r, true);
-          cp_async<4>(rows + 4 * (NT + r), delta + q0 + r, true);
-        } else {  // rows past Tq: P = dS = 0
-          rows_p[r] = INFINITY;
-          rows_p[NT + r] = 0.f;
+      warp_load_tile<DP, CH>(tile + (is_g ? L::kWalkTile : 0), NT, src, st, q0, tq, d, lane);
+      if (!is_g) {
+        const uint32_t rows = sm.base + L::kRowVals + s * 2 * NT * 4;
+        float* rows_p = reinterpret_cast<float*>(sm.ptr + L::kRowVals + s * 2 * NT * 4);
+        for (int r = lane; r < NT; r += 32) {
+          if (q0 + r < tq) {
+            cp_async<4>(rows + 4 * r, lse + q0 + r, true);
+            cp_async<4>(rows + 4 * (NT + r), delta + q0 + r, true);
+          } else {  // rows past Tq: P = dS = 0
+            rows_p[r] = INFINITY;
+            rows_p[NT + r] = 0.f;
+          }
         }
       }
       cp_commit();
-      if (i > 0) publish<1>(full + 8 * ((i - 1) % kStages));
+      publish<1>(i > 0 ? full + 8 * ((i - 1) % kStages) : fixed);
     }
-    if (n_tiles > 0) publish<0>(full + 8 * ((n_tiles - 1) % kStages));
+    publish<0>(n_tiles > 0 ? full + 8 * ((n_tiles - 1) % kStages) : fixed);
   } else {  // the consumer warpgroup: 16 keys a warp
     const int r0 = 16 * warp + (lane >> 2);  // this thread's keys r0, r0 + 8 in the tile
     const bool key_ok[2] = {n0 + r0 < kv_len, n0 + r0 + 8 < kv_len};
@@ -164,6 +188,7 @@ dkv_wgmma_kernel(const bwd::BwdArgs a) {
     for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < NT / 2; ++i) s[i] = dp[i] = 0.f;
+    bar_wait(fixed, 0);
     for (int i = 0; i < n_tiles; ++i) {
       const int st = i % kStages;
       bar_wait(full + 8 * st, (i / kStages) & 1);
@@ -225,11 +250,11 @@ dkv_wgmma_kernel(const bwd::BwdArgs a) {
   }
 }
 
-// B5: one block per (64-query tile, batch*head), dQ of those rows, walking
-// the key tiles up to kv_len NT at a time.
+// The dQ pass: one block per (64-query tile, batch*head), dQ of those rows,
+// walking the key tiles up to kv_len NT at a time.
 template <typename Tag, int DP, int NT, int CH>
 __global__ void __launch_bounds__(kThreads, DP > 64 ? 1 : 2)
-dq_wgmma_kernel(const bwd::BwdArgs a) {
+dq_wgmma_kernel(const BwdArgs a) {
   using L = Layout<DP, NT>;
   const Smem sm = smem_base();
   const int tq = (int)a.tq, kv_len = (int)a.kv_len;
@@ -244,19 +269,27 @@ dq_wgmma_kernel(const bwd::BwdArgs a) {
   const bf16* v = static_cast<const bf16*>(a.v) + b * a.vs.b + h * a.vs.h;
   const int n_tiles = (kv_len + NT - 1) / NT;
 
-  block_setup<DP, NT, CH>(sm, q, a.qs.t, g, a.gs.t, q0, tq, d);  // Q, dO
+  block_setup<DP, NT>(sm);
   const uint32_t full = sm.base + L::kBars, empty = full + 8 * kStages;
+  const uint32_t fixed = sm.base + L::kFixedBar;  // Q, dO
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  if (warp == kConsumers / 32) {  // the producer warp: K, V
+  if (warp >= kConsumers / 32) {  // the producer warps: K, then V
+    const bool is_v = warp > kConsumers / 32;
+    const bf16* src = is_v ? v : k;
+    const long long st = is_v ? a.vs.t : a.ks.t;
+    // first the fixed tile (Q or dO), published as `fixed` with walked tile 0
+    warp_load_tile<DP, CH>(sm.base + (is_v ? L::kFixedTile : 0), kRows, is_v ? g : q,
+                           is_v ? a.gs.t : a.qs.t, q0, tq, d, lane);
+    cp_commit();
     for (int i = 0; i < n_tiles; ++i) {
       const int s = i % kStages;
       if (i >= kStages) bar_wait(empty + 8 * s, ((i / kStages) - 1) & 1);
       const uint32_t tile = sm.base + L::kStage0 + s * 2 * L::kWalkTile;
-      load_tile<DP, CH>(tile, NT, k, a.ks.t, i * NT, kv_len, d, lane, 32);
-      load_tile<DP, CH>(tile + L::kWalkTile, NT, v, a.vs.t, i * NT, kv_len, d, lane, 32);
+      warp_load_tile<DP, CH>(tile + (is_v ? L::kWalkTile : 0), NT, src, st, i * NT, kv_len, d,
+                             lane);
       cp_commit();
-      if (i > 0) publish<1>(full + 8 * ((i - 1) % kStages));
+      publish<1>(i > 0 ? full + 8 * ((i - 1) % kStages) : fixed);
     }
     publish<0>(full + 8 * ((n_tiles - 1) % kStages));
   } else {  // the consumer warpgroup: 16 queries a warp
@@ -275,6 +308,7 @@ dq_wgmma_kernel(const bwd::BwdArgs a) {
     for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < NT / 2; ++i) s[i] = dp[i] = 0.f;
+    bar_wait(fixed, 0);
     for (int i = 0; i < n_tiles; ++i) {
       const int st = i % kStages;
       bar_wait(full + 8 * st, (i / kStages) & 1);
@@ -324,7 +358,7 @@ dq_wgmma_kernel(const bwd::BwdArgs a) {
 }
 
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, long long rows, const bwd::BwdArgs& a,
+cudaError_t launch(Kernel kernel, size_t smem, long long rows, const BwdArgs& a,
                    cudaStream_t s) {
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -333,17 +367,18 @@ cudaError_t launch(Kernel kernel, size_t smem, long long rows, const bwd::BwdArg
   return cudaGetLastError();
 }
 
-// Rows of the walked tile: 64, or 32 in B4 above D = 64, where its four
-// accumulators would not fit the registers.
+// Rows of the walked tile: 64, or 32 in the dK/dV pass above D = 64, where
+// its four accumulators would not fit the registers.
 template <bool Dkv, int DP>
 constexpr int walk_rows() { return Dkv && DP > 64 ? 32 : 64; }
 
 template <bool Dkv, int DP>
 constexpr size_t smem_of() { return Layout<DP, walk_rows<Dkv, DP>()>::kSmem; }
 
-// Launch B4 (Dkv) or B5 at the padded head dim DP on `s`.
+// Launch the dK/dV pass (Dkv) or the dQ pass at the padded head dim DP on
+// `s`.
 template <typename Tag, bool Dkv, int DP>
-cudaError_t launch_pass(const bwd::BwdArgs& a, cudaStream_t s) {
+cudaError_t launch_pass(const BwdArgs& a, cudaStream_t s) {
   constexpr int NT = walk_rows<Dkv, DP>();
   const bool wide = wide_copies(a.d, {a.qs, a.ks, a.vs, a.gs}, {a.q, a.k, a.v, a.dout});
   if constexpr (Dkv)
@@ -354,21 +389,22 @@ cudaError_t launch_pass(const bwd::BwdArgs& a, cudaStream_t s) {
                 : launch(dq_wgmma_kernel<Tag, DP, NT, 4>, smem_of<Dkv, DP>(), a.tq, a, s);
 }
 
-// Launch B4 (dK, dV) on `s`; bfloat16 operands, D <= 128 a multiple of 4.
+// Launch the dK/dV pass on `s`; bfloat16 operands, D <= 128 a multiple of 4.
 template <typename Tag>
-cudaError_t launch_dkv(const bwd::BwdArgs& a, cudaStream_t s) {
+cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t s) {
   return with_padded_d(a.d,
                        [&](auto dp) { return launch_pass<Tag, true, decltype(dp)::value>(a, s); });
 }
 
-// Launch B5 (dQ) on `s`; as launch_dkv.
+// Launch the dQ pass on `s`; as launch_dkv.
 template <typename Tag>
-cudaError_t launch_dq(const bwd::BwdArgs& a, cudaStream_t s) {
+cudaError_t launch_dq(const BwdArgs& a, cudaStream_t s) {
   return with_padded_d(a.d,
                        [&](auto dp) { return launch_pass<Tag, false, decltype(dp)::value>(a, s); });
 }
 
-// Dynamic shared memory of one block of B4 (dkv) or B5 at head dim d.
+// Dynamic shared memory of one block of the dK/dV (dkv) or dQ pass at head
+// dim d.
 inline size_t smem_bytes(bool dkv, long long d) {
   return with_padded_d(d, [&](auto dp) {
     return dkv ? smem_of<true, decltype(dp)::value>() : smem_of<false, decltype(dp)::value>();

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) pieces shared by the bfloat16 wgmma attention kernels: the
-// forward (flash_fwd_sm90.cuh: B1, B3, B7) and the blocked backward
-// (flash_bwd_sm90.cuh: B4, B5).
+// forward (flash_fwd_sm90.cuh: B1, B3, B7) and the backward
+// (flash_bwd_sm90.cuh: B2, B4, B5, B8).
 //
 // - Tiles sit in shared memory as rows of 64 bf16 (128 bytes) in the 128-byte
 //   swizzle, the head dim zero-padded to DP; a row of DP = 128 spans two
@@ -24,18 +24,25 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <initializer_list>
 #include <type_traits>
 
 #include "attention_common.cuh"
-#include "bf16_mma.cuh"
 
 namespace {
 namespace sm90 {
 
-using headct_mma::bf16;
-using headct_mma::pack_bf16;
+using bf16 = __nv_bfloat16;
+
+// Two floats rounded to bf16 and packed, the first in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  uint32_t r;
+  memcpy(&r, &v, sizeof(r));
+  return r;
+}
 
 constexpr float kLog2e = 1.4426950408889634f;
 

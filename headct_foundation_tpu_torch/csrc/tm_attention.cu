@@ -23,9 +23,10 @@
 // flash_fwd.cuh and B8 the delta pass and the FlashAttention-2 dK/dV and dQ
 // passes of flash_bwd.cuh (no atomics, bit-identical reruns), called with the
 // token-major strides and Tq = Tk = kv_len = T; the tag TokenMajor keeps
-// their names in a profile apart from B1's and B2's. bfloat16 B7 runs
-// flash_fwd_sm90.cuh's wgmma kernel and B8 the tensor cores through mma.sync,
-// float32 both on the CUDA cores.
+// their names in a profile apart from B1's and B2's. In bfloat16, B7 runs
+// flash_fwd_sm90.cuh's wgmma kernel and B8 flash_bwd_sm90.cuh's wgmma passes,
+// the kernels of B1 and B2, so B7 and B8 equal B1 and B2 bit for bit; float32
+// runs both on the CUDA cores.
 //
 // Bounds are B1's and B2's: at the MAE decoder shape [32, 513, 16, 48]
 // bfloat16, B7 moves 102 MB (0.030 ms at 3.35 TB/s) for 2.59e10 operations
@@ -74,7 +75,7 @@ extern "C" int headct_tm_attention_bwd(const void* q, const void* k, const void*
                                        float scale, int dtype, void* stream) {
   if (bad_shape(B, t_len, n_heads, d)) return (int)cudaErrorInvalidValue;
   const Strides s = token_major(t_len, n_heads, d);
-  const bwd::BwdArgs a{q, k, v, dout, lse, delta, dq, dk, dv, B, t_len, t_len, t_len, n_heads,
+  const BwdArgs a{q, k, v, dout, lse, delta, dq, dk, dv, B, t_len, t_len, t_len, n_heads,
                        d, s, s, s, s, scale};
   return (int)bwd::flash_bwd<TokenMajor>(a, o, s, delta, dtype,
                                          static_cast<cudaStream_t>(stream));

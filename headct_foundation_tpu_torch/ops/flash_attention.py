@@ -15,7 +15,9 @@ Whole-sequence path (square T <= ``VMEM_PATH_MAX_T``), the JAX package's
   log-sum-exp in the JAX layout [B*H, 1, T].
 * ``fused_attention_bwd`` ports the backward (``:215 _fused_bwd``, kernel
   ``_vmem_bwd_kernel`` at ``:86``): ``csrc/flash_attention_bwd.cu`` on a CUDA
-  tensor, ``fused_attention_bwd_reference`` on a CPU tensor.
+  tensor, ``fused_attention_bwd_reference`` on a CPU tensor. Its bfloat16
+  dK/dV and dQ passes are the wgmma kernels of ``csrc/flash_bwd_sm90.cuh``
+  that the blocked backward runs, with Tq = Tk = T.
 * ``FusedAttention`` wires the two as a ``torch.autograd.Function`` that
   keeps exactly the JAX custom VJP's residuals (q, k, v, o, lse).
 

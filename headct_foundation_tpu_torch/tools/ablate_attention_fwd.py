@@ -72,7 +72,7 @@ def ablate(source: str, edits) -> str:
     ValueError where a text is not in it."""
     for old, new in edits:
         if old not in source:
-            raise ValueError(f"{HEADER} no longer holds {old!r}")
+            raise ValueError(f"the header no longer holds {old!r}")
         source = source.replace(old, new)
     return source
 

@@ -151,11 +151,12 @@ def _bthd(x, B, H, T, D):
 
 
 @pytest.mark.parametrize("dtype,atol,rtol", [("float32", 2e-5, 1e-4), ("bfloat16", 2e-2, 2e-2)])
-@pytest.mark.parametrize("shape", [(2, 9, 3, 16), (2, 129, 3, 32)])
+@pytest.mark.parametrize("shape", [(2, 9, 3, 16), (2, 129, 3, 32), (1, 513, 2, 48)])
 def test_fused_attention_bwd_reference_matches_jax_kernel(shape, dtype, atol, rtol):
     """The backward's plain version against the interpreted Pallas backward,
-    on the JAX forward's own residuals (o, lse). In bf16 both round P and dS
-    at the same points, so nearly every gradient agrees bit for bit."""
+    on the JAX forward's own residuals (o, lse), up to the 96^3 MAE decoder's
+    T = 513 and head dim 48. In bf16 both round P and dS at the same points,
+    so nearly every gradient agrees bit for bit."""
     B, T, H, D = shape
     q, k, v = _qkv(B, T, H, D, seed=3)
     g = np.random.RandomState(4).randn(B, T, H, D).astype(np.float32)

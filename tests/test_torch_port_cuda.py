@@ -49,6 +49,12 @@ def assert_matches(a, b, atol, rtol, name=""):
         assert rel <= _BF16_REL_L2, f"{name}: ||a - b|| / ||b|| = {rel:.3e}"
 
 
+def _randn(shape, offset, g, dtype):
+    """A [shape] tensor starting `offset` elements into its storage."""
+    n = math.prod(shape)
+    return torch.randn(n + offset, device="cuda", generator=g).to(dtype)[offset:].view(shape)
+
+
 _CUDA_CASES = [
     ((8, 513, 12, 64), torch.float32, 2e-5, 1e-4),   # serving
     ((8, 513, 16, 48), torch.bfloat16, 2e-2, 2e-2),  # MAE decoder
@@ -89,30 +95,48 @@ def test_cuda_kernel_matches_plain_version(shape, dtype, atol, rtol):
         (launches[0], launches[1] + 1)
 
 
-# Backward kernel: (shape, dtype, atol, rtol) for dq, dk, dv.
+# Backward kernel B2: (shape, dtype, atol, rtol, storage offset) for dq, dk, dv;
+# q, k, v are strided views of one [B, T, 3, H, D]. The bfloat16 cases from the
+# block edges on hold the wgmma passes of csrc/flash_bwd_sm90.cuh at
+# whole-sequence shapes: T one below, at and one above their 64-row tiles and
+# the decoder's 513, head dims 12 (8-byte copies) to 128, and a view 4
+# elements into its storage (no operand 16-byte aligned).
 _BWD_CASES = [
-    ((8, 513, 16, 48), torch.bfloat16, 2e-2, 2e-2),  # MAE decoder
-    ((8, 513, 16, 48), torch.float32, 1e-4, 1e-3),
-    ((2, 129, 3, 32), torch.float32, 1e-4, 1e-3),
-    ((2, 9, 3, 12), torch.float32, 1e-4, 1e-3),
-    ((2, 129, 3, 32), torch.bfloat16, 2e-2, 2e-2),   # tensor-core path, head dim padded
-    ((2, 9, 3, 12), torch.bfloat16, 2e-2, 2e-2),     # to 32, 16, 64 and 128
-    ((2, 200, 2, 64), torch.bfloat16, 2e-2, 2e-2),
-    ((2, 70, 2, 128), torch.bfloat16, 2e-2, 2e-2),
+    ((8, 513, 16, 48), torch.bfloat16, 2e-2, 2e-2, 0),  # MAE decoder
+    ((8, 513, 16, 48), torch.float32, 1e-4, 1e-3, 0),
+    ((2, 129, 3, 32), torch.float32, 1e-4, 1e-3, 0),
+    ((2, 9, 3, 12), torch.float32, 1e-4, 1e-3, 0),
+    ((2, 129, 3, 32), torch.bfloat16, 2e-2, 2e-2, 0),   # head dim padded to 32, 16,
+    ((2, 9, 3, 12), torch.bfloat16, 2e-2, 2e-2, 0),     # 64 and 128
+    ((2, 200, 2, 64), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 70, 2, 128), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 63, 2, 48), torch.bfloat16, 2e-2, 2e-2, 0),    # block edges
+    ((2, 64, 2, 48), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 65, 2, 48), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 127, 2, 48), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 128, 2, 48), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 129, 2, 48), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 513, 2, 48), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 200, 2, 12), torch.bfloat16, 2e-2, 2e-2, 0),   # head dims 12 to 128
+    ((2, 129, 2, 16), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 200, 2, 32), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 130, 2, 64), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 130, 2, 128), torch.bfloat16, 2e-2, 2e-2, 0),
+    ((2, 129, 3, 64), torch.bfloat16, 2e-2, 2e-2, 4),   # misaligned view
 ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,dtype,atol,rtol", _BWD_CASES)
-def test_cuda_bwd_kernel_matches_plain_version(shape, dtype, atol, rtol):
+@pytest.mark.parametrize("shape,dtype,atol,rtol,offset", _BWD_CASES)
+def test_cuda_bwd_kernel_matches_plain_version(shape, dtype, atol, rtol, offset):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
     B, T, H, D = shape
     g = torch.Generator(device="cuda").manual_seed(0)
-    qkv = torch.randn(B, T, 3, H, D, device="cuda", generator=g).to(dtype)
+    qkv = _randn((B, T, 3, H, D), offset, g, dtype)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     o, lse = fused_attention(q, k, v)
-    do = torch.randn(B, T, H, D, device="cuda", generator=g).to(dtype)
+    do = _randn((B, T, H, D), offset, g, dtype)
     before = fused_attention_bwd.launches
     got = fused_attention_bwd(q, k, v, o, do, lse)
     again = fused_attention_bwd(q, k, v, o, do, lse)
@@ -173,12 +197,6 @@ _BLOCKED_CASES = [
     ((2, 100, 2, 64), 300, 250, torch.bfloat16, 2e-2, 2e-2, 4),
 ]
 _BWD_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
-
-
-def _randn(shape, offset, g, dtype):
-    """A [shape] tensor starting `offset` elements into its storage."""
-    n = math.prod(shape)
-    return torch.randn(n + offset, device="cuda", generator=g).to(dtype)[offset:].view(shape)
 
 
 def blocked_inputs(shape, tk, dtype, seed, offset=0):
