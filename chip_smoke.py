@@ -14,10 +14,12 @@ Phases, each printing a line; any failure raises and exits non-zero:
              the same function (``library_ms``; the port never calls it).
              Every output is held elementwise; a bfloat16 one also normwise,
              ||kernel - plain|| / ||plain|| <= BF16_REL_L2. The forward (B1;
-             bf16 on the wgmma kernel of csrc/flash_fwd_sm90.cuh) is held at
-             the serving and MAE decoder shapes and at the edges of its
-             64-key tiles and 128-row blocks, head dims 12 to 128 and a
-             misaligned view; two runs must be bit-identical. The blocked
+             bf16 on the wgmma kernel of csrc/flash_fwd_sm90.cuh, float32 on
+             the 3xTF32 kernel of csrc/flash_fwd_f32_sm90.cuh) is held at
+             the serving and MAE decoder shapes and, in both types, at the
+             edges of its key tiles and 128-row blocks, head dims 12 to 128
+             and a view 4 elements into its storage; two runs must be
+             bit-identical. The blocked
              kernels B3 (forward), B4 (dK, dV) and B5 (dQ) are held at the
              192^3 MAE's shapes, in float32, with rectangular q/k and a kv_len
              that masks whole key tiles, at head dims 12 to 128, at the
@@ -29,9 +31,12 @@ Phases, each printing a line; any failure raises and exits non-zero:
              12 to 128 and a misaligned view; two runs bit-identical.
              ptxas's report (registers, spills, shared memory) of every
              wgmma instantiation (the forward, the dK/dV and dQ passes) is
-             printed after the build, a spill failing the run. B1 bf16, B2,
-             B3-B5 and B8 are timed on an idle stream and behind a device
-             sleep, beside their bound and their exponentials' floor.
+             printed after the build, a spill failing the run. B1 (float32
+             and bf16), B2, B3-B5 and B8 are timed on an idle stream and
+             behind a device sleep, beside their bound and their
+             exponentials' floor; float32 B1 beside both bounds (3xTF32 on
+             the tensor cores, its route's, and the float32 CUDA cores) and
+             the names of the kernels its library call launched.
 4. slice   - the embedding server at full width: ViT-B/12 at 96^3, 3
              channels, random weights from a seeded generator, behind
              ``build_server(max_batch=8)``; 8 concurrent POSTs of synthetic
@@ -104,6 +109,7 @@ from headct_foundation_tpu_torch.tools.bench_tm_attention import cuda_ms
 ROOT = Path(__file__).resolve().parent
 
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # H100 SXM, dense
+PEAK_TF32 = 495e12  # the tensor cores' dense TF32 rate, which the float32 forward runs on
 PEAK_BYTES = 3.35e12
 SERVING = (8, 513, 12, 64)
 MAE_DECODER = (32, 513, 16, 48)
@@ -112,7 +118,9 @@ KERNEL_CASES = [  # (shape [B, T, H, D], dtype, atol, rtol, storage offset) for 
     # The bf16 cases from the block edges on hold the wgmma forward's 64-key tiles and
     # 128-row blocks (T one below, at and one above each), head dims 12 (the 8-byte copy
     # route, several key tiles) and 128, and a view whose start (4 elements in) breaks the
-    # 16-byte alignment of every operand.
+    # 16-byte alignment of every operand. The float32 cases after them hold the 3xTF32
+    # forward (csrc/flash_fwd_f32_sm90.cuh) at the same edges, at its 32-key tiles of head
+    # dim 128, and on a view 4 elements in (still 16-byte aligned in float32).
     (SERVING, torch.float32, 2e-5, 1e-4, 0),               # serving path, every ViT-B block
     (MAE_DECODER, torch.bfloat16, 2e-2, 2e-2, 0),          # MAE decoder, every block
     ((2, 129, 3, 32), torch.float32, 2e-5, 1e-4, 0),       # ragged tiles
@@ -129,6 +137,18 @@ KERNEL_CASES = [  # (shape [B, T, H, D], dtype, atol, rtol, storage offset) for 
     ((2, 200, 2, 12), torch.bfloat16, 2e-2, 2e-2, 0),      # head dims 12 and 128
     ((2, 130, 2, 128), torch.bfloat16, 2e-2, 2e-2, 0),
     ((2, 129, 3, 64), torch.bfloat16, 2e-2, 2e-2, 4),      # misaligned view
+    ((2, 63, 2, 48), torch.float32, 2e-5, 1e-4, 0),        # float32 block edges
+    ((2, 64, 2, 48), torch.float32, 2e-5, 1e-4, 0),
+    ((2, 65, 2, 48), torch.float32, 2e-5, 1e-4, 0),
+    ((2, 127, 2, 64), torch.float32, 2e-5, 1e-4, 0),
+    ((2, 128, 2, 64), torch.float32, 2e-5, 1e-4, 0),
+    ((2, 129, 2, 64), torch.float32, 2e-5, 1e-4, 0),
+    ((2, 200, 2, 12), torch.float32, 2e-5, 1e-4, 0),       # float32 head dims 12 and 128
+    ((2, 31, 2, 128), torch.float32, 2e-5, 1e-4, 0),       # (32-key tiles)
+    ((2, 32, 2, 128), torch.float32, 2e-5, 1e-4, 0),
+    ((2, 33, 2, 128), torch.float32, 2e-5, 1e-4, 0),
+    ((2, 130, 2, 128), torch.float32, 2e-5, 1e-4, 0),
+    ((2, 129, 3, 64), torch.float32, 2e-5, 1e-4, 4),       # a view 4 elements in
 ]
 BWD_CASES = [  # (shape, dtype, atol, rtol, storage offset) for dq, dk, dv against the plain
     # backward; reruns bit-identical. q, k, v are strided views of one [B, T, 3, H, D]. The
@@ -263,20 +283,24 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
-def attention_bound_ms(shape, dtype, backward: bool = False) -> tuple:
+def attention_bound_ms(shape, dtype, backward: bool = False, tf32x3: bool = False) -> tuple:
     """Least time for the work, the larger of operations at the type's dense
     peak and bytes at the memory rate. Forward: 4*B*H*T^2*D operations; q, k,
     v read once, o and lse written once. Backward: 10*B*H*T^2*D operations
-    (5 products); q, k, v, o, dO and lse read once, dq, dk, dv written once."""
+    (5 products); q, k, v, o, dO and lse read once, dq, dk, dv written once.
+    ``tf32x3``: a float32 product done as three TF32 products on the tensor
+    cores (the float32 forward's route), three times the operations at the
+    TF32 peak."""
     B, T, H, D = shape
     elt = torch.tensor([], dtype=dtype).element_size()
     ops = (10 if backward else 4) * B * H * T * T * D
     nbytes = (8 if backward else 4) * B * T * H * D * elt + B * H * T * 4
-    return bound_ms(ops, nbytes, dtype)
+    return bound_ms(3 * ops if tf32x3 else ops, nbytes, dtype, PEAK_TF32 if tf32x3 else None)
 
 
-def bound_ms(ops: float, nbytes: float, dtype) -> tuple:
-    t_ops, t_bytes = ops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound_ms(ops: float, nbytes: float, dtype, peak=None) -> tuple:
+    t_ops = ops / (peak or PEAK_FLOPS[dtype]) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -365,31 +389,56 @@ def phase_kernels(fused_attention, fused_attention_reference) -> dict:
 def time_fwd(fused_attention, fused_attention_reference, row, q, k, v, shape, dtype) -> None:
     """Kernel, plain version, bound and library call (scaled_dot_product_attention's
     forward) of B1 at a main-path shape, on an idle stream (``ms``,
-    ``library_ms``); at bfloat16 also behind a device sleep (``ms_device``,
-    ``library_ms_device``: the device's time alone) beside the exp floor."""
+    ``library_ms``) and behind a device sleep (``ms_device``,
+    ``library_ms_device``: the device's time alone) beside the exp floor. In
+    float32 the bound is the 3xTF32 tensor-core route's (``bound_ms``), with
+    the float32 CUDA cores' beside it (``bound_ms_cuda_cores``), and the
+    library call's kernels are named from a profile (``library_kernels``)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     row["ms"] = cuda_ms(lambda: fused_attention(q, k, v))
     row["plain_ms"] = cuda_ms(lambda: fused_attention_reference(q, k, v))
     row["library_ms"] = cuda_ms(lambda: sdpa(qt, kt, vt))
     row["bound_ms"], row["bound_by"] = attention_bound_ms(shape, dtype)
-    device = ""
-    if dtype == torch.bfloat16:
-        row["ms_device"] = cuda_ms(lambda: fused_attention(q, k, v), ahead=AHEAD_ONE)
-        row["library_ms_device"] = cuda_ms(lambda: sdpa(qt, kt, vt), ahead=AHEAD_ONE)
-        floor = exp_floor_ms(shape, shape[1])
-        device = (f"; behind a device sleep kernel {row['ms_device']:.4f} ms, "
-                  f"scaled_dot_product_attention {row['library_ms_device']:.4f} ms "
-                  f"({row['ms_device'] / row['library_ms_device']:.2f}x); exp floor "
-                  f"{floor:.4f} ms (one exponential per P element, B*H*T^2 = "
-                  f"{shape[0] * shape[2] * shape[1] ** 2}, at 16 per SM per clock), "
-                  f"{100 * floor / row['ms_device']:.1f}% of the kernel's device time")
+    row["ms_device"] = cuda_ms(lambda: fused_attention(q, k, v), ahead=AHEAD_ONE)
+    row["library_ms_device"] = cuda_ms(lambda: sdpa(qt, kt, vt), ahead=AHEAD_ONE)
+    floor = exp_floor_ms(shape, shape[1])
+    bounds = f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}"
+    if dtype == torch.float32:
+        row["bound_ms_cuda_cores"] = row["bound_ms"]
+        row["bound_ms"], row["bound_by"] = attention_bound_ms(shape, dtype, tf32x3=True)
+        row["library_kernels"] = device_kernels(lambda: sdpa(qt, kt, vt))
+        bounds = (f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} (three TF32 products "
+                  f"each at {PEAK_TF32 / 1e12:.0f} TFLOP/s, the route's; on the float32 CUDA "
+                  f"cores {row['bound_ms_cuda_cores']:.4f} ms)")
+        print(f"timing flash_attention_fwd {list(shape)} float32: scaled_dot_product_attention "
+              f"launched {row['library_kernels']}", flush=True)
     print(f"timing flash_attention_fwd {list(shape)} {str(dtype)[6:]}: "
           f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
           f"scaled_dot_product_attention {row['library_ms']:.4f} ms "
-          f"({row['ms'] / row['library_ms']:.2f}x), on an idle stream; bound "
-          f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
-          f"({100 * row['bound_ms'] / row['ms']:.1f}% of bound){device}", flush=True)
+          f"({row['ms'] / row['library_ms']:.2f}x), on an idle stream; {bounds} "
+          f"({100 * row['bound_ms'] / row['ms']:.1f}% of bound); behind a device sleep kernel "
+          f"{row['ms_device']:.4f} ms, scaled_dot_product_attention "
+          f"{row['library_ms_device']:.4f} ms "
+          f"({row['ms_device'] / row['library_ms_device']:.2f}x); exp floor "
+          f"{floor:.4f} ms (one exponential per P element, B*H*T^2 = "
+          f"{shape[0] * shape[2] * shape[1] ** 2}, at 16 per SM per clock), "
+          f"{100 * floor / row['ms_device']:.1f}% of the kernel's device time", flush=True)
+
+
+def device_kernels(fn) -> list:
+    """Names of the kernels that one call of fn launches on the card, from
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({ev.key[:160] for ev in prof.key_averages()
+                   if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA
+                   and not getattr(ev, "is_user_annotation", False)})
 
 
 def phase_bwd_kernels(fused_attention, fused_attention_bwd, fused_attention_bwd_reference) -> dict:
@@ -1243,27 +1292,33 @@ def phase_train(label: str, config: str, batch: int, compare_batch: int, seed0: 
 
 
 # Libraries holding wgmma kernels -> instantiations ptxas must report: the
-# forward at 5 padded head dims x 2 copy widths in each of B1's, B3's and B7's
-# library; the dK/dV and dQ passes at 5 x 2 each in B2's, B4/B5's and B8's.
-WGMMA_BUILDS = {"flash_attention_fwd": 10, "flash_attention_blocked_fwd": 10,
+# bf16 forward at 5 padded head dims x 2 copy widths and the float32 forward
+# at 5 (16-byte copies only) in each of B1's, B3's and B7's library; the dK/dV
+# and dQ passes at 5 x 2 each in B2's, B4/B5's and B8's.
+WGMMA_BUILDS = {"flash_attention_fwd": 15, "flash_attention_blocked_fwd": 15,
                 "flash_attention_bwd": 20, "flash_attention_blocked_bwd": 20,
-                "tm_attention": 30}
+                "tm_attention": 35}
 
 
 def report_wgmma_build(_build) -> None:
     """ptxas's registers and spills of each instantiation of the wgmma
-    kernels -- the forward (csrc/flash_fwd_sm90.cuh) and B4/B5
-    (csrc/flash_bwd_sm90.cuh): head dim padded to DP, walked tile NT, copy
-    width -- with its dynamic shared memory, and any line where ptxas says
-    it serialized wgmma. A spill fails the run. A library built before this
-    run is held by the report saved beside it."""
+    kernels -- the bf16 forward (csrc/flash_fwd_sm90.cuh), the float32
+    forward (csrc/flash_fwd_f32_sm90.cuh) and B4/B5 (csrc/flash_bwd_sm90.cuh):
+    head dim padded to DP, walked tile NT, copy width -- with its dynamic
+    shared memory, and any line where ptxas says it serialized wgmma. A
+    spill fails the run. A library built before this run is held by the
+    report saved beside it."""
     import ctypes
 
     fwd_smem = _build.load("flash_attention_blocked_fwd").headct_flash_attention_blocked_fwd_smem
     fwd_smem.argtypes, fwd_smem.restype = [ctypes.c_longlong], ctypes.c_longlong
+    f32_smem = _build.load(
+        "flash_attention_blocked_fwd").headct_flash_attention_blocked_fwd_f32_smem
+    f32_smem.argtypes, f32_smem.restype = [ctypes.c_longlong], ctypes.c_longlong
     bwd_smem = _build.load("flash_attention_blocked_bwd").headct_flash_attention_blocked_bwd_smem
     bwd_smem.argtypes, bwd_smem.restype = [ctypes.c_int, ctypes.c_longlong], ctypes.c_longlong
     kinds = {"flash_fwd_wgmma_kernel": ("forward", fwd_smem),
+             "flash_fwd_tf32_kernel": ("float32 forward", f32_smem),
              "dkv_wgmma_kernel": ("dK/dV pass", lambda dp: bwd_smem(1, dp)),
              "dq_wgmma_kernel": ("dQ pass", lambda dp: bwd_smem(0, dp))}
     seen = {}
@@ -1278,10 +1333,12 @@ def report_wgmma_build(_build) -> None:
             if kind is None:
                 continue
             label, smem = kinds[kind]
-            dp, nt, ch = (int(x) for x in re.findall(r"Li(\d+)E", name)[:3])
+            ints = [int(x) for x in re.findall(r"Li(\d+)E", name)]  # DP, NT, copy elements
+            dp, nt = ints[:2]
+            copy = 2 * ints[2] if len(ints) > 2 else 16  # the float32 forward: 16 bytes
             regs = int(re.search(r"Used (\d+) registers", entry).group(1))
             spills = int(re.search(r"(\d+) bytes spill stores", entry).group(1))
-            print(f"build: {lib} {label} {kind}<DP {dp}, NT {nt}, {2 * ch}-byte copies>: "
+            print(f"build: {lib} {label} {kind}<DP {dp}, NT {nt}, {copy}-byte copies>: "
                   f"{regs} registers, {spills} bytes spill stores, {smem(dp)} bytes dynamic "
                   f"shared memory per block", flush=True)
             check(spills == 0, f"{kind} at DP {dp} in {lib} spills {spills} bytes")
@@ -1415,14 +1472,20 @@ def main() -> int:
                          if name == blocked[0] else
                          ("flash_bwd_sm90.cuh", "flash_attention_blocked_bwd.cu"))
         entry = {"entry": f"headct_foundation_tpu_torch/csrc/{entry}"}
+        if name == blocked[0]:
+            entry.update(f32_source)
         return row(name, source, replaces, {**dec, "max_abs_err": err}, STRETCH_DECODER, torch.bfloat16,
                    at_encoder_shape={"shape": list(STRETCH_ENCODER),
                                      **{k: enc[k] for k in keys if k in enc}},
                    **{k: dec[k] for k in keys[5:] if k in dec}, **entry)
 
+    f32_source = {"float32_source": "headct_foundation_tpu_torch/csrc/flash_fwd_f32_sm90.cuh"}
+    serving = kernel_rows[(SERVING, torch.float32)]
     print(json.dumps({"kernels": [
-        row("flash_attention_fwd", "flash_attention_fwd.cu", 60,
-            kernel_rows[(SERVING, torch.float32)], SERVING, torch.float32,
+        # float32 B1 runs the 3xTF32 kernel of the sm_90a header; its C entry is in the .cu
+        row("flash_attention_fwd", "flash_fwd_f32_sm90.cuh", 60, serving, SERVING,
+            torch.float32, entry="headct_foundation_tpu_torch/csrc/flash_attention_fwd.cu",
+            **{k: serving[k] for k in ("ms_device", "library_ms_device", "library_kernels")},
             at_mae_decoder_shape={
                 "shape": list(MAE_DECODER), "dtype": "bfloat16",
                 "kernel_source": "headct_foundation_tpu_torch/csrc/flash_fwd_sm90.cuh",
@@ -1439,7 +1502,7 @@ def main() -> int:
         row("lion_update", "lion_update.cu", "headct_foundation_tpu/ops/lion_kernel.py:31",
             lion_row, LION_CASES[0][0], torch.float32, all_trainable_tensors=lion["lion"]),
         row("tm_attention_fwd", "tm_attention.cu", "tools/experimental_tm_attention.py:55",
-            tm_rows["tm_attention_fwd"], MAE_DECODER, torch.bfloat16),
+            tm_rows["tm_attention_fwd"], MAE_DECODER, torch.bfloat16, **f32_source),
         row("tm_attention_bwd", "flash_bwd_sm90.cuh", "tools/experimental_tm_attention.py:80",
             tm_rows["tm_attention_bwd"], MAE_DECODER, torch.bfloat16,
             entry="headct_foundation_tpu_torch/csrc/tm_attention.cu",

@@ -19,8 +19,9 @@
 // rows, batch*head) -- 1056 blocks at the decoder shape, 216 at the
 // encoder's -- two consumer warpgroups sharing the 64-key K and V tiles that
 // two producer warps stream through a cp.async/mbarrier ring. float32 takes
-// flash_fwd_kernel on the CUDA cores (full float32 products, as the TPU
-// kernel keeps for float32 inputs). The TPU block sizes
+// flash_fwd_f32_sm90.cuh's kernel of the same shape, whose products run on
+// the tensor cores as three TF32 products each (float32-accurate, as the
+// TPU kernel keeps for float32 inputs). The TPU block sizes
 // (`_blocked_block_sizes`, `BLOCK_Q`/`BLOCK_K`) are TPU tuning and play no
 // part here. The key loop stops at the last tile holding a key < kv_len, so
 // no tile is wholly masked and no work is spent past it; query rows >= Tq
@@ -62,4 +63,9 @@ extern "C" int headct_flash_attention_blocked_fwd(
 // reports; B1 and B7 run the same kernel and take the same).
 extern "C" long long headct_flash_attention_blocked_fwd_smem(long long d) {
   return (long long)fwd90::smem_bytes(d);
+}
+
+// The same for one float32 block (flash_fwd_f32_sm90.cuh).
+extern "C" long long headct_flash_attention_blocked_fwd_f32_smem(long long d) {
+  return (long long)fwd32::smem_bytes(d);
 }

@@ -13,18 +13,21 @@
 // Design. The Pallas kernel holds the whole [T, T] float32 score slab in VMEM
 // (1 MB at T = 513); a Hopper block has 227 KB of shared memory, so this kernel
 // streams instead, with the forward kernels of flash_fwd.cuh called with Tq =
-// Tk = kv_len = T: bfloat16 on flash_fwd_sm90.cuh's wgmma kernel (128 query
-// rows per block, 64-key tiles through a cp.async/mbarrier ring, online
-// softmax in registers), float32 on the CUDA cores (64 query rows per block). The ragged tail is
-// masked: 513 = 8 * 64 + 1, so the last key tile has one real column and the
-// last query block one real row. The blocked kernel B3
+// Tk = kv_len = T: bfloat16 on flash_fwd_sm90.cuh's wgmma kernel, float32 on
+// flash_fwd_f32_sm90.cuh's 3xTF32 tensor-core kernel (both 128 query rows per
+// block, key tiles through a cp.async/mbarrier ring, online softmax in
+// registers). The ragged tail is masked: 513 = 8 * 64 + 1, so the last
+// 64-key tile has one real column and every fifth 128-row block one real
+// row. The blocked kernel B3
 // (flash_attention_blocked_fwd.cu) is the same code without the square,
 // T <= 1024 limits.
 //
 // Bound at the serving shape [8, 513, 12, 64] float32: 4*B*H*T^2*D = 6.47e9
 // operations, 0.097 ms at the H100 SXM's 67 TFLOP/s of float32 outside the
-// tensor cores; q, k, v read once and o written once are 50.5 MB, 0.015 ms at
-// 3.35 TB/s. So it is bound by operations. At the MAE decoder shape
+// tensor cores, or three TF32 products each, 1.94e10 operations, 0.039 ms at
+// 495 TFLOP/s on the tensor cores (the float32 route's bound); q, k, v read
+// once and o written once are 50.5 MB, 0.015 ms at 3.35 TB/s. So it is bound
+// by operations. At the MAE decoder shape
 // [32, 513, 16, 48] bfloat16: 2.59e10 operations, 0.026 ms at 989 TFLOP/s,
 // against 102 MB, 0.030 ms: bound by bytes. Its exponentials, one per P
 // element (B*H*T^2 = 1.35e8 at 16 per SM per clock, 132 SMs at 1.98 GHz),

@@ -26,7 +26,8 @@
 // their names in a profile apart from B1's and B2's. In bfloat16, B7 runs
 // flash_fwd_sm90.cuh's wgmma kernel and B8 flash_bwd_sm90.cuh's wgmma passes,
 // the kernels of B1 and B2, so B7 and B8 equal B1 and B2 bit for bit; float32
-// runs both on the CUDA cores.
+// B7 runs B1's 3xTF32 tensor-core kernel of flash_fwd_f32_sm90.cuh (bit-equal
+// to B1 too) and float32 B8 the CUDA-core passes of flash_bwd.cuh.
 //
 // Bounds are B1's and B2's: at the MAE decoder shape [32, 513, 16, 48]
 // bfloat16, B7 moves 102 MB (0.030 ms at 3.35 TB/s) for 2.59e10 operations

@@ -9,8 +9,9 @@ Whole-sequence path (square T <= ``VMEM_PATH_MAX_T``), the JAX package's
   ``fused_attention_reference``. Its bfloat16 kernel is
   ``flash_fwd_wgmma_kernel`` of ``csrc/flash_fwd_sm90.cuh`` (wgmma, two
   producer warps feeding an mbarrier ring of cp.async K/V tiles), its
-  float32 kernel ``flash_fwd_kernel`` of ``csrc/flash_fwd.cuh`` on the CUDA
-  cores. Both
+  float32 kernel ``flash_fwd_tf32_kernel`` of ``csrc/flash_fwd_f32_sm90.cuh``
+  (the same ring, every product three TF32 products on the tensor cores,
+  float32-accurate). Both
   return ``(o, lse)``: o [B, T, H, D] in q's dtype and the float32
   log-sum-exp in the JAX layout [B*H, 1, T].
 * ``fused_attention_bwd`` ports the backward (``:215 _fused_bwd``, kernel
@@ -44,8 +45,8 @@ package's ``:245-517``:
 
 The JAX package's block sizes (``_blocked_block_sizes``, ``BLOCK_Q`` and
 ``BLOCK_K``) are TPU tuning and no spec for the port: the CUDA kernels use
-their own tiles: 128 query rows per block and 64-key tiles in the bfloat16
-forward, 64 rows elsewhere (32-row walked tiles in B4 at head dims above 64).
+their own tiles: 128 query rows per block and 64-key tiles in the forward
+(32-key tiles in float32 above a head dim of 64), 64 rows elsewhere (32-row walked tiles in B4 at head dims above 64).
 On the CPU every backward is the plain backward, so the CPU tests exercise
 the kernels' contract rather than autograd through matmuls. The blocked plain versions walk the sequence in chunks of
 ``_REF_CHUNK`` rows, so no [T, T] tensor of a long sequence is made whole.

@@ -25,16 +25,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
-import shutil
-import subprocess
 import sys
-import tempfile
 from pathlib import Path
 
 import torch
 
-from headct_foundation_tpu_torch.tools.ablate_attention_fwd import ablate
+from headct_foundation_tpu_torch.tools.ablate_attention_fwd import ablate, time_runs
 
 PKG = Path(__file__).resolve().parents[1]
 HEADER = "csrc/flash_bwd_sm90.cuh"
@@ -108,37 +104,14 @@ print("TIMES " + json.dumps(out), flush=True)
 """
 
 
-def time_package(package: Path, edits=()) -> dict:
-    """Device ms at each of SHAPES of a copy of ``package`` with ``edits``
-    applied to its HEADER."""
-    with tempfile.TemporaryDirectory() as tmp:
-        copy = Path(tmp) / PKG.name
-        shutil.copytree(package, copy, ignore=shutil.ignore_patterns("__pycache__"))
-        if edits:
-            header = copy / HEADER
-            header.write_text(ablate(header.read_text(), edits))
-        r = subprocess.run([sys.executable, "-c", RUN, json.dumps(SHAPES), str(AHEAD)], cwd=tmp,
-                           text=True, capture_output=True, env=dict(os.environ, PYTHONPATH=tmp),
-                           timeout=900)
-    times = [ln for ln in r.stdout.splitlines() if ln.startswith("TIMES ")]
-    if r.returncode != 0 or not times:
-        raise RuntimeError(f"timing {package} failed (exit {r.returncode}):\n{r.stderr[-3000:]}")
-    return json.loads(times[-1][len("TIMES "):])
-
-
 def run(packages=()) -> dict:
     """Device ms of each shape under each ablation, or of each package copy
     given, by run name."""
     if not torch.cuda.is_available():
         raise RuntimeError("ablate_attention_bwd times CUDA kernels and needs an NVIDIA GPU")
-    runs = ([(f"package {p}", Path(p), ()) for p in packages] if packages else
-            [(n, PKG, edits) for n, edits in ABLATIONS.items()])
-    results = {}
-    for name, package, edits in runs:
-        results[name] = time_package(package, edits)
-        print(f"{name}: device ms " + ", ".join(
-            f"{shape} {ms:.4f}" for shape, ms in results[name].items()), flush=True)
-    return results
+    runs = ([(f"package {p}", Path(p), {}) for p in packages] if packages else
+            [(n, PKG, {HEADER: edits}) for n, edits in ABLATIONS.items()])
+    return time_runs(runs, RUN, json.dumps(SHAPES), str(AHEAD))
 
 
 def main(argv=None) -> int:

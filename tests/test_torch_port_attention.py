@@ -232,3 +232,54 @@ def test_fused_attention_bwd_reference_equals_autograd_of_plain_forward():
                                         lse.detach())
     for a, b in zip(got, (q.grad, k.grad, v.grad)):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero: cvt.rna.tf32.f32."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_truncated(x: torch.Tensor) -> torch.Tensor:
+    """float32 as a TF32 operand of the tensor cores reads it: its 13 low
+    mantissa bits dropped."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, products: int) -> torch.Tensor:
+    """a @ b from TF32 operands, as the tensor cores take them: three
+    products a_lo b_hi + a_hi b_lo + a_hi b_hi with hi = tf32(x) and lo = x -
+    hi, stored unrounded and read truncated by the tensor cores (the split
+    of the float32 forward kernel), or one, a_hi b_hi. A product of two TF32
+    values is exact in float32, so a float32 matmul of them sums as the
+    tensor cores do, up to the order."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if products == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = _tf32_truncated(a - a_hi), _tf32_truncated(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+@pytest.mark.parametrize("products", [3, 1])
+def test_tf32_split_arithmetic_holds_the_float32_limits(products):
+    """The float32 forward on the card (csrc/flash_fwd_f32_sm90.cuh) runs
+    S = scale Q K^T and O = P V on the tensor cores as three TF32 products
+    each. Its arithmetic, emulated here, holds the float32 kernel limits (O
+    within 2e-5 + 1e-4 |O|, LSE within 1e-4 + 1e-4 |LSE|) against the
+    interpreted JAX kernel at the serving length; one TF32 product, plain
+    TF32, does not hold them for O."""
+    B, T, H, D = 1, 513, 2, 64
+    q, k, v = _qkv(B, T, H, D, seed=11)
+    o_j, (_, _, _, _, lse_j) = _fused_fwd_impl(*(jnp.asarray(x) for x in (q, k, v)), None)
+    qh, kh, vh = (torch.from_numpy(x).permute(0, 2, 1, 3) for x in (q, k, v))
+    s = _tf32_matmul(qh, kh.transpose(-1, -2), products) * D ** -0.5
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = (_tf32_matmul(p, vh, products) / l).permute(0, 2, 1, 3).numpy()
+    lse = (m + torch.log(l)).reshape(B * H, 1, T).numpy()
+    o_j, lse_j = np.asarray(o_j), np.asarray(lse_j)
+    o_ok = bool((np.abs(o - o_j) <= ATOL + RTOL * np.abs(o_j)).all())
+    assert o_ok == (products == 3)
+    if products == 3:
+        np.testing.assert_allclose(lse, lse_j, atol=1e-4, rtol=1e-4)

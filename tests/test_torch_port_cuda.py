@@ -246,38 +246,63 @@ def test_cuda_blocked_kernels_match_plain_versions(shape, tk, kv_len, dtype, ato
         assert not dk[:, kv_len:].any() and not dv[:, kv_len:].any()
 
 
-# The bfloat16 forward (flash_fwd_sm90.cuh) at its edges: (q shape, Tk, kv_len,
-# storage offset), B1 where Tk is None, else B3. T and kv_len one below, at
-# and one above its 64-key tiles and 128-row blocks, head dims 12 (8-byte
+# The forward at its edges: (q shape, Tk, kv_len, storage offset), B1 where
+# Tk is None, else B3. bfloat16 (flash_fwd_sm90.cuh): T and kv_len one below,
+# at and one above its 64-key tiles and 128-row blocks, head dims 12 (8-byte
 # copies) and 128, and views 4 elements into their storage (no operand
-# 16-byte aligned).
-_FWD_EDGE_CASES = [
-    ((2, 63, 2, 48), None, None, 0),
-    ((2, 64, 2, 48), None, None, 0),
-    ((2, 65, 2, 48), None, None, 0),
-    ((2, 127, 2, 64), None, None, 0),
-    ((2, 128, 2, 64), None, None, 0),
-    ((2, 129, 2, 64), None, None, 0),
-    ((2, 200, 2, 12), None, None, 0),
-    ((2, 130, 2, 128), None, None, 0),
-    ((2, 129, 3, 64), None, None, 4),
-    ((2, 63, 2, 48), 130, 65, 0),
-    ((2, 64, 2, 48), 130, 63, 0),
-    ((2, 65, 2, 48), 130, 64, 0),
-    ((2, 127, 2, 12), 300, 129, 0),
-    ((2, 129, 2, 128), 300, 127, 0),
-    ((2, 100, 2, 64), 300, 250, 4),
-]
+# 16-byte aligned). float32 (flash_fwd_f32_sm90.cuh, 3xTF32 on the tensor
+# cores): the same edges, and its 32-key tiles at head dim 128.
+_FWD_EDGE_CASES = {
+    torch.bfloat16: [
+        ((2, 63, 2, 48), None, None, 0),
+        ((2, 64, 2, 48), None, None, 0),
+        ((2, 65, 2, 48), None, None, 0),
+        ((2, 127, 2, 64), None, None, 0),
+        ((2, 128, 2, 64), None, None, 0),
+        ((2, 129, 2, 64), None, None, 0),
+        ((2, 200, 2, 12), None, None, 0),
+        ((2, 130, 2, 128), None, None, 0),
+        ((2, 129, 3, 64), None, None, 4),
+        ((2, 63, 2, 48), 130, 65, 0),
+        ((2, 64, 2, 48), 130, 63, 0),
+        ((2, 65, 2, 48), 130, 64, 0),
+        ((2, 127, 2, 12), 300, 129, 0),
+        ((2, 129, 2, 128), 300, 127, 0),
+        ((2, 100, 2, 64), 300, 250, 4),
+    ],
+    torch.float32: [
+        ((2, 63, 2, 48), None, None, 0),
+        ((2, 64, 2, 48), None, None, 0),
+        ((2, 65, 2, 48), None, None, 0),
+        ((2, 127, 2, 64), None, None, 0),
+        ((2, 128, 2, 64), None, None, 0),
+        ((2, 129, 2, 64), None, None, 0),
+        ((2, 200, 2, 12), None, None, 0),
+        ((2, 31, 2, 128), None, None, 0),
+        ((2, 32, 2, 128), None, None, 0),
+        ((2, 33, 2, 128), None, None, 0),
+        ((2, 130, 2, 128), None, None, 0),
+        ((2, 129, 3, 64), None, None, 4),
+        ((2, 63, 2, 48), 130, 65, 0),
+        ((2, 65, 2, 48), 130, 64, 0),
+        ((2, 127, 2, 12), 300, 129, 0),
+        ((2, 129, 2, 128), 300, 33, 0),
+        ((2, 100, 2, 64), 300, 250, 4),
+    ],
+}
+# O's limits (atol, rtol) by dtype; LSE is held to 1e-4 in both
+_FWD_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,tk,kv_len,offset", _FWD_EDGE_CASES)
-def test_cuda_bf16_forward_edges_and_reruns(shape, tk, kv_len, offset):
-    """The bfloat16 forward against its plain version at its tile and block
-    edges; two runs give bit-identical O and LSE."""
+@pytest.mark.parametrize("dtype,shape,tk,kv_len,offset",
+                         [(d, *c) for d, cases in _FWD_EDGE_CASES.items() for c in cases])
+def test_cuda_forward_edges_and_reruns(dtype, shape, tk, kv_len, offset):
+    """The forward against its plain version at its tile and block edges;
+    two runs give bit-identical O and LSE."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
-    q, k, v, _ = blocked_inputs(shape, tk or shape[1], torch.bfloat16, seed=8, offset=offset)
+    q, k, v, _ = blocked_inputs(shape, tk or shape[1], dtype, seed=8, offset=offset)
     if tk is None:
         def run():
             return fused_attention(q, k, v)
@@ -290,24 +315,25 @@ def test_cuda_bf16_forward_edges_and_reruns(shape, tk, kv_len, offset):
         want = blocked_attention_reference(q, k, v, kv_len=kv_len)
     (o, lse), (o2, lse2) = run(), run()
     torch.cuda.synchronize()
-    assert_matches(o, want[0], 2e-2, 2e-2, "o")
+    assert_matches(o, want[0], *_FWD_TOL[dtype], "o")
     torch.testing.assert_close(lse, want[1], atol=1e-4, rtol=1e-4)
     assert torch.equal(o, o2) and torch.equal(lse, lse2), "two runs differ"
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("scale", [-0.3, 0.0, 1.5])
-def test_cuda_bf16_forward_any_scale(scale):
-    """The bfloat16 forward walks in the log2 domain with a positive factor;
-    a negative scale negates Q (exactly) instead, a zero one gives uniform
+def test_cuda_forward_any_scale(dtype, scale):
+    """The forward walks in the log2 domain with a positive factor; a
+    negative scale negates Q (exactly) instead, a zero one gives uniform
     weights."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
-    q, k, v, _ = blocked_inputs((2, 200, 2, 48), 200, torch.bfloat16, seed=9)
+    q, k, v, _ = blocked_inputs((2, 200, 2, 48), 200, dtype, seed=9)
     o, lse = fused_attention(q, k, v, scale=scale)
     torch.cuda.synchronize()
     o_ref, lse_ref = fused_attention_reference(q, k, v, scale=scale)
-    assert_matches(o, o_ref, 2e-2, 2e-2, "o")
+    assert_matches(o, o_ref, *_FWD_TOL[dtype], "o")
     torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-4)
 
 

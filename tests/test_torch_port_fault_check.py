@@ -18,7 +18,7 @@ _IDS = [f[0] for f in fc.FAULTS]
 
 @pytest.mark.parametrize("fault", fc.FAULTS, ids=_IDS)
 def test_fault_plants_inside_its_kernel(fault):
-    _, header, kernel, anchor, line, _, _ = fault
+    _, header, kernel, anchor, line, *_ = fault
     source = (CSRC / header).read_text()
     planted = fc.plant(source, kernel, anchor, line)
     at = planted.index(line)
@@ -38,10 +38,11 @@ def test_plant_refuses_an_anchor_outside_the_kernel():
 
 @pytest.mark.parametrize("fault", fc.FAULTS, ids=_IDS)
 def test_fault_expectations(fault):
-    """A fault must be caught on each path it shows on by some bfloat16 case,
-    by no float32 case, and by no case whose walk is one tile long."""
-    _, _, _, _, _, paths, walked = fault
-    want = fc.expected(paths, walked)
+    """A fault must be caught on each path it shows on by some case of the
+    faulty kernel's dtype, by no case of the other dtype, and by no case
+    whose walk is one tile long."""
+    _, _, _, _, _, paths, walked, faulty = fault
+    want = fc.expected(paths, walked, faulty)
     cases = {"whole": chip_smoke.KERNEL_CASES, "whole_bwd": chip_smoke.BWD_CASES}
     kv = {p: [c[0][1] for c in cases[p]] for p in cases}
     shapes = {p: [c[0] for c in cases[p]] for p in cases}
@@ -54,10 +55,10 @@ def test_fault_expectations(fault):
         assert len(want[path]) == len(dtypes[path])
         assert any(want[path]) == (path in paths)
         for w, dtype, shape, n in zip(want[path], dtypes[path], shapes[path], kv[path]):
-            if dtype == torch.float32 or walked(shape, n) == 1:
+            if dtype != faulty or walked(shape, n) == 1:
                 assert not w
-    if "whole" in paths:  # bf16 (2, 9, 3, 12) walks a single key tile
-        at = [c[:2] for c in chip_smoke.KERNEL_CASES].index(((2, 9, 3, 12), torch.bfloat16))
+    if "whole" in paths:  # (2, 9, 3, 12) walks a single key tile
+        at = [c[:2] for c in chip_smoke.KERNEL_CASES].index(((2, 9, 3, 12), faulty))
         assert not want["whole"][at]
 
 
@@ -67,7 +68,7 @@ def test_backward_faults_shown_by_the_whole_sequence_cases(fault):
     """B4's and B5's planted faults, which B2 runs too, must be caught by the
     MAE decoder's bf16 case and by the block edges from T = 65 on, and by
     none of T = 63, 64 (one walked tile)."""
-    want = fc.expected(fault[5], fault[6])["whole_bwd"]
+    want = fc.expected(*fault[5:])["whole_bwd"]
     at = {c[:2]: w for c, w in zip(chip_smoke.BWD_CASES, want)}
     bf16 = torch.bfloat16
     assert at[(chip_smoke.MAE_DECODER, bf16)] and at[((2, 513, 2, 48), bf16)]
@@ -85,11 +86,29 @@ def test_ablation_edits_apply(name):
         ab.ablate(edited, [("no such text", "")])
 
 
+@pytest.mark.parametrize("name", list(ab.F32_ABLATIONS))
+def test_float32_ablation_edits_apply(name):
+    """Each float32 ablation finds its texts in its headers (the exponentials
+    in the softmax shared with the bfloat16 kernel) and keeps the
+    parentheses balanced."""
+    edits = ab.by_header(ab.F32_ABLATIONS[name])
+    assert set(edits) <= {ab.HEADER, ab.F32_HEADER}
+    changed = False
+    for header, header_edits in edits.items():
+        source = (fc.ROOT / fc.PKG / header).read_text()
+        edited = ab.ablate(source, header_edits)
+        changed |= edited != source
+        assert edited.count("(") - edited.count(")") == source.count("(") - source.count(")")
+    assert changed == (name != "none")
+
+
 def test_ablations_need_cuda():
     if torch.cuda.is_available():
         pytest.skip("runs where there is no CUDA card")
     with pytest.raises(RuntimeError, match="needs an NVIDIA GPU"):
         ab.run()
+    with pytest.raises(RuntimeError, match="needs an NVIDIA GPU"):
+        ab.run("float32")
 
 
 @pytest.mark.parametrize("name", list(ab_bwd.ABLATIONS))
@@ -108,3 +127,24 @@ def test_backward_ablations_need_cuda():
         pytest.skip("runs where there is no CUDA card")
     with pytest.raises(RuntimeError, match="needs an NVIDIA GPU"):
         ab_bwd.run()
+
+
+def test_float32_forward_fault_shown_by_the_float32_cases():
+    """The float32 forward's planted fault must be caught by the serving
+    case, by T = 65, 128 and 129 (two walked 64-key tiles) and T = 33 at
+    head dim 128 (two 32-key tiles), and by the blocked float32 cases, and by
+    none of T = 63, 64 or 32 at head dim 128 (one walked tile), and by no
+    whole-sequence backward case (B2 is held on the kernel forward's own o,
+    lse)."""
+    fault = next(f for f in fc.FAULTS if f[7] == torch.float32)
+    want = fc.expected(*fault[5:])
+    at = {c[:2]: w for c, w in zip(chip_smoke.KERNEL_CASES, want["whole"])}
+    f32 = torch.float32
+    assert at[(chip_smoke.SERVING, f32)] and at[((2, 65, 2, 48), f32)]
+    assert at[((2, 128, 2, 64), f32)] and at[((2, 129, 2, 64), f32)]
+    assert at[((2, 33, 2, 128), f32)] and at[((2, 129, 3, 64), f32)]
+    assert not at[((2, 63, 2, 48), f32)] and not at[((2, 64, 2, 48), f32)]
+    assert not at[((2, 32, 2, 128), f32)] and not at[((2, 9, 3, 12), f32)]
+    assert not any(want["whole_bwd"])
+    blocked = [w for c, w in zip(chip_smoke.BLOCKED_CASES, want["blocked"]) if c[3] == f32]
+    assert blocked and all(blocked)
