@@ -55,7 +55,23 @@ Phases, each printing a line; any failure raises and exits non-zero:
              batch (counts set to 0 just before each); then step time,
              throughput, peak memory, a breakdown (CUDA events) and the
              device time by kernel group over 2 profiled steps.
-6. stretch - the long-context MAE step of configs/mae/mae_HeadCT_192.yaml at
+6. cli     - the MAE pretraining CLI end to end at full width: the native
+             decoder built with g++ (its time printed), 32 synthetic head scans
+             (256x256x40 int16 at 0.5x0.5x1.0 mm) and train / val / test
+             manifests of 128 / 64 / 64 rows; the cache's device backend
+             ("training" and "hu16" orders) on the card held against the native
+             decoder on the same heads at 1.0 mm (the JAX tests' native-vs-scipy
+             limits) and against its own CPU run at 0.5 mm;
+             ``python -m headct_foundation_tpu_torch.main_pretrain_mae --cfg
+             configs/mae/mae_HeadCT.yaml`` in a subprocess with only the paths,
+             TRAIN.MAX_EPOCHS 2 and TRAIN.VAL_EVERY 1 overridden (batch 64, the
+             windowed wire through the native cache and the pinned prefetcher):
+             exit 0, latest_ and best_ checkpoints, finite losses and exactly 8 B1
+             + 8 B2 launches per train step and 8 B1 per eval batch, counted in
+             the CLI process; the latest_ file restored beside the state bit for
+             bit and the checkpoint write timed (sync and async); then a resume
+             with TRAIN.MAX_EPOCHS 3 that restarts at the saved epoch index.
+7. stretch - the long-context MAE step of configs/mae/mae_HeadCT_192.yaml at
              full width (192^3, patch 12: encoder T=1025 at 12 heads x 64,
              decoder T=4097 at 16 heads x 48) on batches of 2 synthetic hu16
              phantoms: one step at batch 1 with the kernels against the plain
@@ -63,7 +79,7 @@ Phases, each printing a line; any failure raises and exits non-zero:
              train steps and 1 eval batch with exactly 20 B3 + 20 B4 + 20 B5
              launches per train step, 20 B3 per eval batch and no B1 or B2;
              then the same timings as the train phase.
-7. lion    - the 96^3 MAE of the train phase trained by the fused Lion update
+8. lion    - the 96^3 MAE of the train phase trained by the fused Lion update
              (TRAIN.OPTIMIZER Lion, LION_FUSED True, GRAD_CLIP 1.0): kernel B6
              against its plain version first (bit for bit, at the model's
              shapes and at ragged ones), then 6 train steps and 1 eval batch
@@ -74,12 +90,12 @@ Phases, each printing a line; any failure raises and exits non-zero:
              for bit against those outputs, then the unfused step against
              it; B6 timed over every trainable tensor; the same timings as
              the train phase.
-8. tm      - the token-major attention tool: kernels B7 and B8 against their
+9. tm      - the token-major attention tool: kernels B7 and B8 against their
              plain versions at the tool's four shapes (bf16) and at float32
              and ragged ones, and against B1 and B2 on the same inputs (bit
              for bit: the same tile code), then ``tools.bench_tm_attention``
              at its four shapes.
-9. report  - a JSON line of the kernels, the card line, then the result line.
+10. report - a JSON line of the kernels, the card line, then the result line.
 
 Float32 matmuls and convolutions are pinned to full float32 (TF32 off for
 cuBLAS and cuDNN): the serving forward is float32, like the JAX package's.
@@ -91,6 +107,7 @@ import http.client
 import json
 import logging
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -105,6 +122,7 @@ import torch
 
 from headct_foundation_tpu_torch.tools.bench_tm_attention import SHAPES as TM_BENCH_SHAPES
 from headct_foundation_tpu_torch.tools.bench_tm_attention import cuda_ms
+from headct_foundation_tpu_torch.tools.cli_runs import card_lines, run_cli, write_scans
 
 ROOT = Path(__file__).resolve().parent
 
@@ -276,11 +294,7 @@ def within(a: torch.Tensor, b: torch.Tensor, atol: float, rtol: float, dtype) ->
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    return out.splitlines()[0]
+    return card_lines()[0]
 
 
 def attention_bound_ms(shape, dtype, backward: bool = False, tf32x3: bool = False) -> tuple:
@@ -334,22 +348,6 @@ def exp_floor_ms(q_shape, n_keys: int) -> float:
         capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return B * H * Tq * n_keys / (sms * 16 * mhz * 1e6) * 1e3
-
-
-def synthetic_scan(seed: int) -> np.ndarray:
-    """A head-CT-like int16 volume [256, 256, 40] in HU: air, a skull shell,
-    brain tissue with noise, placed off-centre so the foreground crop acts."""
-    rng = np.random.RandomState(seed)
-    shape = (256, 256, 40)
-    c = np.array([128 + rng.randint(-20, 20), 128 + rng.randint(-20, 20), 20])
-    r = np.array([90 + rng.randint(0, 20), 105 + rng.randint(0, 20), 24])
-    grid = np.ogrid[: shape[0], : shape[1], : shape[2]]
-    d = sum(((g - ci) / ri) ** 2 for g, ci, ri in zip(grid, c, r))
-    vol = np.full(shape, -1000.0, np.float32)
-    vol[d < 1.0] = 1000.0                                   # skull
-    brain = d < 0.8
-    vol[brain] = 35.0 + 8.0 * rng.randn(int(brain.sum()))  # grey/white matter
-    return np.round(vol).astype(np.int16)
 
 
 def norm_note(dtype) -> str:
@@ -924,7 +922,6 @@ def post_scans(port: int, blobs) -> list:
 
 def phase_slice(workdir: Path) -> dict:
     """Drive the server at full width; returns each kernel's launches in it."""
-    from headct_foundation_tpu_torch.data.nifti import save_nifti
     from headct_foundation_tpu_torch.feature_extraction import FeatureExtractor
     from headct_foundation_tpu_torch.ops import attention as port_attn
     from headct_foundation_tpu_torch.ops.flash_attention import fused_attention
@@ -938,12 +935,8 @@ def phase_slice(workdir: Path) -> dict:
     print(f"slice set-up: FeatureExtractor(ViT-B/12, 96^3, seed 0) on {fe.device} and warm "
           f"forward in {time.perf_counter() - t0:.2f} s", flush=True)
 
-    paths = []
-    for i in range(N_REQUESTS):
-        p = workdir / f"scan{i}.nii.gz"
-        save_nifti(str(p), synthetic_scan(i), np.diag([0.5, 0.5, 1.0, 1.0]), dtype=np.int16)
-        paths.append(p)
-    blobs = [p.read_bytes() for p in paths]
+    paths = write_scans(workdir, range(N_REQUESTS))
+    blobs = [Path(p).read_bytes() for p in paths]
 
     server, batcher = build_server(fe, host="127.0.0.1", port=0, max_batch=N_REQUESTS,
                                    window_ms=20.0)
@@ -1288,7 +1281,234 @@ def phase_train(label: str, config: str, batch: int, compare_batch: int, seed0: 
           f"(of which {kernel_note}, from the kernel timings), {optimizer} step {opt_ms:.2f} ms "
           f"(CUDA events; {opt_host_ms:.2f} ms on the host clock, synchronised)", flush=True)
     profile_steps(step, state, wire, step_ms)
-    return {"train": train_launches, "eval": val_launches, "compare": compare, "lion": lion}
+    return {"train": train_launches, "eval": val_launches, "compare": compare, "lion": lion,
+            "volumes_per_s": batch / step_ms * 1e3}
+
+
+CLI_SCANS = 32          # distinct synthetic head scans
+CLI_ROWS = {"train": 4, "val": 2, "test": 2}  # manifest rows per scan: 2 steps, 1 eval batch
+CLI_DEVICE_CHECK = 8    # scans held device-vs-native in both orders
+
+
+def check_cli_launches(result: dict, label: str) -> dict:
+    """8 B1 + 8 B2 per train step, 8 B1 per eval batch, nothing else;
+    returns the run's training and eval launches of B1 and B2."""
+    depth = 8
+    total = {"cli training": {"flash_attention_fwd": 0, "flash_attention_bwd": 0},
+             "cli eval": {"flash_attention_fwd": 0, "flash_attention_bwd": 0}}
+    evals = [e["val"] for e in result["epochs"] if "val" in e] + [result["test"]]
+    for stats, path, per in ([(e["train"], "cli training", "steps") for e in result["epochs"]]
+                             + [(v, "cli eval", "batches") for v in evals]):
+        n = stats[per]
+        want = {k: 0 for k in stats["launches"]}
+        want["flash_attention_fwd"] = depth * n
+        if path == "cli training":
+            want["flash_attention_bwd"] = depth * n
+        check(n > 0 and stats["launches"] == want,
+              f"{label} {path}: launches {stats['launches']} over {n} {per}; expected {want}")
+        for k in total[path]:
+            total[path][k] += stats["launches"][k]
+    return total
+
+
+def device_vs_native(workdir: Path, scans: list, seeds: list, roi: tuple, card: str) -> None:
+    """The cache's device backend ("training" and "hu16" orders of
+    ``DevicePreprocessor``) on the card, held three ways:
+
+    * against the native decoder on the same heads (``seeds``) written at 1.0 mm, within
+      the JAX tests' native-vs-scipy limits (tests/test_native_loader.py:37-38:
+      max < 2e-2, mean < 1e-4; hu16 within 1 step);
+    * on the 0.5 x 0.5 x 1.0 mm scans, against the same ``DevicePreprocessor``
+      on the CPU (the plain PyTorch ops; its resample is scipy's zoom by
+      construction): <= 1e-4 in the windowed order, hu16 within 1 step;
+    * on the 0.5 mm scans against the native decoder: printed, not held. The
+      JAX package's native resample leaves the spline prefilter on an axis
+      it does not zoom (here z), and the port's native output is the JAX
+      package's byte for byte; see ROADMAP.md C.6 and
+      tests/test_torch_port_data.py::test_jax_native_keeps_the_prefilter_on_an_unzoomed_axis."""
+    from headct_foundation_tpu_torch.data import datasets
+    from headct_foundation_tpu_torch.data.device_preprocess import DevicePreprocessor
+    from headct_foundation_tpu_torch.data.native_loader import decode_native
+    from headct_foundation_tpu_torch.data.transforms import hu16_encode
+
+    def caches(backend_device):
+        if backend_device is not None:
+            os.environ["HEADCT_DEVICE_CACHE"] = "1"
+        try:
+            return {w: datasets.DiskCache(None, roi, 3, wire=w, device=backend_device)
+                    for w in ("windowed", "hu16")}
+        finally:
+            os.environ.pop("HEADCT_DEVICE_CACHE", None)
+
+    def errors(got, want, paths):
+        """(max, worst mean) windowed error and max hu16 steps over ``paths``."""
+        mx = mean = 0.0
+        steps = 0
+        for p in paths:
+            d = np.abs(got["windowed"].load(p).astype(np.float32)
+                       - want["windowed"].load(p).astype(np.float32))
+            mx, mean = max(mx, float(d.max())), max(mean, float(d.mean()))
+            steps = max(steps, int(np.abs(got["hu16"].load(p).astype(np.int32)
+                                          - want["hu16"].load(p).astype(np.int32)).max()))
+        return mx, mean, steps
+
+    on_card, native = caches("cuda"), caches(None)
+    iso = write_scans(workdir, seeds, spacing=(1.0, 1.0, 1.0), prefix="head1mm_")
+    t0 = time.perf_counter()
+    mx, mean, steps = errors(on_card, native, iso)
+    ms = (time.perf_counter() - t0) / len(iso) * 1e3
+    print(f"cli: device backend on the card vs the native decoder, {len(iso)} heads at 1.0 mm: "
+          f"windowed max_abs_err {mx:.3e} (limit 2e-2), worst mean {mean:.3e} (limit 1e-4); "
+          f"hu16 max {steps} steps (limit 1); {ms:.1f} ms per scan for both backends and wires "
+          f"| {card}", flush=True)
+    check(mx < 2e-2 and mean < 1e-4 and steps <= 1,
+          "the device preprocessing orders disagree with the native decoder at 1.0 mm")
+
+    worst = {"training": 0.0, "hu16": 0}
+    for order in worst:
+        card_prep = DevicePreprocessor(roi, 3, "cuda", order=order, decoder=decode_native)
+        cpu_prep = DevicePreprocessor(roi, 3, "cpu", order=order, decoder=decode_native)
+        for p in scans:
+            a, b = card_prep(p).cpu().numpy(), cpu_prep(p).numpy()
+            if order == "hu16":
+                a, b = hu16_encode(a).astype(np.int32), hu16_encode(b).astype(np.int32)
+            worst[order] = max(worst[order], np.abs(a - b).max().item())
+    print(f"cli: device backend on the card vs on the CPU, {len(scans)} scans at 0.5x0.5x1.0 mm: "
+          f"\"training\" max_abs_err {worst['training']:.3e} (limit 1e-4), \"hu16\" max "
+          f"{worst['hu16']} steps (limit 1) | {card}", flush=True)
+    check(worst["training"] <= 1e-4 and worst["hu16"] <= 1,
+          "the device preprocessing on the card disagrees with its CPU run")
+    mx, mean, steps = errors(on_card, native, scans)
+    print(f"cli: device backend vs the native decoder at 0.5x0.5x1.0 mm (not held: the native "
+          f"resample keeps the spline prefilter on the unzoomed z axis, ROADMAP.md C.6): windowed max_abs_err {mx:.3e}, worst mean {mean:.3e}; hu16 max "
+          f"{steps} steps | {card}", flush=True)
+
+
+def phase_cli(workdir: Path, card: str, train_volumes_per_s: float) -> dict:
+    """The MAE pretraining CLI end to end at full width on the shipped
+    config; returns the B1 and B2 launches of its runs by path."""
+    from headct_foundation_tpu_torch.config import default_config
+    from headct_foundation_tpu_torch.data import datasets, native_loader
+    from headct_foundation_tpu_torch.engines import mae_engine
+    from headct_foundation_tpu_torch.utils import checkpoint, torch_interop
+
+    cfg = default_config()
+    cfg.merge_from_file(str(ROOT / MAE_CONFIG))
+    roi, name, batch = tuple(cfg.MODEL.ROI), cfg.MODEL.SAVE_NAME, int(cfg.DATA.BATCH_SIZE)
+    t0 = time.perf_counter()
+    native_loader.get_lib()
+    built = (f"g++ {native_loader.build_seconds:.2f} s" if native_loader.build_seconds is not None
+             else "already built")
+    flags = native_loader.library_path().with_suffix(".flags").read_text().strip()
+    print(f"cli: native decoder {native_loader.library_path().relative_to(ROOT)} ({built}; "
+          f"{flags}) in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
+
+    seeds = [1000 + i for i in range(CLI_SCANS)]
+    scans = write_scans(workdir, seeds)
+    for split, rows in CLI_ROWS.items():
+        (workdir / f"{split}.csv").write_text("img_path\n" + "".join(
+            f"{p}\n" for _ in range(rows) for p in scans))
+    t0 = time.perf_counter()
+    uncached = datasets.DiskCache(None, roi, 3)
+    for p in scans:
+        uncached.load(p)
+    per_scan_ms = (time.perf_counter() - t0) / len(scans) * 1e3
+    print(f"cli: {CLI_SCANS} synthetic head scans (256x256x40 int16, 0.5x0.5x1.0 mm, .nii.gz); "
+          f"native preprocessing to the windowed 3x{roi[0]}^3 float16 wire {per_scan_ms:.1f} ms "
+          f"per scan on one thread (host clock) | {card}", flush=True)
+
+    device_vs_native(workdir, scans[:CLI_DEVICE_CHECK], seeds[:CLI_DEVICE_CHECK], roi, card)
+
+    opts = ["DATA.TRAIN_CSV_PATH", str(workdir / "train.csv"),
+            "DATA.VAL_CSV_PATH", str(workdir / "val.csv"),
+            "DATA.TEST_CSV_PATH", str(workdir / "test.csv"),
+            "DATA.CACHE_DIR", str(workdir / "cache"), "MODEL.DIR", str(workdir / "model_saved"),
+            "LOG.OUTPUT_DIR", str(workdir / "log"), "OUTPUT", str(workdir / "out"),
+            "TRAIN.VAL_EVERY", "1"]
+    log, first, wall = run_cli(["--cfg", MAE_CONFIG, "--device", "cuda", "--opts", *opts,
+                                "TRAIN.MAX_EPOCHS", "2"], "cli")
+    saved = sorted(os.listdir(workdir / "model_saved"))
+    check(saved == sorted([f"best_{name}", f"latest_{name}"]), f"cli: checkpoints {saved}")
+    losses = ([e["train"]["loss"] for e in first["epochs"]]
+              + [e["val"]["loss"] for e in first["epochs"]] + [first["test"]["loss"]])
+    check(all(math.isfinite(x) for x in losses), f"cli: losses not finite: {losses}")
+    check(first["placeholders"] == 0,
+          f"cli: {first['placeholders']} scans were served as placeholders")
+    launches = check_cli_launches(first, "cli")
+    for e in first["epochs"]:
+        t = e["train"]
+        print(f"cli: epoch {e['epoch'] + 1}: {t['steps']} steps of batch {batch} in "
+              f"{e['seconds']:.2f} s ({t['steps'] * batch / e['seconds']:.2f} volumes/s; the "
+              f"train phase's step at batch {TRAIN_BATCH}: {train_volumes_per_s:.2f} volumes/s), "
+              f"iter_time {t['iter_time'] * 1e3:.1f} ms, data_time {t['data_time'] * 1e3:.1f} ms "
+              f"per step, train loss {t['loss']:.6f}, val loss {e['val']['loss']:.6f} over "
+              f"{e['val']['batches']} batch | {card}", flush=True)
+    peak = first["peak_memory_bytes"]
+    print(f"cli: python -m headct_foundation_tpu_torch.main_pretrain_mae --cfg {MAE_CONFIG} "
+          f"(2 epochs) exit 0 in {wall:.2f} s; {saved} written; 0 placeholders; test loss "
+          f"{first['test']['loss']:.6f}; launches {json.dumps(launches)} = 8 B1 + 8 B2 per train "
+          f"step, 8 B1 per eval batch; peak memory {(peak or 0) / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated) | {card}", flush=True)
+    print(json.dumps({"cli_launches": launches}), flush=True)
+
+    # the saved state restored beside the file: bit for bit; then the writes timed
+    latest = workdir / "model_saved" / f"latest_{name}"
+    payload = checkpoint.load_checkpoint(str(latest))
+    state, _ = mae_engine.create_train_state(cfg, 10, 1, seed=7, device="cuda")
+    state, epoch, _ = checkpoint.restore_state(state, payload)
+    params = torch_interop.jax_tree_from_state_dict(state.model.state_dict())
+    opt = torch_interop.opt_state_to_jax(state.optimizer, state.model, cfg, state.step)
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}/{k}")
+            else:
+                yield f"{prefix}/{k}", np.asarray(v)
+
+    want = dict(leaves({"params": payload["params"], "opt_state": payload["opt_state"]}))
+    got = dict(leaves({"params": params, "opt_state": opt}))
+    differ = [k for k in want if k not in got or got[k].dtype != want[k].dtype
+              or not np.array_equal(got[k], want[k])]
+    check(got.keys() == want.keys() and not differ and epoch == 1
+          and state.step == payload["step"] == 2 * first["epochs"][0]["train"]["steps"],
+          f"cli: the restored state differs from {latest.name}: {differ[:5]} (epoch {epoch}, "
+          f"step {state.step})")
+    nbytes = latest.stat().st_size
+    times = {}
+    for mode in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(state, epoch, 1.0, str(workdir / "timing"), "ckpt.pt",
+                                   async_save=mode)
+        returned = time.perf_counter() - t0
+        checkpoint.wait_for_saves()
+        times[mode] = (returned, time.perf_counter() - t0)
+    print(f"cli: {latest.name} ({nbytes / 2**20:.1f} MiB) restored beside the file: "
+          f"{len(want)} parameter and optimizer leaves equal bit for bit, step {state.step}, "
+          f"epoch {epoch}; checkpoint write sync {times[False][1] * 1e3:.0f} ms, async returns in "
+          f"{times[True][0] * 1e3:.0f} ms and is written in {times[True][1] * 1e3:.0f} ms "
+          f"(host clock) | {card}", flush=True)
+    del state, payload
+    torch.cuda.empty_cache()
+
+    log, resumed, wall = run_cli(["--cfg", MAE_CONFIG, "--device", "cuda", "--opts", *opts,
+                                  "TRAIN.MAX_EPOCHS", "3", "--model_load_path", str(latest)],
+                                 "cli resume")
+    check(f"Resumed from {latest} at epoch 1" in log and resumed["start_epoch"] == 1
+          and [e["epoch"] for e in resumed["epochs"]] == [1, 2],
+          f"cli resume: no resume at the saved epoch index 1: {resumed['epochs']}")
+    check(resumed["placeholders"] == 0,
+          f"cli resume: {resumed['placeholders']} scans were served as placeholders")
+    more = check_cli_launches(resumed, "cli resume")
+    for path in launches:
+        for k in launches[path]:
+            launches[path][k] += more[path][k]
+    print(f"cli: resume from {latest.name} with TRAIN.MAX_EPOCHS 3: 'Resumed from ... at epoch "
+          f"1', epochs {[e['epoch'] for e in resumed['epochs']]} re-run from the saved index, "
+          f"test loss {resumed['test']['loss']:.6f}, exit 0 in {wall:.2f} s; launches "
+          f"{json.dumps(more)} | {card}", flush=True)
+    return launches
 
 
 # Libraries holding wgmma kernels -> instantiations ptxas must report: the
@@ -1399,6 +1619,11 @@ def main() -> int:
         f"flash_attention_fwd {depth} x {fwd_mae['ms']:.4f} = {depth * fwd_mae['ms']:.2f} ms "
         f"and flash_attention_bwd {depth} x {bwd_mae['ms']:.4f} = {depth * bwd_mae['ms']:.2f} ms")
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        cli = phase_cli(Path(tmp), card, train["volumes_per_s"])
+    print(f"cli: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
+    torch.cuda.empty_cache()
 
     blocked = ("flash_attention_blocked_fwd", "flash_attention_blocked_dkv",
                "flash_attention_blocked_dq")
@@ -1432,9 +1657,12 @@ def main() -> int:
                                 "training": train["train"]["flash_attention_fwd"],
                                 "eval": train["eval"]["flash_attention_fwd"],
                                 "lion training": lion["train"]["flash_attention_fwd"],
-                                "lion eval": lion["eval"]["flash_attention_fwd"]},
+                                "lion eval": lion["eval"]["flash_attention_fwd"],
+                                "cli training": cli["cli training"]["flash_attention_fwd"],
+                                "cli eval": cli["cli eval"]["flash_attention_fwd"]},
         "flash_attention_bwd": {"training": train["train"]["flash_attention_bwd"],
-                                "lion training": lion["train"]["flash_attention_bwd"]},
+                                "lion training": lion["train"]["flash_attention_bwd"],
+                                "cli training": cli["cli training"]["flash_attention_bwd"]},
         "flash_attention_blocked_fwd": {"stretch training": stretch["train"][blocked[0]],
                                         "stretch eval": stretch["eval"][blocked[0]]},
         "flash_attention_blocked_dkv": {"stretch training": stretch["train"][blocked[1]]},

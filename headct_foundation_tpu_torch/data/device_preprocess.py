@@ -1,7 +1,6 @@
 """On-device preprocessing for feature extraction.
 
-Port of the JAX package's ``data/device_preprocess.py`` for the
-feature-extraction ("notebook") order:
+Port of the JAX package's ``data/device_preprocess.py``:
 
   host:   NIfTI decode -> RAS orient
   device: cubic resample to 1 mm   = 3 per-axis matmuls
@@ -9,6 +8,12 @@ feature-extraction ("notebook") order:
   device: crop + 'area' resize to the ROI = 3 per-axis matmuls (the crop is
           folded into the resize operator, so nothing is gathered)
   device: HU window stack (elementwise)
+
+in one of three orders (JAX ``:134-166``): "notebook" windows after the
+resize (feature extraction), "training" windows before it (the training
+cache's chain), and "hu16" resizes the raw HU and does not window (the
+hu16 wire, encoded by the caller). The cache's ``device`` backend
+(``HEADCT_DEVICE_CACHE=1``) runs the last two on the card.
 
 The per-axis cubic operator is exact scipy parity by construction: it is
 ``scipy.ndimage.zoom`` applied to an identity matrix (resampling is linear
@@ -20,7 +25,7 @@ foreground keeps the whole axis).
 
 Unlike the JAX version, volumes are not padded to 128-multiples: that
 bucketing existed to share jit compilations, and eager PyTorch compiles
-nothing. The "training" and "hu16" orders are not ported yet.
+nothing.
 
 The training step's entry cast is here too (JAX ``:169-219``):
 ``wire_to_compute`` turns a wire batch (hu16 int16, hu8 uint8 or already
@@ -33,7 +38,7 @@ from __future__ import annotations
 import functools
 import os
 import threading
-from typing import List, Sequence, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -92,17 +97,34 @@ def device_area_ops(vol: torch.Tensor, roi: Sequence[int]) -> List[torch.Tensor]
     return ops
 
 
+ORDERS = ("notebook", "training", "hu16")
+
+
 class DevicePreprocessor:
-    """NIfTI path or bytes -> windowed [C, *roi] float32 tensor on ``device``,
-    in the feature-extraction order: resample -> crop-foreground -> area
-    resize -> window (the notebook's order; SURVEY.md section 3.4)."""
+    """NIfTI path or bytes -> [C, *roi] float32 tensor on ``device``.
+
+    ``order`` "notebook" (default): resample -> crop-foreground -> area
+    resize -> window, the feature-extraction order (SURVEY.md section 3.4);
+    "training": resample -> crop-foreground -> window -> area resize, the
+    reference's ``loading_transforms`` (src/data/transforms.py:108-178);
+    "hu16": the raw-HU area resize, [1, *roi], not windowed.
+
+    ``decoder`` decodes a path (the cache passes the native decoder, as the
+    JAX cache does); bytes, and paths without a ``decoder``, take the
+    port's NIfTI reader."""
 
     _OPS_CAP = 96
 
-    def __init__(self, roi: Sequence[int], in_channels: int, device: Union[str, torch.device]):
+    def __init__(self, roi: Sequence[int], in_channels: int, device: Union[str, torch.device],
+                 order: str = "notebook",
+                 decoder: Optional[Callable[[str], Tuple[np.ndarray, np.ndarray]]] = None):
+        if order not in ORDERS:
+            raise ValueError(f"order must be one of {ORDERS}, got {order!r}")
         self.roi = tuple(int(r) for r in roi)
         self.in_channels = in_channels
         self.device = torch.device(device)
+        self.order = order
+        self.decoder = decoder
         lows, highs = window_params(in_channels)
         self._lo = torch.from_numpy(lows).to(self.device)[:, None, None, None]
         self._hi = torch.from_numpy(highs).to(self.device)[:, None, None, None]
@@ -135,7 +157,10 @@ class DevicePreprocessor:
         return orientation_ras(data, img.affine)
 
     def __call__(self, source: Source) -> torch.Tensor:
-        data, affine = self._decode(source)
+        if self.decoder is not None and not isinstance(source, bytes):
+            data, affine = self.decoder(os.fspath(source))
+        else:
+            data, affine = self._decode(source)
         zooms = [float(z) for z in np.linalg.norm(affine[:3, :3], axis=0)]
         host = np.ascontiguousarray(data, dtype=np.float32)
         # CT voxels are integral HU in practice: when the volume is exactly
@@ -151,9 +176,16 @@ class DevicePreprocessor:
             vol = torch.einsum("bw,awd->abd", mw, vol)
             vol = torch.einsum("cd,abd->abc", md, vol)
         ah, aw, ad = device_area_ops(vol, self.roi)
+        if self.order == "training":
+            ch = torch.clamp((vol[None] - self._lo) / (self._hi - self._lo), 0.0, 1.0)
+            r = torch.einsum("ah,chwd->cawd", ah, ch)
+            r = torch.einsum("bw,cawd->cabd", aw, r)
+            return torch.einsum("ed,cabd->cabe", ad, r)
         r = torch.einsum("ah,hwd->awd", ah, vol)
         r = torch.einsum("bw,awd->abd", aw, r)
         r = torch.einsum("cd,abd->abc", ad, r)
+        if self.order == "hu16":
+            return r[None]
         return torch.clamp((r[None] - self._lo) / (self._hi - self._lo), 0.0, 1.0)
 
 

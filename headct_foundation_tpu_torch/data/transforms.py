@@ -14,7 +14,11 @@ stack on the device (``data/device_preprocess.py wire_to_compute``):
   soft-tissue windows [-20, 180], ~62.8-HU steps up to 2000; a voxel codes
   to the nearest level.
 
-The rest of the host-side transform chain is not ported yet.
+Each has its decode and its error-shielding placeholder, a value that
+windows to 0 in every channel, as the zero volume of the windowed format
+does (reference: src/data/datasets.py:70-96). The host decoder of the
+scan itself is the native library (``data/native_loader.py``); the JAX
+package's scipy chain is not ported.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ def window_params(in_channels: int) -> Tuple[np.ndarray, np.ndarray]:
 
 HU16_SCALE = 10.0
 HU16_CLAMP = (-800.0, 2000.0)
+HU16_PLACEHOLDER = np.int16(HU16_CLAMP[0] * HU16_SCALE)
 
 HU8_TABLE = np.concatenate(
     [
@@ -54,6 +59,7 @@ HU8_TABLE = np.concatenate(
 ).astype(np.float32)
 assert HU8_TABLE.shape == (256,)
 _HU8_MIDPOINTS = (HU8_TABLE[1:] + HU8_TABLE[:-1]) / 2.0
+HU8_PLACEHOLDER = np.uint8(0)  # decodes to -800 HU
 
 
 def hu16_encode(hu: np.ndarray) -> np.ndarray:
@@ -66,3 +72,13 @@ def hu8_encode(hu: np.ndarray) -> np.ndarray:
     """float HU -> uint8 companded wire codes (nearest table level)."""
     q = np.clip(np.asarray(hu, np.float32), HU8_TABLE[0], HU8_TABLE[-1])
     return np.searchsorted(_HU8_MIDPOINTS, q).astype(np.uint8)
+
+
+def hu16_decode(q: np.ndarray) -> np.ndarray:
+    """int16 wire values -> float32 HU."""
+    return np.asarray(q, np.float32) / HU16_SCALE
+
+
+def hu8_decode(q: np.ndarray) -> np.ndarray:
+    """uint8 wire codes -> float32 HU (table lookup)."""
+    return HU8_TABLE[np.asarray(q)]

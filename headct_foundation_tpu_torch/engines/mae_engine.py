@@ -25,32 +25,52 @@ Port of the JAX package's ``engines/mae_engine.py:44-163, 226-491``
   noise and then its augmentation decisions from a generator seeded from
   (seed, step, i). ``draws`` lets a caller inject both instead (one dict per
   micro-batch with ``"noise"`` [n, L] and ``"augment"`` decisions).
-* ``train_one_epoch`` fetches the losses in groups of ``LOSS_FLUSH`` (one
-  device-to-host copy per group) and exits on a non-finite loss, as the JAX
-  engine does (``:410-450``).
-
-The trainer loop, checkpoints and the CLI are not ported yet.
+* Under data parallelism (``parallel/distributed.py``) each rank draws the
+  noise and augmentation decisions of the global micro-batch and takes its
+  own rows, and the gradients (with the loss) are averaged across the ranks
+  once per update, after the accumulation and before the clip: world 2 at
+  batch n computes what world 1 computes at batch 2n on the concatenated
+  batch. The eval step draws its noise the same way.
+* ``train_one_epoch`` takes its batches through ``data/pipeline.py
+  DevicePrefetcher`` (pinned copies on a side stream), fetches the losses in
+  groups of ``LOSS_FLUSH`` (one device-to-host copy per group) and exits on a
+  non-finite loss, as the JAX engine does (``:410-450``); it reports the mean
+  ``iter_time`` and ``data_time`` (the wait on the loader) per step.
+* ``trainer`` (JAX ``:494``) runs the epochs, writes ``latest_{SAVE_NAME}``
+  every epoch and ``best_{SAVE_NAME}`` on a new best validation loss
+  (``utils/checkpoint.py``), validates every ``VAL_EVERY`` epochs, and
+  closes the loader and waits for the checkpoint writer at the end. The
+  stored epoch is the one that just finished, and a resume restarts at that
+  index (the reference's quirk, MIGRATION.md:52-55). ``tester`` (``:565``)
+  is one validation pass over the test loader.
+* Each epoch's stats carry the kernels' launches in it (``launches``, from
+  the wrappers' counters), which the CLI prints.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 import sys
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from headct_foundation_tpu_torch.data.augment import apply_mae_augment, draw_mae_augment
 from headct_foundation_tpu_torch.data.device_preprocess import wire_to_compute
+from headct_foundation_tpu_torch.data.pipeline import DevicePrefetcher
 from headct_foundation_tpu_torch.feature_extraction import resolve_device
 from headct_foundation_tpu_torch.models.mae import MaskedAutoencoderViT
 from headct_foundation_tpu_torch.ops.attention import set_pallas_min_t
 from headct_foundation_tpu_torch.optim.lr_sched import Schedule, get_lr_schedule
 from headct_foundation_tpu_torch.optim.optimizers import clip_by_per_param_norm, get_optimizer
+from headct_foundation_tpu_torch.parallel import distributed
+from headct_foundation_tpu_torch.utils.checkpoint import save_checkpoint, wait_for_saves
+from headct_foundation_tpu_torch.utils.misc import profile_trace
 
 LOSS_FLUSH = 8  # steps between batched loss fetches (see train_one_epoch)
 
@@ -62,6 +82,7 @@ class TrainState:
     lr_schedule: Schedule
     step: int = 0  # optimizer updates taken
     grad_clip: float = 0.0  # per-parameter gradient L2 clip before each update; 0 = off
+    config: Any = None  # the config it was built from (the checkpoint layout reads it)
 
     @property
     def device(self) -> torch.device:
@@ -116,8 +137,8 @@ def create_train_state(
     lr_schedule = get_lr_schedule(config, config.TRAIN.BASE_LR, num_warmup_steps, total_steps,
                                   config.TRAIN.MIN_LR)
     optimizer = get_optimizer(config, model.parameters())
-    return (TrainState(model, optimizer, lr_schedule, grad_clip=float(config.TRAIN.GRAD_CLIP)),
-            lr_schedule)
+    return (TrainState(model, optimizer, lr_schedule, grad_clip=float(config.TRAIN.GRAD_CLIP),
+                       config=config), lr_schedule)
 
 
 def step_generator(device: torch.device, *keys: int) -> torch.Generator:
@@ -126,11 +147,18 @@ def step_generator(device: torch.device, *keys: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed((int(hi) << 32) | int(lo))
 
 
+def _rows(decisions: Dict[str, torch.Tensor], lo: int, hi: int) -> Dict[str, torch.Tensor]:
+    """Samples [lo, hi) of ``draw_mae_augment``'s decisions (the batch is
+    their last axis)."""
+    return {k: v[..., lo:hi] for k, v in decisions.items()}
+
+
 def make_train_step(augment: bool = False, accum_steps: int = 1, config=None) -> Callable:
     """step(state, batch, seed, draws=None) -> (state, {"loss": device scalar}).
 
     ``batch`` is a wire batch [B, C or 1, R, R, R]; ``config.DATA.WIRE_FORMAT``
-    says how to window it."""
+    says how to window it. Under data parallelism ``batch`` is this rank's
+    share of the global batch and the loss is the global mean."""
     in_chans = int(config.MAE.IN_CHANS) if config is not None else 0
 
     def train_step(state: TrainState, batch: torch.Tensor, seed: int,
@@ -142,14 +170,16 @@ def make_train_step(augment: bool = False, accum_steps: int = 1, config=None) ->
         if B % accum_steps:
             raise ValueError(f"batch {B} does not split into {accum_steps} micro-batches")
         n = B // accum_steps
+        world, rank = distributed.world(), distributed.rank()
         loss_sum = torch.zeros((), device=device)
         for i in range(accum_steps):
             mb = batch[i * n:(i + 1) * n]
-            if draws is None:
+            if draws is None:  # the global micro-batch's draws; this rank's rows
                 g = step_generator(device, seed, state.step, i)
-                noise = torch.rand((n, int(np.prod(model.grid_size))), generator=g,
-                                   device=device)
-                decisions = draw_mae_augment(n, g, device) if augment else None
+                noise = torch.rand((world * n, int(np.prod(model.grid_size))), generator=g,
+                                   device=device)[rank * n:(rank + 1) * n]
+                decisions = (_rows(draw_mae_augment(world * n, g, device), rank * n,
+                                   (rank + 1) * n) if augment else None)
             else:
                 noise, decisions = draws[i]["noise"], draws[i].get("augment")
             if augment:
@@ -161,6 +191,10 @@ def make_train_step(augment: bool = False, accum_steps: int = 1, config=None) ->
             for p in model.parameters():
                 if p.grad is not None:
                     p.grad.div_(accum_steps)
+        loss = loss_sum / accum_steps
+        # one average across the ranks per update, before the clip (a no-op at world 1)
+        distributed.all_reduce_mean_([loss] + [p.grad for p in model.parameters()
+                                               if p.grad is not None])
         if state.grad_clip:
             clip_by_per_param_norm(model.parameters(), state.grad_clip)
         lr = state.lr_schedule(state.step)  # optax's count before the increment
@@ -169,14 +203,15 @@ def make_train_step(augment: bool = False, accum_steps: int = 1, config=None) ->
         state.optimizer.step()
         state.optimizer.zero_grad(set_to_none=True)
         state.step += 1
-        return state, {"loss": loss_sum / accum_steps}
+        return state, {"loss": loss}
 
     return train_step
 
 
 def make_eval_step(config=None) -> Callable:
     """step(state, batch, generator=None) -> {"loss": device scalar}; the mask
-    noise is drawn from ``generator``."""
+    noise of the global batch is drawn from ``generator``, this rank's rows
+    taken, and the loss averaged across the ranks."""
     in_chans = int(config.MAE.IN_CHANS) if config is not None else 0
 
     @torch.no_grad()
@@ -185,16 +220,42 @@ def make_eval_step(config=None) -> Callable:
         model = state.model
         model.eval()
         batch = wire_to_compute(batch.to(state.device), config, in_chans)
-        loss, _, _ = model(batch, generator=generator)
+        B, world, rank = batch.shape[0], distributed.world(), distributed.rank()
+        noise = None
+        if generator is not None:
+            noise = torch.rand((world * B, int(np.prod(model.grid_size))), generator=generator,
+                               device=state.device)[rank * B:(rank + 1) * B]
+        loss, _, _ = model(batch, noise=noise)
+        distributed.all_reduce_mean_([loss])
         return {"loss": loss}
 
     return eval_step
 
 
+def kernel_launches() -> Dict[str, int]:
+    """The launch counters of the kernels a MAE step can run."""
+    from headct_foundation_tpu_torch.ops import flash_attention as fa
+    from headct_foundation_tpu_torch.ops.lion_kernel import lion_update_leaf
+
+    return {"flash_attention_fwd": fa.fused_attention.launches,
+            "flash_attention_bwd": fa.fused_attention_bwd.launches,
+            "flash_attention_blocked_fwd": fa.blocked_fused_attention.launches,
+            "flash_attention_blocked_dkv": fa.blocked_attention_dkv.launches,
+            "flash_attention_blocked_dq": fa.blocked_attention_dq.launches,
+            "lion_update": lion_update_leaf.launches}
+
+
+def _launches_since(before: Dict[str, int]) -> Dict[str, int]:
+    return {k: v - before[k] for k, v in kernel_launches().items()}
+
+
 def to_device_batch(batch, device: torch.device) -> torch.Tensor:
-    """hu16 (int16) and hu8 (uint8) wire batches ship as they are (the step
-    windows them); float batches ship in bfloat16, the step's input dtype."""
+    """A batch already on ``device`` passes through without a copy; hu16
+    (int16) and hu8 (uint8) wire batches ship as they are (the step windows
+    them); float batches ship in bfloat16, the step's input dtype."""
     t = torch.as_tensor(np.asarray(batch)) if not isinstance(batch, torch.Tensor) else batch
+    if t.device == torch.device(device):
+        return t
     if t.dtype in (torch.int16, torch.uint8):
         return t.to(device)
     return t.to(device=device, dtype=torch.bfloat16)
@@ -223,33 +284,44 @@ def _batches(loader: Iterable):
 
 def train_one_epoch(
     config, state: TrainState, train_step, loader: Iterable, seed: int, epoch: int,
-    max_epoch: int, logger: Optional[logging.Logger] = None,
-) -> Tuple[TrainState, Dict[str, float]]:
+    max_epoch: int, logger: Optional[logging.Logger] = None, wandb_run=None,
+) -> Tuple[TrainState, Dict[str, Any]]:
     """One pass over ``loader``; returns the state and the mean loss, mean
-    LR and mean seconds per step (host clock, losses fetched in groups)."""
+    LR, mean ``iter_time`` and ``data_time`` per step (host clock; losses
+    fetched in groups), the step count and the kernels' launches."""
     n_batches = len(loader) if hasattr(loader, "__len__") else None
     losses: List[float] = []
     lrs: List[float] = []
     pending: List[Tuple[torch.Tensor, int]] = []
 
     def log(loss: float, idx: int) -> None:
+        lr = float(state.lr_schedule((n_batches or 0) * epoch + idx))
         losses.append(loss)
-        lrs.append(float(state.lr_schedule((n_batches or 0) * epoch + idx)))
+        lrs.append(lr)
         if logger:
             total = n_batches if n_batches is not None else "?"
             logger.info(f"Epoch {epoch + 1}/{max_epoch} [{idx + 1}/{total}]  Loss: {loss:.4f}")
+        if wandb_run is not None:
+            wandb_run.log({"Training Loss": loss, "Training lr": lr})
 
-    t0 = time.perf_counter()
-    steps = 0
-    for idx, batch in enumerate(_batches(loader)):
+    before = kernel_launches()
+    data_times: List[float] = []
+    iter_times: List[float] = []
+    batches = iter(_batches(DevicePrefetcher.wrap(loader, state.device)))
+    end = time.perf_counter()
+    for idx, batch in enumerate(batches):
+        data_times.append(time.perf_counter() - end)
         data = to_device_batch(batch, state.device)
         state, metrics = train_step(state, data, seed)
-        steps += 1
         pending.append((metrics["loss"], idx))
         if len(pending) >= LOSS_FLUSH:
             drain_pending_losses(pending, logger, log)
+        iter_times.append(time.perf_counter() - end)
+        end = time.perf_counter()
     drain_pending_losses(pending, logger, log)
-    stats = {"iter_time": (time.perf_counter() - t0) / max(steps, 1)}
+    stats: Dict[str, Any] = {"iter_time": float(np.mean(iter_times)) if iter_times else 0.0,
+                             "data_time": float(np.mean(data_times)) if data_times else 0.0,
+                             "steps": len(iter_times), "launches": _launches_since(before)}
     if losses:
         stats.update(loss=float(np.mean(losses)), lr=float(np.mean(lrs)))
     return state, stats
@@ -258,15 +330,76 @@ def train_one_epoch(
 def val_one_epoch(
     config, state: TrainState, eval_step, loader: Iterable, seed: int, epoch: int,
     max_epoch: int, logger: Optional[logging.Logger] = None,
-) -> Dict[str, float]:
+) -> Dict[str, Any]:
     """Mean loss over ``loader``; batch ``idx`` masks with a generator seeded
-    from (seed, idx)."""
+    from (seed, idx). Also the batch count and the kernels' launches."""
     losses = []
-    for idx, batch in enumerate(_batches(loader)):
+    before = kernel_launches()
+    for idx, batch in enumerate(_batches(DevicePrefetcher.wrap(loader, state.device))):
         data = to_device_batch(batch, state.device)
         metrics = eval_step(state, data, step_generator(state.device, seed, idx))
         loss = float(metrics["loss"])
         losses.append(loss)
         if logger:
             logger.info(f"Val Epoch {epoch + 1}/{max_epoch} [{idx + 1}]  Loss: {loss:.4f}")
-    return {"loss": float(np.mean(losses))} if losses else {}
+    stats: Dict[str, Any] = {"batches": len(losses), "launches": _launches_since(before)}
+    if losses:
+        stats["loss"] = float(np.mean(losses))
+    return stats
+
+
+def trainer(
+    config, state: TrainState, train_step, eval_step, train_loader, val_loader, seed: int,
+    max_epochs: int, val_every: int, logger: Optional[logging.Logger] = None,
+    start_epoch: int = 0, wandb_run=None, history: Optional[List[Dict[str, Any]]] = None,
+) -> Tuple[TrainState, float]:
+    """The epoch loop with latest/best checkpoints (reference:
+    engine_pretrain_mae.py:149-265); returns the state and the best
+    validation loss. ``history``, when given, gets one dict per epoch: its
+    seconds and its train (and val) stats."""
+    best_loss = float("inf")
+    save_name = config.MODEL.SAVE_NAME
+    ckpt = dict(logger=logger, async_save=bool(config.TRAIN.ASYNC_CKPT),
+                fmt=str(config.TRAIN.CKPT_FORMAT))
+    for epoch in range(start_epoch, max_epochs):
+        t0 = time.perf_counter()
+        if hasattr(train_loader, "set_epoch"):
+            train_loader.set_epoch(epoch)  # keeps the loader's lookahead on the next epoch
+        with profile_trace() if epoch == start_epoch else contextlib.nullcontext():
+            state, train_stats = train_one_epoch(config, state, train_step, train_loader, seed,
+                                                 epoch, max_epochs, logger=logger,
+                                                 wandb_run=wandb_run)
+        seconds = time.perf_counter() - t0
+        if logger:
+            logger.info(
+                f"Epoch {epoch + 1} done in {seconds:.1f}s  "
+                f"train loss {train_stats.get('loss', float('nan')):.4f}  "
+                f"iter {train_stats['iter_time']:.3f}s (data {train_stats['data_time']:.3f}s)")
+        record: Dict[str, Any] = {"epoch": epoch, "seconds": seconds, "train": train_stats}
+        save_checkpoint(state, epoch, best_loss, config.MODEL.DIR, f"latest_{save_name}", **ckpt)
+        if (epoch + 1) % val_every == 0 and val_loader is not None:
+            val_stats = val_one_epoch(config, state, eval_step, val_loader, seed, epoch,
+                                      max_epochs, logger=logger)
+            record["val"] = val_stats
+            val_loss = val_stats.get("loss", float("inf"))
+            if wandb_run is not None:
+                wandb_run.log({"Validation Loss": val_loss})
+            if val_loss < best_loss:
+                best_loss = val_loss
+                save_checkpoint(state, epoch, best_loss, config.MODEL.DIR, f"best_{save_name}",
+                                **ckpt)
+        if history is not None:
+            history.append(record)
+    if hasattr(train_loader, "close"):
+        train_loader.close()  # stops the lookahead past the last epoch
+    wait_for_saves()
+    return state, best_loss
+
+
+def tester(config, state: TrainState, eval_step, test_loader, seed: int,
+           logger: Optional[logging.Logger] = None, wandb_run=None) -> Dict[str, Any]:
+    stats = val_one_epoch(config, state, eval_step, test_loader, seed, epoch=0, max_epoch=1,
+                          logger=logger)
+    if wandb_run is not None and "loss" in stats:
+        wandb_run.log({"Test Loss": stats["loss"]})
+    return stats

@@ -1,0 +1,225 @@
+"""MAE pretraining CLI of the port (the JAX package's ``main_pretrain_mae.py``;
+reference surface: main_pretrain_mae.py).
+
+    python -m headct_foundation_tpu_torch.main_pretrain_mae --cfg configs/mae/mae_HeadCT.yaml \\
+        [--opts KEY VALUE ...] [--batch_size N] [--max_epochs E] [--model_load_path PATH] \\
+        [--device cuda|cpu] ...
+    torchrun --nproc_per_node N -m headct_foundation_tpu_torch.main_pretrain_mae --cfg ...
+
+The path: CSV manifests -> disk cache (native decoder) -> threaded loader ->
+pinned prefetch -> the MAE train step -> trainer with latest/best
+checkpoints -> tester. It runs on ``cuda`` (``cuda:LOCAL_RANK`` under
+``torchrun``, one process per card, gradients averaged across them) unless
+``--device cpu`` is given.
+
+* The LR is scaled as the JAX main does (``:109-118``): ``BASE_LR x
+  BATCH_SIZE x world / 256`` and ``MIN_LR = BASE_LR x 1e-3``.
+* ``DATA.WIRE_FORMAT: auto`` is resolved from a host-to-device probe first.
+* ``--model_load_path`` is routed by content (JAX ``:136-163``): a torch
+  file is merged into the parameters; a pickle of either package resumes
+  the whole train state (parameters, optimizer, step, epoch), and one whose
+  full resume fails is merged into the parameters only.
+* numpy is seeded per rank; the model and the step's randomness from
+  ``SEED`` alone, so every rank starts from the same weights.
+* Rank 0 writes ``config.json`` into ``OUTPUT``; ``wandb`` is used when
+  ``WANDB.WANDB_ENABLE`` is set and it imports.
+* At the end rank 0 prints one JSON line ``{"cli": ...}``: each epoch's
+  seconds and stats (losses, ``iter_time``, ``data_time``, the kernels'
+  launches in training and validation), the test stats, the number of
+  scans served as placeholders over all ranks and, on a card, the peak
+  memory allocated.
+* The scan decoder is built when the loaders are made: a decoder that
+  cannot be built or loaded stops the CLI at start-up.
+
+Orbax checkpoints (``TRAIN.CKPT_FORMAT: orbax`` or a directory path) import
+JAX and raise ``OrbaxNotSupportedError`` at start-up.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from headct_foundation_tpu_torch.config import get_config
+from headct_foundation_tpu_torch.engines import mae_engine
+from headct_foundation_tpu_torch.feature_extraction import resolve_device
+from headct_foundation_tpu_torch.logger import create_logger
+from headct_foundation_tpu_torch.parallel import distributed
+from headct_foundation_tpu_torch.utils.checkpoint import restore_state
+from headct_foundation_tpu_torch.utils.torch_interop import (
+    classify_checkpoint,
+    load_pretrained_into,
+    merge_params,
+    refuse_orbax,
+    state_dict_of_payload,
+)
+
+
+def parse_option(argv: Optional[List[str]] = None):
+    parser = argparse.ArgumentParser("MAE 3D pretraining (PyTorch)", add_help=False)
+    parser.add_argument("--cfg", type=str, required=True, metavar="FILE",
+                        help="path to config file")
+    parser.add_argument("--opts", help="Modify config options using the command-line",
+                        default=None, nargs="+")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default; cuda:LOCAL_RANK under torchrun) or cpu")
+    parser.add_argument("--local_rank", type=int, default=0,
+                        help="accepted for reference CLI parity; torchrun's LOCAL_RANK is read")
+    parser.add_argument("--seed", type=int, help="seed")
+    parser.add_argument("--use_amp", action="store_true",
+                        help="reference flag; bf16 compute is always on")
+    parser.add_argument("--use_wandb", action="store_true")
+    parser.add_argument("--wandb_project", type=str, default=None)
+    parser.add_argument("--model_name", type=str, help="model name")
+    parser.add_argument("--model_load_path", type=str, help="path to trained model")
+    parser.add_argument("--optimizer", type=str, help="training optimizer")
+    parser.add_argument("--scheduler", type=str, help="learning rate scheduler")
+    parser.add_argument("--base_lr", type=float, help="base learning rate")
+    parser.add_argument("--min_lr", type=float, help="minimum learning rate")
+    parser.add_argument("--weight_decay", type=float, help="weight decay")
+    parser.add_argument("--grad_clip", type=float, help="gradient clipping")
+    parser.add_argument("--batch_size", type=int, help="batch size")
+    parser.add_argument("--num_workers", type=int, help="dataloader workers")
+    parser.add_argument("--max_epochs", type=int, help="max epoch")
+    parser.add_argument("--train_csv_path", type=str)
+    parser.add_argument("--val_csv_path", type=str)
+    parser.add_argument("--test_csv_path", type=str)
+    args, _ = parser.parse_known_args(argv)
+    return args, get_config(args)
+
+
+def resolve_run_device(name: str) -> torch.device:
+    """``cuda`` means this process's card (``LOCAL_RANK``)."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", distributed.local_rank())
+    dev = resolve_device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def init_wandb(config):
+    if not config.WANDB.WANDB_ENABLE or distributed.rank() != 0:
+        return None
+    try:
+        import wandb
+    except ImportError:
+        print("wandb not available; continuing without it")
+        return None
+    return wandb.init(project=config.WANDB.PROJECT, config=config.to_dict())
+
+
+def resume(state, path: str, logger):
+    """Content-routed ``--model_load_path``; returns (state, start_epoch)."""
+    is_torch, payload = classify_checkpoint(path)
+    if is_torch:
+        load_pretrained_into(state.model, path, logger=logger)
+        return state, 0
+    try:
+        state, start_epoch, _ = restore_state(state, payload)
+    except (ValueError, KeyError, TypeError) as e:
+        # an architecture-mismatched or params-only pickle: a strict=False warm
+        # start (the reference's load_model; the epoch is not restored)
+        logger.info(f"Full resume failed ({e}); merging params only")
+        merged, _, _ = merge_params(state.model.state_dict(),
+                                    state_dict_of_payload(payload, into=state.model.state_dict()))
+        state.model.load_state_dict(merged)
+        return state, 0
+    logger.info(f"Resumed from {path} at epoch {start_epoch}")
+    return state, start_epoch
+
+
+def main(config, device: torch.device, logger, wandb_run=None) -> Dict[str, Any]:
+    from headct_foundation_tpu_torch.data.datasets import get_pretrain_dataloaders
+    from headct_foundation_tpu_torch.data.pipeline import resolve_wire_format
+
+    refuse_orbax(fmt=str(config.TRAIN.CKPT_FORMAT))
+    load_path = config.MODEL.PRETRAINED
+    load_path = None if load_path in (None, "", "None") else str(load_path)
+    if load_path is not None:
+        refuse_orbax(load_path)
+    rank, world = distributed.rank(), distributed.world()
+    if str(config.DATA.WIRE_FORMAT) == "auto":
+        config.defrost()
+        config.DATA.WIRE_FORMAT = resolve_wire_format(config, device)
+        config.freeze()
+        logger.info(f"Resolved DATA.WIRE_FORMAT=auto -> {config.DATA.WIRE_FORMAT}")
+    train_loader, val_loader, test_loader = get_pretrain_dataloaders(config, rank, world,
+                                                                     device=device)
+
+    # base_lr x effective batch / 256, min_lr = base_lr x 1e-3
+    # (reference: main_pretrain_mae.py:149-152)
+    effective_batch_size = int(config.DATA.BATCH_SIZE) * world
+    total_steps = len(train_loader) * int(config.TRAIN.MAX_EPOCHS)
+    num_warmup_steps = int(config.TRAIN.PER_WARMUP * total_steps)
+    config.defrost()
+    config.TRAIN.BASE_LR = config.TRAIN.BASE_LR * effective_batch_size / 256
+    config.TRAIN.MIN_LR = config.TRAIN.BASE_LR * 1e-3
+    config.freeze()
+    logger.info(f"Effective LR: {config.TRAIN.BASE_LR}, Effective Batch: {effective_batch_size}, "
+                f"Epochs: {config.TRAIN.MAX_EPOCHS}, Warmup/Total steps: "
+                f"{num_warmup_steps}/{total_steps}, World: {world}, Device: {device}")
+
+    state, _ = mae_engine.create_train_state(config, total_steps, num_warmup_steps,
+                                             seed=int(config.SEED), device=device)
+    start_epoch = 0
+    if load_path is not None:
+        state, start_epoch = resume(state, load_path, logger)
+
+    train_step = mae_engine.make_train_step(augment=True, accum_steps=int(config.TRAIN.ACCUM_STEPS),
+                                            config=config)
+    eval_step = mae_engine.make_eval_step(config)
+    history: List[Dict[str, Any]] = []
+    state, best_loss = mae_engine.trainer(
+        config, state, train_step, eval_step, train_loader, val_loader, int(config.SEED),
+        int(config.TRAIN.MAX_EPOCHS), int(config.TRAIN.VAL_EVERY), logger=logger,
+        start_epoch=start_epoch, wandb_run=wandb_run, history=history)
+    logger.info(f"train completed, best val loss: {best_loss:.4f}")
+    test_stats = mae_engine.tester(config, state, eval_step, test_loader, int(config.SEED),
+                                   logger=logger, wandb_run=wandb_run)
+    logger.info(f"test completed, test loss: {test_stats.get('loss', float('nan')):.4f}")
+    for loader in (val_loader, test_loader):
+        loader.close()
+    # scans served as placeholders, over the three loaders and every rank
+    placeholders = torch.tensor(float(sum(loader.dataset.placeholders for loader in
+                                          (train_loader, val_loader, test_loader))),
+                                device=device)
+    distributed.all_reduce_mean_([placeholders])
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+    return {"device": str(device), "world": world, "start_epoch": start_epoch,
+            "epochs": history, "best_val_loss": best_loss, "test": test_stats,
+            "placeholders": round(placeholders.item() * world), "peak_memory_bytes": peak}
+
+
+def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
+    args, config = parse_option(argv)
+    device = resolve_run_device(args.device)  # this process's card, before NCCL starts
+    distributed.init_from_env(device.type, int(config.PARALLEL.DATA))
+    try:
+        rank = distributed.rank()
+        np.random.seed(int(config.SEED) + rank)
+        os.makedirs(config.LOG.OUTPUT_DIR, exist_ok=True)
+        logger = create_logger(config.LOG.OUTPUT_DIR, rank, config.LOG.FILENAME)
+        if rank == 0 and config.OUTPUT:
+            os.makedirs(config.OUTPUT, exist_ok=True)
+            path = os.path.join(config.OUTPUT, "config.json")
+            with open(path, "w") as f:
+                json.dump(config.to_dict(), f, indent=2)
+            logger.info(f"Full config saved to {path}")
+        result = main(config, device, logger, init_wandb(config))
+        if rank == 0:
+            print(json.dumps({"cli": result}), flush=True)
+        return result
+    finally:
+        distributed.shutdown()
+
+
+if __name__ == "__main__":
+    run(sys.argv[1:])

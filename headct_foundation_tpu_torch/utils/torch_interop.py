@@ -13,13 +13,37 @@ and the port's modules.
   src/utils/misc.py:72-96).
 * ``load_reference_checkpoint``: a reference ``.pt`` -> a stripped
   state_dict, loaded the way the feature-extraction notebook does.
+* ``jax_tree_from_state_dict``: the inverse of ``state_dict_from_jax``, the
+  counterpart of JAX ``:74 torch_to_tree``; a port state_dict goes to the
+  JAX tree and back bit for bit.
+* ``opt_state_to_jax`` / ``opt_state_from_jax``: the optimizer state of the
+  port's SGD, AdamW, Lamb and Lion (fused or not) as optax's state tree of
+  the JAX package's chain, in flax's ``to_state_dict`` form, and back:
+  ``multi_transform({"train", "freeze"})`` over ``chain([clip], ...)`` (JAX
+  ``optim/optimizers.py:235-286``). Moments are laid out as their
+  parameters (kernels transposed); the frozen sincos embeddings carry the
+  ``freeze`` branch's empty state (``{}`` in the trees). torch's AdamW keeps a
+  ``step`` per parameter, optax one ``count`` per transform: all of them are
+  the update count ``TrainState.step``.
+* ``classify_checkpoint`` (JAX ``:410``) tells a torch file from a pickle
+  of the JAX package's format with a restricted unpickler (``:360``) that
+  runs nothing: only numpy arrays, dtypes and plain containers load.
+* ``merge_params`` (``:210``) and ``load_pretrained_into`` (``:465``):
+  strict=False warm starts into a module's state_dict, from a torch file or
+  from either package's pickle, routed by content.
 
-Orbax and pickle checkpoints of the JAX package are not read yet.
+The pickle format is ``utils/checkpoint.py``'s. Orbax directories need JAX
+and raise ``OrbaxNotSupportedError``. A leaf in a ``ml_dtypes`` type
+(bfloat16 and the float8 types) raises ``CheckpointDtypeError``: it is
+never cast.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import logging
+import os
+import pickle
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,7 +103,7 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 out[f"{prefix}.{name}" if prefix else name] = arr
 
     walk(params, "", False)
-    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+    return {k: torch.from_numpy(np.array(v, order="C")) for k, v in out.items()}  # copies
 
 
 def load_reference_checkpoint(path: str, key: str = "state_dict") -> Dict[str, torch.Tensor]:
@@ -89,3 +113,334 @@ def load_reference_checkpoint(path: str, key: str = "state_dict") -> Dict[str, t
     payload = torch.load(path, map_location="cpu", weights_only=True)
     sd = payload[key] if isinstance(payload, dict) and key in payload else payload
     return strip_prefixes({k: v for k, v in sd.items() if isinstance(v, torch.Tensor)})
+
+
+class OrbaxNotSupportedError(NotImplementedError):
+    """An orbax checkpoint (a directory, or ``TRAIN.CKPT_FORMAT: orbax``):
+    orbax imports JAX, which the port does not."""
+
+
+class CheckpointDtypeError(RuntimeError):
+    """A checkpoint leaf whose dtype the port does not take as it is."""
+
+
+def refuse_orbax(path: Optional[str] = None, fmt: str = "pickle") -> None:
+    if fmt == "orbax" or (path is not None and os.path.isdir(path)):
+        raise OrbaxNotSupportedError(
+            f"orbax checkpoint {'format' if path is None else path!r}: orbax imports JAX and "
+            "the port reads and writes only the pickle format (TRAIN.CKPT_FORMAT: pickle)")
+    if fmt != "pickle":
+        raise ValueError(f"unknown checkpoint format {fmt!r}")
+
+
+def _jax_module_path(parts: List[str]) -> List[str]:
+    out, i = [], 0
+    while i < len(parts):
+        if (parts[i] in ("blocks", "decoder_blocks") and i + 1 < len(parts)
+                and parts[i + 1].isdigit()):
+            out.append(f"{parts[i]}_{parts[i + 1]}")
+            i += 2
+        else:
+            out.append(parts[i])
+            i += 1
+    return out
+
+
+def _jax_leaf(name: str, ndim: int, norm_layer: str) -> Tuple[List[str], str]:
+    """Port state_dict name -> (JAX tree path, layout): "linear" (kernel
+    [in, out] of a Linear weight [out, in]), "patch" (the patch-embed matmul
+    kernel of a Conv3d weight) or "plain"."""
+    parts = name.split(".")
+    if len(parts) >= 2 and parts[-2] == "patch_embeddings":
+        return _jax_module_path(parts[:-2]) + ["kernel" if parts[-1] == "weight" else "bias"], (
+            "patch" if parts[-1] == "weight" else "plain")
+    path = _jax_module_path(parts[:-1])
+    if parts[-1] == "weight" and ndim == 2:
+        return path + ["kernel"], "linear"
+    if parts[-1] == "weight" and ndim == 1 and norm_layer != "rmsnorm":
+        return path + ["scale"], "plain"
+    return path + [parts[-1]], "plain"
+
+
+def _to_jax_layout(v: torch.Tensor, layout: str) -> np.ndarray:
+    """The JAX layout of ``v``, rearranged where ``v`` lies (on a card the
+    transposes run there) and then copied to the host."""
+    v = v.detach()
+    if layout == "linear":
+        v = v.t()
+    elif layout == "patch":  # [O, C, ph, pw, pd] -> [(ph pw pd C), O]
+        v = v.permute(2, 3, 4, 1, 0).reshape(-1, v.shape[0])
+    return v.contiguous().cpu().numpy()
+
+
+def _from_jax_layout(a: np.ndarray, layout: str, shape: Tuple[int, ...]) -> np.ndarray:
+    if layout == "linear":
+        a = a.T
+    elif layout == "patch":
+        o, c, ph, pw, pd = shape
+        a = a.reshape(ph, pw, pd, c, o).transpose(4, 3, 0, 1, 2)
+    return np.ascontiguousarray(a)
+
+
+def _nest(tree: Dict, path: List[str], value: Any) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value
+
+
+def _get(tree: Mapping, path: List[str], what: str) -> Any:
+    for p in path:
+        if not isinstance(tree, Mapping) or p not in tree:
+            raise KeyError(f"{what}: no {'/'.join(path)} in the checkpoint")
+        tree = tree[p]
+    return tree
+
+
+def jax_tree_from_state_dict(sd: Mapping[str, torch.Tensor],
+                             norm_layer: str = "layernorm") -> Dict[str, Any]:
+    """Port (reference-named) state_dict -> the JAX parameter tree, numpy
+    leaves: ``blocks.3.attn.qkv.weight`` [out, in] -> ``blocks_3/attn/qkv/kernel``
+    [in, out], the Conv3d patch weight -> the matmul kernel, a LayerNorm
+    ``weight`` -> ``scale``."""
+    tree: Dict[str, Any] = {}
+    for name, v in sd.items():
+        path, layout = _jax_leaf(name, v.dim(), norm_layer)
+        _nest(tree, path, _to_jax_layout(v, layout))
+    return tree
+
+
+# optax's chain of each optimizer (JAX optim/optimizers.py:242-279), after
+# the clip when TRAIN.GRAD_CLIP is set
+_CHAINS = {"SGD": ("trace", "count"), "AdamW": ("adam", "count", "count"),
+           "Lamb": ("lamb", "count"), "Lion": ("lion",)}
+# optax state field -> the torch optimizer's state key, per transform
+_MOMENTS = {"trace": {"trace": "momentum_buffer"},
+            "adam": {"mu": "exp_avg", "nu": "exp_avg_sq"},
+            "lamb": {"exp_avg": "exp_avg", "exp_avg_sq": "exp_avg_sq"},
+            "lion": {"exp_avg": "exp_avg"}}
+
+
+def _chain(config) -> Tuple[str, ...]:
+    name = str(config.TRAIN.OPTIMIZER)
+    if name not in _CHAINS:
+        raise NotImplementedError(f"Unknown optimizer: {name}")
+    return (("clip",) if config.TRAIN.GRAD_CLIP else ()) + _CHAINS[name]
+
+
+def _trainable(model: torch.nn.Module, optimizer: torch.optim.Optimizer):
+    """(name, parameter, trainable) over the model's parameters, checking
+    that the optimizer holds exactly the trainable ones."""
+    held = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    out = [(n, p, id(p) in held) for n, p in model.named_parameters()]
+    if sum(t for *_, t in out) != len(held):
+        raise ValueError("the optimizer holds parameters that are not the model's")
+    return out
+
+
+def _opt_tree(optimizer: torch.optim.Optimizer, model: torch.nn.Module, config, count: Any,
+              leaf) -> Dict[str, Any]:
+    """The ``opt_state`` tree with ``leaf(param, torch state key, layout)``
+    at each trainable parameter's place in each moment tree."""
+    norm_layer = str(config.MAE.NORM_LAYER)
+    params = _trainable(model, optimizer)
+    inner: Dict[str, Any] = {}
+    for i, kind in enumerate(_chain(config)):
+        entry: Dict[str, Any] = {}
+        if kind not in ("clip", "trace"):  # optax.trace keeps no count
+            entry["count"] = count
+        for field, key in _MOMENTS.get(kind, {}).items():
+            tree: Dict[str, Any] = {}
+            for name, p, trainable in params:
+                path, layout = _jax_leaf(name, p.dim(), norm_layer)
+                _nest(tree, path, leaf(p, key, layout) if trainable else {})  # {}: MaskedNode
+            entry[field] = tree
+        inner[str(i)] = entry
+    return {"inner_states": {"freeze": {"inner_state": {}}, "train": {"inner_state": inner}}}
+
+
+def opt_state_to_jax(optimizer: torch.optim.Optimizer, model: torch.nn.Module, config,
+                     step: int, state: Optional[Mapping] = None) -> Dict[str, Any]:
+    """The optimizer's state (or ``state``, a snapshot of it keyed the same)
+    as the JAX package's ``opt_state`` (flax state_dict form); every
+    ``count`` is ``step``. Moments not allocated yet (before the first
+    update) are zeros, as optax initialises them."""
+    state = optimizer.state if state is None else state
+
+    def leaf(p, key, layout):
+        v = state.get(p, {}).get(key)
+        return _to_jax_layout(torch.zeros_like(p, dtype=torch.float32) if v is None else v,
+                              layout)
+
+    return _opt_tree(optimizer, model, config, np.asarray(step, dtype=np.int32), leaf)
+
+
+def _check_keys(got: Any, want: Any, where: str) -> None:
+    """The key tree of ``got`` equals ``want``'s (flax's from_state_dict is as strict)."""
+    if isinstance(want, Mapping):
+        if not isinstance(got, Mapping) or set(got) != set(want):
+            raise ValueError(f"optimizer state {where or '/'}: keys "
+                             f"{sorted(got) if isinstance(got, Mapping) else type(got).__name__}"
+                             f", expected {sorted(want)}")
+        for k in want:
+            _check_keys(got[k], want[k], f"{where}/{k}")
+
+
+def tensor_from_leaf(a: Any, like: torch.Tensor, what: str,
+                     layout: str = "plain") -> torch.Tensor:
+    """A checkpoint leaf as a tensor of ``like``'s shape on its device, in
+    the port's layout; raises on another dtype or shape."""
+    a = np.asarray(a)
+    if a.dtype != np.dtype(str(like.dtype).replace("torch.", "")):
+        raise CheckpointDtypeError(f"{what} is {a.dtype} in the checkpoint and {like.dtype} in "
+                                   "the port; the port does not cast checkpoint leaves")
+    a = _from_jax_layout(a, layout, tuple(like.shape))
+    if tuple(a.shape) != tuple(like.shape):
+        raise ValueError(f"{what} has shape {a.shape} in the checkpoint, {tuple(like.shape)} "
+                         "in the port")
+    # a copy: an unpickled array may be read-only
+    return torch.from_numpy(np.array(a)).to(like.device)
+
+
+def opt_state_from_jax(tree: Mapping[str, Any], optimizer: torch.optim.Optimizer,
+                       model: torch.nn.Module, config, step: int) -> None:
+    """Fill ``optimizer.state`` from a JAX-format ``opt_state``. Raises
+    ValueError or KeyError when the tree is not this optimizer's chain (as
+    flax's ``from_state_dict`` does), or when a ``count`` differs from
+    ``step``; CheckpointDtypeError for a leaf of another dtype."""
+    _check_keys(tree, _opt_tree(optimizer, model, config, None, lambda *_: None), "")
+    norm_layer = str(config.MAE.NORM_LAYER)
+    inner = tree["inner_states"]["train"]["inner_state"]
+    params = [(n, p) for n, p, trainable in _trainable(model, optimizer) if trainable]
+    new_state: Dict[torch.Tensor, Dict[str, torch.Tensor]] = {p: {} for _, p in params}
+    for i, kind in enumerate(_chain(config)):
+        entry = inner[str(i)]
+        if "count" in entry and int(np.asarray(entry["count"])) != step:
+            raise ValueError(f"optimizer state {i}: count {int(np.asarray(entry['count']))} "
+                             f"!= step {step}")
+        for field, key in _MOMENTS.get(kind, {}).items():
+            for name, p in params:
+                path, layout = _jax_leaf(name, p.dim(), norm_layer)
+                leaf = _get(entry[field], path, f"opt_state {i}/{field}")
+                new_state[p][key] = tensor_from_leaf(leaf, p.float(), f"{field} of {name}", layout)
+        if kind == "adam":
+            for _, p in params:
+                new_state[p]["step"] = torch.tensor(float(step), dtype=torch.float32)
+    optimizer.state.clear()
+    for p, st in new_state.items():
+        optimizer.state[p] = st
+
+
+class _Restricted(pickle.Unpickler):
+    """Loads only what the pickle format holds: nested dicts and lists of
+    numpy arrays and Python scalars. Any other global (torch's storage
+    rebuilders, arbitrary classes) is refused without being imported; a
+    ``ml_dtypes`` leaf raises CheckpointDtypeError."""
+
+    _SAFE = {("numpy", "ndarray"), ("numpy", "dtype"),
+             ("numpy.core.multiarray", "_reconstruct"), ("numpy._core.multiarray", "_reconstruct"),
+             ("numpy.core.multiarray", "scalar"), ("numpy._core.multiarray", "scalar"),
+             ("numpy.core.numeric", "_frombuffer"), ("numpy._core.numeric", "_frombuffer")}
+
+    def find_class(self, module, name):
+        if module.split(".")[0] == "ml_dtypes":
+            raise CheckpointDtypeError(
+                f"checkpoint leaf of dtype ml_dtypes.{name}: the port takes float32 and the "
+                "numpy dtypes only, and casts nothing (convert the checkpoint to float32)")
+        if (module, name) in self._SAFE or module == "numpy.dtypes":
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(f"non-native global {module}.{name} in checkpoint")
+
+
+def load_native_pickle(fileobj) -> Any:
+    """Unpickle a checkpoint of the pickle format through the restricted unpickler."""
+    return _Restricted(fileobj).load()
+
+
+def classify_checkpoint(path: str) -> Tuple[bool, Optional[Dict[str, Any]]]:
+    """(is_torch, payload or None), by content: a zip (``PK``) or a pickle
+    that needs other globals is a torch file; a pickle of nested dicts with
+    ``params`` (or ``state_dict``) is the pickle format, returned loaded so
+    that it is read once. A truncated or unreadable file is routed to
+    torch's loader, whose errors say what is wrong, with a warning."""
+    refuse_orbax(path)
+    with open(path, "rb") as f:
+        head = f.read(4)
+    if head[:2] == b"PK":
+        return True, None
+    log = logging.getLogger(__name__)
+    try:
+        with open(path, "rb") as f:
+            payload = load_native_pickle(f)
+    except pickle.UnpicklingError as e:
+        log.info("classify_checkpoint: %s routed to the torch loader (%s)", path, e)
+        return True, None
+    except CheckpointDtypeError:
+        raise
+    except Exception as e:  # truncated or corrupt: torch's loader reports it
+        log.warning("classify_checkpoint: probe of %s failed with %s: %s; treating it as a "
+                    "torch checkpoint", path, type(e).__name__, e)
+        return True, None
+    ours = isinstance(payload, dict) and ("params" in payload
+                                          or isinstance(payload.get("state_dict"), dict))
+    return (False, payload) if ours else (True, None)
+
+
+def merge_params(target: Mapping[str, torch.Tensor], source: Mapping[str, Any]
+                 ) -> Tuple[Dict[str, torch.Tensor], List[str], List[str]]:
+    """strict=False merge of ``source`` into the state_dict ``target``:
+    (merged, missing keys, unexpected keys). A leaf is taken where its name
+    and shape match and cast to the target's dtype, as torch's
+    ``load_state_dict`` copies; a position embedding of another grid needs
+    ``interpolate_pos_embed``, which is not ported, and raises."""
+    merged, missing, unexpected = dict(target), [], []
+    for name, t in target.items():
+        if name not in source:
+            missing.append(name)
+            continue
+        v = torch.as_tensor(np.asarray(source[name])) if not isinstance(
+            source[name], torch.Tensor) else source[name]
+        if tuple(v.shape) != tuple(t.shape):
+            if name.rsplit(".", 1)[-1] in ("position_embeddings", "decoder_pos_embed"):
+                raise NotImplementedError(
+                    f"{name}: a {tuple(v.shape)} position embedding into {tuple(t.shape)} needs "
+                    "interpolate_pos_embed, which the port does not have yet")
+            unexpected.append(f"{name} (shape {tuple(v.shape)} != {tuple(t.shape)})")
+            continue
+        merged[name] = v.to(dtype=t.dtype, device=t.device)
+    unexpected += [k for k in source if k not in target]
+    return merged, missing, unexpected
+
+
+def state_dict_of_payload(payload: Mapping[str, Any], state_key: str = "state_dict",
+                          into: Optional[Mapping[str, Any]] = None) -> Dict[str, Any]:
+    """The weights of a pickle-format payload as a reference-named
+    state_dict: the JAX tree under ``state_key`` or ``params`` (a DINO
+    checkpoint's ``backbone`` when ``into`` has no such key)."""
+    tree = payload.get(state_key, payload.get("params", payload))
+    if isinstance(tree, Mapping) and set(tree) == {"backbone", "head"} and not any(
+            k.startswith("backbone.") for k in (into or {})):
+        tree = tree["backbone"]
+    return state_dict_from_jax(tree)
+
+
+def load_pretrained_into(model: torch.nn.Module, checkpoint_path: str,
+                         state_key: str = "state_dict", logger=None) -> Tuple[List[str], List[str]]:
+    """strict=False warm start of ``model`` from a reference ``.pt`` or a
+    pickle of either package, routed by content (reference load_model,
+    src/utils/misc.py:72-96). Returns (missing, unexpected)."""
+    target = model.state_dict()
+    is_torch, payload = classify_checkpoint(checkpoint_path)
+    if is_torch:
+        source: Mapping[str, Any] = load_reference_checkpoint(checkpoint_path, key=state_key)
+    else:
+        source = state_dict_of_payload(payload, state_key, into=target)
+    merged, missing, unexpected = merge_params(target, source)
+    model.load_state_dict(merged)
+    if logger:
+        logger.info(f"Loaded pretrained weights from {checkpoint_path}: {len(missing)} missing, "
+                    f"{len(unexpected)} unexpected keys")
+        if missing:
+            logger.info(f"missing: {missing[:10]}{'...' if len(missing) > 10 else ''}")
+        if unexpected:
+            logger.info(f"unexpected: {unexpected[:10]}{'...' if len(unexpected) > 10 else ''}")
+    return missing, unexpected

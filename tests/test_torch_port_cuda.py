@@ -461,3 +461,80 @@ def test_cuda_tm_autograd_function_matches_fused_attention():
         outs.append((o.detach(), *(x.grad for x in qkv)))
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: pinned copies, CUDA streams and events have no CPU mode")
+
+
+@pytest.mark.cuda
+def test_cuda_prefetcher_matches_host_batches_under_slow_consumer():
+    """Every batch the pinned prefetcher yields equals its host batch, read
+    on the consumer's stream behind a device-side delay: a pinned buffer or
+    a device block handed out again before the consumer is done would show
+    as another batch's data."""
+    import numpy as np
+
+    from headct_foundation_tpu_torch.data.pipeline import DevicePrefetcher
+
+    _need_cuda()
+    rng = np.random.RandomState(0)
+    host = [(rng.randint(-8000, 20000, (4, 1, 48, 48, 48)).astype(np.int16), [f"p{i}"])
+            for i in range(12)]
+    sums = []
+    for i, (dev, paths) in enumerate(DevicePrefetcher(host, torch.device("cuda"), depth=2)):
+        assert paths == host[i][1] and dev.is_cuda and dev.dtype == torch.int16
+        torch.cuda._sleep(2_000_000)  # the consumer's stream is busy for a while
+        sums.append((dev.to(torch.int64).sum(), dev[0, 0, :2, :2, :2].clone()))
+    torch.cuda.synchronize()
+    assert len(sums) == len(host)
+    for (s, corner), (h, _) in zip(sums, host):
+        assert int(s) == int(h.astype(np.int64).sum())
+        assert np.array_equal(corner.cpu().numpy(), h[0, 0, :2, :2, :2])
+
+
+@pytest.mark.cuda
+def test_cuda_async_checkpoint_equals_the_state_at_save(tmp_path):
+    """An async save snapshots on the device: the file holds the state at
+    the save, while the next steps update the parameters in place."""
+    import numpy as np
+
+    from headct_foundation_tpu_torch.config import default_config
+    from headct_foundation_tpu_torch.engines import mae_engine
+    from headct_foundation_tpu_torch.utils import checkpoint
+
+    _need_cuda()
+    cfg = default_config()
+    cfg.merge_from_list(["MAE.INPUT_SIZE", 24, "MAE.PATCH_SIZE", 12, "MAE.ENCODER_DEPTH", 2,
+                         "MAE.ENCODER_EMBED_DIM", 48, "MAE.ENCODER_MLP_DIM", 96,
+                         "MAE.ENCODER_NUM_HEADS", 4, "MAE.DECODER_DEPTH", 2,
+                         "MAE.DECODER_EMBED_DIM", 48, "MAE.DECODER_MLP_DIM", 96,
+                         "MAE.DECODER_NUM_HEADS", 4, "MODEL.ROI", [24, 24, 24],
+                         "DATA.WIRE_FORMAT", "hu16", "PARALLEL.PALLAS_MIN_T", 9])
+    state, _ = mae_engine.create_train_state(cfg, 20, 0, seed=0, dtype=torch.float32,
+                                             device="cuda")
+    step = mae_engine.make_train_step(augment=True, config=cfg)
+    wire = torch.from_numpy(np.random.RandomState(0).randint(-8000, 20000, (4, 1, 24, 24, 24))
+                            .astype(np.int16)).cuda()
+    state, _ = step(state, wire, seed=0)
+    at_save = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    moments = {names[id(p)]: st["exp_avg"].cpu().clone() for p, st in state.optimizer.state.items()}
+    path = checkpoint.save_checkpoint(state, 0, 1.0, str(tmp_path), "latest_x.pt",
+                                      async_save=True)
+    for _ in range(3):
+        state, _ = step(state, wire, seed=0)
+    checkpoint.wait_for_saves()
+    assert state.step == 4
+    fresh, _ = mae_engine.create_train_state(cfg, 20, 0, seed=1, dtype=torch.float32,
+                                             device="cuda")
+    fresh, _, _ = checkpoint.restore_state(fresh, checkpoint.load_checkpoint(path))
+    assert fresh.step == 1
+    for k, v in fresh.model.state_dict().items():
+        assert torch.equal(v.cpu(), at_save[k]), k
+    names = {id(p): n for n, p in fresh.model.named_parameters()}
+    restored = {names[id(p)]: st["exp_avg"].cpu() for p, st in fresh.optimizer.state.items()}
+    assert restored.keys() == moments.keys()
+    for name, m in moments.items():
+        assert torch.equal(restored[name], m), name
