@@ -16,7 +16,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
              ||kernel - plain|| / ||plain|| <= BF16_REL_L2. The forward (B1;
              bf16 on the wgmma kernel of csrc/flash_fwd_sm90.cuh, float32 on
              the 3xTF32 kernel of csrc/flash_fwd_f32_sm90.cuh) is held at
-             the serving and MAE decoder shapes and, in both types, at the
+             the serving, MAE decoder and DINO student and teacher shapes
+             ([256,517,12,64] and [128,517,12,64] bf16) and, in both types, at the
              edges of its key tiles and 128-row blocks, head dims 12 to 128
              and a view 4 elements into its storage; two runs must be
              bit-identical. The blocked
@@ -27,13 +28,14 @@ Phases, each printing a line; any failure raises and exits non-zero:
              masked dK, dV must be exactly 0 and two runs of B3, B4 and B5
              bit-identical. The backward B2 (bf16 on the wgmma passes of
              csrc/flash_bwd_sm90.cuh, B4's and B5's kernels) is held at the
-             MAE decoder's shape, at the edges of its 64-row tiles, head dims
+             MAE decoder's and the DINO student's shapes, at the edges of its
+             64-row tiles, head dims
              12 to 128 and a misaligned view; two runs bit-identical.
              ptxas's report (registers, spills, shared memory) of every
              wgmma instantiation (the forward, the dK/dV and dQ passes) is
              printed after the build, a spill failing the run. B1 (float32
              and bf16), B2, B3-B5 and B8 are timed on an idle stream and
-             behind a device sleep, beside their bound and their
+             behind a device sleep (B1 and B2 also at the DINO shapes), beside their bound and their
              exponentials' floor; float32 B1 beside both bounds (3xTF32 on
              the tensor cores, its route's, and the float32 CUDA cores) and
              the names of the kernels its library call launched.
@@ -55,7 +57,24 @@ Phases, each printing a line; any failure raises and exits non-zero:
              batch (counts set to 0 just before each); then step time,
              throughput, peak memory, a breakdown (CUDA events) and the
              device time by kernel group over 2 profiled steps.
-6. cli     - the MAE pretraining CLI end to end at full width: the native
+6. dino    - DINO pretraining at full width (configs/dino/dino_HeadCT.yaml as
+             shipped: ViT-B/12 with 4 registers, head 3 x 2048 -> 256 ->
+             65536, 2 global + 2 local crops to 96^3, bf16 compute, AdamW with
+             the weight decay 0.04 -> 0.4, teacher momentum 0.999 -> 1) on its
+             batch of 64 synthetic hu16 phantoms: one step at 4 volumes (16
+             student crops) with the kernels against the plain attention (bf16
+             and float32, every trainable gradient), then train_one_epoch for
+             epoch 0 (last layer frozen) and epoch 1, 3 batches each, and
+             val_one_epoch over 1 batch: finite losses, last_layer.weight_v
+             bit-equal after epoch 0 and moved after epoch 1, every other
+             trainable tensor and the teacher moved, a finite centre, and
+             exactly 24 B1 + 12 B2 launches per train step (the teacher's 12
+             forwards at [128,517,12,64], the student's 12 forwards and
+             backwards at [256,517,12,64]) and 24 B1 per eval batch; then the
+             median step, volumes/s, peak memory, a breakdown (CUDA events:
+             crops, teacher, student, AdamW, EMA) and the device time by
+             kernel group over 2 profiled steps.
+7. cli     - the MAE pretraining CLI end to end at full width: the native
              decoder built with g++ (its time printed), 32 synthetic head scans
              (256x256x40 int16 at 0.5x0.5x1.0 mm) and train / val / test
              manifests of 128 / 64 / 64 rows; the cache's device backend
@@ -71,7 +90,16 @@ Phases, each printing a line; any failure raises and exits non-zero:
              the CLI process; the latest_ file restored beside the state bit for
              bit and the checkpoint write timed (sync and async); then a resume
              with TRAIN.MAX_EPOCHS 3 that restarts at the saved epoch index.
-7. stretch - the long-context MAE step of configs/mae/mae_HeadCT_192.yaml at
+8. dino-cli - ``python -m headct_foundation_tpu_torch.main_pretrain_dino --cfg
+             configs/dino/dino_HeadCT.yaml`` on the cli phase's heads and
+             manifests (batch 64, 2 steps an epoch), only the paths,
+             TRAIN.MAX_EPOCHS 2 and TRAIN.VAL_EVERY 1 overridden: exit 0,
+             latest_ and best_ with the four DINO extras, 0 placeholders,
+             exactly 24 B1 + 12 B2 per train step and 24 B1 per eval batch
+             counted in the CLI process, latest_ restored beside the state bit
+             for bit (student, teacher, optimizer, centre), then a resume with
+             TRAIN.MAX_EPOCHS 3 ("Resumed (full)") at the saved epoch index.
+9. stretch - the long-context MAE step of configs/mae/mae_HeadCT_192.yaml at
              full width (192^3, patch 12: encoder T=1025 at 12 heads x 64,
              decoder T=4097 at 16 heads x 48) on batches of 2 synthetic hu16
              phantoms: one step at batch 1 with the kernels against the plain
@@ -79,7 +107,7 @@ Phases, each printing a line; any failure raises and exits non-zero:
              train steps and 1 eval batch with exactly 20 B3 + 20 B4 + 20 B5
              launches per train step, 20 B3 per eval batch and no B1 or B2;
              then the same timings as the train phase.
-8. lion    - the 96^3 MAE of the train phase trained by the fused Lion update
+10. lion   - the 96^3 MAE of the train phase trained by the fused Lion update
              (TRAIN.OPTIMIZER Lion, LION_FUSED True, GRAD_CLIP 1.0): kernel B6
              against its plain version first (bit for bit, at the model's
              shapes and at ragged ones), then 6 train steps and 1 eval batch
@@ -90,12 +118,12 @@ Phases, each printing a line; any failure raises and exits non-zero:
              for bit against those outputs, then the unfused step against
              it; B6 timed over every trainable tensor; the same timings as
              the train phase.
-9. tm      - the token-major attention tool: kernels B7 and B8 against their
+11. tm     - the token-major attention tool: kernels B7 and B8 against their
              plain versions at the tool's four shapes (bf16) and at float32
              and ragged ones, and against B1 and B2 on the same inputs (bit
              for bit: the same tile code), then ``tools.bench_tm_attention``
              at its four shapes.
-10. report - a JSON line of the kernels, the card line, then the result line.
+12. report - a JSON line of the kernels, the card line, then the result line.
 
 Float32 matmuls and convolutions are pinned to full float32 (TF32 off for
 cuBLAS and cuDNN): the serving forward is float32, like the JAX package's.
@@ -131,6 +159,10 @@ PEAK_TF32 = 495e12  # the tensor cores' dense TF32 rate, which the float32 forwa
 PEAK_BYTES = 3.35e12
 SERVING = (8, 513, 12, 64)
 MAE_DECODER = (32, 513, 16, 48)
+# DINO at batch 64: 512 patches + CLS + 4 registers, 12 heads x 64; the
+# student's 4 crops a volume and the teacher's 2 global ones
+DINO_STUDENT = (256, 517, 12, 64)
+DINO_TEACHER = (128, 517, 12, 64)
 KERNEL_CASES = [  # (shape [B, T, H, D], dtype, atol, rtol, storage offset) for O; LSE at
     # 1e-4 / 1e-4; reruns bit-identical. q, k, v are strided views of one [B, T, 3, H, D].
     # The bf16 cases from the block edges on hold the wgmma forward's 64-key tiles and
@@ -141,6 +173,8 @@ KERNEL_CASES = [  # (shape [B, T, H, D], dtype, atol, rtol, storage offset) for 
     # dim 128, and on a view 4 elements in (still 16-byte aligned in float32).
     (SERVING, torch.float32, 2e-5, 1e-4, 0),               # serving path, every ViT-B block
     (MAE_DECODER, torch.bfloat16, 2e-2, 2e-2, 0),          # MAE decoder, every block
+    (DINO_STUDENT, torch.bfloat16, 2e-2, 2e-2, 0),         # DINO student and teacher, every
+    (DINO_TEACHER, torch.bfloat16, 2e-2, 2e-2, 0),         # block (5 rows in the last tile)
     ((2, 129, 3, 32), torch.float32, 2e-5, 1e-4, 0),       # ragged tiles
     ((2, 9, 3, 12), torch.float32, 2e-5, 1e-4, 0),
     ((2, 129, 3, 32), torch.bfloat16, 2e-2, 2e-2, 0),      # the tensor-core path's other
@@ -176,6 +210,7 @@ BWD_CASES = [  # (shape, dtype, atol, rtol, storage offset) for dq, dk, dv again
     # copy route (D = 12 over several tiles) and a view whose start (4 elements in) breaks
     # the 16-byte alignment of every operand.
     (MAE_DECODER, torch.bfloat16, 2e-2, 2e-2, 0),          # MAE decoder (main path)
+    (DINO_STUDENT, torch.bfloat16, 2e-2, 2e-2, 0),         # DINO student (main path)
     (MAE_DECODER, torch.float32, 1e-4, 1e-3, 0),
     ((2, 129, 3, 32), torch.float32, 1e-4, 1e-3, 0),       # ragged tiles
     ((2, 9, 3, 12), torch.float32, 1e-4, 1e-3, 0),
@@ -260,6 +295,9 @@ TM_CASES = [(shape, torch.bfloat16, 2e-2, 2e-2, 2e-2, 2e-2) for _, shape in TM_B
     ((2, 129, 2, 128), torch.bfloat16, 2e-2, 2e-2, 2e-2, 2e-2)]
 MAE_CONFIG = "configs/mae/mae_HeadCT.yaml"
 STRETCH_CONFIG = "configs/mae/mae_HeadCT_192.yaml"
+DINO_CONFIG = "configs/dino/dino_HeadCT.yaml"
+DINO_EPOCH_BATCHES = 3     # batches in each of the two epochs (the first freezes the last layer)
+DINO_COMPARE_BATCH = 4     # volumes (16 student crops) of the kernel-vs-plain attention step
 TRAIN_BATCH = 32          # the JAX bench's batch per chip (bench.py:54)
 TRAIN_BATCHES, VAL_BATCHES, WARMUP_STEPS = 6, 1, 2
 STRETCH_COMPARE_BATCH = 1  # autograd through the plain attention keeps ~3 [B,16,4097,4097]
@@ -378,7 +416,7 @@ def phase_kernels(fused_attention, fused_attention_reference) -> dict:
         check(ok, f"flash_attention_fwd disagrees with its plain version at {shape} {dtype} "
                   f"offset {offset}")
         row = {"max_abs_err": err_o}
-        if T == 513:  # the main path's shapes: time kernel, plain version and library call
+        if T in (513, 517):  # the main paths' shapes: time kernel, plain version and library call
             time_fwd(fused_attention, fused_attention_reference, row, q, k, v, shape, dtype)
         results[(shape, dtype)] = row
     return results
@@ -472,7 +510,7 @@ def phase_bwd_kernels(fused_attention, fused_attention_bwd, fused_attention_bwd_
         check(ok, f"flash_attention_bwd disagrees with its plain version at {shape} {dtype} "
                   f"offset {offset}")
         row = {"max_abs_err": max(errs)}
-        if shape == MAE_DECODER and dtype == torch.bfloat16:
+        if shape in (MAE_DECODER, DINO_STUDENT) and dtype == torch.bfloat16:
             time_bwd(fused_attention_bwd, fused_attention_bwd_reference, row, q, k, v, o, do,
                      lse, shape, dtype)
         results[(shape, dtype)] = row
@@ -1046,8 +1084,17 @@ def compare_backends(model, wire, cfg, draws, dtype, every: bool = False,
     trainable gradient with ``every``."""
     names = [n for n, p in model.named_parameters()
              if p.requires_grad and (every or n.startswith("decoder") or n == "mask_token")]
-    loss_k, g_k = loss_and_grads(model, wire, cfg, draws, "kernel", names)
-    loss_p, g_p = loss_and_grads(model, wire, cfg, draws, "plain", names)
+    return hold_backends(lambda backend: loss_and_grads(model, wire, cfg, draws, backend, names),
+                         dtype, label, "trainable" if every else "decoder")
+
+
+def hold_backends(loss_and_grads_of, dtype, label: str, what: str) -> dict:
+    """One step's loss and gradients with the kernels against the plain
+    attention, under TRAIN_TOL; ``loss_and_grads_of(backend)`` returns (loss,
+    {name: gradient})."""
+    loss_k, g_k = loss_and_grads_of("kernel")
+    loss_p, g_p = loss_and_grads_of("plain")
+    names = list(g_k)
     rel = abs(loss_k - loss_p) / abs(loss_p)
     cos = min(torch.nn.functional.cosine_similarity(
         g_k[n].flatten().double(), g_p[n].flatten().double(), dim=0).item() for n in names)
@@ -1058,12 +1105,12 @@ def compare_backends(model, wire, cfg, draws, dtype, every: bool = False,
                                      else grad_rel <= tol["grad_rel_max"])
     print(f"{label}: kernel vs plain attention, one step at {str(dtype)[6:]}: loss {loss_k:.6f} vs "
           f"{loss_p:.6f} (relative {rel:.3e}, tolerance {tol['loss_rel']}); over "
-          f"{len(names)} {'trainable' if every else 'decoder'} gradient tensors min cosine "
+          f"{len(names)} {what} gradient tensors min cosine "
           f"{cos:.6f}, max "
           f"|dg|/max|g| {grad_rel:.3e} (tolerance "
           f"{'cosine >= ' + str(tol['grad_cos']) if 'grad_cos' in tol else 'max |dg| <= ' + str(tol['grad_rel_max']) + ' max|g|'}) "
           f"{'ok' if ok else 'FAILED'}", flush=True)
-    check(ok, f"kernel and plain attention disagree on the training step at {dtype}")
+    check(ok, f"kernel and plain attention disagree on the {label} step at {dtype}")
     return {"loss_rel": rel, "grad_cos_min": cos, "grad_rel_max": grad_rel}
 
 
@@ -1079,17 +1126,18 @@ PROFILE_GROUPS = [  # (group, substrings of a kernel name), first match wins
 ]
 
 
-def profile_steps(step, state, wire, step_ms: float, n: int = 2) -> None:
-    """Device time by kernel group over n train steps (torch.profiler), and
-    the device busy share: summed kernel time per step over the unprofiled
-    median step time ``step_ms`` (the profiler slows the host)."""
+def profile_steps(run_step, step_ms: float, n: int = 2) -> None:
+    """Device time by kernel group over n train steps (torch.profiler; each
+    ``run_step()``), and the device busy share: summed kernel time per step
+    over the unprofiled median step time ``step_ms`` (the profiler slows the
+    host)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
-            state, _ = step(state, wire, 0)
+            run_step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     groups, total, top = {}, 0.0, []
@@ -1280,7 +1328,7 @@ def phase_train(label: str, config: str, batch: int, compare_batch: int, seed0: 
           f"breakdown: window+augment {prep_ms:.2f} ms, forward+backward {fb_ms:.2f} ms "
           f"(of which {kernel_note}, from the kernel timings), {optimizer} step {opt_ms:.2f} ms "
           f"(CUDA events; {opt_host_ms:.2f} ms on the host clock, synchronised)", flush=True)
-    profile_steps(step, state, wire, step_ms)
+    profile_steps(lambda: step(state, wire, 0), step_ms)
     return {"train": train_launches, "eval": val_launches, "compare": compare, "lion": lion,
             "volumes_per_s": batch / step_ms * 1e3}
 
@@ -1290,10 +1338,10 @@ CLI_ROWS = {"train": 4, "val": 2, "test": 2}  # manifest rows per scan: 2 steps,
 CLI_DEVICE_CHECK = 8    # scans held device-vs-native in both orders
 
 
-def check_cli_launches(result: dict, label: str) -> dict:
-    """8 B1 + 8 B2 per train step, 8 B1 per eval batch, nothing else;
-    returns the run's training and eval launches of B1 and B2."""
-    depth = 8
+def check_cli_launches(result: dict, label: str, per_step: dict, per_eval: dict) -> dict:
+    """Exactly ``per_step`` launches per train step and ``per_eval`` per eval
+    batch, nothing else; returns the run's training and eval launches of B1
+    and B2."""
     total = {"cli training": {"flash_attention_fwd": 0, "flash_attention_bwd": 0},
              "cli eval": {"flash_attention_fwd": 0, "flash_attention_bwd": 0}}
     evals = [e["val"] for e in result["epochs"] if "val" in e] + [result["test"]]
@@ -1301,9 +1349,8 @@ def check_cli_launches(result: dict, label: str) -> dict:
                              + [(v, "cli eval", "batches") for v in evals]):
         n = stats[per]
         want = {k: 0 for k in stats["launches"]}
-        want["flash_attention_fwd"] = depth * n
-        if path == "cli training":
-            want["flash_attention_bwd"] = depth * n
+        for k, v in (per_step if path == "cli training" else per_eval).items():
+            want[k] = v * n
         check(n > 0 and stats["launches"] == want,
               f"{label} {path}: launches {stats['launches']} over {n} {per}; expected {want}")
         for k in total[path]:
@@ -1384,6 +1431,87 @@ def device_vs_native(workdir: Path, scans: list, seeds: list, roi: tuple, card: 
           f"{steps} steps | {card}", flush=True)
 
 
+def _leaves(tree, prefix=""):
+    """(path, array) of each leaf of a nested dict."""
+    if not isinstance(tree, dict):
+        yield prefix, np.asarray(tree)
+        return
+    for k, v in tree.items():
+        yield from _leaves(v, f"{prefix}/{k}")
+
+
+def run_pretrain_cli(label: str, module: str, config: str, opts: list, saved_dir: Path,
+                     per_step: dict, per_eval: dict, card: str, rate_note: str = "") -> tuple:
+    """The pretraining CLI ``module`` on ``config`` for 2 epochs, validating
+    each: exit 0, ``latest_`` and ``best_`` written, finite losses, no scan
+    served as a placeholder, exactly ``per_step`` launches per train step and
+    ``per_eval`` per eval batch; prints each epoch. Returns the CLI's result,
+    its launches by path, its wall seconds and the files written."""
+    from headct_foundation_tpu_torch.config import default_config
+
+    cfg = default_config()
+    cfg.merge_from_file(str(ROOT / config))
+    name, batch = cfg.MODEL.SAVE_NAME, int(cfg.DATA.BATCH_SIZE)
+    _, first, wall = run_cli(["--cfg", config, "--device", "cuda", "--opts", *opts,
+                              "TRAIN.MAX_EPOCHS", "2"], label, module=module)
+    saved = sorted(os.listdir(saved_dir))
+    check(saved == sorted([f"best_{name}", f"latest_{name}"]), f"{label}: checkpoints {saved}")
+    losses = ([e["train"]["loss"] for e in first["epochs"]]
+              + [e["val"]["loss"] for e in first["epochs"]] + [first["test"]["loss"]])
+    check(all(math.isfinite(x) for x in losses), f"{label}: losses not finite: {losses}")
+    check(first["placeholders"] == 0,
+          f"{label}: {first['placeholders']} scans were served as placeholders")
+    launches = check_cli_launches(first, label, per_step, per_eval)
+    for e in first["epochs"]:
+        t = e["train"]
+        print(f"{label}: epoch {e['epoch'] + 1}: {t['steps']} steps of batch {batch} in "
+              f"{e['seconds']:.2f} s ({t['steps'] * batch / e['seconds']:.2f} volumes/s"
+              f"{rate_note}), iter_time {t['iter_time'] * 1e3:.1f} ms, data_time "
+              f"{t['data_time'] * 1e3:.1f} ms per step, train loss {t['loss']:.6f}, val loss "
+              f"{e['val']['loss']:.6f} over {e['val']['batches']} batch | {card}", flush=True)
+    return first, launches, wall, saved
+
+
+def check_restored(label: str, latest: Path, payload: dict, got: dict, epoch: int, step: int,
+                   first: dict) -> int:
+    """The state restored from ``latest`` beside the file: each tree of
+    ``got`` equals ``payload``'s under the same key bit for bit, at epoch
+    index 1 and the step count of the first run's two epochs. Returns the
+    number of leaves held."""
+    want = dict(_leaves({k: payload[k] for k in got}))
+    got = dict(_leaves(got))
+    differ = [k for k in want if k not in got or got[k].dtype != want[k].dtype
+              or not np.array_equal(got[k], want[k])]
+    check(got.keys() == want.keys() and not differ and epoch == 1
+          and step == payload["step"] == 2 * first["epochs"][0]["train"]["steps"],
+          f"{label}: the restored state differs from {latest.name}: {differ[:5]} (epoch {epoch}, "
+          f"step {step})")
+    return len(want)
+
+
+def resume_cli(label: str, module: str, config: str, opts: list, latest: Path, said: str,
+               per_step: dict, per_eval: dict, launches: dict, card: str) -> None:
+    """The CLI resumed from ``latest`` with ``TRAIN.MAX_EPOCHS 3``: its log
+    says ``said`` and it re-runs epochs 1 and 2 from the saved index, with no
+    placeholder and the exact launches, which are added to ``launches``."""
+    log, resumed, wall = run_cli(["--cfg", config, "--device", "cuda", "--opts", *opts,
+                                  "TRAIN.MAX_EPOCHS", "3", "--model_load_path", str(latest)],
+                                 f"{label} resume", module=module)
+    check(f"{said} from {latest} at epoch 1" in log and resumed["start_epoch"] == 1
+          and [e["epoch"] for e in resumed["epochs"]] == [1, 2],
+          f"{label} resume: no resume at the saved epoch index 1: {resumed['epochs']}")
+    check(resumed["placeholders"] == 0,
+          f"{label} resume: {resumed['placeholders']} scans were served as placeholders")
+    more = check_cli_launches(resumed, f"{label} resume", per_step, per_eval)
+    for path in launches:
+        for k in launches[path]:
+            launches[path][k] += more[path][k]
+    print(f"{label}: resume from {latest.name} with TRAIN.MAX_EPOCHS 3: '{said} from ... at "
+          f"epoch 1', epochs {[e['epoch'] for e in resumed['epochs']]} re-run from the saved "
+          f"index, test loss {resumed['test']['loss']:.6f}, exit 0 in {wall:.2f} s; launches "
+          f"{json.dumps(more)} | {card}", flush=True)
+
+
 def phase_cli(workdir: Path, card: str, train_volumes_per_s: float) -> dict:
     """The MAE pretraining CLI end to end at full width on the shipped
     config; returns the B1 and B2 launches of its runs by path."""
@@ -1394,7 +1522,7 @@ def phase_cli(workdir: Path, card: str, train_volumes_per_s: float) -> dict:
 
     cfg = default_config()
     cfg.merge_from_file(str(ROOT / MAE_CONFIG))
-    roi, name, batch = tuple(cfg.MODEL.ROI), cfg.MODEL.SAVE_NAME, int(cfg.DATA.BATCH_SIZE)
+    roi, name = tuple(cfg.MODEL.ROI), cfg.MODEL.SAVE_NAME
     t0 = time.perf_counter()
     native_loader.get_lib()
     built = (f"g++ {native_loader.build_seconds:.2f} s" if native_loader.build_seconds is not None
@@ -1425,24 +1553,12 @@ def phase_cli(workdir: Path, card: str, train_volumes_per_s: float) -> dict:
             "DATA.CACHE_DIR", str(workdir / "cache"), "MODEL.DIR", str(workdir / "model_saved"),
             "LOG.OUTPUT_DIR", str(workdir / "log"), "OUTPUT", str(workdir / "out"),
             "TRAIN.VAL_EVERY", "1"]
-    log, first, wall = run_cli(["--cfg", MAE_CONFIG, "--device", "cuda", "--opts", *opts,
-                                "TRAIN.MAX_EPOCHS", "2"], "cli")
-    saved = sorted(os.listdir(workdir / "model_saved"))
-    check(saved == sorted([f"best_{name}", f"latest_{name}"]), f"cli: checkpoints {saved}")
-    losses = ([e["train"]["loss"] for e in first["epochs"]]
-              + [e["val"]["loss"] for e in first["epochs"]] + [first["test"]["loss"]])
-    check(all(math.isfinite(x) for x in losses), f"cli: losses not finite: {losses}")
-    check(first["placeholders"] == 0,
-          f"cli: {first['placeholders']} scans were served as placeholders")
-    launches = check_cli_launches(first, "cli")
-    for e in first["epochs"]:
-        t = e["train"]
-        print(f"cli: epoch {e['epoch'] + 1}: {t['steps']} steps of batch {batch} in "
-              f"{e['seconds']:.2f} s ({t['steps'] * batch / e['seconds']:.2f} volumes/s; the "
-              f"train phase's step at batch {TRAIN_BATCH}: {train_volumes_per_s:.2f} volumes/s), "
-              f"iter_time {t['iter_time'] * 1e3:.1f} ms, data_time {t['data_time'] * 1e3:.1f} ms "
-              f"per step, train loss {t['loss']:.6f}, val loss {e['val']['loss']:.6f} over "
-              f"{e['val']['batches']} batch | {card}", flush=True)
+    mae_step = {"flash_attention_fwd": 8, "flash_attention_bwd": 8}
+    mae_eval = {"flash_attention_fwd": 8}
+    first, launches, wall, saved = run_pretrain_cli(
+        "cli", "main_pretrain_mae", MAE_CONFIG, opts, workdir / "model_saved", mae_step,
+        mae_eval, card, rate_note=f"; the train phase's step at batch {TRAIN_BATCH}: "
+        f"{train_volumes_per_s:.2f} volumes/s")
     peak = first["peak_memory_bytes"]
     print(f"cli: python -m headct_foundation_tpu_torch.main_pretrain_mae --cfg {MAE_CONFIG} "
           f"(2 epochs) exit 0 in {wall:.2f} s; {saved} written; 0 placeholders; test loss "
@@ -1456,24 +1572,10 @@ def phase_cli(workdir: Path, card: str, train_volumes_per_s: float) -> dict:
     payload = checkpoint.load_checkpoint(str(latest))
     state, _ = mae_engine.create_train_state(cfg, 10, 1, seed=7, device="cuda")
     state, epoch, _ = checkpoint.restore_state(state, payload)
-    params = torch_interop.jax_tree_from_state_dict(state.model.state_dict())
-    opt = torch_interop.opt_state_to_jax(state.optimizer, state.model, cfg, state.step)
-
-    def leaves(tree, prefix=""):
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                yield from leaves(v, f"{prefix}/{k}")
-            else:
-                yield f"{prefix}/{k}", np.asarray(v)
-
-    want = dict(leaves({"params": payload["params"], "opt_state": payload["opt_state"]}))
-    got = dict(leaves({"params": params, "opt_state": opt}))
-    differ = [k for k in want if k not in got or got[k].dtype != want[k].dtype
-              or not np.array_equal(got[k], want[k])]
-    check(got.keys() == want.keys() and not differ and epoch == 1
-          and state.step == payload["step"] == 2 * first["epochs"][0]["train"]["steps"],
-          f"cli: the restored state differs from {latest.name}: {differ[:5]} (epoch {epoch}, "
-          f"step {state.step})")
+    held = check_restored("cli", latest, payload, {
+        "params": torch_interop.jax_tree_from_state_dict(state.model.state_dict()),
+        "opt_state": torch_interop.opt_state_to_jax(state.optimizer, state.model, cfg,
+                                                    state.step)}, epoch, state.step, first)
     nbytes = latest.stat().st_size
     times = {}
     for mode in (False, True):
@@ -1485,29 +1587,248 @@ def phase_cli(workdir: Path, card: str, train_volumes_per_s: float) -> dict:
         checkpoint.wait_for_saves()
         times[mode] = (returned, time.perf_counter() - t0)
     print(f"cli: {latest.name} ({nbytes / 2**20:.1f} MiB) restored beside the file: "
-          f"{len(want)} parameter and optimizer leaves equal bit for bit, step {state.step}, "
+          f"{held} parameter and optimizer leaves equal bit for bit, step {state.step}, "
           f"epoch {epoch}; checkpoint write sync {times[False][1] * 1e3:.0f} ms, async returns in "
           f"{times[True][0] * 1e3:.0f} ms and is written in {times[True][1] * 1e3:.0f} ms "
           f"(host clock) | {card}", flush=True)
     del state, payload
     torch.cuda.empty_cache()
 
-    log, resumed, wall = run_cli(["--cfg", MAE_CONFIG, "--device", "cuda", "--opts", *opts,
-                                  "TRAIN.MAX_EPOCHS", "3", "--model_load_path", str(latest)],
-                                 "cli resume")
-    check(f"Resumed from {latest} at epoch 1" in log and resumed["start_epoch"] == 1
-          and [e["epoch"] for e in resumed["epochs"]] == [1, 2],
-          f"cli resume: no resume at the saved epoch index 1: {resumed['epochs']}")
-    check(resumed["placeholders"] == 0,
-          f"cli resume: {resumed['placeholders']} scans were served as placeholders")
-    more = check_cli_launches(resumed, "cli resume")
-    for path in launches:
-        for k in launches[path]:
-            launches[path][k] += more[path][k]
-    print(f"cli: resume from {latest.name} with TRAIN.MAX_EPOCHS 3: 'Resumed from ... at epoch "
-          f"1', epochs {[e['epoch'] for e in resumed['epochs']]} re-run from the saved index, "
-          f"test loss {resumed['test']['loss']:.6f}, exit 0 in {wall:.2f} s; launches "
-          f"{json.dumps(more)} | {card}", flush=True)
+    resume_cli("cli", "main_pretrain_mae", MAE_CONFIG, opts, latest, "Resumed", mae_step,
+               mae_eval, launches, card)
+    return launches
+
+
+def phase_dino(card: str) -> dict:
+    """DINO pretraining at full width on configs/dino/dino_HeadCT.yaml as
+    shipped, on batches of synthetic hu16 phantoms; returns the launches of
+    its train and eval runs and its timings."""
+    from headct_foundation_tpu_torch.config import default_config
+    from headct_foundation_tpu_torch.data.augment import apply_dino_multicrop, draw_dino_multicrop
+    from headct_foundation_tpu_torch.data.device_preprocess import wire_to_compute
+    from headct_foundation_tpu_torch.engines import dino_engine, mae_engine
+    from headct_foundation_tpu_torch.losses.dino_loss import dino_loss
+    from headct_foundation_tpu_torch.models.multicrop import DINOModel
+    from headct_foundation_tpu_torch.ops import attention as port_attn
+    from headct_foundation_tpu_torch.optim.optimizers import without_key_bias
+
+    cfg = default_config()
+    cfg.merge_from_file(str(ROOT / DINO_CONFIG))
+    cfg.merge_from_list(["DATA.WIRE_FORMAT", "hu16"])
+    depth, batch, roi = int(cfg.VIT.NUM_LAYERS), int(cfg.DATA.BATCH_SIZE), tuple(cfg.MODEL.ROI)
+    ncrops, in_chans = int(cfg.DINO.LOCAL_CROP_NUM) + 2, int(cfg.VIT.IN_CHANS)
+    per_step = {"flash_attention_fwd": 2 * depth, "flash_attention_bwd": depth}
+    per_eval = {"flash_attention_fwd": 2 * depth}
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    # lr(0) = 0 under the one warm-up step; the 5 timed steps follow the two epochs
+    state = dino_engine.create_train_state(cfg, 2 * DINO_EPOCH_BATCHES + 10, 1,
+                                           DINO_EPOCH_BATCHES, seed=0, device=dev)
+    student, teacher = state.student, state.teacher
+    trainable = {n: p for n, p in student.named_parameters() if p.requires_grad}
+    wires = [head_phantoms(400 + i, batch, roi[0]) for i in range(DINO_EPOCH_BATCHES)]
+    torch.cuda.synchronize()
+    v, d = cfg.VIT, cfg.DINO
+    print(f"dino set-up: {DINO_CONFIG} (ViT {v.NUM_LAYERS}x{v.HIDDEN_SIZE}/{v.NUM_HEADS} heads, "
+          f"{v.NUM_REGISTER_TOKENS} registers, {v.INPUT_SIZE}^3 patch {v.PATCH_SIZE}; head "
+          f"{d.HEAD_N_LAYERS} x {d.HEAD_HIDDEN_DIM} -> {d.BOTTLENECK_DIM} -> "
+          f"{d.HEAD_N_PROTOTYPES}; 2 global + {d.LOCAL_CROP_NUM} local crops to {roi}), "
+          f"{sum(p.numel() for p in trainable.values())} trainable parameters in "
+          f"{len(trainable)} tensors, seed 0, bf16 compute, "
+          f"{type(state.optimizer).__name__} (WD {cfg.TRAIN.WEIGHT_DECAY} -> "
+          f"{cfg.TRAIN.WEIGHT_DECAY_END}, teacher momentum {d.MOMENTUM_TEACHER} -> "
+          f"{d.MOMENTUM_TEACHER_END}); {len(wires)} synthetic hu16 batches of "
+          f"{list(wires[0].shape)} int16 in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # kernel against plain attention on one step, same weights, crops and teacher
+    g = mae_engine.step_generator(dev, 7, 0, 0)
+    draws = draw_dino_multicrop(DINO_COMPARE_BATCH, g, dev, roi[0], **dino_engine.crop_args(cfg))
+    wire0 = torch.from_numpy(wires[0][:DINO_COMPARE_BATCH]).to(dev)
+    temp = float(state.temp_sched[0])
+
+    def loss_and_grads_of(s_model, t_model):
+        names = [n for n, p in s_model.named_parameters() if p.requires_grad]
+
+        def run(backend):
+            prev = port_attn.set_attention_backend(backend)
+            try:
+                s_model.zero_grad(set_to_none=True)
+                crops = apply_dino_multicrop(wire_to_compute(wire0, cfg, in_chans), draws, roi)
+                with torch.no_grad():
+                    t_out = t_model(crops[:2])
+                loss = dino_loss(s_model(crops), t_out, state.center, temp, ncrops)
+                loss.backward()
+                params = dict(s_model.named_parameters())
+                grads = {n: without_key_bias(n, params[n].grad.detach().clone()) for n in names}
+                s_model.zero_grad(set_to_none=True)
+                return loss.item(), grads
+            finally:
+                port_attn.set_attention_backend(prev)
+
+        return run
+
+    compare = {torch.bfloat16: hold_backends(loss_and_grads_of(student, teacher),
+                                             torch.bfloat16, "dino", "trainable")}
+    f32 = [DINOModel(dino_engine.build_vit_model(cfg, torch.float32),
+                     dino_engine.build_dino_head(cfg, torch.float32)).to(dev) for _ in range(2)]
+    for m32, src in zip(f32, (student, teacher)):
+        m32.load_state_dict(src.state_dict())
+        for n, p in m32.named_parameters():
+            p.requires_grad_(n in trainable and src is student)
+    compare[torch.float32] = hold_backends(loss_and_grads_of(*f32), torch.float32, "dino",
+                                           "trainable")
+    del f32
+    torch.cuda.empty_cache()
+
+    # The main path: epoch 0 (last layer frozen), epoch 1, one eval batch; every
+    # kernel count is 0 just before each and read just after.
+    log = logging.getLogger("chip_smoke.dino")
+    step, eval_step = dino_engine.make_train_step(cfg), dino_engine.make_eval_step(cfg)
+    snap = lambda model: {n: p.detach().clone() for n, p in model.named_parameters()}
+    before_s, before_t = snap(student), snap(teacher)
+    torch.cuda.reset_peak_memory_stats()
+    epochs, runs = [], {}
+    for epoch in range(2):
+        zero_launches()
+        t0 = time.perf_counter()
+        state, stats = dino_engine.train_one_epoch(cfg, state, step, wires, 0, epoch, 2,
+                                                   logger=log)
+        torch.cuda.synchronize()
+        runs[f"epoch {epoch}"] = launches()
+        epochs.append((stats, time.perf_counter() - t0, snap(student), snap(teacher)))
+    peak = torch.cuda.max_memory_allocated()
+    zero_launches()
+    val = dino_engine.val_one_epoch(cfg, state, eval_step, wires[:1], 0, 1, 2, logger=log)
+    runs["eval"] = launches()
+
+    v_name = "head.last_layer.weight_v"
+    (s0, sec0, after0, t_after0), (s1, sec1, after1, t_after1) = epochs
+    losses = [s0["loss"], s1["loss"], val["loss"]]
+    check(all(math.isfinite(x) for x in losses) and state.step == 2 * DINO_EPOCH_BATCHES,
+          f"dino: losses not finite or steps missing: {losses}, step {state.step}")
+    check(torch.equal(after0[v_name], before_s[v_name])
+          and not torch.equal(after1[v_name], after0[v_name]),
+          "dino: last_layer.weight_v not bit-frozen in epoch 0, or unmoved in epoch 1")
+    unmoved = [n for n in trainable if n != v_name and torch.equal(after0[n], before_s[n])]
+    t_unmoved = [n for n in trainable if torch.equal(t_after1[n], before_t[n])]
+    check(not unmoved and not t_unmoved,
+          f"dino: student tensors unmoved in epoch 0 {unmoved[:5]}, teacher tensors unmoved "
+          f"{t_unmoved[:5]}")
+    check(bool(torch.isfinite(state.center).all()) and bool(state.center.abs().sum() > 0),
+          "dino: the centre is not finite, or never moved")
+    want = {"epoch 0": {n: per_step.get(n, 0) * DINO_EPOCH_BATCHES for n in runs["epoch 0"]},
+            "epoch 1": {n: per_step.get(n, 0) * DINO_EPOCH_BATCHES for n in runs["epoch 1"]},
+            "eval": {n: per_eval.get(n, 0) for n in runs["eval"]}}
+    check(runs == want, f"dino: launches {runs}; expected {want}")
+    print(f"dino: train_one_epoch epoch 0 (last layer frozen) over {DINO_EPOCH_BATCHES} batches "
+          f"of {batch} in {sec0:.2f} s, mean loss {s0['loss']:.6f}; epoch 1 in {sec1:.2f} s, mean "
+          f"loss {s1['loss']:.6f}, mean lr {s1['lr']:.3e}, wd {s1['wd']:.6f}; val_one_epoch "
+          f"over 1 batch: loss {val['loss']:.6f}; all finite; last_layer.weight_v bit-equal "
+          f"after epoch 0 and moved in epoch 1, every other trainable tensor and the teacher "
+          f"moved, the centre finite (max |c| {state.center.abs().max().item():.3e}); launches "
+          f"{json.dumps(runs)} = {per_step} per step, {per_eval} per eval batch, exactly; peak "
+          f"memory {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated) | {card}", flush=True)
+
+    # Step time: host clock around synchronised steps (warm), epoch 1's settings.
+    momentum = float(state.momentum_sched[0])
+    times = []
+    for i in range(5):
+        wire = torch.from_numpy(wires[i % len(wires)]).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, wire, 0, momentum, temp, False)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+
+    # Breakdown (CUDA events): crops, teacher, student forward+backward, optimizer, EMA.
+    wire = torch.from_numpy(wires[0]).to(dev)
+    draws = draw_dino_multicrop(batch, g, dev, roi[0], **dino_engine.crop_args(cfg))
+    crop = lambda: apply_dino_multicrop(wire_to_compute(wire, cfg, in_chans), draws, roi)
+    crop_ms = cuda_ms(crop, iters=5, warmup=1)
+    crops = crop()
+    with torch.no_grad():
+        t_out = teacher(crops[:2])
+
+    def teacher_fwd():
+        with torch.no_grad():
+            teacher(crops[:2])
+
+    def student_fwd_bwd():
+        dino_loss(student(crops), t_out, state.center, temp, ncrops).backward()
+
+    teacher_ms = cuda_ms(teacher_fwd, iters=5, warmup=1)
+    student_ms = cuda_ms(student_fwd_bwd, iters=5, warmup=1)
+    opt_ms = cuda_ms(state.optimizer.step, iters=5, warmup=1)
+    state.optimizer.zero_grad(set_to_none=True)
+    ema_ms = cuda_ms(lambda: dino_engine.update_teacher(teacher, student, momentum), iters=5,
+                     warmup=1)
+    print(f"dino: median step {step_ms:.2f} ms over {len(times)} synchronised steps "
+          f"({', '.join(f'{t:.1f}' for t in times)}), {batch / step_ms * 1e3:.2f} volumes/s; "
+          f"breakdown (CUDA events): window+multi-crop {crop_ms:.2f} ms, teacher forward "
+          f"{teacher_ms:.2f} ms, student forward+backward with the loss {student_ms:.2f} ms, "
+          f"AdamW step {opt_ms:.2f} ms, teacher EMA {ema_ms:.2f} ms | {card}", flush=True)
+    profile_steps(lambda: step(state, wire, 0, momentum, temp, False), step_ms)
+    total = {n: runs["epoch 0"][n] + runs["epoch 1"][n] for n in runs["epoch 0"]}
+    return {"train": total, "eval": runs["eval"], "compare": compare, "step_ms": step_ms,
+            "volumes_per_s": batch / step_ms * 1e3, "peak_bytes": peak}
+
+
+def phase_dino_cli(workdir: Path, card: str) -> dict:
+    """The DINO pretraining CLI end to end on the cli phase's heads and
+    manifests; returns the B1 and B2 launches of its runs by path."""
+    from headct_foundation_tpu_torch.config import default_config
+    from headct_foundation_tpu_torch.engines import dino_engine
+    from headct_foundation_tpu_torch.utils import checkpoint, torch_interop
+
+    cfg = default_config()
+    cfg.merge_from_file(str(ROOT / DINO_CONFIG))
+    name, depth = cfg.MODEL.SAVE_NAME, int(cfg.VIT.NUM_LAYERS)
+    per_step = {"flash_attention_fwd": 2 * depth, "flash_attention_bwd": depth}
+    per_eval = {"flash_attention_fwd": 2 * depth}
+    saved_dir = workdir / "dino_saved"
+    opts = ["DATA.TRAIN_CSV_PATH", str(workdir / "train.csv"),
+            "DATA.VAL_CSV_PATH", str(workdir / "val.csv"),
+            "DATA.TEST_CSV_PATH", str(workdir / "test.csv"),
+            "DATA.CACHE_DIR", str(workdir / "cache"), "MODEL.DIR", str(saved_dir),
+            "LOG.OUTPUT_DIR", str(workdir / "dino_log"), "OUTPUT", str(workdir / "dino_out"),
+            "TRAIN.VAL_EVERY", "1"]
+    first, launches, wall, saved = run_pretrain_cli(
+        "dino-cli", "main_pretrain_dino", DINO_CONFIG, opts, saved_dir, per_step, per_eval, card)
+    extras = {"momentum_model_state_dict", "center", "head_stats", "teacher_head_stats"}
+    best = checkpoint.load_checkpoint(str(saved_dir / f"best_{name}"))
+    check(extras <= set(best), f"dino-cli: best_ lacks {extras - set(best)}")
+    del best
+    peak = first["peak_memory_bytes"]
+    print(f"dino-cli: python -m headct_foundation_tpu_torch.main_pretrain_dino --cfg "
+          f"{DINO_CONFIG} (2 epochs) exit 0 in {wall:.2f} s; {saved} written with "
+          f"{sorted(extras)}; 0 placeholders; test loss {first['test']['loss']:.6f}; launches "
+          f"{json.dumps(launches)} = {per_step} per train step, {per_eval} per eval batch; peak "
+          f"memory {(peak or 0) / 2**30:.2f} GiB (torch.cuda.max_memory_allocated) | {card}",
+          flush=True)
+
+    # the saved state restored beside the file: bit for bit
+    latest = saved_dir / f"latest_{name}"
+    payload = checkpoint.load_checkpoint(str(latest))
+    check(extras <= set(payload), f"dino-cli: latest_ lacks {extras - set(payload)}")
+    state = dino_engine.create_train_state(cfg, 10, 1, 2, seed=7, device="cuda")
+    state, epoch, _ = checkpoint.restore_dino_state(state, payload)
+    norm = state.norm_layer
+    held = check_restored("dino-cli", latest, payload, {
+        "params": torch_interop.jax_tree_from_state_dict(state.student.state_dict(), norm),
+        "momentum_model_state_dict": torch_interop.jax_tree_from_state_dict(
+            state.teacher.state_dict(), norm),
+        "opt_state": torch_interop.opt_state_to_jax(state.optimizer, state.student, cfg,
+                                                    state.step, norm_layer=norm),
+        "center": state.center.cpu().numpy()}, epoch, state.step, first)
+    print(f"dino-cli: {latest.name} ({latest.stat().st_size / 2**20:.1f} MiB) restored beside "
+          f"the file: {held} student, teacher, optimizer and centre leaves equal bit for "
+          f"bit, step {state.step}, epoch {epoch} | {card}", flush=True)
+    del state, payload
+    torch.cuda.empty_cache()
+
+    resume_cli("dino-cli", "main_pretrain_dino", DINO_CONFIG, opts, latest, "Resumed (full)",
+               per_step, per_eval, launches, card)
     return launches
 
 
@@ -1620,9 +1941,17 @@ def main() -> int:
         f"and flash_attention_bwd {depth} x {bwd_mae['ms']:.4f} = {depth * bwd_mae['ms']:.2f} ms")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    dino = phase_dino(card)
+    print(f"dino: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         cli = phase_cli(Path(tmp), card, train["volumes_per_s"])
-    print(f"cli: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
+        print(f"cli: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        dino_cli = phase_dino_cli(Path(tmp), card)  # the cli phase's heads and manifests
+    print(f"dino-cli: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
     torch.cuda.empty_cache()
 
     blocked = ("flash_attention_blocked_fwd", "flash_attention_blocked_dkv",
@@ -1659,10 +1988,18 @@ def main() -> int:
                                 "lion training": lion["train"]["flash_attention_fwd"],
                                 "lion eval": lion["eval"]["flash_attention_fwd"],
                                 "cli training": cli["cli training"]["flash_attention_fwd"],
-                                "cli eval": cli["cli eval"]["flash_attention_fwd"]},
+                                "cli eval": cli["cli eval"]["flash_attention_fwd"],
+                                "dino training": dino["train"]["flash_attention_fwd"],
+                                "dino eval": dino["eval"]["flash_attention_fwd"],
+                                "dino-cli training":
+                                    dino_cli["cli training"]["flash_attention_fwd"],
+                                "dino-cli eval": dino_cli["cli eval"]["flash_attention_fwd"]},
         "flash_attention_bwd": {"training": train["train"]["flash_attention_bwd"],
                                 "lion training": lion["train"]["flash_attention_bwd"],
-                                "cli training": cli["cli training"]["flash_attention_bwd"]},
+                                "cli training": cli["cli training"]["flash_attention_bwd"],
+                                "dino training": dino["train"]["flash_attention_bwd"],
+                                "dino-cli training":
+                                    dino_cli["cli training"]["flash_attention_bwd"]},
         "flash_attention_blocked_fwd": {"stretch training": stretch["train"][blocked[0]],
                                         "stretch eval": stretch["eval"][blocked[0]]},
         "flash_attention_blocked_dkv": {"stretch training": stretch["train"][blocked[1]]},
@@ -1709,6 +2046,13 @@ def main() -> int:
 
     f32_source = {"float32_source": "headct_foundation_tpu_torch/csrc/flash_fwd_f32_sm90.cuh"}
     serving = kernel_rows[(SERVING, torch.float32)]
+    timing_keys = ("max_abs_err", "ms", "ms_device", "plain_ms", "bound_ms", "bound_by",
+                   "library_ms", "library_ms_device")
+
+    def at(rows, shape):
+        return {"shape": list(shape), "dtype": "bfloat16",
+                **{k: rows[(shape, torch.bfloat16)][k] for k in timing_keys}}
+
     print(json.dumps({"kernels": [
         # float32 B1 runs the 3xTF32 kernel of the sm_90a header; its C entry is in the .cu
         row("flash_attention_fwd", "flash_fwd_f32_sm90.cuh", 60, serving, SERVING,
@@ -1717,13 +2061,14 @@ def main() -> int:
             at_mae_decoder_shape={
                 "shape": list(MAE_DECODER), "dtype": "bfloat16",
                 "kernel_source": "headct_foundation_tpu_torch/csrc/flash_fwd_sm90.cuh",
-                **{k: fwd_mae[k] for k in ("max_abs_err", "ms", "ms_device", "plain_ms",
-                                           "bound_ms", "bound_by", "library_ms",
-                                           "library_ms_device")}}),
+                **{k: fwd_mae[k] for k in timing_keys}},
+            at_dino_student_shape=at(kernel_rows, DINO_STUDENT),
+            at_dino_teacher_shape=at(kernel_rows, DINO_TEACHER)),
         # bf16 B2 and B8 run the passes of the sm_90a header; their C entries are in the .cu
         row("flash_attention_bwd", "flash_bwd_sm90.cuh", 86, bwd_mae, MAE_DECODER,
             torch.bfloat16, entry="headct_foundation_tpu_torch/csrc/flash_attention_bwd.cu",
-            **{k: bwd_mae[k] for k in ("ms_device", "library_ms_device")}),
+            **{k: bwd_mae[k] for k in ("ms_device", "library_ms_device")},
+            at_dino_student_shape=at(bwd_rows, DINO_STUDENT)),
         blocked_row(blocked[0], 256),
         blocked_row(blocked[1], 292),
         blocked_row(blocked[2], 342),

@@ -88,6 +88,10 @@ class TrainState:
     def device(self) -> torch.device:
         return self.model.cls_token.device
 
+    @property
+    def norm_layer(self) -> str:  # the checkpoint's parameter naming reads it
+        return str(self.config.MAE.NORM_LAYER)
+
 
 def build_mae_model(config, dtype: torch.dtype = torch.bfloat16) -> MaskedAutoencoderViT:
     """The MAE from config keys (reference: main_pretrain_mae.py:103-126)."""
@@ -113,6 +117,17 @@ def mae_trainable_mask(model: torch.nn.Module, pos_embed: str) -> Dict[str, bool
             for name, _ in model.named_parameters()}
 
 
+def refuse_unported_axes(config) -> None:
+    """NotImplementedError for ``PARALLEL.FSDP``, ``TENSOR``, ``SEQ`` or
+    ``PIPE`` above 1: the port trains data-parallel only and has no sharded,
+    sequence-parallel or pipelined trunk yet."""
+    for axis in ("FSDP", "TENSOR", "SEQ", "PIPE"):
+        if int(getattr(config.PARALLEL, axis)) > 1:
+            raise NotImplementedError(
+                f"PARALLEL.{axis} = {getattr(config.PARALLEL, axis)} is not ported; "
+                f"the port trains with FSDP = TENSOR = SEQ = PIPE = 1")
+
+
 def create_train_state(
     config, total_steps: int, num_warmup_steps: int, seed: int = 0,
     dtype: torch.dtype = torch.bfloat16, device: Union[None, str, torch.device] = None,
@@ -120,13 +135,8 @@ def create_train_state(
     """Model, optimizer and LR schedule on ``device`` (default cuda).
 
     Raises NotImplementedError for ``PARALLEL.FSDP``, ``TENSOR``, ``SEQ`` or
-    ``PIPE`` above 1: the port trains on one device and has no sharded,
-    sequence-parallel or pipelined trunk yet."""
-    for axis in ("FSDP", "TENSOR", "SEQ", "PIPE"):
-        if int(getattr(config.PARALLEL, axis)) > 1:
-            raise NotImplementedError(
-                f"PARALLEL.{axis} = {getattr(config.PARALLEL, axis)} is not ported; "
-                f"the port trains with FSDP = TENSOR = SEQ = PIPE = 1")
+    ``PIPE`` above 1 (``refuse_unported_axes``)."""
+    refuse_unported_axes(config)
     device = resolve_device(device)
     set_pallas_min_t(config.PARALLEL.PALLAS_MIN_T)
     model = build_mae_model(config, dtype=dtype)

@@ -61,8 +61,12 @@ from headct_foundation_tpu_torch.utils.torch_interop import (
 )
 
 
-def parse_option(argv: Optional[List[str]] = None):
-    parser = argparse.ArgumentParser("MAE 3D pretraining (PyTorch)", add_help=False)
+def parse_option(argv: Optional[List[str]] = None,
+                 description: str = "MAE 3D pretraining (PyTorch)"):
+    """The JAX mains' flags (the DINO main's too: ``--dist-backend`` and
+    ``--dist-url`` are accepted and unused, as ``--local_rank``), and
+    ``--device``."""
+    parser = argparse.ArgumentParser(description, add_help=False)
     parser.add_argument("--cfg", type=str, required=True, metavar="FILE",
                         help="path to config file")
     parser.add_argument("--opts", help="Modify config options using the command-line",
@@ -71,6 +75,8 @@ def parse_option(argv: Optional[List[str]] = None):
                         help="cuda (default; cuda:LOCAL_RANK under torchrun) or cpu")
     parser.add_argument("--local_rank", type=int, default=0,
                         help="accepted for reference CLI parity; torchrun's LOCAL_RANK is read")
+    parser.add_argument("--dist-backend", default="nccl", help="accepted for reference CLI parity")
+    parser.add_argument("--dist-url", default="env://", help="accepted for reference CLI parity")
     parser.add_argument("--seed", type=int, help="seed")
     parser.add_argument("--use_amp", action="store_true",
                         help="reference flag; bf16 compute is always on")
@@ -136,7 +142,13 @@ def resume(state, path: str, logger):
     return state, start_epoch
 
 
-def main(config, device: torch.device, logger, wandb_run=None) -> Dict[str, Any]:
+def prepare_run(config, device: torch.device, logger) -> Dict[str, Any]:
+    """What both pretraining CLIs do before their engine: refuse orbax,
+    resolve ``WIRE_FORMAT: auto``, make the loaders, scale the LR to the
+    effective batch (``BASE_LR x BATCH_SIZE x world / 256``, ``MIN_LR =
+    BASE_LR x 1e-3``, reference: main_pretrain_mae.py:149-152) and count
+    the steps. Returns the load path (or None), the world size, the three
+    loaders, ``niter_per_ep``, ``total_steps`` and ``num_warmup_steps``."""
     from headct_foundation_tpu_torch.data.datasets import get_pretrain_dataloaders
     from headct_foundation_tpu_torch.data.pipeline import resolve_wire_format
 
@@ -151,13 +163,10 @@ def main(config, device: torch.device, logger, wandb_run=None) -> Dict[str, Any]
         config.DATA.WIRE_FORMAT = resolve_wire_format(config, device)
         config.freeze()
         logger.info(f"Resolved DATA.WIRE_FORMAT=auto -> {config.DATA.WIRE_FORMAT}")
-    train_loader, val_loader, test_loader = get_pretrain_dataloaders(config, rank, world,
-                                                                     device=device)
-
-    # base_lr x effective batch / 256, min_lr = base_lr x 1e-3
-    # (reference: main_pretrain_mae.py:149-152)
+    loaders = get_pretrain_dataloaders(config, rank, world, device=device)
     effective_batch_size = int(config.DATA.BATCH_SIZE) * world
-    total_steps = len(train_loader) * int(config.TRAIN.MAX_EPOCHS)
+    niter_per_ep = len(loaders[0])
+    total_steps = niter_per_ep * int(config.TRAIN.MAX_EPOCHS)
     num_warmup_steps = int(config.TRAIN.PER_WARMUP * total_steps)
     config.defrost()
     config.TRAIN.BASE_LR = config.TRAIN.BASE_LR * effective_batch_size / 256
@@ -166,12 +175,45 @@ def main(config, device: torch.device, logger, wandb_run=None) -> Dict[str, Any]
     logger.info(f"Effective LR: {config.TRAIN.BASE_LR}, Effective Batch: {effective_batch_size}, "
                 f"Epochs: {config.TRAIN.MAX_EPOCHS}, Warmup/Total steps: "
                 f"{num_warmup_steps}/{total_steps}, World: {world}, Device: {device}")
+    return {"load_path": load_path, "world": world, "loaders": loaders,
+            "niter_per_ep": niter_per_ep, "total_steps": total_steps,
+            "num_warmup_steps": num_warmup_steps}
 
-    state, _ = mae_engine.create_train_state(config, total_steps, num_warmup_steps,
-                                             seed=int(config.SEED), device=device)
+
+def finish_run(run: Dict[str, Any], device: torch.device, start_epoch: int,
+               history: List[Dict[str, Any]], best_loss: float,
+               test_stats: Dict[str, Any]) -> Dict[str, Any]:
+    """Close the loaders and gather the CLI's result: the epochs, the test
+    stats, the scans served as placeholders over the three loaders and
+    every rank, and on a card the peak memory allocated."""
+    train_loader, val_loader, test_loader = run["loaders"]
+    for loader in (val_loader, test_loader):
+        loader.close()
+    world = run["world"]
+    placeholders = torch.tensor(float(sum(loader.dataset.placeholders for loader in
+                                          (train_loader, val_loader, test_loader))),
+                                device=device)
+    distributed.all_reduce_mean_([placeholders])
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+    return {"device": str(device), "world": world, "start_epoch": start_epoch,
+            "epochs": history, "best_val_loss": best_loss, "test": test_stats,
+            "placeholders": round(placeholders.item() * world), "peak_memory_bytes": peak}
+
+
+def create_state(config, run: Dict[str, Any], device):
+    """The train state the CLI starts from (weights from ``SEED``); ``run``
+    holds ``prepare_run``'s step counts."""
+    return mae_engine.create_train_state(config, run["total_steps"], run["num_warmup_steps"],
+                                         seed=int(config.SEED), device=device)[0]
+
+
+def main(config, device: torch.device, logger, wandb_run=None) -> Dict[str, Any]:
+    run = prepare_run(config, device, logger)
+    train_loader, val_loader, test_loader = run["loaders"]
+    state = create_state(config, run, device)
     start_epoch = 0
-    if load_path is not None:
-        state, start_epoch = resume(state, load_path, logger)
+    if run["load_path"] is not None:
+        state, start_epoch = resume(state, run["load_path"], logger)
 
     train_step = mae_engine.make_train_step(augment=True, accum_steps=int(config.TRAIN.ACCUM_STEPS),
                                             config=config)
@@ -185,21 +227,14 @@ def main(config, device: torch.device, logger, wandb_run=None) -> Dict[str, Any]
     test_stats = mae_engine.tester(config, state, eval_step, test_loader, int(config.SEED),
                                    logger=logger, wandb_run=wandb_run)
     logger.info(f"test completed, test loss: {test_stats.get('loss', float('nan')):.4f}")
-    for loader in (val_loader, test_loader):
-        loader.close()
-    # scans served as placeholders, over the three loaders and every rank
-    placeholders = torch.tensor(float(sum(loader.dataset.placeholders for loader in
-                                          (train_loader, val_loader, test_loader))),
-                                device=device)
-    distributed.all_reduce_mean_([placeholders])
-    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
-    return {"device": str(device), "world": world, "start_epoch": start_epoch,
-            "epochs": history, "best_val_loss": best_loss, "test": test_stats,
-            "placeholders": round(placeholders.item() * world), "peak_memory_bytes": peak}
+    return finish_run(run, device, start_epoch, history, best_loss, test_stats)
 
 
-def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
-    args, config = parse_option(argv)
+def run_cli(argv: Optional[List[str]], main_fn, description: str) -> Dict[str, Any]:
+    """Parse, start the process group, log, write ``config.json`` and run
+    ``main_fn(config, device, logger, wandb_run)``; rank 0 prints its result
+    as one JSON line ``{"cli": ...}``."""
+    args, config = parse_option(argv, description)
     device = resolve_run_device(args.device)  # this process's card, before NCCL starts
     distributed.init_from_env(device.type, int(config.PARALLEL.DATA))
     try:
@@ -213,12 +248,16 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             with open(path, "w") as f:
                 json.dump(config.to_dict(), f, indent=2)
             logger.info(f"Full config saved to {path}")
-        result = main(config, device, logger, init_wandb(config))
+        result = main_fn(config, device, logger, init_wandb(config))
         if rank == 0:
             print(json.dumps({"cli": result}), flush=True)
         return result
     finally:
         distributed.shutdown()
+
+
+def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
+    return run_cli(argv, main, "MAE 3D pretraining (PyTorch)")
 
 
 if __name__ == "__main__":

@@ -6,6 +6,12 @@ after CLS (arXiv 2309.16588) -> N pre-norm blocks, collecting each block's
 output -> final norm (eps 1e-6) -> optional Tanh classification head.
 ``forward`` returns ``(x, hidden_states_out)`` like the reference.
 
+Parameters are float32; ``dtype`` is the compute dtype (float32 for serving,
+bfloat16 for DINO training, as the JAX engine's ``build_vit_model``), cast
+at use as in ``models/mae.py``. ``remat`` (``PARALLEL.REMAT``) recomputes the
+MLP half of every block in the backward (JAX ``models/vit.py:102-117``). A
+``dropout_rate`` above 0 raises, as everywhere in the port.
+
 Parameter names are the reference torch names that the JAX package's
 ``tree_to_torch`` emits (``blocks.3.attn.qkv.weight``, ``cls_token``, ...),
 so an exported JAX parameter tree loads with ``load_state_dict(strict=True)``.
@@ -20,7 +26,7 @@ import torch
 from torch import nn
 
 from headct_foundation_tpu_torch.models.attention import AttentionBlock
-from headct_foundation_tpu_torch.models.layers import make_norm
+from headct_foundation_tpu_torch.models.layers import Linear, make_norm
 from headct_foundation_tpu_torch.models.patch_embed import PatchEmbeddingBlock
 from headct_foundation_tpu_torch.models.pos_embed import _to_tuple
 
@@ -42,6 +48,9 @@ class ViT(nn.Module):
         post_activation: str = "Tanh",
         qkv_bias: bool = False,
         norm_layer: str = "layernorm",
+        dropout_rate: float = 0.0,
+        remat: bool = False,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if hidden_size % num_heads != 0:
@@ -60,6 +69,8 @@ class ViT(nn.Module):
             in_channels=in_chans,
             hidden_size=hidden_size,
             pos_embed=pos_embed,
+            dropout_rate=dropout_rate,
+            dtype=dtype,
         )
         self.cls_token = nn.Parameter(torch.zeros(1, 1, hidden_size))
         if num_register_tokens:
@@ -68,12 +79,13 @@ class ViT(nn.Module):
             self.register_tokens = None
         self.blocks = nn.ModuleList(
             AttentionBlock(hidden_size, mlp_dim, num_heads, qkv_bias=qkv_bias,
-                           norm_layer=norm_layer)
+                           norm_layer=norm_layer, dropout_rate=dropout_rate,
+                           remat_mlp=remat, dtype=dtype)
             for _ in range(num_layers)
         )
         self.norm = make_norm(norm_layer, hidden_size, eps=1e-6)
         if classification:
-            self.classification_head = nn.Linear(hidden_size, num_classes)
+            self.classification_head = Linear(hidden_size, num_classes, dtype=dtype)
 
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator] = None) -> "ViT":

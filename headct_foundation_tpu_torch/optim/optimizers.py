@@ -23,12 +23,22 @@ the first update uses ``lr(0)``, as optax does.
   calls the kernel B6 (``ops.lion_kernel.lion_update_leaf``) once per
   tensor, else the JAX package's unfused branch in plain torch ops; either
   way ``p += delta`` (``optax.apply_updates``).
+* ``scheduled_weight_decay`` (``:66-82`` and ``get_optimizer(weight_decay=
+  <schedule>)``): the decay of update n, read from a per-iteration array at
+  min(n, len - 1) in float32 (the DINO engine's ``wd_fn``);
+  ``set_step_hyperparameters`` puts one update's learning rate and decay
+  into every parameter group before ``optimizer.step()``. The decay
+  applies to every tensor the optimizer holds, biases and norms included (the
+  JAX mask leaves out only the frozen leaves); SGD takes none, as in JAX.
+* ``get_optimizer`` takes parameters or parameter groups (dicts with
+  ``"params"``, such as the DINO engine's last layer in a group of its own).
 """
 
 from __future__ import annotations
 
 from typing import Iterable, Tuple
 
+import numpy as np
 import torch
 
 from headct_foundation_tpu_torch.ops.lion_kernel import lion_update_leaf, sign_keep_nan
@@ -46,6 +56,19 @@ def clip_by_per_param_norm(params: Iterable[torch.nn.Parameter], clip: float,
     norms = torch.stack(torch._foreach_norm([g.float() for g in grads]))
     coefs = torch.clamp(clip / (norms + eps), max=1.0)
     torch._foreach_mul_(grads, list(coefs))  # in float32, rounded to g's dtype
+
+
+def without_key_bias(name: str, t: torch.Tensor) -> torch.Tensor:
+    """``t`` flattened, less the key third when ``name`` is a qkv bias. The
+    loss does not depend on a key bias (softmax is invariant to a shift of a
+    query row's scores), so its gradient is rounding noise that AdamW scales
+    up to +-lr: comparisons of gradients or updates between two programs
+    leave it out."""
+    t = t.flatten()
+    if not name.endswith("qkv.bias"):
+        return t
+    n = t.numel() // 3
+    return torch.cat([t[:n], t[2 * n:]])
 
 
 class Lamb(torch.optim.Optimizer):
@@ -129,13 +152,39 @@ def _lion_unfused(p, g, m, lr, wd, b1, b2) -> torch.Tensor:
     return delta.to(p.dtype)
 
 
-def get_optimizer(config, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
+def scheduled_weight_decay(wd_sched: np.ndarray, count: int) -> float:
+    """The weight decay of update ``count``: ``wd_sched[min(count, len - 1)]``
+    rounded to float32, as the JAX DINO engine's ``wd_fn`` reads it
+    (``engines/dino_engine.py:183-186``)."""
+    return float(np.float32(wd_sched[min(int(count), len(wd_sched) - 1)]))
+
+
+def set_step_hyperparameters(optimizer: torch.optim.Optimizer, lr: float,
+                             weight_decay: float) -> None:
+    """Every group's learning rate and (but for SGD, which has none) weight
+    decay for the next ``optimizer.step()``."""
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+        if not isinstance(optimizer, torch.optim.SGD):
+            group["weight_decay"] = weight_decay
+
+
+def _trainable(params) -> list:
+    """The trainable parameters, or the groups with their trainable ones."""
+    params = list(params)
+    if params and isinstance(params[0], dict):
+        return [{**g, "params": [p for p in g["params"] if p.requires_grad]} for g in params]
+    return [p for p in params if p.requires_grad]
+
+
+def get_optimizer(config, params: Iterable) -> torch.optim.Optimizer:
     """The optimizer of ``config.TRAIN.OPTIMIZER`` (SGD, AdamW, Lamb, Lion)
-    over the trainable ``params``; the learning rate is set before each step.
+    over the trainable ``params`` (parameters or parameter groups); the
+    learning rate, and a scheduled weight decay, are set before each step.
     The gradient clip is the caller's (``clip_by_per_param_norm``)."""
     t = config.TRAIN
     name = t.OPTIMIZER
-    trainable = [p for p in params if p.requires_grad]
+    trainable = _trainable(params)
     wd = float(t.WEIGHT_DECAY)
     if name == "SGD":  # the reference's SGD has its weight decay commented out
         return torch.optim.SGD(trainable, lr=0.0, momentum=float(t.MOMENTUM), dampening=0.0,

@@ -1,10 +1,13 @@
 """Data-parallel training through the CLI on the card: N processes against one.
 
-    python -m headct_foundation_tpu_torch.tools.check_data_parallel [--nproc 4]
+    python -m headct_foundation_tpu_torch.tools.check_data_parallel [--nproc 4] \
+        [--config configs/dino/dino_HeadCT.yaml]
 
 Writes 32 synthetic head scans (``tools/cli_runs.py``, 0.5 x 0.5 x 1.0 mm)
-and manifests, then runs ``headct_foundation_tpu_torch.main_pretrain_mae``
-on ``configs/mae/mae_HeadCT.yaml`` for one epoch of 2 steps twice: under
+and manifests, then runs the pretraining CLI of ``--config``'s ``MODEL.NAME``
+(``cli_runs.PRETRAIN_CLIS``: the MAE's on ``configs/mae/mae_HeadCT.yaml`` by
+default, or DINO's on ``configs/dino/dino_HeadCT.yaml``, whose first epoch
+keeps the last layer frozen) for one epoch of 2 steps twice: under
 ``torch.distributed.run`` with ``--nproc`` processes at batch 64 / nproc
 each (one card a process, NCCL), and as one process at batch 64. The
 loader gives rank r the rows r::nproc, and the step draws the global
@@ -13,7 +16,7 @@ its manifests reordered to the ranks' concatenation: both runs then train
 on the same global batches with the same noise and augmentations.
 
 Held: the train, val and test losses within ``LOSS_REL`` relative, every
-parameter's update within ||du_N - du_1|| / ||du_1|| <= ``UPDATE_REL``
+(student) parameter's update within ||du_N - du_1|| / ||du_1|| <= ``UPDATE_REL``
 (without the key third of each qkv bias: its gradient is rounding noise
 that AdamW scales to +-lr), and no scan served as a placeholder. One
 program in two layouts differs only by the order of its sums in bf16, which
@@ -29,6 +32,7 @@ fails.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import socket
 import sys
@@ -37,7 +41,14 @@ from pathlib import Path
 
 import torch
 
-from headct_foundation_tpu_torch.tools.cli_runs import ROOT, card_lines, run_cli, write_scans
+from headct_foundation_tpu_torch.optim.optimizers import without_key_bias
+from headct_foundation_tpu_torch.tools.cli_runs import (
+    PRETRAIN_CLIS,
+    ROOT,
+    card_lines,
+    run_cli,
+    write_scans,
+)
 
 CONFIG = "configs/mae/mae_HeadCT.yaml"
 BATCH, STEPS, SCANS = 64, 2, 32
@@ -65,20 +76,15 @@ def updates(before: dict, path: Path) -> dict:
     from headct_foundation_tpu_torch.utils import checkpoint, torch_interop
 
     after = torch_interop.state_dict_from_jax(checkpoint.load_checkpoint(str(path))["params"])
-    out = {}
-    for name, p in after.items():
-        du = (p.float() - before[name].float()).flatten()
-        if name.endswith("qkv.bias"):
-            n = du.numel() // 3
-            du = torch.cat([du[:n], du[2 * n:]])
-        out[name] = du
-    return out
+    return {name: without_key_bias(name, p.float() - before[name].float())
+            for name, p in after.items()}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--nproc", type=int, default=4)
+    ap.add_argument("--config", default=CONFIG)
     args = ap.parse_args(argv)
     if BATCH % args.nproc:
         raise ValueError(f"batch {BATCH} does not split over {args.nproc} processes")
@@ -87,7 +93,15 @@ def main(argv=None) -> int:
                            f"found {torch.cuda.device_count()}")
 
     from headct_foundation_tpu_torch.config import default_config
-    from headct_foundation_tpu_torch.engines import mae_engine
+
+    cfg = default_config()
+    cfg.merge_from_file(str(ROOT / args.config))
+    module = PRETRAIN_CLIS[str(cfg.MODEL.NAME)]
+    cli = importlib.import_module(f"headct_foundation_tpu_torch.{module}")
+    init = cli.create_state(cfg, {"total_steps": 10, "num_warmup_steps": 1, "niter_per_ep": 1},
+                            "cpu")
+    before = {k: v.clone() for k, v in init.model.state_dict().items()}
+    del init
 
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
@@ -99,11 +113,6 @@ def main(argv=None) -> int:
                                 (f"{split}_1.csv", interleaved(r, args.nproc, BATCH))):
                 (work / name).write_text("img_path\n" + "".join(f"{x}\n" for x in order))
 
-        cfg = default_config()
-        cfg.merge_from_file(str(ROOT / CONFIG))
-        init, _ = mae_engine.create_train_state(cfg, 10, 1, seed=int(cfg.SEED), device="cpu")
-        before = {k: v.clone() for k, v in init.model.state_dict().items()}
-        del init
         results = {}
         for label, nproc in (("n", args.nproc), ("1", 1)):
             opts = ["DATA.BATCH_SIZE", str(BATCH // nproc), "DATA.CACHE_DIR", str(work / "cache"),
@@ -115,8 +124,9 @@ def main(argv=None) -> int:
             launcher = (["-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
                          "--master_addr", "localhost", "--master_port", str(free_port())]
                         if nproc > 1 else [])
-            _, result, seconds = run_cli(["--cfg", CONFIG, "--device", "cuda", "--opts", *opts],
-                                         f"{nproc} processes", launcher=launcher)
+            _, result, seconds = run_cli(
+                ["--cfg", args.config, "--device", "cuda", "--opts", *opts],
+                f"{nproc} processes", launcher=launcher, module=module)
             results[label] = result, seconds
 
         (n_res, n_s), (one, one_s) = results["n"], results["1"]
@@ -145,11 +155,12 @@ def main(argv=None) -> int:
 
     print(f"data parallel: {args.nproc} processes at batch {BATCH // args.nproc} "
           f"({timing(n_res, n_s)}) against 1 at batch {BATCH} ({timing(one, one_s)}) "
-          f"on {CONFIG}: losses relative "
+          f"on {args.config}: losses relative "
           f"{', '.join(f'{k} {v:.3e}' for k, v in check.items())} (limit {LOSS_REL}); "
           f"parameter updates worst {worst} {rels[worst]:.3e} over {len(rels)} tensors "
           f"(limit {UPDATE_REL}); {placeholders} placeholders | {card}", flush=True)
-    print(json.dumps({"ok": ok, "nproc": args.nproc, "device": card, **check,
+    print(json.dumps({"ok": ok, "nproc": args.nproc, "config": args.config, "device": card,
+                      **check,
                       "worst_update_rel": rels[worst], "worst_update": worst,
                       "placeholders": placeholders, "seconds": {"n": n_s, "1": one_s}}),
           flush=True)

@@ -1,12 +1,15 @@
-"""Synthetic head scans and the MAE pretraining CLI in a subprocess.
+"""Synthetic head scans and the pretraining CLIs in a subprocess.
 
 Shared by ``chip_smoke.py`` (its slice and ``cli`` phases) and
 ``tools/check_data_parallel.py``:
 
 * ``synthetic_scan``: a head-CT-like int16 volume in HU, made from a seed;
 * ``write_scans``: such volumes written as ``.nii.gz`` at a voxel spacing;
+* ``PRETRAIN_CLIS``: ``MODEL.NAME`` -> the pretraining CLI's module; each
+  module has ``main`` and ``create_state`` (the state it starts from);
 * ``run_cli``: ``python -m headct_foundation_tpu_torch.main_pretrain_mae``
-  (under a launcher such as ``torch.distributed.run`` when one is given),
+  (or another ``module``, such as ``main_pretrain_dino``; under a launcher
+  such as ``torch.distributed.run`` when one is given),
   raising with the end of its log when it fails; returns the log, the
   CLI's ``{"cli": ...}`` result and the wall seconds;
 * ``card_lines``: each card's name and power limit, as ``nvidia-smi`` gives
@@ -29,6 +32,7 @@ ROOT = Path(__file__).resolve().parent.parent.parent
 SCAN_SHAPE = (256, 256, 40)
 FINE_SPACING = (0.5, 0.5, 1.0)  # head CT's in-plane resolution, 1 mm slices
 CLI_TIMEOUT_S = 600
+PRETRAIN_CLIS = {"mae": "main_pretrain_mae", "dino": "main_pretrain_dino"}
 
 
 def synthetic_scan(seed: int) -> np.ndarray:
@@ -59,13 +63,12 @@ def write_scans(workdir: Path, seeds: Sequence[int], spacing=FINE_SPACING,
     return paths
 
 
-def run_cli(args: Sequence[str], label: str, launcher: Sequence[str] = ()
-            ) -> Tuple[str, dict, float]:
-    """The CLI with ``args`` in a subprocess from the repository's root, at
-    most ``CLI_TIMEOUT_S``; ``launcher`` goes between the interpreter and
-    ``-m``."""
-    cmd = [sys.executable, *launcher, "-m", "headct_foundation_tpu_torch.main_pretrain_mae",
-           *args]
+def run_cli(args: Sequence[str], label: str, launcher: Sequence[str] = (),
+            module: str = "main_pretrain_mae") -> Tuple[str, dict, float]:
+    """The CLI ``headct_foundation_tpu_torch.<module>`` with ``args`` in a
+    subprocess from the repository's root, at most ``CLI_TIMEOUT_S``;
+    ``launcher`` goes between the interpreter and ``-m``."""
+    cmd = [sys.executable, *launcher, "-m", f"headct_foundation_tpu_torch.{module}", *args]
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(x for x in (str(ROOT), env.get("PYTHONPATH")) if x)
     t0 = time.perf_counter()

@@ -16,12 +16,19 @@ to and from them). Either package reads the other's files.
   copies them to the host on a stream of its own and writes; at most one
   write is in flight.
   ``wait_for_saves`` joins it and re-raises its error.
+* A DINO state (``engines/dino_engine.py``) adds the JAX DINO trainer's
+  extras (its ``:598-606``): ``momentum_model_state_dict`` (the teacher's
+  parameter tree), ``center``, ``head_stats`` and ``teacher_head_stats``
+  (empty: the BatchNorm head is not ported), snapshotted with the rest.
 * ``load_checkpoint`` unpickles through the restricted unpickler of
   ``utils/torch_interop.py``; ``restore_state`` fills the port's
   ``TrainState`` (the model, the optimizer state and ``step``) from such a
   payload, whichever package wrote it, and returns (state, epoch,
   best_loss). A payload whose trees do not fit raises ValueError or
-  KeyError and leaves the state as it was.
+  KeyError and leaves the state as it was. ``restore_dino_state`` (JAX
+  ``:390-428``) restores the student's parameters the same way (they must
+  fit), then each DINO entry that is present and fits, skipping any other
+  with a log line, as the JAX package does.
 
 Orbax (``TRAIN.CKPT_FORMAT: orbax`` or a directory) imports JAX and raises
 ``OrbaxNotSupportedError``.
@@ -41,6 +48,7 @@ import torch
 
 from headct_foundation_tpu_torch.parallel import distributed
 from headct_foundation_tpu_torch.utils.torch_interop import (
+    CheckpointDtypeError,
     jax_tree_from_state_dict,
     load_native_pickle,
     opt_state_from_jax,
@@ -98,6 +106,20 @@ def _snapshot(state) -> Tuple[Dict[str, torch.Tensor], Dict[Any, Dict[str, torch
     return params, opt
 
 
+def _dino_extra(state, clone: bool) -> Dict[str, Any]:
+    """A DINO state's checkpoint extras as tensors (cloned for an async
+    write); {} for another state."""
+    teacher = getattr(state, "teacher", None)
+    if teacher is None:
+        return {}
+    with torch.no_grad():
+        take = (lambda t: t.detach().clone()) if clone else (lambda t: t.detach())
+        # the heads' BatchNorm statistics: none, the BatchNorm head is not ported
+        return {"momentum_model_state_dict": {k: take(v) for k, v in
+                                              teacher.state_dict().items()},
+                "center": take(state.center), "head_stats": {}, "teacher_head_stats": {}}
+
+
 def _numpy_extra(v: Any) -> Any:
     if isinstance(v, (int, float, str)):
         return v
@@ -119,7 +141,9 @@ def save_checkpoint(state, epoch: int, best_loss: float, dir_add: str,
         return path
     os.makedirs(dir_add, exist_ok=True)
     config, step, model, optimizer = state.config, int(state.step), state.model, state.optimizer
+    norm_layer = state.norm_layer
     done = side = None
+    dino = _dino_extra(state, clone=async_save)
     if async_save:
         params, opt = _snapshot(state)
         if state.device.type == "cuda":
@@ -137,9 +161,16 @@ def save_checkpoint(state, epoch: int, best_loss: float, dir_add: str,
                 "epoch": int(epoch),
                 "best_loss": float(best_loss),
                 "step": step,
-                "params": jax_tree_from_state_dict(params, str(config.MAE.NORM_LAYER)),
-                "opt_state": opt_state_to_jax(optimizer, model, config, step, state=opt),
+                "params": jax_tree_from_state_dict(params, norm_layer),
+                "opt_state": opt_state_to_jax(optimizer, model, config, step, state=opt,
+                                              norm_layer=norm_layer),
             }
+            if dino:
+                payload.update(
+                    momentum_model_state_dict=jax_tree_from_state_dict(
+                        dino["momentum_model_state_dict"], norm_layer),
+                    **{k: _numpy_extra(v) for k, v in dino.items()
+                       if k != "momentum_model_state_dict"})
         payload.update({k: _numpy_extra(v) for k, v in (extra or {}).items()})
         tmp = path + ".tmp"
         with open(tmp, "wb") as f:
@@ -163,23 +194,74 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
         return load_native_pickle(f)
 
 
-def restore_state(state, payload: Dict[str, Any]) -> Tuple[Any, int, float]:
-    """Fill ``state`` from a checkpoint payload; returns (state, epoch,
-    best_loss). The parameters are copied as they are (bit for bit), the
-    optimizer's moments and ``step`` with them."""
-    model = state.model
+def _tensors_of(model: torch.nn.Module, tree: Any) -> Dict[str, torch.Tensor]:
+    """A JAX parameter tree as tensors for ``model``'s state_dict, checked
+    (names, dtypes, shapes) before anything is copied."""
     sd = model.state_dict()
-    source = state_dict_from_jax(payload["params"])
+    source = state_dict_from_jax(tree)
     if set(source) != set(sd):
         raise KeyError(f"checkpoint parameters do not fit the model: missing "
                        f"{sorted(set(sd) - set(source))[:5]}, unexpected "
                        f"{sorted(set(source) - set(sd))[:5]}")
-    tensors = {k: tensor_from_leaf(source[k].numpy(), sd[k], k) for k in sd}
+    return {k: tensor_from_leaf(source[k].numpy(), sd[k], k) for k in sd}
+
+
+def _copy_into(model: torch.nn.Module, tensors: Dict[str, torch.Tensor]) -> None:
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            v.copy_(tensors[k])
+
+
+def restore_state(state, payload: Dict[str, Any]) -> Tuple[Any, int, float]:
+    """Fill ``state`` from a checkpoint payload; returns (state, epoch,
+    best_loss). The parameters are copied as they are (bit for bit), the
+    optimizer's moments and ``step`` with them."""
+    tensors = _tensors_of(state.model, payload["params"])
     step = int(payload.get("step", 0))
     if "opt_state" in payload:
-        opt_state_from_jax(payload["opt_state"], state.optimizer, model, state.config, step)
-    with torch.no_grad():
-        for k, v in sd.items():
-            v.copy_(tensors[k])
+        opt_state_from_jax(payload["opt_state"], state.optimizer, state.model, state.config,
+                           step, norm_layer=state.norm_layer)
+    _copy_into(state.model, tensors)
     state.step = step
+    return state, int(payload.get("epoch", 0)), float(payload.get("best_loss", float("inf")))
+
+
+def restore_dino_state(state, payload: Dict[str, Any], logger=None) -> Tuple[Any, int, float]:
+    """Full DINO resume: the student's parameters (KeyError, ValueError or
+    CheckpointDtypeError if they do not fit, the state untouched), then the
+    teacher, the optimizer state, the centre and the head stats, each where
+    the payload has it and it fits; the others are skipped and logged.
+    Returns (state, epoch, best_loss)."""
+    tensors = _tensors_of(state.student, payload["params"])
+    step = int(payload.get("step", 0))
+    skipped = []
+
+    def restore_teacher(tree):
+        _copy_into(state.teacher, _tensors_of(state.teacher, tree))
+
+    def restore_opt(tree):
+        opt_state_from_jax(tree, state.optimizer, state.student, state.config, step,
+                           norm_layer=state.norm_layer)
+
+    def restore_center(value):
+        state.center = tensor_from_leaf(value, state.center, "center")
+
+    def restore_stats(value):
+        if dict(value):
+            raise ValueError("BatchNorm statistics; the port's DINO head has no BatchNorm")
+
+    _copy_into(state.student, tensors)
+    for key, restore in (("momentum_model_state_dict", restore_teacher),
+                         ("opt_state", restore_opt), ("center", restore_center),
+                         ("head_stats", restore_stats), ("teacher_head_stats", restore_stats)):
+        if key not in payload:
+            skipped.append(key)
+            continue
+        try:
+            restore(payload[key])
+        except (ValueError, KeyError, TypeError, CheckpointDtypeError) as e:
+            skipped.append(f"{key} ({e})")
+    state.step = step
+    if skipped and logger:
+        logger.warning(f"DINO resume: not restored: {skipped}")
     return state, int(payload.get("epoch", 0)), float(payload.get("best_loss", float("inf")))

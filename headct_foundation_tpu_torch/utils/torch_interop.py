@@ -24,7 +24,11 @@ and the port's modules.
   parameters (kernels transposed); the frozen sincos embeddings carry the
   ``freeze`` branch's empty state (``{}`` in the trees). torch's AdamW keeps a
   ``step`` per parameter, optax one ``count`` per transform: all of them are
-  the update count ``TrainState.step``.
+  the update count ``TrainState.step``. The DINO student's
+  ``{'backbone', 'head'}`` tree maps the same way (the head's ``mlp_N`` is
+  ``head.mlp.{2N}``, ``last_layer/weight_v`` and ``weight_g`` keep their
+  names and layout), with its two kinds of frozen leaf (the sincos position
+  embeddings and, with ``NORM_LAST_LAYER``, ``last_layer/weight_g``).
 * ``classify_checkpoint`` (JAX ``:410``) tells a torch file from a pickle
   of the JAX package's format with a restricted unpickler (``:360``) that
   runs nothing: only numpy arrays, dtypes and plain containers load.
@@ -75,6 +79,8 @@ def _torch_module_name(name: str) -> str:
     for base in ("blocks", "decoder_blocks"):
         if name.startswith(base + "_") and name[len(base) + 1:].isdigit():
             return f"{base}.{name[len(base) + 1:]}"
+    if name.startswith("mlp_") and name[4:].isdigit():  # the DINO head's Linears, GELU between
+        return f"mlp.{2 * int(name[4:])}"
     return name
 
 
@@ -139,6 +145,9 @@ def _jax_module_path(parts: List[str]) -> List[str]:
         if (parts[i] in ("blocks", "decoder_blocks") and i + 1 < len(parts)
                 and parts[i + 1].isdigit()):
             out.append(f"{parts[i]}_{parts[i + 1]}")
+            i += 2
+        elif parts[i] == "mlp" and i + 1 < len(parts) and parts[i + 1].isdigit():
+            out.append(f"mlp_{int(parts[i + 1]) // 2}")  # the DINO head's mlp.{2N}
             i += 2
         else:
             out.append(parts[i])
@@ -237,11 +246,16 @@ def _trainable(model: torch.nn.Module, optimizer: torch.optim.Optimizer):
     return out
 
 
+def _norm_layer(config, norm_layer: Optional[str]) -> str:
+    """The parameter naming's norm: given, else the MAE's."""
+    return str(config.MAE.NORM_LAYER) if norm_layer is None else str(norm_layer)
+
+
 def _opt_tree(optimizer: torch.optim.Optimizer, model: torch.nn.Module, config, count: Any,
-              leaf) -> Dict[str, Any]:
+              leaf, norm_layer: Optional[str] = None) -> Dict[str, Any]:
     """The ``opt_state`` tree with ``leaf(param, torch state key, layout)``
     at each trainable parameter's place in each moment tree."""
-    norm_layer = str(config.MAE.NORM_LAYER)
+    norm_layer = _norm_layer(config, norm_layer)
     params = _trainable(model, optimizer)
     inner: Dict[str, Any] = {}
     for i, kind in enumerate(_chain(config)):
@@ -259,11 +273,14 @@ def _opt_tree(optimizer: torch.optim.Optimizer, model: torch.nn.Module, config, 
 
 
 def opt_state_to_jax(optimizer: torch.optim.Optimizer, model: torch.nn.Module, config,
-                     step: int, state: Optional[Mapping] = None) -> Dict[str, Any]:
+                     step: int, state: Optional[Mapping] = None,
+                     norm_layer: Optional[str] = None) -> Dict[str, Any]:
     """The optimizer's state (or ``state``, a snapshot of it keyed the same)
     as the JAX package's ``opt_state`` (flax state_dict form); every
     ``count`` is ``step``. Moments not allocated yet (before the first
-    update) are zeros, as optax initialises them."""
+    update) are zeros, as optax initialises them. ``norm_layer`` names the
+    model's norms (default the MAE's config key; the DINO engine passes
+    ``VIT.NORM_LAYER``)."""
     state = optimizer.state if state is None else state
 
     def leaf(p, key, layout):
@@ -271,7 +288,8 @@ def opt_state_to_jax(optimizer: torch.optim.Optimizer, model: torch.nn.Module, c
         return _to_jax_layout(torch.zeros_like(p, dtype=torch.float32) if v is None else v,
                               layout)
 
-    return _opt_tree(optimizer, model, config, np.asarray(step, dtype=np.int32), leaf)
+    return _opt_tree(optimizer, model, config, np.asarray(step, dtype=np.int32), leaf,
+                     norm_layer)
 
 
 def _check_keys(got: Any, want: Any, where: str) -> None:
@@ -302,13 +320,15 @@ def tensor_from_leaf(a: Any, like: torch.Tensor, what: str,
 
 
 def opt_state_from_jax(tree: Mapping[str, Any], optimizer: torch.optim.Optimizer,
-                       model: torch.nn.Module, config, step: int) -> None:
+                       model: torch.nn.Module, config, step: int,
+                       norm_layer: Optional[str] = None) -> None:
     """Fill ``optimizer.state`` from a JAX-format ``opt_state``. Raises
     ValueError or KeyError when the tree is not this optimizer's chain (as
     flax's ``from_state_dict`` does), or when a ``count`` differs from
     ``step``; CheckpointDtypeError for a leaf of another dtype."""
-    _check_keys(tree, _opt_tree(optimizer, model, config, None, lambda *_: None), "")
-    norm_layer = str(config.MAE.NORM_LAYER)
+    _check_keys(tree, _opt_tree(optimizer, model, config, None, lambda *_: None, norm_layer),
+                "")
+    norm_layer = _norm_layer(config, norm_layer)
     inner = tree["inner_states"]["train"]["inner_state"]
     params = [(n, p) for n, p, trainable in _trainable(model, optimizer) if trainable]
     new_state: Dict[torch.Tensor, Dict[str, torch.Tensor]] = {p: {} for _, p in params}
@@ -423,6 +443,16 @@ def state_dict_of_payload(payload: Mapping[str, Any], state_key: str = "state_di
     return state_dict_from_jax(tree)
 
 
+def _backbone_prefixed(source: Mapping[str, Any], target: Mapping[str, Any]) -> Dict[str, Any]:
+    """A stripped reference state_dict for a ``{backbone, head}`` model (the
+    DINO student or teacher): every name outside ``head.`` goes back under
+    ``backbone.``, which ``strip_prefixes`` took off."""
+    if not any(k.startswith("backbone.") for k in target):
+        return dict(source)
+    return {k if k.startswith("head.") or k in target else f"backbone.{k}": v
+            for k, v in source.items()}
+
+
 def load_pretrained_into(model: torch.nn.Module, checkpoint_path: str,
                          state_key: str = "state_dict", logger=None) -> Tuple[List[str], List[str]]:
     """strict=False warm start of ``model`` from a reference ``.pt`` or a
@@ -431,7 +461,8 @@ def load_pretrained_into(model: torch.nn.Module, checkpoint_path: str,
     target = model.state_dict()
     is_torch, payload = classify_checkpoint(checkpoint_path)
     if is_torch:
-        source: Mapping[str, Any] = load_reference_checkpoint(checkpoint_path, key=state_key)
+        source: Mapping[str, Any] = _backbone_prefixed(
+            load_reference_checkpoint(checkpoint_path, key=state_key), target)
     else:
         source = state_dict_of_payload(payload, state_key, into=target)
     merged, missing, unexpected = merge_params(target, source)

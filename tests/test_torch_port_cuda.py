@@ -64,6 +64,7 @@ _CUDA_CASES = [
     ((2, 9, 3, 12), torch.bfloat16, 2e-2, 2e-2),     # to 32, 16, 64 and 128
     ((2, 200, 2, 64), torch.bfloat16, 2e-2, 2e-2),
     ((2, 70, 2, 128), torch.bfloat16, 2e-2, 2e-2),
+    ((4, 517, 12, 64), torch.bfloat16, 2e-2, 2e-2),  # the DINO student's T (5 rows in the last tile)
 ]
 
 
@@ -123,6 +124,7 @@ _BWD_CASES = [
     ((2, 130, 2, 64), torch.bfloat16, 2e-2, 2e-2, 0),
     ((2, 130, 2, 128), torch.bfloat16, 2e-2, 2e-2, 0),
     ((2, 129, 3, 64), torch.bfloat16, 2e-2, 2e-2, 4),   # misaligned view
+    ((4, 517, 12, 64), torch.bfloat16, 2e-2, 2e-2, 0),  # the DINO student's T
 ]
 
 
@@ -538,3 +540,37 @@ def test_cuda_async_checkpoint_equals_the_state_at_save(tmp_path):
     assert restored.keys() == moments.keys()
     for name, m in moments.items():
         assert torch.equal(restored[name], m), name
+
+
+@pytest.mark.cuda
+def test_cuda_dino_step_launches_b1_and_b2_per_block():
+    """One DINO train step at T = 517 (96^3, patch 12, 4 registers) and 12
+    heads x 64 (two blocks of width 768): 2 B1 per block (the teacher's
+    forward and the student's) and 1 B2 per block, finite; an eval batch 2
+    B1 per block; no other kernel."""
+    import numpy as np
+
+    from headct_foundation_tpu_torch.config import default_config
+    from headct_foundation_tpu_torch.engines import dino_engine
+
+    _need_cuda()
+    cfg = default_config()
+    from pathlib import Path
+
+    cfg.merge_from_file(str(Path(__file__).resolve().parent.parent / "configs/dino/dino_HeadCT.yaml"))
+    cfg.merge_from_list(["VIT.NUM_LAYERS", 2, "DINO.HEAD_N_PROTOTYPES", 1024,
+                         "DATA.WIRE_FORMAT", "hu16"])
+    state = dino_engine.create_train_state(cfg, 20, 1, 5, seed=0, device="cuda")
+    wire = torch.from_numpy(np.random.RandomState(0).randint(-8000, 20000, (2, 1, 96, 96, 96))
+                            .astype(np.int16)).cuda()
+    counters = (fused_attention, fused_attention_bwd, blocked_fused_attention)
+    before = [c.launches for c in counters]
+    state, m = dino_engine.make_train_step(cfg)(state, wire, 0, 0.999, 0.04, True)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [4, 2, 0]
+    assert math.isfinite(m["loss"].item()) and bool(torch.isfinite(state.center).all())
+    before = [c.launches for c in counters]
+    out = dino_engine.make_eval_step(cfg)(state, wire, torch.Generator("cuda").manual_seed(0),
+                                          0.04)
+    assert [c.launches - b for c, b in zip(counters, before)] == [4, 0, 0]
+    assert math.isfinite(out["loss"].item())

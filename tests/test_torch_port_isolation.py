@@ -1,8 +1,9 @@
 """PyTorch port: imports no JAX and nothing of the JAX package, nor pandas or
-orbax (it imports every module, the token-major tool's and the CLI's
+orbax (it imports every module, the token-major tool's and the CLIs'
 included, and runs a serving forward, tiny MAE train steps, one of them on
 the blocked attention path and one with the fused Lion update, a checkpoint
-save and restore, and the manifest reader, with those imports blocked),
+save and restore, the manifest reader, and a tiny DINO step with its
+checkpoint, with those imports blocked),
 defaults to CUDA, and builds from its own config copy.
 
 The subprocess blocks the imports with a ``sys.meta_path`` finder rather than
@@ -121,6 +122,24 @@ with tempfile.TemporaryDirectory() as tmp:
     with open(os.path.join(tmp, "m.csv"), "w") as f:
         f.write("img_path\n/a.nii.gz\n")
     assert read_manifest(os.path.join(tmp, "m.csv")) == [{"img_path": "/a.nii.gz"}]
+# a DINO step with the multi-crop and the frozen last layer, and its checkpoint
+from headct_foundation_tpu_torch.engines import dino_engine
+
+cfg = default_config()
+cfg.merge_from_list(["MODEL.ROI", [24, 24, 24], "VIT.INPUT_SIZE", 24, "VIT.PATCH_SIZE", 12,
+                     "VIT.HIDDEN_SIZE", 48, "VIT.MLP_DIM", 96, "VIT.NUM_LAYERS", 1,
+                     "VIT.NUM_HEADS", 4, "VIT.NUM_REGISTER_TOKENS", 2,
+                     "DINO.HEAD_N_PROTOTYPES", 32, "DINO.HEAD_HIDDEN_DIM", 16,
+                     "DINO.BOTTLENECK_DIM", 8, "DINO.USE_BN", False,
+                     "DATA.WIRE_FORMAT", "hu16", "PARALLEL.PALLAS_MIN_T", 11])
+dino = dino_engine.create_train_state(cfg, 10, 0, 5, seed=0, device="cpu")
+dino, metrics = dino_engine.make_train_step(cfg)(dino, wire, 0, 0.99, 0.04, True)
+assert dino.step == 1 and bool(torch.isfinite(metrics["loss"]))
+with tempfile.TemporaryDirectory() as tmp:
+    path = checkpoint.save_checkpoint(dino, 0, 1.0, tmp, "latest_dino.ckpt")
+    fresh = dino_engine.create_train_state(cfg, 10, 0, 5, seed=1, device="cpu")
+    fresh, epoch, _ = checkpoint.restore_dino_state(fresh, checkpoint.load_checkpoint(path))
+    assert fresh.step == 1 and torch.equal(fresh.center, dino.center)
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("imported", len(names), "modules")
@@ -160,9 +179,11 @@ def test_entry_points_default_to_cuda(monkeypatch):
     from headct_foundation_tpu_torch import serve_features
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_features.main(["--img-size", "24"])
-    from headct_foundation_tpu_torch.engines import mae_engine
+    from headct_foundation_tpu_torch.engines import dino_engine, mae_engine
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mae_engine.create_train_state(default_config(), 10, 0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dino_engine.create_train_state(default_config(), 10, 0, 5)
 
 
 def test_build_extractor_from_config_copy():

@@ -88,8 +88,10 @@ def test_mae_augment_with_injected_decisions(dtype):
     got = apply_mae_augment(torch.from_numpy(x).to(getattr(torch, dtype)), decisions)
     assert got.dtype == getattr(torch, dtype)
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
-    with pytest.raises(NotImplementedError):
-        mae_augment(torch.from_numpy(x), torch.Generator().manual_seed(0), reshape=False)
+    # reshape=False adds the Gaussian smoothing (held against JAX's in
+    # tests/test_torch_port_dino.py::test_mae_augment_with_smoothing_matches_jax)
+    smoothed = mae_augment(torch.from_numpy(x), torch.Generator().manual_seed(0), reshape=False)
+    assert smoothed.shape == x.shape and smoothed.dtype == torch.float32
 
 
 @pytest.mark.parametrize("wire", ["hu16", "hu8", "windowed"])

@@ -31,6 +31,7 @@ from headct_foundation_tpu_torch.data.transforms import hu16_encode
 from headct_foundation_tpu_torch.engines import mae_engine
 from headct_foundation_tpu_torch.ops import attention as port_attn
 from headct_foundation_tpu_torch.optim import lr_sched
+from headct_foundation_tpu_torch.optim.optimizers import without_key_bias
 from headct_foundation_tpu_torch.utils.torch_interop import state_dict_from_jax
 from tests.test_torch_port_mae import jax_augment_decisions
 
@@ -167,18 +168,6 @@ def test_train_trajectory_matches_jax(backends, train, accum, k_steps):
 BF16_LOSS_REL, BF16_UPDATE_REL = 1e-3, 5e-2
 
 
-def _update_without_key_bias(name: str, after: torch.Tensor, before: torch.Tensor):
-    """after - before, flattened, without the key third of a qkv bias: the
-    loss does not depend on a key bias (softmax is invariant to a score
-    shift per query row), so its gradient is rounding noise that AdamW
-    scales up to +-lr in either framework."""
-    du = (after.float() - before.float()).flatten()
-    if name.endswith("qkv.bias"):
-        n = du.numel() // 3
-        du = torch.cat([du[:n], du[2 * n:]])
-    return du
-
-
 def test_bf16_train_trajectory_matches_jax(backends):
     """3 steps of the port's train step against JAX make_train_step(augment=True)
     with bfloat16 compute on both sides, from the same weights and batches."""
@@ -209,8 +198,9 @@ def test_bf16_train_trajectory_matches_jax(backends):
     moved = 0
     for name, p in state.model.state_dict().items():
         assert p.dtype == torch.float32, name  # parameters stay float32; compute is bf16
-        du = _update_without_key_bias(name, p, init[name])
-        du_j = _update_without_key_bias(name, want[name], init[name])
+        # without a qkv bias's key third: its gradient is rounding noise
+        du = without_key_bias(name, p.float() - init[name].float())
+        du_j = without_key_bias(name, want[name].float() - init[name].float())
         if du_j.norm() == 0:
             assert du.norm() == 0, name
             continue
