@@ -20,7 +20,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
              ([256,517,12,64] and [128,517,12,64] bf16) and, in both types, at the
              edges of its key tiles and 128-row blocks, head dims 12 to 128
              and a view 4 elements into its storage; two runs must be
-             bit-identical. The blocked
+             bit-identical; at the downstream fine-tune's [64,513,12,64] bf16
+             on LoRA's layout (q and v contiguous, k a view of the fused
+             [64,513,3*768] projection), B2 too. The blocked
              kernels B3 (forward), B4 (dK, dV) and B5 (dQ) are held at the
              192^3 MAE's shapes, in float32, with rectangular q/k and a kv_len
              that masks whole key tiles, at head dims 12 to 128, at the
@@ -99,7 +101,34 @@ Phases, each printing a line; any failure raises and exits non-zero:
              counted in the CLI process, latest_ restored beside the state bit
              for bit (student, teacher, optimizer, centre), then a resume with
              TRAIN.MAX_EPOCHS 3 ("Resumed (full)") at the saved epoch index.
-9. stretch - the long-context MAE step of configs/mae/mae_HeadCT_192.yaml at
+9. downstream - the downstream fine-tune at full width
+             (configs/downstream/vit_HeadCT_cq500.yaml as shipped: ViT-B/12 at
+             96^3, T = 513, linear head, AdamW with the head at 100x the LR,
+             batch 64) on hu16 head phantoms with labels (a bleed where the
+             label is 1): one step at 4 volumes with the kernels against the
+             plain attention (bf16 and float32, every trainable gradient but
+             downstream_engine.ROUNDING_ONLY's, those 0 but for rounding; the
+             head's BatchNorm on the batch's statistics in float32, on its
+             running statistics in bf16, see DOWNSTREAM_COMPARE_BATCH), then train_one_epoch over 8 batches
+             and val_one_epoch over 1, then 2 batches under --lock and under
+             --lora: finite losses, every trainable tensor and the BatchNorm
+             statistics moved and every frozen tensor bit-identical, exactly
+             12 B1 + 12 B2 launches per fine-tune and LoRA step, 12 B1 and no
+             B2 per lock step, 12 B1 per eval batch; then the median step,
+             volumes/s, peak memory, a breakdown (CUDA events: augment,
+             forward, backward, the two AdamW groups) and the device time by
+             kernel group over 2 profiled steps.
+10. downstream-cli - ``python -m headct_foundation_tpu_torch.main_downstream --cfg
+             configs/downstream/vit_HeadCT_cq500.yaml`` on the cli phase's heads
+             and cache with cq500 label manifests, TRAIN.MAX_EPOCHS 2: a
+             fine-tune warm-started from the cli phase's MAE latest_ file,
+             --lock --few_shots 4, and --lora --classifier attentive; each
+             exit 0, 0 placeholders, the exact launches counted in the CLI
+             process, a best_ file whose params and batch_stats restore bit
+             for bit, a predictions pickle of the test manifest, the warm
+             start's merged count printed, the mean AUROC printed (random
+             labels: no bound).
+11. stretch - the long-context MAE step of configs/mae/mae_HeadCT_192.yaml at
              full width (192^3, patch 12: encoder T=1025 at 12 heads x 64,
              decoder T=4097 at 16 heads x 48) on batches of 2 synthetic hu16
              phantoms: one step at batch 1 with the kernels against the plain
@@ -107,7 +136,7 @@ Phases, each printing a line; any failure raises and exits non-zero:
              train steps and 1 eval batch with exactly 20 B3 + 20 B4 + 20 B5
              launches per train step, 20 B3 per eval batch and no B1 or B2;
              then the same timings as the train phase.
-10. lion   - the 96^3 MAE of the train phase trained by the fused Lion update
+12. lion   - the 96^3 MAE of the train phase trained by the fused Lion update
              (TRAIN.OPTIMIZER Lion, LION_FUSED True, GRAD_CLIP 1.0): kernel B6
              against its plain version first (bit for bit, at the model's
              shapes and at ragged ones), then 6 train steps and 1 eval batch
@@ -118,12 +147,12 @@ Phases, each printing a line; any failure raises and exits non-zero:
              for bit against those outputs, then the unfused step against
              it; B6 timed over every trainable tensor; the same timings as
              the train phase.
-11. tm     - the token-major attention tool: kernels B7 and B8 against their
+13. tm     - the token-major attention tool: kernels B7 and B8 against their
              plain versions at the tool's four shapes (bf16) and at float32
              and ragged ones, and against B1 and B2 on the same inputs (bit
              for bit: the same tile code), then ``tools.bench_tm_attention``
              at its four shapes.
-12. report - a JSON line of the kernels, the card line, then the result line.
+14. report - a JSON line of the kernels, the card line, then the result line.
 
 Float32 matmuls and convolutions are pinned to full float32 (TF32 off for
 cuBLAS and cuDNN): the serving forward is float32, like the JAX package's.
@@ -136,6 +165,7 @@ import json
 import logging
 import math
 import os
+import pickle
 import re
 import statistics
 import subprocess
@@ -163,6 +193,10 @@ MAE_DECODER = (32, 513, 16, 48)
 # student's 4 crops a volume and the teacher's 2 global ones
 DINO_STUDENT = (256, 517, 12, 64)
 DINO_TEACHER = (128, 517, 12, 64)
+# the downstream fine-tune at batch 64: 512 patches + CLS, 12 heads x 64; LoRA
+# hands q and v over as fresh tensors and k as a view of the fused projection
+DOWNSTREAM = (64, 513, 12, 64)
+LORA = "lora"  # a case's layout: q, v contiguous, k a view of [B, T, 3 H D]
 KERNEL_CASES = [  # (shape [B, T, H, D], dtype, atol, rtol, storage offset) for O; LSE at
     # 1e-4 / 1e-4; reruns bit-identical. q, k, v are strided views of one [B, T, 3, H, D].
     # The bf16 cases from the block edges on hold the wgmma forward's 64-key tiles and
@@ -175,6 +209,7 @@ KERNEL_CASES = [  # (shape [B, T, H, D], dtype, atol, rtol, storage offset) for 
     (MAE_DECODER, torch.bfloat16, 2e-2, 2e-2, 0),          # MAE decoder, every block
     (DINO_STUDENT, torch.bfloat16, 2e-2, 2e-2, 0),         # DINO student and teacher, every
     (DINO_TEACHER, torch.bfloat16, 2e-2, 2e-2, 0),         # block (5 rows in the last tile)
+    (DOWNSTREAM, torch.bfloat16, 2e-2, 2e-2, 0, LORA),     # downstream fine-tune and LoRA
     ((2, 129, 3, 32), torch.float32, 2e-5, 1e-4, 0),       # ragged tiles
     ((2, 9, 3, 12), torch.float32, 2e-5, 1e-4, 0),
     ((2, 129, 3, 32), torch.bfloat16, 2e-2, 2e-2, 0),      # the tensor-core path's other
@@ -211,6 +246,7 @@ BWD_CASES = [  # (shape, dtype, atol, rtol, storage offset) for dq, dk, dv again
     # the 16-byte alignment of every operand.
     (MAE_DECODER, torch.bfloat16, 2e-2, 2e-2, 0),          # MAE decoder (main path)
     (DINO_STUDENT, torch.bfloat16, 2e-2, 2e-2, 0),         # DINO student (main path)
+    (DOWNSTREAM, torch.bfloat16, 2e-2, 2e-2, 0, LORA),     # downstream fine-tune and LoRA
     (MAE_DECODER, torch.float32, 1e-4, 1e-3, 0),
     ((2, 129, 3, 32), torch.float32, 1e-4, 1e-3, 0),       # ragged tiles
     ((2, 9, 3, 12), torch.float32, 1e-4, 1e-3, 0),
@@ -394,11 +430,10 @@ def norm_note(dtype) -> str:
 
 def phase_kernels(fused_attention, fused_attention_reference) -> dict:
     results = {}
-    for shape, dtype, atol, rtol, offset in KERNEL_CASES:
+    for shape, dtype, atol, rtol, offset, *layout in KERNEL_CASES:
         B, T, H, D = shape
         g = torch.Generator(device="cuda").manual_seed(1)
-        qkv = randn_at((B, T, 3, H, D), offset, g, dtype)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # strided, as the model passes them
+        q, k, v = qkv_inputs(shape, offset, g, dtype, layout)
         o, lse = fused_attention(q, k, v)
         again = fused_attention(q, k, v)
         torch.cuda.synchronize()
@@ -408,7 +443,7 @@ def phase_kernels(fused_attention, fused_attention_reference) -> dict:
         same = torch.equal(o, again[0]) and torch.equal(lse, again[1])
         ok = (elem_ok and norm_ok and same
               and bool((err_lse <= 1e-4 + 1e-4 * lse_ref.abs()).all()))
-        at = f" offset {offset}" if offset else ""
+        at = (f" offset {offset}" if offset else "") + (" LoRA layout" if layout else "")
         print(f"kernel flash_attention_fwd {list(shape)} {str(dtype)[6:]}{at}: max_abs_err "
               f"o={err_o:.3e} lse={err_lse.max().item():.3e}, rel_l2 o={rel_o:.3e} "
               f"(tolerance o atol {atol} rtol {rtol}{norm_note(dtype)}, lse atol 1e-4 rtol "
@@ -482,11 +517,10 @@ def phase_bwd_kernels(fused_attention, fused_attention_bwd, fused_attention_bwd_
     forward's o and lse; two runs bit-identical. Timed at the main path's
     shape."""
     results = {}
-    for shape, dtype, atol, rtol, offset in BWD_CASES:
+    for shape, dtype, atol, rtol, offset, *layout in BWD_CASES:
         B, T, H, D = shape
         g = torch.Generator(device="cuda").manual_seed(2)
-        qkv = randn_at((B, T, 3, H, D), offset, g, dtype)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # strided, as the model passes them
+        q, k, v = qkv_inputs(shape, offset, g, dtype, layout)
         o, lse = fused_attention(q, k, v)
         do = randn_at((B, T, H, D), offset, g, dtype)
         got = fused_attention_bwd(q, k, v, o, do, lse)
@@ -501,7 +535,7 @@ def phase_bwd_kernels(fused_attention, fused_attention_bwd, fused_attention_bwd_
             ok &= elem_ok and norm_ok
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         ok &= same
-        at = f" offset {offset}" if offset else ""
+        at = (f" offset {offset}" if offset else "") + (" LoRA layout" if layout else "")
         print(f"kernel flash_attention_bwd {list(shape)} {str(dtype)[6:]}{at}: max_abs_err "
               f"dq={errs[0]:.3e} dk={errs[1]:.3e} dv={errs[2]:.3e}, rel_l2 dq={rels[0]:.3e} "
               f"dk={rels[1]:.3e} dv={rels[2]:.3e} (tolerance atol {atol} rtol {rtol}"
@@ -510,7 +544,7 @@ def phase_bwd_kernels(fused_attention, fused_attention_bwd, fused_attention_bwd_
         check(ok, f"flash_attention_bwd disagrees with its plain version at {shape} {dtype} "
                   f"offset {offset}")
         row = {"max_abs_err": max(errs)}
-        if shape in (MAE_DECODER, DINO_STUDENT) and dtype == torch.bfloat16:
+        if shape in (MAE_DECODER, DINO_STUDENT, DOWNSTREAM) and dtype == torch.bfloat16:
             time_bwd(fused_attention_bwd, fused_attention_bwd_reference, row, q, k, v, o, do,
                      lse, shape, dtype)
         results[(shape, dtype)] = row
@@ -567,6 +601,17 @@ def randn_at(shape, offset: int, g, dtype) -> torch.Tensor:
     """A [shape] tensor on the card starting ``offset`` elements into its storage."""
     n = math.prod(shape)
     return torch.randn(n + offset, device="cuda", generator=g).to(dtype)[offset:].view(shape)
+
+
+def qkv_inputs(shape, offset: int, g, dtype, layout=()) -> tuple:
+    """q, k, v [B, T, H, D] as the model passes them: strided views of one
+    [B, T, 3, H, D], or with ``LORA`` in ``layout`` q and v contiguous and
+    k a view of a [B, T, 3 H D] projection."""
+    B, T, H, D = shape
+    qkv = randn_at((B, T, 3, H, D), offset, g, dtype)
+    if LORA in layout:
+        return randn_at(shape, 0, g, dtype), qkv[:, :, 1], randn_at(shape, 0, g, dtype)
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
 def blocked_inputs(shape, tk: int, dtype, seed: int, offset: int = 0) -> tuple:
@@ -1832,6 +1877,349 @@ def phase_dino_cli(workdir: Path, card: str) -> dict:
     return launches
 
 
+DOWNSTREAM_CONFIG = "configs/downstream/vit_HeadCT_cq500.yaml"
+DOWNSTREAM_BATCHES = 8        # the fine-tune epoch: 500 draws at 64 are 8 steps (the last 52)
+DOWNSTREAM_MODE_BATCHES = 2   # the lock and LoRA epochs
+DOWNSTREAM_COMPARE_BATCH = 4  # volumes of the kernel-vs-plain attention step
+# The kernel-vs-plain step leaves out the tensors of
+# downstream_engine.ROUNDING_ONLY (gradients 0 but for rounding). In float32
+# the head's BatchNorm takes the batch's statistics, as the timed step does;
+# in bf16 it takes its running statistics: the random-init ViT gives CLS
+# features that differ across heads by a few percent of their size, so
+# train-mode statistics over 4 of them turn bf16 roundings into the signal (on
+# the card: loss 7.7e-2 apart, a gradient cosine of -1, with train-mode
+# statistics in bf16; PERF.md §6).
+
+
+def downstream_config(extra=()):
+    from headct_foundation_tpu_torch.config import default_config
+
+    cfg = default_config()
+    cfg.merge_from_file(str(ROOT / DOWNSTREAM_CONFIG))
+    cfg.merge_from_list(["DATA.WIRE_FORMAT", "hu16", *extra])
+    return cfg
+
+
+def labelled_phantoms(seed: int, n: int, size: int = 96) -> tuple:
+    """n head phantoms as ``head_phantoms`` draws them, but each with its own
+    tissue (brain 20-50 HU, noise 4-14 HU, skull 700-1600 HU), and a label:
+    1 where a bleed (a 60-85 HU ellipsoid inside the brain) was added.
+    Returns (hu16 wire [n, 1, size^3] int16, labels [n] int64). Heads that
+    differ only in shape give CLS features so alike that the classifier's
+    BatchNorm over a few of them turns bf16 roundings into the signal."""
+    from headct_foundation_tpu_torch.data.transforms import hu16_encode
+
+    rng = np.random.RandomState(seed)
+    g = (np.arange(size, dtype=np.float32) - size / 2) / (size / 2)
+    x, y, z = g[:, None, None], g[None, :, None], g[None, None, :]
+    out = np.empty((n, 1, size, size, size), np.int16)
+    labels = rng.randint(0, 2, n).astype(np.int64)
+    for i in range(n):
+        c = rng.uniform(-0.1, 0.1, 3).astype(np.float32)
+        r = rng.uniform(0.65, 0.9, 3).astype(np.float32)
+        d = ((x - c[0]) / r[0]) ** 2 + ((y - c[1]) / r[1]) ** 2 + ((z - c[2]) / r[2]) ** 2
+        hu = np.where(d < 1.0, rng.uniform(700, 1600), -1000.0).astype(np.float32)
+        brain = d < 0.8
+        hu[brain] = (rng.uniform(20, 50)
+                     + rng.uniform(4, 14) * rng.randn(int(brain.sum()))).astype(np.float32)
+        if labels[i]:
+            b = c + rng.uniform(-0.3, 0.3, 3).astype(np.float32)
+            rb = rng.uniform(0.08, 0.25, 3).astype(np.float32)
+            bleed = brain & ((((x - b[0]) / rb[0]) ** 2 + ((y - b[1]) / rb[1]) ** 2
+                              + ((z - b[2]) / rb[2]) ** 2) < 1.0)
+            hu[bleed] = rng.uniform(60, 85)
+        out[i, 0] = hu16_encode(hu)
+    return out, labels
+
+
+def downstream_batches(n: int, batch: int, seed0: int, unique: int = 4) -> list:
+    """``n`` (hu16 wire, int64 target, names) batches of ``labelled_phantoms``;
+    ``unique`` distinct batches, cycled."""
+    made = [labelled_phantoms(seed0 + i, batch) for i in range(min(unique, n))]
+    return [(*made[i % len(made)], [f"phantom{seed0 + i}_{j}" for j in range(batch)])
+            for i in range(n)]
+
+
+def phase_downstream(card: str) -> dict:
+    """The downstream fine-tune at full width on configs/downstream/
+    vit_HeadCT_cq500.yaml as shipped (ViT-B/12 at 96^3, linear head,
+    batch 64), on hu16 head phantoms with labels; then the same under lock
+    and under LoRA. Returns the launches of its train and eval runs and its
+    timings."""
+    import torch.nn.functional as F
+
+    from headct_foundation_tpu_torch.data.augment import apply_mae_augment, draw_mae_augment
+    from headct_foundation_tpu_torch.data.device_preprocess import wire_to_compute
+    from headct_foundation_tpu_torch.engines import downstream_engine, mae_engine
+    from headct_foundation_tpu_torch.ops import attention as port_attn
+    from headct_foundation_tpu_torch.optim.optimizers import without_key_bias
+
+    cfg = downstream_config()
+    depth, batch = int(cfg.VIT.NUM_LAYERS), int(cfg.DATA.BATCH_SIZE)
+    in_chans = int(cfg.VIT.IN_CHANS)
+    per_step = {"flash_attention_fwd": depth, "flash_attention_bwd": depth}
+    per_lock_step = {"flash_attention_fwd": depth}
+    per_eval = {"flash_attention_fwd": depth}
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    total = DOWNSTREAM_BATCHES + 10
+    state = downstream_engine.create_train_state(cfg, total, 1, seed=0, device=dev)
+    batches = downstream_batches(DOWNSTREAM_BATCHES + 1, batch, 600)
+    trainable = {f"{m}.{n}": p for m, mod in (("model", state.model),
+                                              ("classifier", state.classifier))
+                 for n, p in mod.named_parameters() if p.requires_grad}
+    torch.cuda.synchronize()
+    v = cfg.VIT
+    print(f"downstream set-up: {DOWNSTREAM_CONFIG} (ViT {v.NUM_LAYERS}x{v.HIDDEN_SIZE}/"
+          f"{v.NUM_HEADS} heads, {v.INPUT_SIZE}^3 patch {v.PATCH_SIZE}, "
+          f"{v.NUM_REGISTER_TOKENS} registers; {cfg.TRAIN.CLASSIFIER} head, "
+          f"{cfg.DATA.NUM_CLASSES} classes; {cfg.TRAIN.OPTIMIZER} at BASE_LR "
+          f"{cfg.TRAIN.BASE_LR}, the head at x100), {sum(p.numel() for p in trainable.values())} "
+          f"trainable parameters in {len(trainable)} tensors, seed 0, bf16 compute; "
+          f"{len(batches)} batches of {list(batches[0][0].shape)} int16 phantoms with labels in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # kernel against plain attention on one step: same weights, augmentation,
+    # targets; the head's BatchNorm on its running statistics (see above)
+    g = mae_engine.step_generator(dev, 7, 0, 0)
+    n = DOWNSTREAM_COMPARE_BATCH
+    wire0 = torch.from_numpy(batches[0][0][:n]).to(dev)
+    target0 = torch.from_numpy(batches[0][1][:n]).to(dev)
+    decisions = draw_mae_augment(n, g, dev)
+
+    def loss_and_grads_of(model, classifier, dtype, batch_stats: bool):
+        modules = {"model": model, "classifier": classifier}
+        names = [k for k in trainable if k not in downstream_engine.ROUNDING_ONLY]
+
+        def run(backend):
+            prev = port_attn.set_attention_backend(backend)
+            try:
+                model.train()
+                classifier.train(batch_stats)  # see DOWNSTREAM_COMPARE_BATCH
+                for m in modules.values():
+                    m.zero_grad(set_to_none=True)
+                vols = apply_mae_augment(wire_to_compute(wire0, cfg, in_chans, dtype=dtype),
+                                         decisions)
+                logits = classifier(model(vols)[0][:, 0])
+                loss = F.cross_entropy(logits.float(), target0)
+                loss.backward()
+                params = {f"{m}.{k}": p for m, mod in modules.items()
+                          for k, p in mod.named_parameters()}
+                grads = {k: without_key_bias(k, params[k].grad.detach().clone()) for k in names}
+                for m in modules.values():
+                    m.zero_grad(set_to_none=True)
+                return loss.item(), grads
+            finally:
+                port_attn.set_attention_backend(prev)
+
+        return run
+
+    compare = {torch.bfloat16: hold_backends(
+        loss_and_grads_of(state.model, state.classifier, torch.bfloat16, False), torch.bfloat16,
+        "downstream (head on running statistics)", "trainable")}
+    m32 = downstream_engine.build_vit_model(cfg, torch.float32).to(dev)
+    c32 = downstream_engine.build_classifier(cfg, torch.float32).to(dev)
+    m32.load_state_dict(state.model.state_dict())
+    c32.load_state_dict(state.classifier.state_dict())
+    for mod, src in ((m32, state.model), (c32, state.classifier)):
+        for name, p in mod.named_parameters():
+            p.requires_grad_(dict(src.named_parameters())[name].requires_grad)
+    compare[torch.float32] = hold_backends(loss_and_grads_of(m32, c32, torch.float32, True),
+                                           torch.float32, "downstream (head on batch statistics)",
+                                           "trainable")
+    del m32, c32
+    torch.cuda.empty_cache()
+
+    # The main path: the fine-tune epoch, one eval batch, then the lock and LoRA
+    # epochs; every kernel count is 0 just before each and read just after.
+    log = logging.getLogger("chip_smoke.downstream")
+    snap = lambda s: {f"{m}.{k}": v.detach().clone()
+                      for m, mod in (("model", s.model), ("classifier", s.classifier))
+                      for k, v in mod.state_dict().items()}
+
+    def epoch(s, label, data, per):
+        before = snap(s)
+        zero_launches()
+        t = time.perf_counter()
+        s, stats = downstream_engine.train_one_epoch(
+            s.config, s, downstream_engine.make_train_step(s.config), data, 0, 0, 1, logger=log)
+        torch.cuda.synchronize()
+        got = launches()
+        after = snap(s)
+        moved = {k for k in before if not torch.equal(before[k], after[k])}
+        want_moved = {f"{m}.{k}" for m, mod in (("model", s.model),
+                                               ("classifier", s.classifier))
+                      for k, p in mod.named_parameters() if p.requires_grad}
+        want_moved |= {k for k in before if k.endswith(("running_mean", "running_var"))}
+        want = {k: per.get(k, 0) * len(data) for k in got}
+        check(math.isfinite(stats["loss"]) and stats["steps"] == len(data),
+              f"downstream {label}: loss {stats.get('loss')} over {stats['steps']} steps")
+        check(moved == want_moved, f"downstream {label}: moved {sorted(moved ^ want_moved)[:6]} "
+              "against the trainable set and the BatchNorm statistics")
+        check(got == want, f"downstream {label}: launches {got}; expected {want}")
+        frozen = len(before) - len(moved)
+        print(f"downstream {label}: train_one_epoch over {len(data)} batches of {batch} in "
+              f"{time.perf_counter() - t:.2f} s, mean loss {stats['loss']:.6f}; "
+              f"{len(moved)} tensors moved (every trainable one and the BatchNorm statistics), "
+              f"{frozen} frozen ones bit-identical; launches {json.dumps(got)} = {per} per step, "
+              f"exactly | {card}", flush=True)
+        return s, stats, got
+
+    torch.cuda.reset_peak_memory_stats()
+    state, train_stats, runs_ft = epoch(state, "fine-tune", batches[:DOWNSTREAM_BATCHES],
+                                        per_step)
+    peak = torch.cuda.max_memory_allocated()
+    zero_launches()
+    val = downstream_engine.val_one_epoch(cfg, state, downstream_engine.make_eval_step(cfg),
+                                          batches[DOWNSTREAM_BATCHES:], logger=log)
+    runs_eval = launches()
+    check(math.isfinite(val["loss"]) and runs_eval == {k: per_eval.get(k, 0) for k in runs_eval},
+          f"downstream eval: loss {val.get('loss')}, launches {runs_eval}")
+    print(f"downstream: val_one_epoch over 1 batch: loss {val['loss']:.6f}, mean AUROC "
+          f"{val['mean_auroc']:.4f} (random labels: no bound); launches {json.dumps(runs_eval)} "
+          f"= {per_eval} per batch, exactly; peak memory {peak / 2**30:.2f} GiB over the "
+          f"fine-tune epoch (torch.cuda.max_memory_allocated) | {card}", flush=True)
+
+    # Step time: host clock around synchronised steps (warm), then the breakdown.
+    step = downstream_engine.make_train_step(cfg)
+    wire = torch.from_numpy(batches[0][0]).to(dev)
+    target = torch.from_numpy(batches[0][1]).to(dev)
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, wire, target, 0)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+    decisions = draw_mae_augment(batch, g, dev)
+    prep = lambda: apply_mae_augment(wire_to_compute(wire, cfg, in_chans), decisions)
+    prep_ms = cuda_ms(prep, iters=5, warmup=1)
+    vols = prep()
+    model, classifier = state.model, state.classifier
+    model.train()
+    classifier.train()
+
+    def forward():
+        return F.cross_entropy(classifier(model(vols)[0][:, 0]).float(), target)
+
+    fwd_ms = cuda_ms(forward, iters=5, warmup=1)
+    fb_ms = cuda_ms(lambda: forward().backward(), iters=5, warmup=1)
+    opt_ms = {label: cuda_ms(opt.step, iters=5, warmup=1)
+              for label, opt in state.optimizers.items()}
+    for opt in state.optimizers.values():
+        opt.zero_grad(set_to_none=True)
+    print(f"downstream: median step {step_ms:.2f} ms over {len(times)} synchronised steps "
+          f"({', '.join(f'{t:.1f}' for t in times)}), {batch / step_ms * 1e3:.2f} volumes/s; "
+          f"breakdown (CUDA events): window+augment {prep_ms:.2f} ms, forward with the head and "
+          f"the loss {fwd_ms:.2f} ms, backward {fb_ms - fwd_ms:.2f} ms (forward+backward "
+          f"{fb_ms:.2f}), AdamW model {opt_ms['model']:.2f} ms, AdamW classifier "
+          f"{opt_ms['classifier']:.2f} ms | {card}", flush=True)
+    profile_steps(lambda: step(state, wire, target, 0), step_ms)
+    del state, model, classifier, vols
+    torch.cuda.empty_cache()
+
+    runs_mode = {}
+    for label, extra, per in (("lock", ["TRAIN.LOCK", True], per_lock_step),
+                              ("lora", ["TRAIN.LORA", True], per_step)):
+        mode_cfg = downstream_config(extra)
+        s = downstream_engine.create_train_state(mode_cfg, total, 1, seed=0, device=dev)
+        s, _, runs_mode[label] = epoch(s, label, batches[:DOWNSTREAM_MODE_BATCHES], per)
+        del s
+        torch.cuda.empty_cache()
+    train = {k: runs_ft[k] + runs_mode["lock"][k] + runs_mode["lora"][k] for k in runs_ft}
+    return {"train": train, "eval": runs_eval, "compare": compare, "step_ms": step_ms,
+            "volumes_per_s": batch / step_ms * 1e3, "peak_bytes": peak,
+            "val_auroc": val["mean_auroc"]}
+
+
+def phase_downstream_cli(workdir: Path, card: str) -> dict:
+    """The downstream CLI end to end on the cli phase's heads and cache, with
+    cq500 label manifests: a fine-tune warm-started from the MAE cli run's
+    latest_ file, --lock --few_shots 4, and --lora --classifier attentive;
+    returns the B1 and B2 launches of its runs by path."""
+    from headct_foundation_tpu_torch.config import default_config
+    from headct_foundation_tpu_torch.engines import downstream_engine
+    from headct_foundation_tpu_torch.tools.cli_runs import write_label_manifest
+    from headct_foundation_tpu_torch.utils import checkpoint, torch_interop
+
+    cfg = downstream_config()
+    depth, name = int(cfg.VIT.NUM_LAYERS), cfg.MODEL.SAVE_NAME
+    scans = (workdir / "test.csv").read_text().splitlines()[1:]
+    manifests = {}
+    for i, split in enumerate(CLI_ROWS):
+        rows = (workdir / f"{split}.csv").read_text().splitlines()[1:]
+        manifests[split] = workdir / f"{split}_labels.csv"
+        write_label_manifest(manifests[split], rows, seed=i)
+    mae_cfg = default_config()
+    mae_cfg.merge_from_file(str(ROOT / MAE_CONFIG))
+    mae_latest = workdir / "model_saved" / f"latest_{mae_cfg.MODEL.SAVE_NAME}"
+    launches_by_path = {"cli training": {"flash_attention_fwd": 0, "flash_attention_bwd": 0},
+                        "cli eval": {"flash_attention_fwd": 0, "flash_attention_bwd": 0}}
+    for label, flags, per in (
+            ("fine-tune", ["--model_load_path", str(mae_latest)],
+             {"flash_attention_fwd": depth, "flash_attention_bwd": depth}),
+            ("lock-few-shot", ["--lock", "--few_shots", "4"], {"flash_attention_fwd": depth}),
+            ("lora-attentive", ["--lora", "--classifier", "attentive"],
+             {"flash_attention_fwd": depth, "flash_attention_bwd": depth})):
+        out = workdir / f"downstream_{label}"
+        out.mkdir()
+        opts = ["DATA.TRAIN_CSV_PATH", str(manifests["train"]),
+                "DATA.VAL_CSV_PATH", str(manifests["val"]),
+                "DATA.TEST_CSV_PATH", str(manifests["test"]),
+                "DATA.CACHE_DIR", str(workdir / "cache"), "MODEL.DIR", str(out / "saved"),
+                "LOG.OUTPUT_DIR", str(out / "log"), "OUTPUT", "", "TRAIN.VAL_EVERY", "1",
+                "TRAIN.MAX_EPOCHS", "2"]
+        log, result, wall = run_cli(
+            ["--cfg", str(ROOT / DOWNSTREAM_CONFIG), "--device", "cuda", "--dataset", "cq500",
+             "--label_name", "ICH", "--preds_save_name", label, *flags, "--opts", *opts],
+            f"downstream-cli {label}", module="main_downstream", cwd=out)
+        check(result["placeholders"] == 0,
+              f"downstream-cli {label}: {result['placeholders']} scans were placeholders")
+        losses = [e["train"]["loss"] for e in result["epochs"]] + [result["test"]["loss"]]
+        check(all(math.isfinite(x) for x in losses), f"downstream-cli {label}: losses {losses}")
+        got = check_cli_launches(result, f"downstream-cli {label}", per,
+                                 {"flash_attention_fwd": depth})
+        for path in launches_by_path:
+            for k in launches_by_path[path]:
+                launches_by_path[path][k] += got[path][k]
+        with open(out / "preds_pkl" / f"{label}_preds.pkl", "rb") as f:
+            preds = pickle.load(f)
+        check(preds["fnames"] == scans and len(preds["preds"]) == len(scans),
+              f"downstream-cli {label}: the predictions pickle does not list the test manifest")
+        # best_ restored beside the file: params and batch_stats bit for bit
+        best = out / "saved" / f"best_{name}"
+        payload = checkpoint.load_checkpoint(str(best))
+        mode_cfg = downstream_config(["TRAIN.LOCK", "--lock" in flags, "TRAIN.LORA",
+                                      "--lora" in flags, "TRAIN.CLASSIFIER",
+                                      "attentive" if "attentive" in label else "linear"])
+        state = downstream_engine.create_train_state(mode_cfg, 10, 1, seed=7, device="cuda")
+        state, epoch, _ = checkpoint.restore_downstream_state(state, payload)
+        params, stats = torch_interop.downstream_params_to_jax(state.model.state_dict(),
+                                                               state.classifier.state_dict())
+        want = dict(_leaves({"params": payload["params"], "batch_stats": payload["batch_stats"]}))
+        have = dict(_leaves({"params": params, "batch_stats": stats}))
+        differ = [k for k in want if k not in have or not np.array_equal(have[k], want[k])]
+        check(have.keys() == want.keys() and not differ,
+              f"downstream-cli {label}: best_ restored differs: {differ[:5]}")
+        del state
+        ws = result["warm_start"]
+        print(f"downstream-cli {label}: python -m headct_foundation_tpu_torch.main_downstream "
+              f"--cfg {DOWNSTREAM_CONFIG} {' '.join(flags)} exit 0 in {wall:.2f} s; epochs "
+              f"{[e['train']['steps'] for e in result['epochs']]} steps, train losses "
+              f"{[round(e['train']['loss'], 6) for e in result['epochs']]}, best val mean AUROC "
+              f"{result['best_val_mean_auroc']:.4f}, test loss {result['test']['loss']:.6f} mean "
+              f"AUROC {result['test'].get('mean_auroc', float('nan')):.4f} (random labels: no "
+              f"bound); 0 placeholders; launches {json.dumps(got)}; best_ ({best.stat().st_size / 2**20:.1f} "
+              f"MiB, epoch {epoch}) restored: {len(want)} params and batch_stats leaves equal bit "
+              f"for bit; predictions pickle of {len(scans)} rows; warm start "
+              f"{'none' if ws is None else str(ws['merged']) + ' merged, ' + str(ws['missing']) + ' missing, ' + str(ws['unexpected']) + ' unexpected'}"
+              f"; peak memory {(result['peak_memory_bytes'] or 0) / 2**30:.2f} GiB | {card}",
+              flush=True)
+        torch.cuda.empty_cache()
+    return launches_by_path
+
+
 # Libraries holding wgmma kernels -> instantiations ptxas must report: the
 # bf16 forward at 5 padded head dims x 2 copy widths and the float32 forward
 # at 5 (16-byte copies only) in each of B1's, B3's and B7's library; the dK/dV
@@ -1945,13 +2333,21 @@ def main() -> int:
     print(f"dino: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    downstream = phase_downstream(card)
+    print(f"downstream: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         cli = phase_cli(Path(tmp), card, train["volumes_per_s"])
         print(f"cli: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         dino_cli = phase_dino_cli(Path(tmp), card)  # the cli phase's heads and manifests
-    print(f"dino-cli: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
+        print(f"dino-cli: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        downstream_cli = phase_downstream_cli(Path(tmp), card)  # its heads, cache, MAE file
+    print(f"downstream-cli: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
     torch.cuda.empty_cache()
 
     blocked = ("flash_attention_blocked_fwd", "flash_attention_blocked_dkv",
@@ -1993,13 +2389,24 @@ def main() -> int:
                                 "dino eval": dino["eval"]["flash_attention_fwd"],
                                 "dino-cli training":
                                     dino_cli["cli training"]["flash_attention_fwd"],
-                                "dino-cli eval": dino_cli["cli eval"]["flash_attention_fwd"]},
+                                "dino-cli eval": dino_cli["cli eval"]["flash_attention_fwd"],
+                                "downstream training":
+                                    downstream["train"]["flash_attention_fwd"],
+                                "downstream eval": downstream["eval"]["flash_attention_fwd"],
+                                "downstream-cli training":
+                                    downstream_cli["cli training"]["flash_attention_fwd"],
+                                "downstream-cli eval":
+                                    downstream_cli["cli eval"]["flash_attention_fwd"]},
         "flash_attention_bwd": {"training": train["train"]["flash_attention_bwd"],
                                 "lion training": lion["train"]["flash_attention_bwd"],
                                 "cli training": cli["cli training"]["flash_attention_bwd"],
                                 "dino training": dino["train"]["flash_attention_bwd"],
                                 "dino-cli training":
-                                    dino_cli["cli training"]["flash_attention_bwd"]},
+                                    dino_cli["cli training"]["flash_attention_bwd"],
+                                "downstream training":
+                                    downstream["train"]["flash_attention_bwd"],
+                                "downstream-cli training":
+                                    downstream_cli["cli training"]["flash_attention_bwd"]},
         "flash_attention_blocked_fwd": {"stretch training": stretch["train"][blocked[0]],
                                         "stretch eval": stretch["eval"][blocked[0]]},
         "flash_attention_blocked_dkv": {"stretch training": stretch["train"][blocked[1]]},
@@ -2063,12 +2470,14 @@ def main() -> int:
                 "kernel_source": "headct_foundation_tpu_torch/csrc/flash_fwd_sm90.cuh",
                 **{k: fwd_mae[k] for k in timing_keys}},
             at_dino_student_shape=at(kernel_rows, DINO_STUDENT),
-            at_dino_teacher_shape=at(kernel_rows, DINO_TEACHER)),
+            at_dino_teacher_shape=at(kernel_rows, DINO_TEACHER),
+            at_downstream_shape=at(kernel_rows, DOWNSTREAM)),
         # bf16 B2 and B8 run the passes of the sm_90a header; their C entries are in the .cu
         row("flash_attention_bwd", "flash_bwd_sm90.cuh", 86, bwd_mae, MAE_DECODER,
             torch.bfloat16, entry="headct_foundation_tpu_torch/csrc/flash_attention_bwd.cu",
             **{k: bwd_mae[k] for k in ("ms_device", "library_ms_device")},
-            at_dino_student_shape=at(bwd_rows, DINO_STUDENT)),
+            at_dino_student_shape=at(bwd_rows, DINO_STUDENT),
+            at_downstream_shape=at(bwd_rows, DOWNSTREAM)),
         blocked_row(blocked[0], 256),
         blocked_row(blocked[1], 292),
         blocked_row(blocked[2], 342),

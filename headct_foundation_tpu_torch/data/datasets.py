@@ -1,10 +1,13 @@
 """Manifests, the disk cache of preprocessed scans and the threaded loader.
 
-Port of the JAX package's ``data/datasets.py`` for pretraining
-(reference: src/data/datasets.py):
+Port of the JAX package's ``data/datasets.py`` for pretraining and the
+downstream tasks (reference: src/data/datasets.py):
 
 * ``read_manifest``: a CSV manifest's rows with the standard ``csv``
-  module (the port does not need pandas).
+  module (the port does not need pandas); ``read_table`` its header and
+  rows, for the labels that the JAX package takes by column position.
+* ``CLASS_MAPPINGS`` / ``get_class_mapping`` (JAX ``:41-59``): each dataset's
+  label names and their column positions.
 * ``PackedShardReader`` / ``PackedCacheWriter`` (JAX ``:76``, ``:154``):
   the packed cache, volumes stored back to back in ``pack_*.bin`` shards
   indexed by ``pack_index*.json``, in the JAX package's file format.
@@ -26,6 +29,17 @@ Port of the JAX package's ``data/datasets.py`` for pretraining
   ``close`` stops and joins its threads.
 * ``get_pretrain_dataloaders`` (``:758``): train, val and test loaders of
   this process's rank.
+* ``FinetuneDataset`` (``:466``): manifest paths -> (wire tensor, label,
+  path), placeholders counted as ``PretrainDataset`` counts them.
+* ``weighted_indices`` (``:518``): each rank's 500 draws by weight with
+  replacement from ``RandomState(seed + 1000 epoch + rank)``.
+* ``get_finetune_dataloaders`` (``:795``): inverse-frequency weighted
+  sampling, class weights ``total / max(count, 1)``; the label is the
+  manifest column at ``CLASS_MAPPINGS``' position (JAX ``df.iloc[:,
+  class_idx]``). ``get_fewshots_dataloaders`` (``:847``): K rows per value
+  of the ``TRAIN.LABEL_NAME`` column, drawn with replacement as pandas'
+  ``groupby(...).sample(n=K, replace=True, random_state=SEED)`` draws them,
+  then shuffled per epoch and split ``rank::world``.
 
 Augmentation is not applied here: it runs on the device inside the train
 step (``data/augment.py``).
@@ -57,6 +71,36 @@ from headct_foundation_tpu_torch.data.transforms import (
 _PIPELINE_VERSION = "v1"  # the JAX package's; part of every cache key
 WIRE_FORMATS = ("windowed", "hu16", "hu8")
 log = logging.getLogger(__name__)
+
+
+# Label-column maps (reference: datasets.py:248-253): name -> column position
+CLASS_MAPPINGS = {
+    "nyu": {"cancer": 1, "hydrocephalus": 2, "edema": 3, "dementia": 4, "IPH": 5,
+            "IVH": 6, "SDH": 7, "EDH": 8, "SAH": 9, "ICH": 10, "fracture": 11},
+    "longisland": {"cancer": 1, "hydrocephalus": 2, "edema": 3, "dementia": 4,
+                   "IPH": 5, "IVH": 6, "SDH": 7, "EDH": 8, "SAH": 9, "ICH": 10,
+                   "fracture": 11},
+    "rsna": {"epidural": 1, "intraparenchymal": 2, "intraventricular": 3,
+             "subarachnoid": 4, "subdural": 5, "any": 6},
+    "cq500": {"ICH": 1, "IPH": 2, "IVH": 3, "SDH": 4, "EDH": 5, "SAH": 6,
+              "BleedLocation-Left": 7, "BleedLocation-Right": 8, "ChronicBleed": 9,
+              "Fracture": 10, "CalvarialFracture": 11, "OtherFracture": 12,
+              "MassEffect": 13, "MidlineShift": 14},
+}
+
+
+def get_class_mapping(dataset: str) -> Dict[str, int]:
+    if dataset not in CLASS_MAPPINGS:
+        raise ValueError(f"Unrecognized dataset: {dataset}")
+    return CLASS_MAPPINGS[dataset]
+
+
+def read_table(path: str) -> Tuple[List[str], List[List[str]]]:
+    """A CSV manifest's header and rows, in file order (blank lines skipped,
+    a UTF-8 byte-order mark dropped)."""
+    with open(path, newline="", encoding="utf-8-sig") as f:
+        rows = [r for r in csv.reader(f) if r]
+    return rows[0], rows[1:]
 
 
 def read_manifest(path: str) -> List[Dict[str, str]]:
@@ -362,6 +406,52 @@ class PretrainDataset:
         return vol, path
 
 
+class FinetuneDataset:
+    """Labelled scans: ``files[i]`` -> (wire tensor, label as a 0-d int64
+    array, path), the label from ``label_dict``. A scan that fails to load,
+    or loads with the wrong shape, gives the placeholder and label 0, as in
+    the JAX package; ``placeholders`` counts both."""
+
+    def __init__(self, config: Any, files: Sequence[str], label_dict: Dict[str, int],
+                 cache_dir: Optional[str] = None, device: Any = None):
+        self.files = list(files)
+        self.label_dict = label_dict
+        self.cache = DiskCache(cache_dir, config.MODEL.ROI, int(config.MODEL.IN_CHANS),
+                               wire=str(config.DATA.WIRE_FORMAT), device=device).prepare()
+        self.placeholder = self.cache.placeholder()
+        self.error_count = 0
+        self.placeholders = 0
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def __getitem__(self, idx: int) -> Tuple[np.ndarray, np.ndarray, str]:
+        path = self.files[idx]
+        try:
+            vol = self.cache.load(path)
+        except Exception as e:  # data-level fault tolerance (reference: datasets.py:70-96)
+            log.warning("error loading index %d (%s): %s", idx, path, e)
+            self.error_count += 1
+            self.placeholders += 1
+            return self.placeholder, np.asarray(0, np.int64), path
+        if vol.shape != self.cache.wire_shape:
+            log.warning("wrong shape in index %d (%s): %s", idx, path, vol.shape)
+            self.placeholders += 1
+            return self.placeholder, np.asarray(0, np.int64), path
+        return vol, np.asarray(int(self.label_dict[path]), np.int64), path
+
+
+def weighted_indices(weights: np.ndarray, num_samples: int, rank: int, seed: int = 0,
+                     epoch: int = 0) -> np.ndarray:
+    """DistributedWeightedRandomSampler's draws: ``num_samples`` indices with
+    replacement by weight, on each rank its own (reference:
+    datasets.py:298-305, 500 a rank an epoch)."""
+    p = np.asarray(weights, dtype=np.float64)
+    p = p / p.sum()
+    rng = np.random.RandomState(seed + 1000 * epoch + rank)
+    return rng.choice(len(p), size=num_samples, replace=True, p=p)
+
+
 def distributed_indices(n: int, rank: int, world: int, shuffle: bool, seed: int = 0,
                         epoch: int = 0) -> np.ndarray:
     """DistributedSampler's split: pad to a multiple of ``world`` with the
@@ -553,3 +643,100 @@ def get_pretrain_dataloaders(config: Any, rank: int = 0, world: int = 1, device:
 
     return (make(config.DATA.TRAIN_CSV_PATH), make(config.DATA.VAL_CSV_PATH),
             make(config.DATA.TEST_CSV_PATH))
+
+
+def _label_column(config: Any, header: List[str], rows: List[List[str]], path: str
+                  ) -> Tuple[List[str], np.ndarray]:
+    """(paths, labels) of a label manifest: the label is the column at
+    ``CLASS_MAPPINGS``' position for ``TRAIN.LABEL_NAME``."""
+    class_idx = get_class_mapping(config.DATA.DATASET)[config.TRAIN.LABEL_NAME]
+    if class_idx >= len(header):
+        raise ValueError(f"{path} has {len(header)} columns; the label {config.TRAIN.LABEL_NAME}"
+                         f" is column {class_idx}")
+    col = header.index("img_path")
+    return ([r[col] for r in rows],
+            np.asarray([int(float(r[class_idx])) for r in rows], dtype=np.int64))
+
+
+def _label_tables(config: Any) -> Dict[str, Tuple[List[str], List[List[str]]]]:
+    mapping = get_class_mapping(config.DATA.DATASET)
+    if config.TRAIN.LABEL_NAME not in mapping:
+        raise ValueError(f"Unknown label name {config.TRAIN.LABEL_NAME!r} for dataset "
+                         f"{config.DATA.DATASET!r}; choose one of {sorted(mapping)}")
+    return {split: read_table(getattr(config.DATA, f"{split.upper()}_CSV_PATH"))
+            for split in ("train", "val", "test")}
+
+
+def _labelled_loader(config: Any, paths: List[str], labels: np.ndarray,
+                     indices_fn: Callable[[int], np.ndarray], device: Any) -> ThreadedLoader:
+    ds = FinetuneDataset(config, paths, dict(zip(paths, labels.tolist())),
+                         cache_dir=config.DATA.CACHE_DIR, device=device)
+    return ThreadedLoader(ds, batch_size=int(config.DATA.BATCH_SIZE), indices_fn=indices_fn,
+                          num_workers=int(config.DATA.NUM_WORKERS))
+
+
+def _eval_loaders(config: Any, tables, rank: int, world: int, device: Any) -> list:
+    out = []
+    for split in ("val", "test"):
+        paths, labels = _label_column(config, *tables[split], split)
+        n = len(paths)
+        out.append(_labelled_loader(
+            config, paths, labels,
+            lambda epoch, n=n: distributed_indices(n, rank, world, False), device))
+    return out
+
+
+def get_finetune_dataloaders(config: Any, rank: int = 0, world: int = 1, device: Any = None
+                             ) -> Tuple[ThreadedLoader, ThreadedLoader, ThreadedLoader,
+                                        Optional[np.ndarray]]:
+    """Train loader of ``weighted_indices`` (500 draws a rank an epoch,
+    inverse-frequency weights), val and test loaders in manifest order split
+    ``rank::world``, and the class weights (reference: datasets.py:236-361)."""
+    tables = _label_tables(config)
+    paths, y = _label_column(config, *tables["train"], "train")
+    num_classes = int(config.DATA.NUM_CLASSES)
+    class_weights = None
+    if num_classes != 1:
+        counts = np.bincount(y, minlength=num_classes)
+        class_weights = np.array([len(y) / max(c, 1) for c in counts], dtype=np.float32)
+    sample_weights = class_weights[y] if class_weights is not None else np.ones(len(y))
+    seed = int(config.SEED)
+    train = _labelled_loader(
+        config, paths, y,
+        lambda epoch: weighted_indices(sample_weights, 500, rank, seed=seed, epoch=epoch), device)
+    return (train, *_eval_loaders(config, tables, rank, world, device), class_weights)
+
+
+def few_shot_rows(labels: Sequence, k: int, seed: int) -> np.ndarray:
+    """Row indices of ``k`` draws with replacement per label value, as pandas'
+    ``groupby(label).sample(n=k, replace=True, random_state=seed)`` takes
+    them: one ``RandomState(seed)``; the label values in sorted order; for
+    each, ``choice(count, k)`` into its rows in manifest order."""
+    rs = np.random.RandomState(seed)
+    labels = np.asarray(labels)
+    out = []
+    for value in np.unique(labels):
+        rows = np.flatnonzero(labels == value)
+        out.append(rows[rs.choice(len(rows), size=k, replace=True)])
+    return np.concatenate(out)
+
+
+def get_fewshots_dataloaders(config: Any, rank: int = 0, world: int = 1, device: Any = None
+                             ) -> Tuple[ThreadedLoader, ThreadedLoader, ThreadedLoader, None]:
+    """``DATA.FEW_SHOTS`` rows per class of the ``TRAIN.LABEL_NAME`` column
+    (``few_shot_rows``), shuffled per epoch from ``SEED`` and split
+    ``rank::world``; val and test as ``get_finetune_dataloaders``'
+    (reference: datasets.py:364-477)."""
+    tables = _label_tables(config)
+    header, rows = tables["train"]
+    if config.TRAIN.LABEL_NAME not in header:
+        raise ValueError(f"the train manifest has no {config.TRAIN.LABEL_NAME!r} column")
+    by_name = header.index(config.TRAIN.LABEL_NAME)
+    picked = few_shot_rows([int(float(r[by_name])) for r in rows], int(config.DATA.FEW_SHOTS),
+                           int(config.SEED))
+    paths, y = _label_column(config, header, [rows[i] for i in picked], "train")
+    n, seed = len(paths), int(config.SEED)
+    train = _labelled_loader(
+        config, paths, y,
+        lambda epoch: distributed_indices(n, rank, world, True, seed=seed, epoch=epoch), device)
+    return (train, *_eval_loaders(config, tables, rank, world, device), None)

@@ -16,7 +16,10 @@ Port of the JAX package's ``data/pipeline.py``:
   the step still reads it. The pinned buffers are a ring of ``depth + 2``; a
   buffer is rewritten only after the copy out of it has completed. An error
   in the producer re-raises in the consumer. On a CPU device the batches
-  pass through unchanged.
+  pass through unchanged. For the downstream loaders (JAX
+  ``downstream_engine.py:402-413 _wrap_loader``) ``device_fields=(0, 1)``
+  carries the integer targets to the card beside the volumes, and the
+  paths pass through.
 * ``measure_h2d_mbps`` (``:29``) times several chunked pinned copies onto
   the card, best of ``tries``; ``resolve_wire_format`` (``:47``) turns
   ``DATA.WIRE_FORMAT: auto`` into ``hu8`` below ``DATA.WIRE_AUTO_MBPS``, else
@@ -96,13 +99,15 @@ class _PinnedRing:
 class DevicePrefetcher:
     """Wrap an iterable of host batches (arrays, or tuples whose first field
     is the volume array, such as (volumes, paths)); yield the same structure
-    with the volume on ``device``. Tensors already on the device pass
-    through."""
+    with the volume on ``device``, and with it each field of a tuple batch
+    named in ``device_fields``. Tensors already on the device pass through."""
 
-    def __init__(self, loader: Any, device: torch.device, depth: int = 2):
+    def __init__(self, loader: Any, device: torch.device, depth: int = 2,
+                 device_fields: tuple = (0,)):
         self.loader = loader
         self.device = torch.device(device)
         self.depth = max(depth, 1)
+        self.device_fields = tuple(device_fields)
 
     @classmethod
     def wrap(cls, loader: Any, device: torch.device, **kw) -> "DevicePrefetcher":
@@ -124,13 +129,13 @@ class DevicePrefetcher:
         out_q: "queue.Queue" = queue.Queue(maxsize=self.depth)
         stop = threading.Event()
         copy_stream = torch.cuda.Stream(device)
-        ring = _PinnedRing(self.depth + 2)
+        rings = {i: _PinnedRing(self.depth + 2) for i in self.device_fields}
 
-        def place(vol):
-            """(device tensor, event of its copy) for one volume batch."""
-            if isinstance(vol, torch.Tensor) and vol.device == device:
-                return vol, None
-            slot, pinned = ring.take(vol.numpy() if isinstance(vol, torch.Tensor) else vol)
+        def place(arr, ring):
+            """(device tensor, event of its copy) for one field of a batch."""
+            if isinstance(arr, torch.Tensor) and arr.device == device:
+                return arr, None
+            slot, pinned = ring.take(arr.numpy() if isinstance(arr, torch.Tensor) else arr)
             with torch.cuda.stream(copy_stream):
                 dev = pinned.to(device, non_blocking=True)
                 done = torch.cuda.Event()
@@ -145,11 +150,15 @@ class DevicePrefetcher:
                     if stop.is_set():
                         return
                     if isinstance(batch, tuple):
-                        dev, done = place(batch[0])
-                        item = ((dev,) + batch[1:], dev, done)
+                        fields, devs, done = list(batch), [], None
+                        for i in self.device_fields:
+                            fields[i], done_i = place(batch[i], rings[i])
+                            devs.append(fields[i])
+                            done = done_i or done  # the last copy: the stream orders them
+                        item = (tuple(fields), devs, done)
                     else:
-                        dev, done = place(batch)
-                        item = (dev, dev, done)
+                        dev, done = place(batch, rings[0])
+                        item = (dev, [dev], done)
                     if not put_or_stop(out_q, item, stop):
                         return
             except Exception as e:  # re-raised in the consumer
@@ -166,11 +175,12 @@ class DevicePrefetcher:
                     break
                 if isinstance(item, Exception):
                     raise item
-                batch, dev, done = item
+                batch, devs, done = item
                 if done is not None:
                     consumer = torch.cuda.current_stream(device)
                     consumer.wait_event(done)
-                    dev.record_stream(consumer)
+                    for dev in devs:
+                        dev.record_stream(consumer)
                 yield batch
         finally:
             stop.set()

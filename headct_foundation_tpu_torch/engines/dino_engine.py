@@ -88,8 +88,15 @@ from headct_foundation_tpu_torch.optim.optimizers import (
 )
 from headct_foundation_tpu_torch.optim.schedules import get_momentum_schedule, get_wd_schedule
 from headct_foundation_tpu_torch.parallel import distributed
-from headct_foundation_tpu_torch.utils.checkpoint import save_checkpoint, wait_for_saves
+from headct_foundation_tpu_torch.utils.checkpoint import (
+    clone_opt_state,
+    clone_state_dict,
+    model_trees,
+    save_checkpoint,
+    wait_for_saves,
+)
 from headct_foundation_tpu_torch.utils.misc import profile_trace
+from headct_foundation_tpu_torch.utils.torch_interop import jax_tree_from_state_dict
 
 Draws = Sequence[Sequence[Dict[str, torch.Tensor]]]
 
@@ -120,20 +127,39 @@ class DINOTrainState:
     def norm_layer(self) -> str:
         return str(self.config.VIT.NORM_LAYER)
 
+    def snapshot(self) -> tuple:
+        """Device-side copies of the student, its optimizer state, the teacher
+        and the centre."""
+        with torch.no_grad():
+            return (clone_state_dict(self.student), clone_opt_state(self.optimizer),
+                    clone_state_dict(self.teacher), self.center.detach().clone())
+
+    def jax_trees(self, step: int, snapshot: Optional[tuple] = None) -> Dict[str, Any]:
+        """The checkpoint's ``params``, ``opt_state`` and the JAX DINO trainer's
+        extras (of ``snapshot``, taken at update ``step``, when given)."""
+        params, opt, teacher, center = snapshot or (None, None, self.teacher.state_dict(),
+                                                    self.center)
+        # the heads' BatchNorm statistics: none, the BatchNorm head is not ported
+        return {**model_trees(self, step, params, opt),
+                "momentum_model_state_dict": jax_tree_from_state_dict(teacher, self.norm_layer),
+                "center": center.detach().cpu().numpy(), "head_stats": {},
+                "teacher_head_stats": {}}
+
     def last_layer_group(self) -> dict:
         """The optimizer group of the head's trainable last-layer tensors."""
         return self.optimizer.param_groups[1]
 
 
-def build_vit_model(config, dtype: torch.dtype = torch.bfloat16) -> ViT:
-    """The ViT backbone from config keys (reference: main_pretrain_dino.py:110-145)."""
+def build_vit_model(config, dtype: torch.dtype = torch.bfloat16, lora: bool = False) -> ViT:
+    """The ViT backbone from config keys (reference: main_pretrain_dino.py:110-145);
+    ``lora`` adds the downstream adapters (JAX ``:71-91``)."""
     v = config.VIT
     return ViT(in_chans=v.IN_CHANS, img_size=v.INPUT_SIZE, patch_size=v.PATCH_SIZE,
                hidden_size=v.HIDDEN_SIZE, mlp_dim=v.MLP_DIM, num_layers=v.NUM_LAYERS,
                num_heads=v.NUM_HEADS, pos_embed=v.POS_EMBED, classification=False,
                num_register_tokens=v.NUM_REGISTER_TOKENS, qkv_bias=v.USE_BIAS,
                norm_layer=v.NORM_LAYER, dropout_rate=v.DROPOUT_RATE,
-               remat=bool(config.PARALLEL.REMAT), dtype=dtype)
+               remat=bool(config.PARALLEL.REMAT), lora=lora, dtype=dtype)
 
 
 def build_dino_head(config, dtype: torch.dtype = torch.bfloat16) -> DINOHead:
@@ -167,8 +193,12 @@ def create_train_state(
 ) -> DINOTrainState:
     """Student, teacher, optimizer, schedules and centre on ``device``
     (default cuda). Raises NotImplementedError for FSDP/TENSOR/SEQ/PIPE above
-    1 and for the BatchNorm head."""
+    1, for the BatchNorm head and for a backbone dropout above 0 (the DINO
+    step does not draw dropout masks)."""
     refuse_unported_axes(config)
+    if config.VIT.DROPOUT_RATE:
+        raise NotImplementedError("VIT.DROPOUT_RATE > 0 in DINO pretraining is not ported; "
+                                  "the shipped DINO config uses rate 0")
     device = resolve_device(device)
     set_pallas_min_t(config.PARALLEL.PALLAS_MIN_T)
     g = torch.Generator().manual_seed(seed)

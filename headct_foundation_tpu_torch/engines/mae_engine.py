@@ -69,7 +69,13 @@ from headct_foundation_tpu_torch.ops.attention import set_pallas_min_t
 from headct_foundation_tpu_torch.optim.lr_sched import Schedule, get_lr_schedule
 from headct_foundation_tpu_torch.optim.optimizers import clip_by_per_param_norm, get_optimizer
 from headct_foundation_tpu_torch.parallel import distributed
-from headct_foundation_tpu_torch.utils.checkpoint import save_checkpoint, wait_for_saves
+from headct_foundation_tpu_torch.utils.checkpoint import (
+    clone_opt_state,
+    clone_state_dict,
+    model_trees,
+    save_checkpoint,
+    wait_for_saves,
+)
 from headct_foundation_tpu_torch.utils.misc import profile_trace
 
 LOSS_FLUSH = 8  # steps between batched loss fetches (see train_one_epoch)
@@ -91,6 +97,15 @@ class TrainState:
     @property
     def norm_layer(self) -> str:  # the checkpoint's parameter naming reads it
         return str(self.config.MAE.NORM_LAYER)
+
+    def snapshot(self) -> tuple:
+        """Device-side copies of the parameters and the optimizer state."""
+        return clone_state_dict(self.model), clone_opt_state(self.optimizer)
+
+    def jax_trees(self, step: int, snapshot: Optional[tuple] = None) -> Dict[str, Any]:
+        """The checkpoint's ``params`` and ``opt_state`` (of ``snapshot``, taken
+        at update ``step``, when given)."""
+        return model_trees(self, step, *(snapshot or (None, None)))
 
 
 def build_mae_model(config, dtype: torch.dtype = torch.bfloat16) -> MaskedAutoencoderViT:

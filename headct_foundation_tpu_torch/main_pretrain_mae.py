@@ -61,11 +61,9 @@ from headct_foundation_tpu_torch.utils.torch_interop import (
 )
 
 
-def parse_option(argv: Optional[List[str]] = None,
-                 description: str = "MAE 3D pretraining (PyTorch)"):
-    """The JAX mains' flags (the DINO main's too: ``--dist-backend`` and
-    ``--dist-url`` are accepted and unused, as ``--local_rank``), and
-    ``--device``."""
+def base_parser(description: str) -> argparse.ArgumentParser:
+    """The JAX mains' common flags (``--dist-backend`` and ``--dist-url`` are
+    accepted and unused, as ``--local_rank``), and ``--device``."""
     parser = argparse.ArgumentParser(description, add_help=False)
     parser.add_argument("--cfg", type=str, required=True, metavar="FILE",
                         help="path to config file")
@@ -96,6 +94,13 @@ def parse_option(argv: Optional[List[str]] = None,
     parser.add_argument("--train_csv_path", type=str)
     parser.add_argument("--val_csv_path", type=str)
     parser.add_argument("--test_csv_path", type=str)
+    return parser
+
+
+def parse_option(argv: Optional[List[str]] = None,
+                 description: str = "MAE 3D pretraining (PyTorch)"):
+    """The pretraining mains' flags (``base_parser``)."""
+    parser = base_parser(description)
     args, _ = parser.parse_known_args(argv)
     return args, get_config(args)
 
@@ -180,6 +185,14 @@ def prepare_run(config, device: torch.device, logger) -> Dict[str, Any]:
             "num_warmup_steps": num_warmup_steps}
 
 
+def count_placeholders(loaders, device: torch.device) -> int:
+    """Scans served as placeholders over ``loaders`` and every rank."""
+    placeholders = torch.tensor(float(sum(loader.dataset.placeholders for loader in loaders)),
+                                device=device)
+    distributed.all_reduce_mean_([placeholders])
+    return round(placeholders.item() * distributed.world())
+
+
 def finish_run(run: Dict[str, Any], device: torch.device, start_epoch: int,
                history: List[Dict[str, Any]], best_loss: float,
                test_stats: Dict[str, Any]) -> Dict[str, Any]:
@@ -189,15 +202,11 @@ def finish_run(run: Dict[str, Any], device: torch.device, start_epoch: int,
     train_loader, val_loader, test_loader = run["loaders"]
     for loader in (val_loader, test_loader):
         loader.close()
-    world = run["world"]
-    placeholders = torch.tensor(float(sum(loader.dataset.placeholders for loader in
-                                          (train_loader, val_loader, test_loader))),
-                                device=device)
-    distributed.all_reduce_mean_([placeholders])
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
-    return {"device": str(device), "world": world, "start_epoch": start_epoch,
+    return {"device": str(device), "world": run["world"], "start_epoch": start_epoch,
             "epochs": history, "best_val_loss": best_loss, "test": test_stats,
-            "placeholders": round(placeholders.item() * world), "peak_memory_bytes": peak}
+            "placeholders": count_placeholders(run["loaders"], device),
+            "peak_memory_bytes": peak}
 
 
 def create_state(config, run: Dict[str, Any], device):
@@ -230,11 +239,12 @@ def main(config, device: torch.device, logger, wandb_run=None) -> Dict[str, Any]
     return finish_run(run, device, start_epoch, history, best_loss, test_stats)
 
 
-def run_cli(argv: Optional[List[str]], main_fn, description: str) -> Dict[str, Any]:
-    """Parse, start the process group, log, write ``config.json`` and run
-    ``main_fn(config, device, logger, wandb_run)``; rank 0 prints its result
-    as one JSON line ``{"cli": ...}``."""
-    args, config = parse_option(argv, description)
+def run_cli(argv: Optional[List[str]], main_fn, description: str,
+            parse=parse_option) -> Dict[str, Any]:
+    """Parse (``parse(argv, description)``), start the process group, log,
+    write ``config.json`` and run ``main_fn(config, device, logger,
+    wandb_run)``; rank 0 prints its result as one JSON line ``{"cli": ...}``."""
+    args, config = parse(argv, description)
     device = resolve_run_device(args.device)  # this process's card, before NCCL starts
     distributed.init_from_env(device.type, int(config.PARALLEL.DATA))
     try:

@@ -13,9 +13,9 @@ weight-normalised last Linear onto the prototypes.
   ``nn.Sequential`` with GELU between them), the names the JAX package's
   ``tree_to_torch`` gives ``mlp_0``, ``mlp_1``, ...; parameters are float32,
   computed in ``dtype``.
-* ``use_bn=True`` (the BatchNorm head) raises NotImplementedError: it waits
-  for the port of the JAX package's ``TorchBatchNorm``. The shipped config
-  sets ``DINO.USE_BN: False``.
+* ``use_bn=True`` (the BatchNorm head) raises NotImplementedError (ROADMAP
+  A.10: the head's BatchNorm layers, their statistics in the DINO state and
+  checkpoints). The shipped config sets ``DINO.USE_BN: False``.
 """
 
 from __future__ import annotations
@@ -56,8 +56,8 @@ class DINOHead(nn.Module):
         super().__init__()
         if use_bn:
             raise NotImplementedError(
-                "DINO.USE_BN: True (the BatchNorm head) is not ported yet; it waits for the "
-                "port of TorchBatchNorm (ROADMAP A.6). Set DINO.USE_BN: False")
+                "DINO.USE_BN: True (the BatchNorm head) is not ported yet (ROADMAP A.10). "
+                "Set DINO.USE_BN: False")
         self.norm_last_layer = norm_last_layer  # read by the engine's trainable mask
         nlayers = max(nlayers, 1)
         dims = [in_dim] + [hidden_dim] * (nlayers - 1) + [bottleneck_dim]

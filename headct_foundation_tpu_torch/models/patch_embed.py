@@ -11,6 +11,10 @@ Parameters stay float32; ``dtype`` is the compute dtype that patches,
 weight, bias and position embedding are cast to, as flax's ``dtype`` /
 ``param_dtype`` (JAX ``models/patch_embed.py:120-135``).
 
+Dropout (JAX ``:115,137``) follows the position embedding in ``train()``
+mode at a rate above 0, its mask drawn from the ``generator`` handed to
+``forward``.
+
 The weight is stored in the reference's Conv3d layout,
 ``patch_embeddings.weight`` [O, C, ph, pw, pd], so reference and exported
 checkpoints load by name, and is folded to [(ph pw pd C), O] at use.
@@ -18,12 +22,13 @@ checkpoints load by name, and is folded to [(ph pw pd C), O] at use.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from headct_foundation_tpu_torch.models.layers import dropout
 from headct_foundation_tpu_torch.models.pos_embed import build_sincos_position_embedding
 
 
@@ -62,10 +67,8 @@ class PatchEmbeddingBlock(nn.Module):
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        if dropout_rate:
-            raise NotImplementedError(
-                "dropout is not ported yet (ROADMAP A); every shipped config uses rate 0")
         self.dtype = dtype
+        self.dropout_rate = dropout_rate
         for m, p in zip(img_size, patch_size):
             if m < p:
                 raise ValueError("patch_size should be smaller than img_size")
@@ -89,7 +92,8 @@ class PatchEmbeddingBlock(nn.Module):
         else:
             raise ValueError(f"pos_embed type {pos_embed} not supported")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         """[B, C, H, W, D] -> [B, L, hidden]."""
         if tuple(x.shape[2:]) != self.img_size:
             raise ValueError(
@@ -103,4 +107,4 @@ class PatchEmbeddingBlock(nn.Module):
         tokens = tokens + self.patch_embeddings.bias.to(dt)
         if self.position_embeddings is not None:
             tokens = tokens + self.position_embeddings.to(dt)
-        return tokens
+        return dropout(tokens, self.dropout_rate if self.training else 0.0, generator)

@@ -9,8 +9,11 @@ output -> final norm (eps 1e-6) -> optional Tanh classification head.
 Parameters are float32; ``dtype`` is the compute dtype (float32 for serving,
 bfloat16 for DINO training, as the JAX engine's ``build_vit_model``), cast
 at use as in ``models/mae.py``. ``remat`` (``PARALLEL.REMAT``) recomputes the
-MLP half of every block in the backward (JAX ``models/vit.py:102-117``). A
-``dropout_rate`` above 0 raises, as everywhere in the port.
+MLP half of every block in the backward (JAX ``models/vit.py:102-117``).
+``lora`` adds the rank-128 adapters on q and v of every block (the
+downstream ``TRAIN.LORA``). Dropout at ``dropout_rate`` runs after the patch
+embedding and in every block in ``train()`` mode, its masks drawn from the
+``generator`` handed to ``forward``; ``eval()`` is deterministic.
 
 Parameter names are the reference torch names that the JAX package's
 ``tree_to_torch`` emits (``blocks.3.attn.qkv.weight``, ``cls_token``, ...),
@@ -50,6 +53,7 @@ class ViT(nn.Module):
         norm_layer: str = "layernorm",
         dropout_rate: float = 0.0,
         remat: bool = False,
+        lora: bool = False,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
@@ -80,7 +84,7 @@ class ViT(nn.Module):
         self.blocks = nn.ModuleList(
             AttentionBlock(hidden_size, mlp_dim, num_heads, qkv_bias=qkv_bias,
                            norm_layer=norm_layer, dropout_rate=dropout_rate,
-                           remat_mlp=remat, dtype=dtype)
+                           remat_mlp=remat, lora=lora, dtype=dtype)
             for _ in range(num_layers)
         )
         self.norm = make_norm(norm_layer, hidden_size, eps=1e-6)
@@ -92,7 +96,8 @@ class ViT(nn.Module):
         """Random init drawn from ``generator``, following the JAX package's
         initializers: xavier-uniform Linear weights, zero biases, truncated
         normal (std 0.02) patch and learnable position embeddings, unit norms,
-        zero CLS/register tokens. The sincos embedding stays fixed."""
+        zero CLS/register tokens, LoRA's A from N(0, 1) and B zero. The
+        sincos embedding stays fixed."""
         for mod in self.modules():
             if isinstance(mod, nn.Linear):
                 bound = math.sqrt(6.0 / (mod.in_features + mod.out_features))
@@ -106,10 +111,15 @@ class ViT(nn.Module):
         if pe.position_embeddings is not None and pe.position_embeddings.requires_grad:
             nn.init.trunc_normal_(pe.position_embeddings, std=0.02, a=-0.04, b=0.04,
                                   generator=generator)
+        for blk in self.blocks:
+            if blk.attn.lora_q is not None:
+                blk.attn.lora_q.init_weights(generator)
+                blk.attn.lora_v.init_weights(generator)
         return self
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-        x = self.patch_embedding(x)
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        x = self.patch_embedding(x, generator)
         B = x.shape[0]
         tokens = [self.cls_token.to(x.dtype).expand(B, -1, -1)]
         if self.register_tokens is not None:
@@ -119,7 +129,7 @@ class ViT(nn.Module):
 
         hidden_states_out: List[torch.Tensor] = []
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, generator)
             hidden_states_out.append(x)
         x = self.norm(x)
 

@@ -4,29 +4,49 @@
         [--config configs/dino/dino_HeadCT.yaml]
 
 Writes 32 synthetic head scans (``tools/cli_runs.py``, 0.5 x 0.5 x 1.0 mm)
-and manifests, then runs the pretraining CLI of ``--config``'s ``MODEL.NAME``
-(``cli_runs.PRETRAIN_CLIS``: the MAE's on ``configs/mae/mae_HeadCT.yaml`` by
-default, or DINO's on ``configs/dino/dino_HeadCT.yaml``, whose first epoch
-keeps the last layer frozen) for one epoch of 2 steps twice: under
-``torch.distributed.run`` with ``--nproc`` processes at batch 64 / nproc
-each (one card a process, NCCL), and as one process at batch 64. The
-loader gives rank r the rows r::nproc, and the step draws the global
-batch's randomness and takes the rank's rows, so the one-process run reads
-its manifests reordered to the ranks' concatenation: both runs then train
-on the same global batches with the same noise and augmentations.
+and manifests, then runs the CLI of ``--config``'s ``MODEL.NAME`` (``CLIS``:
+the MAE's on ``configs/mae/mae_HeadCT.yaml`` by default, DINO's on
+``configs/dino/dino_HeadCT.yaml``, whose first epoch keeps the last layer
+frozen, or the downstream main on ``configs/downstream/vit_HeadCT_cq500.yaml``)
+for one epoch of 2 steps twice: under ``torch.distributed.run`` with
+``--nproc`` processes at batch 64 / nproc each (one card a process, NCCL),
+and as one process at batch 64. Each ``CLIS`` entry says how its CLI is run:
+
+* the pretraining loaders give rank r the rows r::nproc, and their steps
+  draw the global batch's randomness and take the rank's block of rows, so
+  the one-process run reads its manifests reordered to the ranks'
+  concatenation: both runs then train on the same global batches with the
+  same noise and augmentations; the ``latest_`` checkpoints are compared;
+* the downstream main runs few-shot (64 draws per class of cq500 label
+  manifests: 2 steps of 64), whose sampler splits one permutation
+  ``rank::world`` and whose step gives rank r the rows r::world of the
+  global batch's augmentations: both runs read the same manifests; the
+  ``best_`` checkpoints are compared. Its BatchNorm statistics are the
+  global batch's. It computes in float32 (``python -m
+  headct_foundation_tpu_torch.tools.check_data_parallel --float32-downstream
+  <the main's flags>`` is ``main_downstream.run(argv, dtype=torch.float32)``):
+  in bf16 the head's train-mode BatchNorm over alike random-init CLS
+  features turns the per-rank and whole-batch products' different bf16
+  roundings into the signal, and N processes and one fail these limits by
+  far (four cards did, as two and four gloo processes do on the CPU).
 
 Held: the train, val and test losses within ``LOSS_REL`` relative, every
 (student) parameter's update within ||du_N - du_1|| / ||du_1|| <= ``UPDATE_REL``
-(without the key third of each qkv bias: its gradient is rounding noise
-that AdamW scales to +-lr), and no scan served as a placeholder. One
+(without the key third of each qkv bias and the downstream
+``ROUNDING_ONLY`` tensors: their gradient is rounding noise that AdamW
+scales to +-lr), and no scan served as a placeholder. One
 program in two layouts differs only by the order of its sums in bf16, which
 AdamW's first steps amplify in small-gradient elements: the limits are the
 readings of four cards (PERF.md) with margin. Planted in the CPU's
 two-process test (PERF.md), a gradient left unaveraged moved the updates by
 0.49 (median tensor) to 0.92, and a loss left unaveraged (rank 0's own) moved
-the loss by 6.0e-3 and 2.5e-2 at the two steps. Prints
-each run's seconds, the differences and one JSON line; exits 1 when a check
-fails.
+the loss by 6.0e-3 and 2.5e-2 at the two steps. A third run, one process
+with the plain attention (``PARALLEL.PALLAS_MIN_T`` above every sequence),
+gives the same differences against the one-process run as the rounding
+floor of the configuration: what a change of rounding alone moves (printed
+and in the JSON line as ``floor``, not held; DINO has none, its plain
+attention does not fit at batch 64). Prints each run's seconds, the
+differences and one JSON line; exits 1 when a check fails.
 """
 
 from __future__ import annotations
@@ -37,22 +57,25 @@ import json
 import socket
 import sys
 import tempfile
+from dataclasses import dataclass
 from pathlib import Path
+from typing import Callable, Tuple
 
 import torch
 
 from headct_foundation_tpu_torch.optim.optimizers import without_key_bias
 from headct_foundation_tpu_torch.tools.cli_runs import (
-    PRETRAIN_CLIS,
     ROOT,
     card_lines,
     run_cli,
+    write_label_manifest,
     write_scans,
 )
 
 CONFIG = "configs/mae/mae_HeadCT.yaml"
 BATCH, STEPS, SCANS = 64, 2, 32
 LOSS_REL, UPDATE_REL = 1e-4, 5e-2
+PLAIN_MIN_T = 1 << 20  # PARALLEL.PALLAS_MIN_T above every T: the plain attention
 
 
 def interleaved(rows: list, nproc: int, batch: int) -> list:
@@ -71,16 +94,88 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def flat_params(params: dict) -> dict:
+    """name -> tensor of a checkpoint's parameter tree; a downstream tree's
+    ``model`` and ``classifier`` under those prefixes."""
+    from headct_foundation_tpu_torch.utils import torch_interop
+
+    if set(params) == {"model", "classifier"}:
+        return {f"{top}.{k}": v for top in params
+                for k, v in torch_interop.state_dict_from_jax(params[top]).items()}
+    return torch_interop.state_dict_from_jax(params)
+
+
 def updates(before: dict, path: Path) -> dict:
     """name -> parameter update since ``before``, from a checkpoint."""
-    from headct_foundation_tpu_torch.utils import checkpoint, torch_interop
+    from headct_foundation_tpu_torch.utils import checkpoint
 
-    after = torch_interop.state_dict_from_jax(checkpoint.load_checkpoint(str(path))["params"])
+    after = flat_params(checkpoint.load_checkpoint(str(path))["params"])
     return {name: without_key_bias(name, p.float() - before[name].float())
             for name, p in after.items()}
 
 
+def differences(run: tuple, reference: tuple) -> tuple:
+    """({train, val, test}_loss_rel, {tensor: relative update difference}) of
+    ``run`` against ``reference``, each (CLI result, seconds, updates)."""
+    from headct_foundation_tpu_torch.engines.downstream_engine import ROUNDING_ONLY
+
+    (a, _, du_a), (b, _, du_b) = run, reference
+    losses = {"train": (a["epochs"][0]["train"]["loss"], b["epochs"][0]["train"]["loss"]),
+              "val": (a["epochs"][0]["val"]["loss"], b["epochs"][0]["val"]["loss"]),
+              "test": (a["test"]["loss"], b["test"]["loss"])}
+    rels = {k: float((du_a[k] - du_b[k]).norm() / du_b[k].norm())
+            for k in du_b if du_b[k].norm() > 0 and k not in ROUNDING_ONLY}
+    return {f"{k}_loss_rel": abs(x - y) / abs(y) for k, (x, y) in losses.items()}, rels
+
+
+def float32_downstream(argv) -> None:
+    """The downstream main, computing in float32."""
+    from headct_foundation_tpu_torch import main_downstream
+
+    main_downstream.run(argv, dtype=torch.float32)
+
+
+def pretrain_manifests(path_n: Path, path_1: Path, rows: list, nproc: int, seed: int) -> None:
+    """Image lists: the N-process run's in order, the one-process run's
+    reordered to the ranks' concatenated global batches."""
+    for path, order in ((path_n, rows), (path_1, interleaved(rows, nproc, BATCH))):
+        path.write_text("img_path\n" + "".join(f"{x}\n" for x in order))
+
+
+def label_manifests(path_n: Path, path_1: Path, rows: list, nproc: int, seed: int) -> None:
+    """The same cq500 label manifest for both runs."""
+    for path in (path_n, path_1):
+        write_label_manifest(path, rows, seed=seed)
+
+
+@dataclass(frozen=True)
+class Cli:
+    """How the tool runs one CLI main."""
+    module: str                # headct_foundation_tpu_torch.<module>: create_state
+    run: Tuple[str, ...]       # the module the processes run, and its leading arguments
+    opts: Tuple[str, ...]      # config options beyond the common ones
+    manifests: Callable        # (path_n, path_1, rows, nproc, seed): the split's manifests
+    checkpoint: str            # the prefix of the checkpoint whose parameters are compared
+    floor: bool = True         # run the rounding floor (one process, plain attention)
+
+
+CLIS = {  # MODEL.NAME -> its CLI
+    "mae": Cli("main_pretrain_mae", ("main_pretrain_mae",), (), pretrain_manifests, "latest_"),
+    # no floor: the plain attention's [256,12,517,517] scores do not fit on 80 GB at batch 64
+    "dino": Cli("main_pretrain_dino", ("main_pretrain_dino",), (), pretrain_manifests,
+                "latest_", floor=False),
+    "vit": Cli("main_downstream", ("tools.check_data_parallel", "--float32-downstream"),
+               # 2 steps of 64: few-shot, the same global batches on N processes and one
+               ("DATA.FEW_SHOTS", str(BATCH * STEPS // 2), "DATA.DATASET", "cq500",
+                "TRAIN.LABEL_NAME", "ICH"), label_manifests, "best_"),
+}
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--float32-downstream"]:
+        float32_downstream(argv[1:])
+        return 0
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--nproc", type=int, default=4)
@@ -96,11 +191,10 @@ def main(argv=None) -> int:
 
     cfg = default_config()
     cfg.merge_from_file(str(ROOT / args.config))
-    module = PRETRAIN_CLIS[str(cfg.MODEL.NAME)]
-    cli = importlib.import_module(f"headct_foundation_tpu_torch.{module}")
-    init = cli.create_state(cfg, {"total_steps": 10, "num_warmup_steps": 1, "niter_per_ep": 1},
-                            "cpu")
-    before = {k: v.clone() for k, v in init.model.state_dict().items()}
+    cli = CLIS[str(cfg.MODEL.NAME)]
+    init = importlib.import_module(f"headct_foundation_tpu_torch.{cli.module}").create_state(
+        cfg, {"total_steps": 10, "num_warmup_steps": 1, "niter_per_ep": 1}, "cpu")
+    before = flat_params(init.jax_trees(0)["params"])  # as the checkpoints name them
     del init
 
     (ROOT / "build").mkdir(exist_ok=True)
@@ -108,42 +202,42 @@ def main(argv=None) -> int:
         work = Path(tmp)
         scans = write_scans(work, range(1000, 1000 + SCANS))
         rows = {"train": scans * (BATCH // SCANS * STEPS), "val": scans * 2, "test": scans * 2}
-        for split, r in rows.items():
-            for name, order in ((f"{split}_n.csv", r),
-                                (f"{split}_1.csv", interleaved(r, args.nproc, BATCH))):
-                (work / name).write_text("img_path\n" + "".join(f"{x}\n" for x in order))
+        for i, (split, r) in enumerate(rows.items()):
+            cli.manifests(work / f"{split}_n.csv", work / f"{split}_1.csv", r, args.nproc, i)
 
         results = {}
-        for label, nproc in (("n", args.nproc), ("1", 1)):
+        runs = [("n", args.nproc, ()), ("1", 1, ())]
+        if cli.floor:
+            runs.append(("plain", 1, ("PARALLEL.PALLAS_MIN_T", str(PLAIN_MIN_T))))
+        for label, nproc, extra in runs:
+            manifests = "n" if nproc > 1 else "1"
             opts = ["DATA.BATCH_SIZE", str(BATCH // nproc), "DATA.CACHE_DIR", str(work / "cache"),
                     "MODEL.DIR", str(work / f"model_{label}"),
                     "LOG.OUTPUT_DIR", str(work / f"log_{label}"), "OUTPUT", "",
-                    "TRAIN.MAX_EPOCHS", "1", "TRAIN.VAL_EVERY", "1"]
+                    "TRAIN.MAX_EPOCHS", "1", "TRAIN.VAL_EVERY", "1", *cli.opts, *extra]
             for split in rows:
-                opts += [f"DATA.{split.upper()}_CSV_PATH", str(work / f"{split}_{label}.csv")]
+                opts += [f"DATA.{split.upper()}_CSV_PATH", str(work / f"{split}_{manifests}.csv")]
             launcher = (["-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
                          "--master_addr", "localhost", "--master_port", str(free_port())]
                         if nproc > 1 else [])
             _, result, seconds = run_cli(
-                ["--cfg", args.config, "--device", "cuda", "--opts", *opts],
-                f"{nproc} processes", launcher=launcher, module=module)
-            results[label] = result, seconds
+                [*cli.run[1:], "--cfg", str(ROOT / args.config), "--device", "cuda",
+                 "--opts", *opts],
+                f"{label}: {nproc} processes", launcher=launcher, module=cli.run[0],
+                cwd=work)  # the downstream tester writes preds_pkl/ there
+            save = work / f"model_{label}" / f"{cli.checkpoint}{cfg.MODEL.SAVE_NAME}"
+            results[label] = result, seconds, updates(before, save)
 
-        (n_res, n_s), (one, one_s) = results["n"], results["1"]
-        check = {}
-        for what, a, b in (("train", n_res["epochs"][0]["train"]["loss"],
-                            one["epochs"][0]["train"]["loss"]),
-                           ("val", n_res["epochs"][0]["val"]["loss"],
-                            one["epochs"][0]["val"]["loss"]),
-                           ("test", n_res["test"]["loss"], one["test"]["loss"])):
-            check[f"{what}_loss_rel"] = abs(a - b) / abs(b)
-        save = cfg.MODEL.SAVE_NAME
-        du_n = updates(before, work / "model_n" / f"latest_{save}")
-        du_1 = updates(before, work / "model_1" / f"latest_{save}")
-        rels = {k: float((du_n[k] - du_1[k]).norm() / du_1[k].norm())
-                for k in du_1 if du_1[k].norm() > 0}
+        (n_res, n_s, _), (one, one_s, _) = results["n"], results["1"]
+        check, rels = differences(results["n"], results["1"])
         worst = max(rels, key=rels.get)
-        placeholders = n_res["placeholders"] + one["placeholders"]
+        floor = None
+        if cli.floor:
+            losses, floor_rels = differences(results["plain"], results["1"])
+            floor_worst = max(floor_rels, key=floor_rels.get)
+            floor = {**losses, "worst_update_rel": floor_rels[floor_worst],
+                     "worst_update": floor_worst}
+        placeholders = sum(r[0]["placeholders"] for r in results.values())
         ok = (all(v <= LOSS_REL for v in check.values()) and rels[worst] <= UPDATE_REL
               and n_res["world"] == args.nproc and one["world"] == 1 and placeholders == 0)
     card = "; ".join(card_lines()[:args.nproc])
@@ -159,9 +253,15 @@ def main(argv=None) -> int:
           f"{', '.join(f'{k} {v:.3e}' for k, v in check.items())} (limit {LOSS_REL}); "
           f"parameter updates worst {worst} {rels[worst]:.3e} over {len(rels)} tensors "
           f"(limit {UPDATE_REL}); {placeholders} placeholders | {card}", flush=True)
+    if floor:
+        print(f"rounding floor: 1 process with the plain attention against 1 with the kernels: "
+              f"losses relative {', '.join(f'{k} {floor[k]:.3e}' for k in check)}; parameter "
+              f"updates worst {floor['worst_update']} {floor['worst_update_rel']:.3e} (not held) "
+              f"| {card}", flush=True)
     print(json.dumps({"ok": ok, "nproc": args.nproc, "config": args.config, "device": card,
                       **check,
                       "worst_update_rel": rels[worst], "worst_update": worst,
+                      "floor": floor,
                       "placeholders": placeholders, "seconds": {"n": n_s, "1": one_s}}),
           flush=True)
     return 0 if ok else 1

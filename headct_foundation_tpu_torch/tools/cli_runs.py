@@ -1,12 +1,14 @@
-"""Synthetic head scans and the pretraining CLIs in a subprocess.
+"""Synthetic head scans, label manifests and the CLIs in a subprocess.
 
-Shared by ``chip_smoke.py`` (its slice and ``cli`` phases) and
+Shared by ``chip_smoke.py`` (its slice and CLI phases) and
 ``tools/check_data_parallel.py``:
 
 * ``synthetic_scan``: a head-CT-like int16 volume in HU, made from a seed;
 * ``write_scans``: such volumes written as ``.nii.gz`` at a voxel spacing;
-* ``PRETRAIN_CLIS``: ``MODEL.NAME`` -> the pretraining CLI's module; each
-  module has ``main`` and ``create_state`` (the state it starts from);
+* ``write_label_manifest``: a cq500 label manifest in the dataset's full
+  column order (``img_path`` then its 14 labels, the downstream loaders
+  read the label by position and group the few-shot draws by name), random
+  0/1 labels from a seed with both classes of every column present;
 * ``run_cli``: ``python -m headct_foundation_tpu_torch.main_pretrain_mae``
   (or another ``module``, such as ``main_pretrain_dino``; under a launcher
   such as ``torch.distributed.run`` when one is given),
@@ -32,7 +34,9 @@ ROOT = Path(__file__).resolve().parent.parent.parent
 SCAN_SHAPE = (256, 256, 40)
 FINE_SPACING = (0.5, 0.5, 1.0)  # head CT's in-plane resolution, 1 mm slices
 CLI_TIMEOUT_S = 600
-PRETRAIN_CLIS = {"mae": "main_pretrain_mae", "dino": "main_pretrain_dino"}
+CQ500_COLUMNS = ("ICH", "IPH", "IVH", "SDH", "EDH", "SAH", "BleedLocation-Left",
+                 "BleedLocation-Right", "ChronicBleed", "Fracture", "CalvarialFracture",
+                 "OtherFracture", "MassEffect", "MidlineShift")
 
 
 def synthetic_scan(seed: int) -> np.ndarray:
@@ -63,16 +67,38 @@ def write_scans(workdir: Path, seeds: Sequence[int], spacing=FINE_SPACING,
     return paths
 
 
+def write_label_manifest(path: Path, paths: Sequence[str], seed: int) -> np.ndarray:
+    """``paths`` with random cq500 labels as a manifest at ``path``; returns
+    the labels [len(paths), 14]. A path that repeats keeps its first row's
+    labels (a scan has one label)."""
+    rng = np.random.RandomState(seed)
+    first = {}
+    for p in paths:
+        first.setdefault(p, rng.randint(0, 2, len(CQ500_COLUMNS)))
+    labels = np.stack([first[p] for p in paths])
+    for c in range(labels.shape[1]):  # both classes in every column
+        seen = {}
+        for p, v in zip(paths, labels[:, c]):
+            seen.setdefault(v, p)
+        if len(seen) < 2 and len(first) > 1:
+            other = next(p for p in first if p != paths[0])
+            first[other][c] = 1 - first[paths[0]][c]
+    labels = np.stack([first[p] for p in paths])
+    Path(path).write_text("img_path," + ",".join(CQ500_COLUMNS) + "\n" + "".join(
+        f"{p}," + ",".join(str(int(x)) for x in row) + "\n" for p, row in zip(paths, labels)))
+    return labels
+
+
 def run_cli(args: Sequence[str], label: str, launcher: Sequence[str] = (),
-            module: str = "main_pretrain_mae") -> Tuple[str, dict, float]:
+            module: str = "main_pretrain_mae", cwd: Path = ROOT) -> Tuple[str, dict, float]:
     """The CLI ``headct_foundation_tpu_torch.<module>`` with ``args`` in a
-    subprocess from the repository's root, at most ``CLI_TIMEOUT_S``;
-    ``launcher`` goes between the interpreter and ``-m``."""
+    subprocess from ``cwd`` (the repository's root), at most
+    ``CLI_TIMEOUT_S``; ``launcher`` goes between the interpreter and ``-m``."""
     cmd = [sys.executable, *launcher, "-m", f"headct_foundation_tpu_torch.{module}", *args]
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(x for x in (str(ROOT), env.get("PYTHONPATH")) if x)
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+    r = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True, text=True,
                        timeout=CLI_TIMEOUT_S)
     wall = time.perf_counter() - t0
     log = r.stdout + r.stderr

@@ -9,17 +9,25 @@ leaves (``utils/torch_interop.py`` maps the port's modules and optimizers
 to and from them). Either package reads the other's files.
 
 * ``save_checkpoint`` writes through a temporary file and ``os.replace``;
-  under data parallelism rank 0 writes and the others return. With
-  ``async_save`` the state is snapshotted on the device (a ``clone`` on the
-  trainer's stream, since the optimizer updates the parameters in place)
-  and one writer thread waits on a CUDA event recorded after the clones,
-  copies them to the host on a stream of its own and writes; at most one
-  write is in flight.
+  under data parallelism rank 0 writes and the others return. The state
+  gives the payload's trees itself: ``state.jax_trees(step, snapshot)``
+  (``engines/*_engine.py``) returns them in the JAX layout, of the live
+  state or of ``state.snapshot()``. With ``async_save`` the state is
+  snapshotted on the device (a ``clone`` on the trainer's stream, since the
+  optimizer updates the parameters in place) and one writer thread waits on
+  a CUDA event recorded after the clones, copies them to the host on a
+  stream of its own and writes; at most one write is in flight.
   ``wait_for_saves`` joins it and re-raises its error.
-* A DINO state (``engines/dino_engine.py``) adds the JAX DINO trainer's
-  extras (its ``:598-606``): ``momentum_model_state_dict`` (the teacher's
-  parameter tree), ``center``, ``head_stats`` and ``teacher_head_stats``
-  (empty: the BatchNorm head is not ported), snapshotted with the rest.
+* The MAE state's trees are ``params`` and ``opt_state`` (``model_trees``).
+  A DINO state adds the JAX DINO trainer's extras (its ``:598-606``):
+  ``momentum_model_state_dict`` (the teacher's parameter tree), ``center``,
+  ``head_stats`` and ``teacher_head_stats`` (empty: the BatchNorm head is
+  not ported). A downstream state's are the JAX downstream trainer's (its
+  ``:592-601``): ``params`` is ``{"model", "classifier"}``, ``opt_state``
+  the ``multi_transform`` state of its two optimizers
+  (``utils/torch_interop.py``), and ``batch_stats`` the classifier's
+  BatchNorm running statistics; ``restore_downstream_state`` fills one
+  back, bit for bit.
 * ``load_checkpoint`` unpickles through the restricted unpickler of
   ``utils/torch_interop.py``; ``restore_state`` fills the port's
   ``TrainState`` (the model, the optimizer state and ``step``) from such a
@@ -49,6 +57,8 @@ import torch
 from headct_foundation_tpu_torch.parallel import distributed
 from headct_foundation_tpu_torch.utils.torch_interop import (
     CheckpointDtypeError,
+    downstream_opt_state_from_jax,
+    downstream_state_dicts_from_jax,
     jax_tree_from_state_dict,
     load_native_pickle,
     opt_state_from_jax,
@@ -97,27 +107,31 @@ def wait_for_saves() -> None:
     _SAVER.wait()
 
 
-def _snapshot(state) -> Tuple[Dict[str, torch.Tensor], Dict[Any, Dict[str, torch.Tensor]]]:
-    """Device-side copies of the parameters and the optimizer state."""
+def clone_state_dict(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """A device-side copy of ``module``'s state_dict."""
     with torch.no_grad():
-        params = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
-        opt = {p: {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in st.items()}
-               for p, st in state.optimizer.state.items()}
-    return params, opt
+        return {k: v.detach().clone() for k, v in module.state_dict().items()}
 
 
-def _dino_extra(state, clone: bool) -> Dict[str, Any]:
-    """A DINO state's checkpoint extras as tensors (cloned for an async
-    write); {} for another state."""
-    teacher = getattr(state, "teacher", None)
-    if teacher is None:
+def clone_opt_state(optimizer) -> Dict[Any, Dict[str, torch.Tensor]]:
+    """A device-side copy of an optimizer's per-parameter state ({} for None)."""
+    if optimizer is None:
         return {}
     with torch.no_grad():
-        take = (lambda t: t.detach().clone()) if clone else (lambda t: t.detach())
-        # the heads' BatchNorm statistics: none, the BatchNorm head is not ported
-        return {"momentum_model_state_dict": {k: take(v) for k, v in
-                                              teacher.state_dict().items()},
-                "center": take(state.center), "head_stats": {}, "teacher_head_stats": {}}
+        return {p: {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in st.items()}
+                for p, st in optimizer.state.items()}
+
+
+def model_trees(state, step: int, params: Optional[dict], opt: Optional[dict]
+                ) -> Dict[str, Any]:
+    """``params`` and ``opt_state`` of a state with one ``model`` and one
+    ``optimizer`` in the JAX layout: of the live state, or of the copies
+    ``params`` and ``opt`` taken at update ``step``."""
+    norm_layer = state.norm_layer
+    return {"params": jax_tree_from_state_dict(
+                state.model.state_dict() if params is None else params, norm_layer),
+            "opt_state": opt_state_to_jax(state.optimizer, state.model, state.config, step,
+                                          state=opt, norm_layer=norm_layer)}
 
 
 def _numpy_extra(v: Any) -> Any:
@@ -140,37 +154,21 @@ def save_checkpoint(state, epoch: int, best_loss: float, dir_add: str,
     if distributed.rank() != 0:
         return path
     os.makedirs(dir_add, exist_ok=True)
-    config, step, model, optimizer = state.config, int(state.step), state.model, state.optimizer
-    norm_layer = state.norm_layer
-    done = side = None
-    dino = _dino_extra(state, clone=async_save)
+    step = int(state.step)
+    done = side = snapshot = None
     if async_save:
-        params, opt = _snapshot(state)
+        snapshot = state.snapshot()
         if state.device.type == "cuda":
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(state.device))
             side = torch.cuda.Stream(state.device)  # the writer's copies queue apart from the steps
-    else:
-        params, opt = model.state_dict(), None
 
     def write():
         if done is not None:
             done.synchronize()  # the clones are complete
         with torch.cuda.stream(side) if side is not None else contextlib.nullcontext():
-            payload = {
-                "epoch": int(epoch),
-                "best_loss": float(best_loss),
-                "step": step,
-                "params": jax_tree_from_state_dict(params, norm_layer),
-                "opt_state": opt_state_to_jax(optimizer, model, config, step, state=opt,
-                                              norm_layer=norm_layer),
-            }
-            if dino:
-                payload.update(
-                    momentum_model_state_dict=jax_tree_from_state_dict(
-                        dino["momentum_model_state_dict"], norm_layer),
-                    **{k: _numpy_extra(v) for k, v in dino.items()
-                       if k != "momentum_model_state_dict"})
+            payload = {"epoch": int(epoch), "best_loss": float(best_loss), "step": step,
+                       **state.jax_trees(step, snapshot)}
         payload.update({k: _numpy_extra(v) for k, v in (extra or {}).items()})
         tmp = path + ".tmp"
         with open(tmp, "wb") as f:
@@ -264,4 +262,34 @@ def restore_dino_state(state, payload: Dict[str, Any], logger=None) -> Tuple[Any
     state.step = step
     if skipped and logger:
         logger.warning(f"DINO resume: not restored: {skipped}")
+    return state, int(payload.get("epoch", 0)), float(payload.get("best_loss", float("inf")))
+
+
+def restore_downstream_state(state, payload: Dict[str, Any]) -> Tuple[Any, int, float]:
+    """Fill a downstream state from a checkpoint payload of either package:
+    the backbone and the classifier (with the ``batch_stats`` when present),
+    the optimizers' state when present, ``step``. Returns (state, epoch,
+    best value). Trees that do not fit raise KeyError, ValueError or
+    CheckpointDtypeError before anything is copied."""
+    model_sd, clf_sd = downstream_state_dicts_from_jax(payload["params"],
+                                                       payload.get("batch_stats"))
+    if "batch_stats" not in payload:  # params only: keep the running statistics
+        clf_sd.update({k: v for k, v in state.classifier.state_dict().items()
+                       if k.endswith(("running_mean", "running_var"))})
+    tensors = []
+    for module, source in ((state.model, model_sd), (state.classifier, clf_sd)):
+        sd = module.state_dict()
+        if set(source) != set(sd):
+            raise KeyError(f"checkpoint parameters do not fit the model: missing "
+                           f"{sorted(set(sd) - set(source))[:5]}, unexpected "
+                           f"{sorted(set(source) - set(sd))[:5]}")
+        tensors.append({k: tensor_from_leaf(source[k].numpy(), sd[k], k) for k in sd})
+    step = int(payload.get("step", 0))
+    if "opt_state" in payload:
+        downstream_opt_state_from_jax(payload["opt_state"], state.optimizers, state.model,
+                                      state.classifier, state.config, step,
+                                      norm_layer=state.norm_layer)
+    _copy_into(state.model, tensors[0])
+    _copy_into(state.classifier, tensors[1])
+    state.step = step
     return state, int(payload.get("epoch", 0)), float(payload.get("best_loss", float("inf")))

@@ -29,6 +29,19 @@ and the port's modules.
   ``head.mlp.{2N}``, ``last_layer/weight_v`` and ``weight_g`` keep their
   names and layout), with its two kinds of frozen leaf (the sincos position
   embeddings and, with ``NORM_LAST_LAYER``, ``last_layer/weight_g``).
+* The downstream state (``engines/downstream_engine.py``): its parameter
+  tree ``{"model": ViT, "classifier": head}``, the classifier's BatchNorm
+  running statistics as ``batch_stats`` ``{"classifier": {"bn": {"mean",
+  "var"}}}`` (``running_mean`` / ``running_var`` in torch, the names JAX
+  ``tree_to_torch(..., batch_stats=...)`` gives them), the LoRA adapters
+  (``lora_q/lora_matrix_A`` ...), and its optimizer state as
+  ``multi_transform({"model", "classifier", "freeze"})`` (JAX
+  ``downstream_engine.py:150-180``): each branch's chain, nested as
+  ``chain(clip_by_global_norm, chain(...))`` when ``GRAD_CLIP > 0``, over the
+  whole tree with the other branches' leaves masked (``{}``); ``freeze`` is
+  ``set_to_zero``'s empty state (``downstream_params_to_jax``,
+  ``downstream_state_dicts_from_jax``, ``downstream_opt_state_to_jax``,
+  ``downstream_opt_state_from_jax``).
 * ``classify_checkpoint`` (JAX ``:410``) tells a torch file from a pickle
   of the JAX package's format with a restricted unpickler (``:360``) that
   runs nothing: only numpy arrays, dtypes and plain containers load.
@@ -84,8 +97,15 @@ def _torch_module_name(name: str) -> str:
     return name
 
 
-def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX ViT parameter tree (numpy leaves) -> reference-named state_dict."""
+BN_STATS = {"mean": "running_mean", "var": "running_var"}  # JAX batch_stats -> torch buffers
+
+
+def state_dict_from_jax(params: Mapping[str, Any],
+                        batch_stats: Optional[Mapping[str, Any]] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """JAX ViT parameter tree (numpy leaves) -> reference-named state_dict;
+    BatchNorm statistics ``{"bn": {"mean", "var"}}`` from ``batch_stats``
+    become ``bn.running_mean`` / ``bn.running_var``."""
     out: Dict[str, np.ndarray] = {}
 
     def walk(tree: Mapping[str, Any], prefix: str, in_patch_embed: bool) -> None:
@@ -109,6 +129,16 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 out[f"{prefix}.{name}" if prefix else name] = arr
 
     walk(params, "", False)
+
+    def walk_stats(tree: Mapping[str, Any], prefix: str) -> None:
+        for key, val in tree.items():
+            name = f"{prefix}.{_torch_module_name(str(key))}" if prefix else str(key)
+            if isinstance(val, Mapping):
+                walk_stats(val, name)
+            else:
+                out[f"{prefix}.{BN_STATS[str(key)]}"] = np.asarray(val)
+
+    walk_stats(batch_stats or {}, "")
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in out.items()}  # copies
 
 
@@ -205,16 +235,41 @@ def _get(tree: Mapping, path: List[str], what: str) -> Any:
     return tree
 
 
+def jax_path(name: str, ndim: int, norm_layer: str = "layernorm") -> List[str]:
+    """The JAX tree path of a port parameter name."""
+    return _jax_leaf(name, ndim, norm_layer)[0]
+
+
+def _is_stat(name: str) -> bool:
+    return name.rsplit(".", 1)[-1] in BN_STATS.values()
+
+
 def jax_tree_from_state_dict(sd: Mapping[str, torch.Tensor],
                              norm_layer: str = "layernorm") -> Dict[str, Any]:
     """Port (reference-named) state_dict -> the JAX parameter tree, numpy
     leaves: ``blocks.3.attn.qkv.weight`` [out, in] -> ``blocks_3/attn/qkv/kernel``
     [in, out], the Conv3d patch weight -> the matmul kernel, a LayerNorm
-    ``weight`` -> ``scale``."""
+    ``weight`` -> ``scale``. BatchNorm running statistics are left out
+    (``batch_stats_from_state_dict``)."""
     tree: Dict[str, Any] = {}
     for name, v in sd.items():
+        if _is_stat(name):
+            continue
         path, layout = _jax_leaf(name, v.dim(), norm_layer)
         _nest(tree, path, _to_jax_layout(v, layout))
+    return tree
+
+
+def batch_stats_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The BatchNorm running statistics of a state_dict as the JAX
+    ``batch_stats`` tree: ``bn.running_mean`` -> ``bn/mean``."""
+    tree: Dict[str, Any] = {}
+    inverse = {v: k for k, v in BN_STATS.items()}
+    for name, v in sd.items():
+        if _is_stat(name):
+            parts = name.split(".")
+            _nest(tree, _jax_module_path(parts[:-1]) + [inverse[parts[-1]]],
+                  v.detach().contiguous().cpu().numpy())
     return tree
 
 
@@ -236,10 +291,16 @@ def _chain(config) -> Tuple[str, ...]:
     return (("clip",) if config.TRAIN.GRAD_CLIP else ()) + _CHAINS[name]
 
 
+def _held(optimizer: Optional[torch.optim.Optimizer]) -> set:
+    if optimizer is None:
+        return set()
+    return {id(p) for g in optimizer.param_groups for p in g["params"]}
+
+
 def _trainable(model: torch.nn.Module, optimizer: torch.optim.Optimizer):
     """(name, parameter, trainable) over the model's parameters, checking
     that the optimizer holds exactly the trainable ones."""
-    held = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    held = _held(optimizer)
     out = [(n, p, id(p) in held) for n, p in model.named_parameters()]
     if sum(t for *_, t in out) != len(held):
         raise ValueError("the optimizer holds parameters that are not the model's")
@@ -251,25 +312,59 @@ def _norm_layer(config, norm_layer: Optional[str]) -> str:
     return str(config.MAE.NORM_LAYER) if norm_layer is None else str(norm_layer)
 
 
-def _opt_tree(optimizer: torch.optim.Optimizer, model: torch.nn.Module, config, count: Any,
-              leaf, norm_layer: Optional[str] = None) -> Dict[str, Any]:
-    """The ``opt_state`` tree with ``leaf(param, torch state key, layout)``
-    at each trainable parameter's place in each moment tree."""
+def _multi_transform(branches: Mapping[str, Optional[torch.optim.Optimizer]], leaves,
+                     kinds: Tuple[str, ...], clip_outside: bool, count: Any,
+                     leaf) -> Dict[str, Any]:
+    """An ``optax.multi_transform`` state in flax's state_dict form: a
+    ``freeze`` branch with ``set_to_zero``'s empty state, and for each of
+    ``branches`` (label -> optimizer) the chain of ``kinds`` over the whole
+    tree of ``leaves`` ((JAX path, parameter, layout)), with ``leaf(label,
+    optimizer, parameter, torch state key, layout)`` where the branch's
+    optimizer holds the parameter and ``{}`` (optax's MaskedNode) elsewhere.
+    ``clip_outside`` nests the chain as ``chain(clip_by_global_norm,
+    chain(...))``, whose clip keeps an empty state."""
+    inner_states: Dict[str, Any] = {"freeze": {"inner_state": {}}}
+    for label, opt in branches.items():
+        held = _held(opt)
+        chain: Dict[str, Any] = {}
+        for i, kind in enumerate(kinds):
+            # optax.trace and the clips keep no count
+            entry: Dict[str, Any] = {} if kind in ("clip", "trace") else {"count": count}
+            for field, key in _MOMENTS.get(kind, {}).items():
+                tree: Dict[str, Any] = {}
+                for path, p, layout in leaves:
+                    _nest(tree, path, leaf(label, opt, p, key, layout) if id(p) in held else {})
+                entry[field] = tree
+            chain[str(i)] = entry
+        inner_states[label] = {"inner_state": {"0": {}, "1": chain} if clip_outside else chain}
+    return {"inner_states": inner_states}
+
+
+def _states_to_jax(branches, leaves, kinds, clip_outside: bool, step: int,
+                   states: Mapping[str, Mapping]) -> Dict[str, Any]:
+    """``_multi_transform`` of the optimizers' states (``states[label]``, a
+    snapshot, in place of an optimizer's own); every count is ``step`` and
+    moments not allocated yet (before the first update) are zeros, as optax
+    initialises them."""
+    def leaf(label, opt, p, key, layout):
+        v = states.get(label, opt.state).get(p, {}).get(key)
+        return _to_jax_layout(torch.zeros_like(p, dtype=torch.float32) if v is None else v,
+                              layout)
+
+    return _multi_transform(branches, leaves, kinds, clip_outside,
+                            np.asarray(step, dtype=np.int32), leaf)
+
+
+def _pretrain_layout(optimizer: torch.optim.Optimizer, model: torch.nn.Module, config,
+                     norm_layer: Optional[str]) -> tuple:
+    """The pretraining engines' ``multi_transform({"train", "freeze"})`` over
+    ``chain([clip], ...)``: (branches, leaves, kinds, clip_outside)."""
     norm_layer = _norm_layer(config, norm_layer)
-    params = _trainable(model, optimizer)
-    inner: Dict[str, Any] = {}
-    for i, kind in enumerate(_chain(config)):
-        entry: Dict[str, Any] = {}
-        if kind not in ("clip", "trace"):  # optax.trace keeps no count
-            entry["count"] = count
-        for field, key in _MOMENTS.get(kind, {}).items():
-            tree: Dict[str, Any] = {}
-            for name, p, trainable in params:
-                path, layout = _jax_leaf(name, p.dim(), norm_layer)
-                _nest(tree, path, leaf(p, key, layout) if trainable else {})  # {}: MaskedNode
-            entry[field] = tree
-        inner[str(i)] = entry
-    return {"inner_states": {"freeze": {"inner_state": {}}, "train": {"inner_state": inner}}}
+    leaves = []
+    for name, p, _ in _trainable(model, optimizer):
+        path, layout = _jax_leaf(name, p.dim(), norm_layer)
+        leaves.append((path, p, layout))
+    return {"train": optimizer}, leaves, _chain(config), False
 
 
 def opt_state_to_jax(optimizer: torch.optim.Optimizer, model: torch.nn.Module, config,
@@ -281,15 +376,8 @@ def opt_state_to_jax(optimizer: torch.optim.Optimizer, model: torch.nn.Module, c
     update) are zeros, as optax initialises them. ``norm_layer`` names the
     model's norms (default the MAE's config key; the DINO engine passes
     ``VIT.NORM_LAYER``)."""
-    state = optimizer.state if state is None else state
-
-    def leaf(p, key, layout):
-        v = state.get(p, {}).get(key)
-        return _to_jax_layout(torch.zeros_like(p, dtype=torch.float32) if v is None else v,
-                              layout)
-
-    return _opt_tree(optimizer, model, config, np.asarray(step, dtype=np.int32), leaf,
-                     norm_layer)
+    return _states_to_jax(*_pretrain_layout(optimizer, model, config, norm_layer), step,
+                          {} if state is None else {"train": state})
 
 
 def _check_keys(got: Any, want: Any, where: str) -> None:
@@ -319,6 +407,42 @@ def tensor_from_leaf(a: Any, like: torch.Tensor, what: str,
     return torch.from_numpy(np.array(a)).to(like.device)
 
 
+def _states_from_jax(tree: Mapping[str, Any], branches, leaves, kinds, clip_outside: bool,
+                     step: int) -> None:
+    """Fill each branch's optimizer from a ``_multi_transform`` tree, after
+    checking its keys (as flax's ``from_state_dict`` does) and every count."""
+    _check_keys(tree, _multi_transform(branches, leaves, kinds, clip_outside, None,
+                                       lambda *_: None), "")
+    new_states = {}
+    for label, opt in branches.items():
+        if opt is None:
+            continue
+        chain = tree["inner_states"][label]["inner_state"]
+        chain = chain["1"] if clip_outside else chain
+        held = _held(opt)
+        mine = [(path, p, layout) for path, p, layout in leaves if id(p) in held]
+        state: Dict[torch.Tensor, Dict[str, torch.Tensor]] = {p: {} for _, p, _ in mine}
+        for i, kind in enumerate(kinds):
+            entry = chain[str(i)]
+            if "count" in entry and int(np.asarray(entry["count"])) != step:
+                raise ValueError(f"optimizer state {label}/{i}: count "
+                                 f"{int(np.asarray(entry['count']))} != step {step}")
+            for field, key in _MOMENTS.get(kind, {}).items():
+                for path, p, layout in mine:
+                    leaf = _get(entry[field], path, f"opt_state {label}/{i}/{field}")
+                    state[p][key] = tensor_from_leaf(leaf, p.float(),
+                                                     f"{field} of {'/'.join(path)}", layout)
+            if kind == "adam":
+                for _, p, _ in mine:
+                    state[p]["step"] = torch.tensor(float(step), dtype=torch.float32)
+        new_states[label] = state
+    for label, state in new_states.items():
+        opt = branches[label]
+        opt.state.clear()
+        for p, st in state.items():
+            opt.state[p] = st
+
+
 def opt_state_from_jax(tree: Mapping[str, Any], optimizer: torch.optim.Optimizer,
                        model: torch.nn.Module, config, step: int,
                        norm_layer: Optional[str] = None) -> None:
@@ -326,28 +450,71 @@ def opt_state_from_jax(tree: Mapping[str, Any], optimizer: torch.optim.Optimizer
     ValueError or KeyError when the tree is not this optimizer's chain (as
     flax's ``from_state_dict`` does), or when a ``count`` differs from
     ``step``; CheckpointDtypeError for a leaf of another dtype."""
-    _check_keys(tree, _opt_tree(optimizer, model, config, None, lambda *_: None, norm_layer),
-                "")
-    norm_layer = _norm_layer(config, norm_layer)
-    inner = tree["inner_states"]["train"]["inner_state"]
-    params = [(n, p) for n, p, trainable in _trainable(model, optimizer) if trainable]
-    new_state: Dict[torch.Tensor, Dict[str, torch.Tensor]] = {p: {} for _, p in params}
-    for i, kind in enumerate(_chain(config)):
-        entry = inner[str(i)]
-        if "count" in entry and int(np.asarray(entry["count"])) != step:
-            raise ValueError(f"optimizer state {i}: count {int(np.asarray(entry['count']))} "
-                             f"!= step {step}")
-        for field, key in _MOMENTS.get(kind, {}).items():
-            for name, p in params:
-                path, layout = _jax_leaf(name, p.dim(), norm_layer)
-                leaf = _get(entry[field], path, f"opt_state {i}/{field}")
-                new_state[p][key] = tensor_from_leaf(leaf, p.float(), f"{field} of {name}", layout)
-        if kind == "adam":
-            for _, p in params:
-                new_state[p]["step"] = torch.tensor(float(step), dtype=torch.float32)
-    optimizer.state.clear()
-    for p, st in new_state.items():
-        optimizer.state[p] = st
+    _states_from_jax(tree, *_pretrain_layout(optimizer, model, config, norm_layer), step)
+
+
+def downstream_params_to_jax(model_sd: Mapping[str, torch.Tensor],
+                             classifier_sd: Mapping[str, torch.Tensor],
+                             norm_layer: str = "layernorm") -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(params, batch_stats) of the downstream state in the JAX layout:
+    ``{"model": ..., "classifier": ...}`` and ``{"classifier": ...}``."""
+    return ({"model": jax_tree_from_state_dict(model_sd, norm_layer),
+             "classifier": jax_tree_from_state_dict(classifier_sd, norm_layer)},
+            {"classifier": batch_stats_from_state_dict(classifier_sd)})
+
+
+def downstream_state_dicts_from_jax(params: Mapping[str, Any],
+                                    batch_stats: Optional[Mapping[str, Any]] = None
+                                    ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """(model state_dict, classifier state_dict with its running statistics)
+    of a JAX downstream ``params`` tree and its ``batch_stats``."""
+    stats = (batch_stats or {}).get("classifier", {})
+    return (state_dict_from_jax(params["model"]),
+            state_dict_from_jax(params["classifier"], batch_stats=stats))
+
+
+def _downstream_leaves(model: torch.nn.Module, classifier: torch.nn.Module, norm_layer: str):
+    """(JAX path, parameter, layout) of every leaf of the downstream tree."""
+    out = []
+    for top, module in (("model", model), ("classifier", classifier)):
+        for name, p in module.named_parameters():
+            path, layout = _jax_leaf(name, p.dim(), norm_layer)
+            out.append(([top] + path, p, layout))
+    return out
+
+
+def _downstream_layout(branches, model, classifier, config, norm_layer: str) -> tuple:
+    """The downstream ``multi_transform({"model", "classifier", "freeze"})``
+    (JAX ``downstream_engine.py:150-180``): each branch the optimizer's chain,
+    inside ``chain(clip_by_global_norm, ...)`` when ``GRAD_CLIP`` is set."""
+    name = str(config.TRAIN.OPTIMIZER)
+    if name not in _CHAINS:
+        raise NotImplementedError(f"Unknown optimizer: {name}")
+    return (branches, _downstream_leaves(model, classifier, norm_layer), _CHAINS[name],
+            bool(config.TRAIN.GRAD_CLIP))
+
+
+def downstream_opt_state_to_jax(branches: Mapping[str, Optional[torch.optim.Optimizer]],
+                                model: torch.nn.Module, classifier: torch.nn.Module, config,
+                                step: int, states: Optional[Mapping[str, Mapping]] = None,
+                                norm_layer: str = "layernorm") -> Dict[str, Any]:
+    """The downstream optimizers' state (``branches``: ``{"model": optimizer
+    or None, "classifier": optimizer}``; ``states``, a snapshot of each
+    optimizer's ``state`` keyed the same) as JAX's ``opt_state``; every
+    ``count`` is ``step``, moments not allocated yet are zeros."""
+    return _states_to_jax(*_downstream_layout(branches, model, classifier, config, norm_layer),
+                          step, states or {})
+
+
+def downstream_opt_state_from_jax(tree: Mapping[str, Any],
+                                  branches: Mapping[str, Optional[torch.optim.Optimizer]],
+                                  model: torch.nn.Module, classifier: torch.nn.Module, config,
+                                  step: int, norm_layer: str = "layernorm") -> None:
+    """Fill each optimizer's state from a JAX-format downstream ``opt_state``;
+    ValueError or KeyError when the tree is not this state's, or a
+    ``count`` differs from ``step``."""
+    _states_from_jax(tree, *_downstream_layout(branches, model, classifier, config, norm_layer),
+                     step)
 
 
 class _Restricted(pickle.Unpickler):

@@ -574,3 +574,67 @@ def test_cuda_dino_step_launches_b1_and_b2_per_block():
                                           0.04)
     assert [c.launches - b for c, b in zip(counters, before)] == [4, 0, 0]
     assert math.isfinite(out["loss"].item())
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_on_the_lora_layout_at_the_fine_tune_shape():
+    """B1 and B2 at [64,513,12,64] bf16 as LoRA hands them over: q and v
+    fresh contiguous tensors, k a strided view of the fused [64,513,3*768]
+    projection; elementwise and normwise against their plain versions, and
+    bit-identical on a rerun."""
+    _need_cuda()
+    B, T, H, D = 64, 513, 12, 64
+    g = torch.Generator(device="cuda").manual_seed(3)
+    qkv = torch.randn(B, T, 3 * H * D, device="cuda", generator=g).bfloat16()
+    k = qkv.view(B, T, 3, H, D)[:, :, 1]
+    q, v = (torch.randn(B, T, H, D, device="cuda", generator=g).bfloat16() for _ in range(2))
+    assert q.is_contiguous() and v.is_contiguous() and not k.is_contiguous()
+    o, lse = fused_attention(q, k, v)
+    again = fused_attention(q, k, v)
+    o_ref, lse_ref = fused_attention_reference(q, k, v)
+    assert_matches(o, o_ref, 2e-2, 2e-2, "o")
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-4)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    do = torch.randn(B, T, H, D, device="cuda", generator=g).bfloat16()
+    got = fused_attention_bwd(q, k, v, o, do, lse)
+    rerun = fused_attention_bwd(q, k, v, o, do, lse)
+    for name, a, b, c in zip("dq dk dv".split(), got,
+                             fused_attention_bwd_reference(q, k, v, o, do, lse), rerun):
+        assert_matches(a, b, 2e-2, 2e-2, name)
+        assert torch.equal(a, c), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fine-tune", "lock", "lora"])
+def test_cuda_downstream_step_launches(mode):
+    """One downstream train step of two ViT-B blocks at 96^3 (T = 513, 12
+    heads x 64): 1 B1 and 1 B2 per block in fine-tune and LoRA, 1 B1 and no
+    B2 under lock (the backbone runs without gradients); an eval batch 1 B1
+    per block; no other kernel; finite."""
+    import numpy as np
+
+    from pathlib import Path
+
+    from headct_foundation_tpu_torch.config import default_config
+    from headct_foundation_tpu_torch.engines import downstream_engine
+
+    _need_cuda()
+    cfg = default_config()
+    cfg.merge_from_file(str(Path(__file__).resolve().parent.parent
+                            / "configs/downstream/vit_HeadCT_cq500.yaml"))
+    cfg.merge_from_list(["VIT.NUM_LAYERS", 2, "DATA.WIRE_FORMAT", "hu16",
+                         "TRAIN.LOCK", mode == "lock", "TRAIN.LORA", mode == "lora"])
+    state = downstream_engine.create_train_state(cfg, 20, 1, seed=0, device="cuda")
+    wire = torch.from_numpy(np.random.RandomState(0).randint(-8000, 20000, (4, 1, 96, 96, 96))
+                            .astype(np.int16)).cuda()
+    target = torch.tensor([0, 1, 1, 0], device="cuda")
+    counters = (fused_attention, fused_attention_bwd, blocked_fused_attention)
+    before = [c.launches for c in counters]
+    state, m = downstream_engine.make_train_step(cfg)(state, wire, target, 0)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 0 if mode == "lock" else 2, 0]
+    assert math.isfinite(m["loss"].item())
+    before = [c.launches for c in counters]
+    out = downstream_engine.make_eval_step(cfg)(state, wire, target)
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 0, 0]
+    assert math.isfinite(out["loss"].item())

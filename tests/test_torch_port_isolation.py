@@ -1,9 +1,11 @@
-"""PyTorch port: imports no JAX and nothing of the JAX package, nor pandas or
-orbax (it imports every module, the token-major tool's and the CLIs'
-included, and runs a serving forward, tiny MAE train steps, one of them on
-the blocked attention path and one with the fused Lion update, a checkpoint
-save and restore, the manifest reader, and a tiny DINO step with its
-checkpoint, with those imports blocked),
+"""PyTorch port: imports no JAX and nothing of the JAX package, nor pandas,
+orbax, scikit-learn or matplotlib (it imports every module, the token-major
+tool's and the CLIs' included, and runs a serving forward, tiny MAE train
+steps, one of them on the blocked attention path and one with the fused
+Lion update, a checkpoint save and restore, the manifest reader, a tiny
+DINO step with its checkpoint, and the downstream CLI end to end (LoRA,
+the attentive head, the metrics, the predictions pickle, no plot), with
+those imports blocked),
 defaults to CUDA, and builds from its own config copy.
 
 The subprocess blocks the imports with a ``sys.meta_path`` finder rather than
@@ -31,7 +33,8 @@ PKG = ROOT / "headct_foundation_tpu_torch"
 _BLOCKED_RUN = r'''
 import importlib, importlib.abc, importlib.machinery, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "headct_foundation_tpu", "pandas", "orbax")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "headct_foundation_tpu", "pandas", "orbax",
+           "sklearn", "matplotlib")
 
 class Block(importlib.abc.Loader):
     """A spec without an origin for a blocked name, whose loading raises: an
@@ -140,6 +143,46 @@ with tempfile.TemporaryDirectory() as tmp:
     fresh = dino_engine.create_train_state(cfg, 10, 0, 5, seed=1, device="cpu")
     fresh, epoch, _ = checkpoint.restore_dino_state(fresh, checkpoint.load_checkpoint(path))
     assert fresh.step == 1 and torch.equal(fresh.center, dino.center)
+# the downstream CLI end to end: tiny scans, cq500 label manifests, LoRA and
+# the attentive head; the metrics without scikit-learn, no plot without matplotlib
+import json, pickle
+from headct_foundation_tpu_torch import main_downstream
+from headct_foundation_tpu_torch.data.datasets import CLASS_MAPPINGS
+from headct_foundation_tpu_torch.data.nifti import save_nifti
+
+with tempfile.TemporaryDirectory() as tmp:
+    rng = np.random.RandomState(0)
+    columns = sorted(CLASS_MAPPINGS["cq500"], key=CLASS_MAPPINGS["cq500"].get)
+    scans = []
+    for i in range(4):
+        p = os.path.join(tmp, f"s{i}.nii.gz")
+        save_nifti(p, (rng.uniform(-1000, 0) + rng.rand(30, 32, 28) * 2000).astype(np.float32),
+                   np.diag([2.0, 2.0, 2.0, 1.0]))
+        scans.append(p)
+    for split in ("train", "val", "test"):
+        with open(os.path.join(tmp, f"{split}.csv"), "w") as f:
+            f.write("img_path," + ",".join(columns) + "\n")
+            for i, p in enumerate(scans):
+                f.write(p + "," + ",".join(str((i + j) % 2) for j in range(14)) + "\n")
+    cfg = ["MODEL.ROI", "[24,24,24]", "VIT.INPUT_SIZE", "24", "VIT.PATCH_SIZE", "12",
+           "VIT.HIDDEN_SIZE", "48", "VIT.MLP_DIM", "96", "VIT.NUM_LAYERS", "1",
+           "VIT.NUM_HEADS", "4", "DATA.BATCH_SIZE", "250", "TRAIN.MAX_EPOCHS", "1",
+           "TRAIN.VAL_EVERY", "1", "DATA.CACHE_DIR", os.path.join(tmp, "cache"),
+           "MODEL.DIR", os.path.join(tmp, "m"), "LOG.OUTPUT_DIR", os.path.join(tmp, "log"),
+           "OUTPUT", ""]
+    for split in ("TRAIN", "VAL", "TEST"):
+        cfg += [f"DATA.{split}_CSV_PATH", os.path.join(tmp, f"{split.lower()}.csv")]
+    os.chdir(tmp)
+    result = main_downstream.run(["--cfg", "configs/downstream/vit_HeadCT_cq500.yaml"
+                                  .replace("configs", os.environ["HEADCT_ROOT"] + "/configs"),
+                                  "--device", "cpu", "--dataset", "cq500", "--label_name",
+                                  "ICH", "--lora", "--classifier", "attentive",
+                                  "--opts", *cfg])
+    with open(os.path.join(tmp, "preds_pkl", "None_preds.pkl"), "rb") as f:
+        preds = pickle.load(f)
+    assert preds["fnames"] == scans and result["placeholders"] == 0
+    assert 0.0 <= result["test"]["mean_auroc"] <= 1.0
+    assert not os.path.exists(os.path.join(tmp, "plots"))  # no matplotlib, no PNG
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("imported", len(names), "modules")
@@ -147,17 +190,18 @@ print("imported", len(names), "modules")
 
 
 def test_port_imports_and_runs_without_jax():
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = dict(os.environ, PYTHONPATH=str(ROOT), HEADCT_ROOT=str(ROOT))
     r = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
-    n = int(r.stdout.split()[1])
+    n = int(re.search(r"^imported (\d+) modules$", r.stdout, re.M).group(1))
     assert n >= 24, r.stdout
 
 
 def test_port_sources_name_no_jax():
-    pattern = re.compile(r"^\s*(import (jax|pandas|orbax)|from (jax|pandas|orbax))\b|"
-                         r"headct_foundation_tpu\.", re.M)
+    # matplotlib only inside a function (the plots import it where they draw)
+    pattern = re.compile(r"^\s*(import (jax|pandas|orbax|sklearn)|from (jax|pandas|orbax|sklearn))"
+                         r"\b|^(import|from) matplotlib\b|headct_foundation_tpu\.", re.M)
     files = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) + [ROOT / "chip_smoke.py", ROOT / "chip_fault_check.py"]
     assert len(files) >= 20
     # the token-major tool and the Lion kernel are the port's own copies
@@ -184,6 +228,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
         mae_engine.create_train_state(default_config(), 10, 0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         dino_engine.create_train_state(default_config(), 10, 0, 5)
+    from headct_foundation_tpu_torch.engines import downstream_engine
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        downstream_engine.create_train_state(default_config(), 10, 0)
 
 
 def test_build_extractor_from_config_copy():
