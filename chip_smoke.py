@@ -76,7 +76,16 @@ Phases, each printing a line; any failure raises and exits non-zero:
              median step, volumes/s, peak memory, a breakdown (CUDA events:
              crops, teacher, student, AdamW, EMA) and the device time by
              kernel group over 2 profiled steps.
-7. cli     - the MAE pretraining CLI end to end at full width: the native
+7. dino-bn - the DINO step with the BatchNorm head (DINO.USE_BN True, the rest
+             as shipped): one step at 4 volumes with the kernels against the
+             plain attention (float32 on the batch's statistics; in bf16 the loss
+             on the batch's statistics, loss and gradients on the running ones,
+             see dino_compare), every trainable gradient but
+             dino_engine.bn_rounding_only's; 2 train steps at batch 64 with
+             exactly 24 B1 + 12 B2 each, finite losses, both heads' running
+             statistics moved and apart; a checkpoint restored with head_stats
+             and teacher_head_stats bit for bit; the median of 5 steps.
+8. cli     - the MAE pretraining CLI end to end at full width: the native
              decoder built with g++ (its time printed), 32 synthetic head scans
              (256x256x40 int16 at 0.5x0.5x1.0 mm) and train / val / test
              manifests of 128 / 64 / 64 rows; the cache's device backend
@@ -92,7 +101,7 @@ Phases, each printing a line; any failure raises and exits non-zero:
              the CLI process; the latest_ file restored beside the state bit for
              bit and the checkpoint write timed (sync and async); then a resume
              with TRAIN.MAX_EPOCHS 3 that restarts at the saved epoch index.
-8. dino-cli - ``python -m headct_foundation_tpu_torch.main_pretrain_dino --cfg
+9. dino-cli - ``python -m headct_foundation_tpu_torch.main_pretrain_dino --cfg
              configs/dino/dino_HeadCT.yaml`` on the cli phase's heads and
              manifests (batch 64, 2 steps an epoch), only the paths,
              TRAIN.MAX_EPOCHS 2 and TRAIN.VAL_EVERY 1 overridden: exit 0,
@@ -101,7 +110,22 @@ Phases, each printing a line; any failure raises and exits non-zero:
              counted in the CLI process, latest_ restored beside the state bit
              for bit (student, teacher, optimizer, centre), then a resume with
              TRAIN.MAX_EPOCHS 3 ("Resumed (full)") at the saved epoch index.
-9. downstream - the downstream fine-tune at full width
+10. extract - feature extraction at full width on the cli phase's heads and
+             files: ``python -m headct_foundation_tpu_torch.tools.eval_retrieval
+             --cfg configs/downstream/vit_HeadCT_cq500.yaml`` on a cq500 label
+             manifest of the 32 heads with the MAE latest_ (exit 0, one finite
+             mAP per label, exactly 12 B1 per forward counted in its process);
+             8 heads embedded on the card and on the CPU (max abs <= 1e-3); the
+             96^3 extractor on [2,3,96,96,120] (12 B1 at T = 641); an extractor
+             with VIT.INPUT_SIZE 192 from the 96^3 file (the position embedding
+             interpolated 512 -> 4096 at load, the card's within 1e-6 of the
+             CPU's; 12 B3 at [2,4097,12,64] float32 and no B1; B3 and the
+             forward timed); attention_maps of the DINO backbone from the
+             dino-cli latest_ (12 x [2,12,517,517], rows summing to 1, no
+             kernel launched, the save_attn forward within 1e-3 of the kernel
+             forward, a finite cls_attention_volume). Each against the plain
+             attention on the card within 1e-3.
+11. downstream - the downstream fine-tune at full width
              (configs/downstream/vit_HeadCT_cq500.yaml as shipped: ViT-B/12 at
              96^3, T = 513, linear head, AdamW with the head at 100x the LR,
              batch 64) on hu16 head phantoms with labels (a bleed where the
@@ -118,7 +142,7 @@ Phases, each printing a line; any failure raises and exits non-zero:
              volumes/s, peak memory, a breakdown (CUDA events: augment,
              forward, backward, the two AdamW groups) and the device time by
              kernel group over 2 profiled steps.
-10. downstream-cli - ``python -m headct_foundation_tpu_torch.main_downstream --cfg
+12. downstream-cli - ``python -m headct_foundation_tpu_torch.main_downstream --cfg
              configs/downstream/vit_HeadCT_cq500.yaml`` on the cli phase's heads
              and cache with cq500 label manifests, TRAIN.MAX_EPOCHS 2: a
              fine-tune warm-started from the cli phase's MAE latest_ file,
@@ -128,7 +152,7 @@ Phases, each printing a line; any failure raises and exits non-zero:
              for bit, a predictions pickle of the test manifest, the warm
              start's merged count printed, the mean AUROC printed (random
              labels: no bound).
-11. stretch - the long-context MAE step of configs/mae/mae_HeadCT_192.yaml at
+13. stretch - the long-context MAE step of configs/mae/mae_HeadCT_192.yaml at
              full width (192^3, patch 12: encoder T=1025 at 12 heads x 64,
              decoder T=4097 at 16 heads x 48) on batches of 2 synthetic hu16
              phantoms: one step at batch 1 with the kernels against the plain
@@ -136,7 +160,7 @@ Phases, each printing a line; any failure raises and exits non-zero:
              train steps and 1 eval batch with exactly 20 B3 + 20 B4 + 20 B5
              launches per train step, 20 B3 per eval batch and no B1 or B2;
              then the same timings as the train phase.
-12. lion   - the 96^3 MAE of the train phase trained by the fused Lion update
+14. lion   - the 96^3 MAE of the train phase trained by the fused Lion update
              (TRAIN.OPTIMIZER Lion, LION_FUSED True, GRAD_CLIP 1.0): kernel B6
              against its plain version first (bit for bit, at the model's
              shapes and at ragged ones), then 6 train steps and 1 eval batch
@@ -147,12 +171,12 @@ Phases, each printing a line; any failure raises and exits non-zero:
              for bit against those outputs, then the unfused step against
              it; B6 timed over every trainable tensor; the same timings as
              the train phase.
-13. tm     - the token-major attention tool: kernels B7 and B8 against their
+15. tm     - the token-major attention tool: kernels B7 and B8 against their
              plain versions at the tool's four shapes (bf16) and at float32
              and ragged ones, and against B1 and B2 on the same inputs (bit
              for bit: the same tile code), then ``tools.bench_tm_attention``
              at its four shapes.
-14. report - a JSON line of the kernels, the card line, then the result line.
+16. report - a JSON line of the kernels, the card line, then the result line.
 
 Float32 matmuls and convolutions are pinned to full float32 (TF32 off for
 cuBLAS and cuDNN): the serving forward is float32, like the JAX package's.
@@ -1644,6 +1668,87 @@ def phase_cli(workdir: Path, card: str, train_volumes_per_s: float) -> dict:
     return launches
 
 
+def dino_compare(cfg, state, wire, label: str, skip=()) -> dict:
+    """One DINO step at DINO_COMPARE_BATCH volumes of ``wire`` with the
+    kernels against the plain attention: the same weights, crops, teacher
+    and centre, in bf16 (the state's networks) and in float32 (copies), over
+    every trainable gradient but those named in ``skip``. Both networks run
+    in train mode, as the train step runs them (a BatchNorm head normalises
+    with its batch's statistics), but for the bf16 gradients of a BatchNorm
+    head: train-mode statistics over a few random-init CLS features turn
+    bf16 roundings into the signal (on an NVIDIA H100 80GB HBM3: the loss
+    within its limit, the gradients at cosine 0.17, though B1/B2 agree with
+    their plain versions), so in bf16
+    the loss is held on the batch's statistics and the loss and gradients
+    on the running ones, as the downstream phase holds its head."""
+    from headct_foundation_tpu_torch.data.augment import apply_dino_multicrop, draw_dino_multicrop
+    from headct_foundation_tpu_torch.data.device_preprocess import wire_to_compute
+    from headct_foundation_tpu_torch.engines import dino_engine, mae_engine
+    from headct_foundation_tpu_torch.losses.dino_loss import dino_loss
+    from headct_foundation_tpu_torch.models.multicrop import DINOModel
+    from headct_foundation_tpu_torch.ops import attention as port_attn
+    from headct_foundation_tpu_torch.optim.optimizers import without_key_bias
+
+    dev, roi = state.device, tuple(cfg.MODEL.ROI)
+    ncrops, in_chans = int(cfg.DINO.LOCAL_CROP_NUM) + 2, int(cfg.VIT.IN_CHANS)
+    g = mae_engine.step_generator(dev, 7, 0, 0)
+    draws = draw_dino_multicrop(DINO_COMPARE_BATCH, g, dev, roi[0], **dino_engine.crop_args(cfg))
+    wire0 = torch.from_numpy(wire[:DINO_COMPARE_BATCH]).to(dev)
+    temp = float(state.temp_sched[0])
+    trainable = {n for n, p in state.student.named_parameters() if p.requires_grad}
+
+    def loss_and_grads_of(s_model, t_model, running: bool = False):
+        names = [n for n, p in s_model.named_parameters() if p.requires_grad and n not in skip]
+
+        def run(backend):
+            prev = port_attn.set_attention_backend(backend)
+            try:
+                s_model.train()
+                t_model.train()
+                if running:  # the heads' BatchNorms on their running statistics
+                    s_model.head.eval()
+                    t_model.head.eval()
+                s_model.zero_grad(set_to_none=True)
+                crops = apply_dino_multicrop(wire_to_compute(wire0, cfg, in_chans), draws, roi)
+                with torch.no_grad():
+                    t_out = t_model(crops[:2])
+                loss = dino_loss(s_model(crops), t_out, state.center, temp, ncrops)
+                loss.backward()
+                params = dict(s_model.named_parameters())
+                grads = {n: without_key_bias(n, params[n].grad.detach().clone()) for n in names}
+                s_model.zero_grad(set_to_none=True)
+                return loss.item(), grads
+            finally:
+                port_attn.set_attention_backend(prev)
+
+        return run
+
+    bn = bool(cfg.DINO.USE_BN)
+    if bn:  # the bf16 loss on the batch's statistics, as the step runs
+        run = loss_and_grads_of(state.student, state.teacher)
+        (loss_k, _), (loss_p, _) = run("kernel"), run("plain")
+        rel, tol = abs(loss_k - loss_p) / abs(loss_p), TRAIN_TOL[torch.bfloat16]["loss_rel"]
+        print(f"{label}: kernel vs plain attention, one step at bfloat16 with the head's "
+              f"BatchNorm on the batch's statistics: loss {loss_k:.6f} vs {loss_p:.6f} "
+              f"(relative {rel:.3e}, tolerance {tol}) {'ok' if rel <= tol else 'FAILED'}",
+              flush=True)
+        check(rel <= tol, f"kernel and plain attention disagree on the {label} loss at bf16")
+    compare = {torch.bfloat16: hold_backends(
+        loss_and_grads_of(state.student, state.teacher, running=bn), torch.bfloat16,
+        f"{label} (head BatchNorm on running statistics)" if bn else label, "trainable")}
+    f32 = [DINOModel(dino_engine.build_vit_model(cfg, torch.float32),
+                     dino_engine.build_dino_head(cfg, torch.float32)).to(dev) for _ in range(2)]
+    for m32, src in zip(f32, (state.student, state.teacher)):
+        m32.load_state_dict(src.state_dict())
+        for n, p in m32.named_parameters():
+            p.requires_grad_(n in trainable and src is state.student)
+    compare[torch.float32] = hold_backends(loss_and_grads_of(*f32), torch.float32, label,
+                                           "trainable")
+    del f32
+    torch.cuda.empty_cache()
+    return compare
+
+
 def phase_dino(card: str) -> dict:
     """DINO pretraining at full width on configs/dino/dino_HeadCT.yaml as
     shipped, on batches of synthetic hu16 phantoms; returns the launches of
@@ -1653,9 +1758,6 @@ def phase_dino(card: str) -> dict:
     from headct_foundation_tpu_torch.data.device_preprocess import wire_to_compute
     from headct_foundation_tpu_torch.engines import dino_engine, mae_engine
     from headct_foundation_tpu_torch.losses.dino_loss import dino_loss
-    from headct_foundation_tpu_torch.models.multicrop import DINOModel
-    from headct_foundation_tpu_torch.ops import attention as port_attn
-    from headct_foundation_tpu_torch.optim.optimizers import without_key_bias
 
     cfg = default_config()
     cfg.merge_from_file(str(ROOT / DINO_CONFIG))
@@ -1686,44 +1788,9 @@ def phase_dino(card: str) -> dict:
           f"{list(wires[0].shape)} int16 in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # kernel against plain attention on one step, same weights, crops and teacher
+    compare = dino_compare(cfg, state, wires[0], "dino")
     g = mae_engine.step_generator(dev, 7, 0, 0)
-    draws = draw_dino_multicrop(DINO_COMPARE_BATCH, g, dev, roi[0], **dino_engine.crop_args(cfg))
-    wire0 = torch.from_numpy(wires[0][:DINO_COMPARE_BATCH]).to(dev)
     temp = float(state.temp_sched[0])
-
-    def loss_and_grads_of(s_model, t_model):
-        names = [n for n, p in s_model.named_parameters() if p.requires_grad]
-
-        def run(backend):
-            prev = port_attn.set_attention_backend(backend)
-            try:
-                s_model.zero_grad(set_to_none=True)
-                crops = apply_dino_multicrop(wire_to_compute(wire0, cfg, in_chans), draws, roi)
-                with torch.no_grad():
-                    t_out = t_model(crops[:2])
-                loss = dino_loss(s_model(crops), t_out, state.center, temp, ncrops)
-                loss.backward()
-                params = dict(s_model.named_parameters())
-                grads = {n: without_key_bias(n, params[n].grad.detach().clone()) for n in names}
-                s_model.zero_grad(set_to_none=True)
-                return loss.item(), grads
-            finally:
-                port_attn.set_attention_backend(prev)
-
-        return run
-
-    compare = {torch.bfloat16: hold_backends(loss_and_grads_of(student, teacher),
-                                             torch.bfloat16, "dino", "trainable")}
-    f32 = [DINOModel(dino_engine.build_vit_model(cfg, torch.float32),
-                     dino_engine.build_dino_head(cfg, torch.float32)).to(dev) for _ in range(2)]
-    for m32, src in zip(f32, (student, teacher)):
-        m32.load_state_dict(src.state_dict())
-        for n, p in m32.named_parameters():
-            p.requires_grad_(n in trainable and src is student)
-    compare[torch.float32] = hold_backends(loss_and_grads_of(*f32), torch.float32, "dino",
-                                           "trainable")
-    del f32
-    torch.cuda.empty_cache()
 
     # The main path: epoch 0 (last layer frozen), epoch 1, one eval batch; every
     # kernel count is 0 just before each and read just after.
@@ -1819,6 +1886,105 @@ def phase_dino(card: str) -> dict:
             "volumes_per_s": batch / step_ms * 1e3, "peak_bytes": peak}
 
 
+DINO_BN_STEPS = 2  # train steps of the BatchNorm head at the shipped batch
+
+
+def phase_dino_bn(card: str, shipped_step_ms: float) -> dict:
+    """The DINO step with the BatchNorm head (DINO.USE_BN True, otherwise
+    configs/dino/dino_HeadCT.yaml as shipped): the kernels against the plain
+    attention on one step at DINO_COMPARE_BATCH volumes, in bf16 and float32,
+    over every trainable gradient but ``dino_engine.bn_rounding_only``'s
+    (0 but for rounding under a train-mode BatchNorm); then DINO_BN_STEPS
+    train steps at the batch of 64 with exactly 24 B1 + 12 B2 a step, finite
+    losses, both heads' running statistics moved and apart; then a
+    checkpoint written and restored with both statistics bit for bit; then
+    the median of 5 synchronised steps beside ``shipped_step_ms``, the dino
+    phase's. Returns the launches of its train steps and the median."""
+    from headct_foundation_tpu_torch.config import default_config
+    from headct_foundation_tpu_torch.engines import dino_engine
+    from headct_foundation_tpu_torch.models.layers import TorchBatchNorm
+    from headct_foundation_tpu_torch.utils import checkpoint
+
+    cfg = default_config()
+    cfg.merge_from_file(str(ROOT / DINO_CONFIG))
+    cfg.merge_from_list(["DATA.WIRE_FORMAT", "hu16", "DINO.USE_BN", True])
+    depth, batch, roi = int(cfg.VIT.NUM_LAYERS), int(cfg.DATA.BATCH_SIZE), tuple(cfg.MODEL.ROI)
+    per_step = {"flash_attention_fwd": 2 * depth, "flash_attention_bwd": depth}
+    dev = torch.device("cuda")
+    state = dino_engine.create_train_state(cfg, 10, 1, DINO_BN_STEPS, seed=0, device=dev)
+    skip = dino_engine.bn_rounding_only(cfg)
+    wires = [head_phantoms(450 + i, batch, roi[0]) for i in range(DINO_BN_STEPS)]
+    bn = [n for n, m in state.student.head.mlp.named_children()
+          if isinstance(m, TorchBatchNorm)]
+    print(f"dino-bn set-up: {DINO_CONFIG} with DINO.USE_BN True: head [Linear, BatchNorm, "
+          f"GELU] x {int(cfg.DINO.HEAD_N_LAYERS) - 1} (BatchNorms at mlp.{', mlp.'.join(bn)}), "
+          f"seed 0, bf16 compute; left out of the gradient comparison as 0 but for "
+          f"rounding: {[n for n in skip if not n.endswith('running_mean')]}", flush=True)
+    compare = dino_compare(cfg, state, wires[0], "dino-bn", skip=skip)
+
+    stats = lambda model: {k: v.detach().clone() for k, v in model.state_dict().items()
+                           if k.endswith(("running_mean", "running_var"))}
+    s0, t0_stats = stats(state.student), stats(state.teacher)
+    step = dino_engine.make_train_step(cfg)
+    momentum, temp = float(state.momentum_sched[0]), float(state.temp_sched[0])
+    losses, times, runs = [], [], []
+    for i, wire in enumerate(wires):
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, torch.from_numpy(wire).to(dev), 0, momentum, temp, False)
+        losses.append(m["loss"].item())
+        times.append((time.perf_counter() - t0) * 1e3)
+        runs.append(launches())
+    want = {n: per_step.get(n, 0) for n in runs[0]}
+    check(all(r == want for r in runs), f"dino-bn: launches {runs}; expected {want} a step")
+    check(all(math.isfinite(x) for x in losses), f"dino-bn: losses {losses}")
+    s1, t1 = stats(state.student), stats(state.teacher)
+    unmoved = [k for k in s1 if torch.equal(s1[k], s0[k]) or torch.equal(t1[k], t0_stats[k])]
+    same = [k for k in s1 if torch.equal(s1[k], t1[k])]
+    check(not unmoved and not same, f"dino-bn: head statistics unmoved {unmoved} or equal "
+                                    f"between student and teacher {same}")
+    total = {n: sum(r[n] for r in runs) for n in runs[0]}
+    print(f"dino-bn: {DINO_BN_STEPS} train steps at batch {batch}: losses "
+          f"{[round(x, 6) for x in losses]}, all finite; launches {json.dumps(runs)} = "
+          f"{per_step} per step, exactly; {len(s1)} head statistics moved in the student and "
+          f"the teacher and apart (student mlp.1 running_var mean "
+          f"{s1['head.mlp.1.running_var'].mean().item():.6f}, teacher "
+          f"{t1['head.mlp.1.running_var'].mean().item():.6f}); steps "
+          f"{', '.join(f'{t:.1f}' for t in times)} ms (host clock, the first warms up) | {card}",
+          flush=True)
+
+    # the statistics through a checkpoint, both ways bit for bit
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = checkpoint.save_checkpoint(state, 0, 1.0, tmp, "dino_bn.ckpt")
+        payload = checkpoint.load_checkpoint(path)
+    fresh = dino_engine.create_train_state(cfg, 10, 1, DINO_BN_STEPS, seed=7, device=dev)
+    fresh, _, _ = checkpoint.restore_dino_state(fresh, payload)
+    got_s, got_t = stats(fresh.student), stats(fresh.teacher)
+    differ = [k for k in s1 if not (torch.equal(got_s[k], s1[k]) and torch.equal(got_t[k], t1[k]))]
+    check(not differ and set(payload["head_stats"]) == {f"mlp_bn_{i}" for i in range(len(bn))},
+          f"dino-bn: head statistics not restored bit for bit: {differ}")
+    print(f"dino-bn: save_checkpoint / restore_dino_state: head_stats and teacher_head_stats "
+          f"({sorted(payload['head_stats'])}) restored bit for bit | {card}", flush=True)
+    del fresh, payload
+    times = []
+    for i in range(5):  # host clock around synchronised steps (warm), as the dino phase's
+        wire = torch.from_numpy(wires[i % len(wires)]).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, wire, 0, momentum, temp, False)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+    print(f"dino-bn: median step {step_ms:.2f} ms over {len(times)} synchronised steps "
+          f"({', '.join(f'{t:.1f}' for t in times)}), {batch / step_ms * 1e3:.2f} volumes/s; "
+          f"the shipped head's (dino phase) {shipped_step_ms:.2f} ms, "
+          f"{100 * (step_ms / shipped_step_ms - 1):+.1f}% | {card}", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return {"train": total, "compare": compare, "step_ms": step_ms}
+
+
 def phase_dino_cli(workdir: Path, card: str) -> dict:
     """The DINO pretraining CLI end to end on the cli phase's heads and
     manifests; returns the B1 and B2 launches of its runs by path."""
@@ -1875,6 +2041,263 @@ def phase_dino_cli(workdir: Path, card: str) -> dict:
     resume_cli("dino-cli", "main_pretrain_dino", DINO_CONFIG, opts, latest, "Resumed (full)",
                per_step, per_eval, launches, card)
     return launches
+
+
+EXTRACT_BATCH = 8          # the retrieval tool's batch (its --batch-size default)
+EXTRACT_HELD = 8           # heads embedded on the card and on the CPU in this process
+ODD_SIZE = (96, 96, 120)   # a non-cubic input: T = 1 + 8 * 8 * 10 = 641
+BIG = 192                  # an extractor whose grid is interpolated 512 -> 4096 at load
+EXTRACT_641 = (2, 641, 12, 64)
+EXTRACT_4097 = (2, 4097, 12, 64)
+PE_ATOL = 1e-6             # the interpolated position embedding, card against CPU
+
+
+def phase_extract(workdir: Path, card: str) -> dict:
+    """Retrieval, another input size, another grid at load and attention maps
+    at full width, on the cli phase's heads, its MAE latest_ and the dino-cli
+    phase's DINO latest_. Returns the launches by path and the timings of B1
+    at [2,641,12,64] and B3 at [2,4097,12,64], float32."""
+    from headct_foundation_tpu_torch.config import default_config
+    from headct_foundation_tpu_torch.eval.retrieval import retrieval_map_per_class
+    from headct_foundation_tpu_torch.feature_extraction import build_extractor_from_config
+    from headct_foundation_tpu_torch.models.pos_embed import interpolate_pos_embed
+    from headct_foundation_tpu_torch.ops import attention as port_attn
+    from headct_foundation_tpu_torch.ops import flash_attention as fa
+    from headct_foundation_tpu_torch.tools.cli_runs import CLI_TIMEOUT_S, CQ500_COLUMNS, \
+        write_label_manifest
+    from headct_foundation_tpu_torch.tools.eval_retrieval import read_labelled_manifest
+    from headct_foundation_tpu_torch.utils import checkpoint
+    from headct_foundation_tpu_torch.utils.torch_interop import state_dict_from_jax
+
+    configs = {}
+    for key, path in (("vit", DOWNSTREAM_CONFIG), ("mae", MAE_CONFIG), ("dino", DINO_CONFIG)):
+        configs[key] = default_config()
+        configs[key].merge_from_file(str(ROOT / path))
+    cfg = configs["vit"]
+    depth = int(cfg.VIT.NUM_LAYERS)
+    mae_latest = workdir / "model_saved" / f"latest_{configs['mae'].MODEL.SAVE_NAME}"
+    dino_latest = workdir / "dino_saved" / f"latest_{configs['dino'].MODEL.SAVE_NAME}"
+    heads = list(dict.fromkeys((workdir / "train.csv").read_text().splitlines()[1:]))
+    manifest = workdir / "retrieval_labels.csv"
+    write_label_manifest(manifest, heads, seed=20)
+    _, labels = read_labelled_manifest(str(manifest))
+    runs = {}
+
+    def plain(fn):
+        prev = port_attn.set_attention_backend("plain")
+        try:
+            return fn()
+        finally:
+            port_attn.set_attention_backend(prev)
+
+    def only(got: dict, name: str, n: int) -> bool:
+        return got == {k: (n if k == name else 0) for k in got}
+
+    # 1. Retrieval: the tool in a subprocess, its launches counted there.
+    cmd = [sys.executable, "-m", "headct_foundation_tpu_torch.tools.eval_retrieval", "--cfg",
+           str(ROOT / DOWNSTREAM_CONFIG), "--csv", str(manifest), "--checkpoint",
+           str(mae_latest), "--batch-size", str(EXTRACT_BATCH), "--device", "cuda"]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(x for x in (str(ROOT), env.get("PYTHONPATH")) if x)
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"extract: the retrieval tool exited {r.returncode}:\n"
+                             f"{(r.stdout + r.stderr)[-4000:]}")
+    lines = r.stdout.strip().splitlines()
+    maps, info = json.loads(lines[-1]), json.loads(lines[-2])["retrieval"]
+    check(list(maps) == [f"mAP_{c}" for c in CQ500_COLUMNS]
+          and all(math.isfinite(x) for x in maps.values()),
+          f"extract: the retrieval tool printed {maps}; one finite mAP per label expected")
+    forwards = math.ceil(len(heads) / EXTRACT_BATCH)
+    check(only(info["launches"], "flash_attention_fwd", depth * forwards),
+          f"extract: the retrieval tool launched {info['launches']}; expected {depth} B1 in "
+          f"each of its {forwards} forwards and nothing else")
+    runs["retrieval tool"] = info["launches"]
+    print(f"extract: python -m headct_foundation_tpu_torch.tools.eval_retrieval --cfg "
+          f"{DOWNSTREAM_CONFIG} --checkpoint <cli latest_> on {info['scans']} heads (random "
+          f"cq500 labels, seed 20: no bound) exit 0 in {wall:.2f} s, embedding "
+          f"{info['embed_seconds']:.2f} s (host clock, decode and preprocess included); "
+          f"{json.dumps(maps)}; launches {json.dumps(info['launches'])} = {depth} B1 x "
+          f"{forwards} forwards, exactly | {card}", flush=True)
+
+    # The same checkpoint in this process: 8 heads on the card and on the CPU.
+    fe = build_extractor_from_config(cfg, checkpoint_path=str(mae_latest), device="cuda")
+    fe_cpu = build_extractor_from_config(cfg, checkpoint_path=str(mae_latest), device="cpu")
+    held = heads[:EXTRACT_HELD]
+    zero_launches()
+    on_card = fe.extract_from_files(held, batch_size=EXTRACT_BATCH)
+    runs["extract card"] = launches()
+    t0 = time.perf_counter()
+    on_cpu = fe_cpu.extract_from_files(held, batch_size=EXTRACT_BATCH)
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(on_card - on_cpu).max())
+    check(err <= EMBED_ATOL and only(runs["extract card"], "flash_attention_fwd", depth),
+          f"extract: {EXTRACT_HELD} heads on the card are {err:.3e} from the CPU's (limit "
+          f"{EMBED_ATOL}), launches {runs['extract card']}")
+    sub = {c: labels[c][:EXTRACT_HELD] for c in labels}
+    map_card, map_cpu = (retrieval_map_per_class(f, sub) for f in (on_card, on_cpu))
+    print(f"extract: {EXTRACT_HELD} heads through the extractor on the card and on the CPU "
+          f"({cpu_s:.2f} s there): CLS max abs {err:.3e} (limit {EMBED_ATOL}); launches "
+          f"{json.dumps(runs['extract card'])}; mAP over these {EXTRACT_HELD} on the card "
+          f"{json.dumps({k: round(v, 4) for k, v in map_card.items()})}, on the CPU "
+          f"{json.dumps({k: round(v, 4) for k, v in map_cpu.items()})} (nan where a label has "
+          f"one positive; no bound) | {card}", flush=True)
+    del fe_cpu
+
+    # 2. Another input size: 96 x 96 x 120, T = 641, on B1 in float32.
+    g = torch.Generator(device="cuda").manual_seed(21)
+    odd = torch.rand((2, 3, *ODD_SIZE), generator=g, device="cuda")
+    zero_launches()
+    out_k = fe(odd)[0]
+    torch.cuda.synchronize()
+    runs["size 641"] = launches()
+    out_p = plain(lambda: fe(odd)[0])
+    err = (out_k - out_p).abs().max().item()
+    check(out_k.shape == (2, EXTRACT_641[1], 768) and err <= EMBED_ATOL
+          and only(runs["size 641"], "flash_attention_fwd", depth),
+          f"extract: {list(odd.shape)} gave {list(out_k.shape)}, {err:.3e} from the plain "
+          f"attention, launches {runs['size 641']}")
+    print(f"extract: the 96^3 extractor on {list(odd.shape)} inputs (grid 8 x 8 x 10, T = "
+          f"{out_k.shape[1]}): last layer max abs {err:.3e} from the plain attention on the card "
+          f"(limit {EMBED_ATOL}); launches {json.dumps(runs['size 641'])} | {card}", flush=True)
+    q, k, v = qkv_inputs(EXTRACT_641, 0, torch.Generator(device="cuda").manual_seed(23),
+                         torch.float32)
+    o, lse = fa.fused_attention(q, k, v)
+    o_ref, _ = fa.fused_attention_reference(q, k, v)
+    ok, _, err, _ = within(o, o_ref, 2e-5, 1e-4, torch.float32)
+    check(ok, f"extract: flash_attention_fwd at {EXTRACT_641} float32 is {err:.3e} off")
+    b1 = {"max_abs_err": err}
+    time_fwd(fa.fused_attention, fa.fused_attention_reference, b1, q, k, v, EXTRACT_641,
+             torch.float32)
+    del q, k, v, o, lse, o_ref, odd, out_k, out_p
+
+    # 3. Another grid at load: VIT.INPUT_SIZE 192 from the 96^3 file, 512 -> 4096 patches.
+    big_cfg = cfg.clone()
+    big_cfg.merge_from_list(["VIT.INPUT_SIZE", BIG])
+    fe_big = build_extractor_from_config(big_cfg, checkpoint_path=str(mae_latest),
+                                         device="cuda")
+    pe_file = state_dict_from_jax(checkpoint.load_checkpoint(str(mae_latest))["params"])[
+        "patch_embedding.position_embeddings"]
+    pe_cpu = interpolate_pos_embed(pe_file, 0, new_num_patches=(BIG // 12) ** 3)
+    pe_card = interpolate_pos_embed(pe_file.cuda(), 0, new_num_patches=(BIG // 12) ** 3)
+    pe_err = (pe_card.cpu() - pe_cpu).abs().max().item()
+    loaded = fe_big.model.patch_embedding.position_embeddings.detach().cpu()
+    check(fe.missing == fe_big.missing == [] and fe_big.unexpected == fe.unexpected
+          and not any("shape" in u for u in fe_big.unexpected),
+          f"extract: the {BIG}^3 extractor's load: missing {fe_big.missing}, unexpected "
+          f"{fe_big.unexpected[:5]} (the 96^3 one's: {fe.unexpected[:5]})")
+    check(pe_err <= PE_ATOL and torch.equal(loaded, pe_cpu),
+          f"extract: the interpolated position embedding is {pe_err:.3e} off on the card")
+    print(f"extract: VIT.INPUT_SIZE {BIG} from the 96^3 cli latest_: position embedding "
+          f"{list(pe_file.shape)} -> {list(loaded.shape)} interpolated at load, the card's "
+          f"{pe_err:.3e} from the CPU's (limit {PE_ATOL}); 0 missing keys; "
+          f"{len(fe_big.unexpected)} unexpected, the MAE decoder's, as at 96^3 (none a shape "
+          f"mismatch) | {card}", flush=True)
+    del fe, pe_card
+    big = torch.rand((2, 3, BIG, BIG, BIG), generator=g, device="cuda")
+    zero_launches()
+    out_k = fe_big(big)[0]
+    torch.cuda.synchronize()
+    runs["grid 192"] = launches()
+    out_p = plain(lambda: fe_big(big)[0])
+    err = (out_k - out_p).abs().max().item()
+    check(out_k.shape == (2, EXTRACT_4097[1], 768) and err <= EMBED_ATOL
+          and only(runs["grid 192"], "flash_attention_blocked_fwd", depth),
+          f"extract: {list(big.shape)} gave {list(out_k.shape)}, {err:.3e} from the plain "
+          f"attention, launches {runs['grid 192']}")
+    del out_p
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fe_big(big)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    fwd_ms = statistics.median(times)
+    print(f"extract: the {BIG}^3 extractor on {list(big.shape)}: T = {out_k.shape[1]}, last "
+          f"layer max abs {err:.3e} from the plain attention on the card (limit {EMBED_ATOL}); "
+          f"launches {json.dumps(runs['grid 192'])}; forward median {fwd_ms:.2f} ms over "
+          f"{len(times)} synchronised runs ({', '.join(f'{t:.1f}' for t in times)}) | {card}",
+          flush=True)
+    del fe_big, big, out_k
+    torch.cuda.empty_cache()
+    b3 = time_blocked_f32(fa, EXTRACT_4097)
+    b3["forward_ms"] = fwd_ms
+
+    # 4. Attention maps of the DINO backbone (4 registers, T = 517), from the dino-cli file.
+    dino_cfg = configs["dino"]
+    fe_dino = build_extractor_from_config(dino_cfg, checkpoint_path=str(dino_latest),
+                                          device="cuda")
+    check(fe_dino.missing == [] and fe_dino.unexpected == [],
+          f"extract: the DINO backbone's load: missing {fe_dino.missing}, unexpected "
+          f"{fe_dino.unexpected}")
+    x = torch.stack([fe_dino.preprocess(p) for p in heads[:2]])
+    out_k = fe_dino(x)[0]
+    zero_launches()
+    att = fe_dino.attention_maps(x)
+    prev = fe_dino.model.set_save_attn(True)
+    out_sa = fe_dino(x)[0]
+    fe_dino.model.set_save_attn(prev)
+    torch.cuda.synchronize()
+    runs["attention maps"] = launches()
+    t = 1 + int(dino_cfg.VIT.NUM_REGISTER_TOKENS) + (96 // 12) ** 3
+    rows = max(float(np.abs(m.sum(-1) - 1.0).max()) for m in att)
+    err = (out_sa - out_k).abs().max().item()
+    vol = fe_dino.cls_attention_volume(x)
+    check(len(att) == depth and all(m.shape == (2, 12, t, t) for m in att) and rows <= 1e-5
+          and err <= EMBED_ATOL and all(n == 0 for n in runs["attention maps"].values())
+          and vol.shape == (2, 96, 96, 96) and bool(np.isfinite(vol).all()),
+          f"extract: attention maps {[m.shape for m in att[:1]]} x {len(att)}, row sums "
+          f"{rows:.3e} from 1, save_attn forward {err:.3e} from the kernels', launches "
+          f"{runs['attention maps']}, volume {vol.shape}")
+    print(f"extract: {DINO_CONFIG}'s backbone from the dino-cli latest_ (0 missing, 0 "
+          f"unexpected): attention_maps on 2 heads gave {len(att)} x {list(att[0].shape)}, "
+          f"rows sum to 1 within {rows:.3e}; the save_attn forward {err:.3e} from the kernel "
+          f"forward (limit {EMBED_ATOL}); launches while they ran {json.dumps(runs['attention maps'])}; "
+          f"cls_attention_volume {list(vol.shape)} finite, max {vol.max():.4e} | {card}",
+          flush=True)
+    del fe_dino, att, x
+    torch.cuda.empty_cache()
+    return {"runs": runs, "b1_641": b1, "b3_4097": b3}
+
+
+def time_blocked_f32(fa, shape) -> dict:
+    """B3 in float32 at a square ``shape`` held against its plain version,
+    then timed as ``time_blocked`` times it: kernel on an idle stream and
+    behind a device sleep, plain version, scaled_dot_product_attention, and
+    the bound of the route (three TF32 products on the tensor cores)."""
+    q, k, v, _ = blocked_inputs(shape, shape[1], torch.float32, seed=24)
+    o, lse = fa.blocked_fused_attention(q, k, v)
+    o_ref, lse_ref = fa.blocked_attention_reference(q, k, v)
+    ok, _, err, _ = within(o, o_ref, 2e-5, 1e-4, torch.float32)
+    ok = ok and bool(((lse - lse_ref).abs() <= 1e-4 + 1e-4 * lse_ref.abs()).all())
+    check(ok, f"flash_attention_blocked_fwd at {shape} float32 is {err:.3e} off")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    row = {"max_abs_err": err, "shape": list(shape), "dtype": "float32",
+           "ms": cuda_ms(lambda: fa.blocked_fused_attention(q, k, v), iters=10),
+           "ms_device": cuda_ms(lambda: fa.blocked_fused_attention(q, k, v), iters=10,
+                                ahead=AHEAD_ONE),
+           "plain_ms": cuda_ms(lambda: fa.blocked_attention_reference(q, k, v), iters=3,
+                               warmup=1),
+           "library_ms": cuda_ms(lambda: sdpa(qt, kt, vt), iters=10),
+           "library_ms_device": cuda_ms(lambda: sdpa(qt, kt, vt), iters=10, ahead=AHEAD_ONE)}
+    B, T, H, D = shape
+    row["bound_ms"], row["bound_by"] = bound_ms(3 * 4 * B * H * T * T * D,
+                                                4 * B * T * H * D * 4 + B * H * T * 4,
+                                                torch.float32, PEAK_TF32)
+    print(f"timing flash_attention_blocked_fwd {list(shape)} float32: kernel {row['ms']:.4f} ms "
+          f"on an idle stream ({row['ms_device']:.4f} ms behind a device sleep), plain "
+          f"{row['plain_ms']:.4f} ms, scaled_dot_product_attention {row['library_ms']:.4f} ms "
+          f"({row['library_ms_device']:.4f} ms; kernel {row['ms_device'] / row['library_ms_device']:.2f}x), "
+          f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} (three TF32 products each at "
+          f"{PEAK_TF32 / 1e12:.0f} TFLOP/s) ({100 * row['bound_ms'] / row['ms_device']:.1f}% "
+          f"of bound on the device time); max_abs_err {err:.3e}", flush=True)
+    del q, k, v, o, lse, o_ref, lse_ref
+    torch.cuda.empty_cache()
+    return row
 
 
 DOWNSTREAM_CONFIG = "configs/downstream/vit_HeadCT_cq500.yaml"
@@ -2333,6 +2756,10 @@ def main() -> int:
     print(f"dino: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    dino_bn = phase_dino_bn(card, dino["step_ms"])
+    print(f"dino-bn: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     downstream = phase_downstream(card)
     print(f"downstream: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
     torch.cuda.empty_cache()
@@ -2344,6 +2771,10 @@ def main() -> int:
         t0 = time.perf_counter()
         dino_cli = phase_dino_cli(Path(tmp), card)  # the cli phase's heads and manifests
         print(f"dino-cli: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        extract = phase_extract(Path(tmp), card)  # the cli and dino-cli phases' files
+        print(f"extract: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         downstream_cli = phase_downstream_cli(Path(tmp), card)  # its heads, cache, MAE file
@@ -2396,7 +2827,14 @@ def main() -> int:
                                 "downstream-cli training":
                                     downstream_cli["cli training"]["flash_attention_fwd"],
                                 "downstream-cli eval":
-                                    downstream_cli["cli eval"]["flash_attention_fwd"]},
+                                    downstream_cli["cli eval"]["flash_attention_fwd"],
+                                "dino-bn training": dino_bn["train"]["flash_attention_fwd"],
+                                "extract retrieval tool":
+                                    extract["runs"]["retrieval tool"]["flash_attention_fwd"],
+                                "extract card":
+                                    extract["runs"]["extract card"]["flash_attention_fwd"],
+                                "extract size 641":
+                                    extract["runs"]["size 641"]["flash_attention_fwd"]},
         "flash_attention_bwd": {"training": train["train"]["flash_attention_bwd"],
                                 "lion training": lion["train"]["flash_attention_bwd"],
                                 "cli training": cli["cli training"]["flash_attention_bwd"],
@@ -2406,9 +2844,12 @@ def main() -> int:
                                 "downstream training":
                                     downstream["train"]["flash_attention_bwd"],
                                 "downstream-cli training":
-                                    downstream_cli["cli training"]["flash_attention_bwd"]},
+                                    downstream_cli["cli training"]["flash_attention_bwd"],
+                                "dino-bn training": dino_bn["train"]["flash_attention_bwd"]},
         "flash_attention_blocked_fwd": {"stretch training": stretch["train"][blocked[0]],
-                                        "stretch eval": stretch["eval"][blocked[0]]},
+                                        "stretch eval": stretch["eval"][blocked[0]],
+                                        "extract grid 192":
+                                            extract["runs"]["grid 192"][blocked[0]]},
         "flash_attention_blocked_dkv": {"stretch training": stretch["train"][blocked[1]]},
         "flash_attention_blocked_dq": {"stretch training": stretch["train"][blocked[2]]},
         "lion_update": {"lion training": lion["train"]["lion_update"]},
@@ -2445,7 +2886,7 @@ def main() -> int:
                          ("flash_bwd_sm90.cuh", "flash_attention_blocked_bwd.cu"))
         entry = {"entry": f"headct_foundation_tpu_torch/csrc/{entry}"}
         if name == blocked[0]:
-            entry.update(f32_source)
+            entry.update(f32_source, at_extract_192_shape=extract["b3_4097"])
         return row(name, source, replaces, {**dec, "max_abs_err": err}, STRETCH_DECODER, torch.bfloat16,
                    at_encoder_shape={"shape": list(STRETCH_ENCODER),
                                      **{k: enc[k] for k in keys if k in enc}},
@@ -2471,7 +2912,9 @@ def main() -> int:
                 **{k: fwd_mae[k] for k in timing_keys}},
             at_dino_student_shape=at(kernel_rows, DINO_STUDENT),
             at_dino_teacher_shape=at(kernel_rows, DINO_TEACHER),
-            at_downstream_shape=at(kernel_rows, DOWNSTREAM)),
+            at_downstream_shape=at(kernel_rows, DOWNSTREAM),
+            at_extract_641_shape={"shape": list(EXTRACT_641), "dtype": "float32",
+                                  **{k: extract["b1_641"][k] for k in timing_keys}}),
         # bf16 B2 and B8 run the passes of the sm_90a header; their C entries are in the .cu
         row("flash_attention_bwd", "flash_bwd_sm90.cuh", 86, bwd_mae, MAE_DECODER,
             torch.bfloat16, entry="headct_foundation_tpu_torch/csrc/flash_attention_bwd.cu",

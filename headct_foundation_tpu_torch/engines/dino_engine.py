@@ -18,8 +18,14 @@ engine_pretrain_dino.py):
   (decisions drawn from a generator seeded from (seed, step, micro-batch),
   or handed in as ``draws``, one list of crop decisions per micro-batch),
   the teacher on the 2 global crops without gradients, the student on all
-  crops, ``dino_loss`` and its backward; with ``TRAIN.ACCUM_STEPS`` the
-  gradients sum in float32 and are divided by the count. Under data
+  crops, ``dino_loss`` and its backward. With the BatchNorm head
+  (``DINO.USE_BN``) both networks run in ``train()`` mode, so each head
+  normalises with its batch's statistics (the teacher's over its 2 x B
+  global crops, the student's over all its crops in one call) and updates
+  its own running statistics (JAX ``:243-262``); the statistics carry from
+  micro-batch to micro-batch, and eval uses the running ones. With
+  ``TRAIN.ACCUM_STEPS`` the gradients sum in float32 and are divided by the
+  count. Under data
   parallelism every rank draws the global micro-batch's decisions and takes
   its own rows, and the gradients, the loss and the teacher's mean output
   (the centre's input) are averaged across the ranks in one call.
@@ -30,8 +36,9 @@ engine_pretrain_dino.py):
   count goes on rising with optax's. Then the per-parameter clip
   (``TRAIN.GRAD_CLIP``), the step's LR and weight decay (update n reads
   ``wd_sched[min(n, len - 1)]``), the update, the teacher EMA ``t m + s (1 -
-  m)`` in float32 over every tensor, and the centre's EMA towards the
-  teacher's mean output.
+  m)`` in float32 over every parameter (the BatchNorm scales and biases
+  too; the running statistics are buffers and stay each network's own),
+  and the centre's EMA towards the teacher's mean output.
 * ``train_one_epoch``: the freeze flag and the temperature are indexed by
   epoch, the momentum by the batch's index within the epoch (the
   reference's quirk, JAX ``:533-535``). ``val_one_epoch`` draws batch ``idx``'s crops from a
@@ -96,7 +103,10 @@ from headct_foundation_tpu_torch.utils.checkpoint import (
     wait_for_saves,
 )
 from headct_foundation_tpu_torch.utils.misc import profile_trace
-from headct_foundation_tpu_torch.utils.torch_interop import jax_tree_from_state_dict
+from headct_foundation_tpu_torch.utils.torch_interop import (
+    batch_stats_from_state_dict,
+    jax_tree_from_state_dict,
+)
 
 Draws = Sequence[Sequence[Dict[str, torch.Tensor]]]
 
@@ -139,15 +149,40 @@ class DINOTrainState:
         extras (of ``snapshot``, taken at update ``step``, when given)."""
         params, opt, teacher, center = snapshot or (None, None, self.teacher.state_dict(),
                                                     self.center)
-        # the heads' BatchNorm statistics: none, the BatchNorm head is not ported
+        student = self.student.state_dict() if params is None else params
+        # the heads' BatchNorm running statistics ({} without the BatchNorm head)
         return {**model_trees(self, step, params, opt),
                 "momentum_model_state_dict": jax_tree_from_state_dict(teacher, self.norm_layer),
-                "center": center.detach().cpu().numpy(), "head_stats": {},
-                "teacher_head_stats": {}}
+                "center": center.detach().cpu().numpy(), "head_stats": head_stats(student),
+                "teacher_head_stats": head_stats(teacher)}
 
     def last_layer_group(self) -> dict:
         """The optimizer group of the head's trainable last-layer tensors."""
         return self.optimizer.param_groups[1]
+
+
+def bn_rounding_only(config) -> Tuple[str, ...]:
+    """Tensors of a DINO network whose gradient is 0 but for rounding under
+    the BatchNorm head, which AdamW scales up to +-lr, so comparisons of two
+    runs leave them out (as they leave out a qkv bias's key third): a
+    train-mode BatchNorm takes out a per-channel shift of its input, so the
+    bias of each Linear before one and the backbone's final norm bias (a
+    shift of every CLS feature) reach the loss through nothing; the running
+    means track those biases. Empty without the BatchNorm head."""
+    d = config.DINO
+    if not d.USE_BN or int(d.HEAD_N_LAYERS) < 2:
+        return ()
+    return ("backbone.norm.bias",) + tuple(
+        f"head.mlp.{3 * i + j}.{leaf}" for i in range(int(d.HEAD_N_LAYERS) - 1)
+        for j, leaf in ((0, "bias"), (1, "running_mean")))
+
+
+def head_stats(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The head's BatchNorm running statistics in a DINO network's
+    state_dict as the JAX ``head_stats`` tree (``{"mlp_bn_0": {"mean",
+    "var"}, ...}``; ``{}`` without the BatchNorm head)."""
+    return batch_stats_from_state_dict({k[len("head."):]: v for k, v in sd.items()
+                                        if k.startswith("head.")})
 
 
 def build_vit_model(config, dtype: torch.dtype = torch.bfloat16, lora: bool = False) -> ViT:
@@ -193,8 +228,8 @@ def create_train_state(
 ) -> DINOTrainState:
     """Student, teacher, optimizer, schedules and centre on ``device``
     (default cuda). Raises NotImplementedError for FSDP/TENSOR/SEQ/PIPE above
-    1, for the BatchNorm head and for a backbone dropout above 0 (the DINO
-    step does not draw dropout masks)."""
+    1 and for a backbone dropout above 0 (the DINO step does not draw
+    dropout masks)."""
     refuse_unported_axes(config)
     if config.VIT.DROPOUT_RATE:
         raise NotImplementedError("VIT.DROPOUT_RATE > 0 in DINO pretraining is not ported; "
@@ -252,8 +287,10 @@ def _crops(config, batch: torch.Tensor, generator: Optional[torch.Generator],
 
 @torch.no_grad()
 def update_teacher(teacher: torch.nn.Module, student: torch.nn.Module, momentum: float) -> None:
-    """t = t m + s (1 - m) over every tensor, m and 1 - m in float32 (JAX
-    ``:385-392``; the frozen tensors too, as the JAX tree map does)."""
+    """t = t m + s (1 - m) over every parameter, m and 1 - m in float32 (JAX
+    ``:385-392``; the frozen tensors too, as the JAX tree map does). The
+    BatchNorm running statistics are buffers, not parameters: each network
+    keeps its own, as JAX keeps ``teacher_head_stats`` apart."""
     m = np.float32(momentum)
     t = list(teacher.parameters())
     torch._foreach_mul_(t, float(m))
@@ -274,6 +311,7 @@ def make_train_step(config) -> Callable:
                    teacher_temp: float, cancel_last_layer: bool, draws: Optional[Draws] = None):
         student, teacher, device = state.student, state.teacher, state.device
         student.train()
+        teacher.train()  # a BatchNorm head normalises with the batch's statistics
         batch = wire_to_compute(batch.to(device), config, in_chans)
         if batch.shape[0] % accum_steps:
             raise ValueError(f"batch {batch.shape[0]} does not split into {accum_steps} "
@@ -331,6 +369,7 @@ def make_eval_step(config) -> Callable:
                   generator: Optional[torch.Generator], teacher_temp: float,
                   draws: Optional[Sequence[Dict[str, torch.Tensor]]] = None):
         state.student.eval()
+        state.teacher.eval()  # a BatchNorm head uses its running statistics
         batch = wire_to_compute(batch.to(state.device), config, in_chans)
         crops = _crops(config, batch, generator, draws)
         loss = dino_loss(state.student(crops), state.teacher(crops[:2]), state.center,

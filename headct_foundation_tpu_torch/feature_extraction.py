@@ -4,12 +4,24 @@ Port of the JAX package's ``feature_extraction.py``, following the notebook
 flow (SURVEY.md section 3.4):
 
   1. build a bare ViT (96^3, patch 12, ViT-B, 3 channels, sincos),
-  2. load pretrained weights with module./backbone./_orig_mod. prefix
-     stripping and strict=False (notebook cell 3), or draw a random init
+  2. load pretrained weights strict=False through
+     ``utils/torch_interop.load_pretrained_into``, as the JAX extractor does
+     (``feature_extraction.py:75-82``): a reference ``.pt`` with its
+     module./backbone./_orig_mod. prefixes (notebook cell 3), or a pickle of
+     either package, an MAE or downstream one or a DINO one whose
+     ``backbone`` is taken; a position embedding of another grid is
+     interpolated to the model's. Without a checkpoint, a random init drawn
      from a seeded ``torch.Generator``,
   3. preprocess NIfTI scans on the device, resize BEFORE windowing,
   4. forward -> (last_layer_out [B, 513, 768], all_layers_out: 12 x same);
-     CLS = last_layer_out[:, 0, :].
+     CLS = last_layer_out[:, 0, :]. An input of another size than
+     ``img_size`` takes its position embedding interpolated to its grid.
+
+Attention maps (JAX ``:207-272``): ``attention_maps`` runs the forward with
+``save_attn`` on (the unfused float32 softmax; no kernel is launched) and
+returns each block's probabilities [B, H, T, T]; ``cls_attention_volume``
+turns one layer's CLS row into a map over the input volume, through the
+module-level ``cls_attention_grid``.
 
 Runs on ``cuda`` unless ``device="cpu"`` is passed; with no device and no
 CUDA it raises. On CUDA, float32 matmuls and convolutions are pinned to full
@@ -29,7 +41,7 @@ import torch
 
 from headct_foundation_tpu_torch.data.device_preprocess import DevicePreprocessor, Source
 from headct_foundation_tpu_torch.models.vit import ViT
-from headct_foundation_tpu_torch.utils.torch_interop import load_reference_checkpoint
+from headct_foundation_tpu_torch.utils.torch_interop import load_pretrained_into
 
 log = logging.getLogger(__name__)
 
@@ -87,11 +99,11 @@ class FeatureExtractor:
             norm_layer=norm_layer,
         )
         model.init_weights(torch.Generator().manual_seed(seed))
+        self.missing: List[str] = []
+        self.unexpected: List[str] = []
         if checkpoint_path:
-            sd = load_reference_checkpoint(checkpoint_path)
-            missing, unexpected = model.load_state_dict(sd, strict=False)
-            log.info("Loaded %s: %d missing, %d unexpected keys",
-                     checkpoint_path, len(missing), len(unexpected))
+            self.missing, self.unexpected = load_pretrained_into(model, checkpoint_path,
+                                                                 logger=log)
         self.model = model.to(self.device).eval()
         self._prep = DevicePreprocessor((img_size,) * 3, in_chans, self.device)
 
@@ -99,12 +111,14 @@ class FeatureExtractor:
         """NIfTI path or bytes -> [C, R, R, R] float32 on the extractor's device."""
         return self._prep(source)
 
+    def _input(self, x) -> torch.Tensor:
+        x = torch.as_tensor(x).to(self.device, torch.float32)
+        return x[None] if x.dim() == 4 else x
+
     def __call__(self, x) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """[B, C, R, R, R] (or one [C, R, R, R]) -> (last_layer_out [B, T, C],
         all_layers_out). Tensors already on the device are used in place."""
-        x = torch.as_tensor(x).to(self.device, torch.float32)
-        if x.dim() == 4:
-            x = x[None]
+        x = self._input(x)
         with torch.inference_mode():
             return self.model(x)
 
@@ -152,10 +166,52 @@ class FeatureExtractor:
             return np.concatenate(feats, axis=0)
         return np.zeros((0, self.model.hidden_size), np.float32)
 
+    def attention_maps(self, x) -> List[np.ndarray]:
+        """Each block's post-softmax attention [B, H, T, T] float32, as numpy
+        (the reference's ``save_attn`` surface, src/models/attentionblock.py:36,
+        62-64): the forward runs unfused with ``save_attn`` on, so no kernel
+        is launched."""
+        x = self._input(x)
+        prev = self.model.set_save_attn(True)
+        try:
+            with torch.inference_mode():
+                self.model(x)
+            return [blk.attn.att_mat.cpu().numpy() for blk in self.model.blocks]
+        finally:
+            self.model.set_save_attn(prev)
+
     @property
     def token_grid(self) -> Tuple[int, int, int]:
         """Patch-token grid (tokens per spatial axis)."""
         return tuple(self.img_size // p for p in self.model.patch_size)
+
+    def cls_attention_volume(self, x, layer: int = -1, head: Optional[int] = None
+                             ) -> np.ndarray:
+        """CLS-to-patch attention of one layer over the input volume:
+        [B or none, C, R, R, R] -> [B, R, R, R] float32, the CLS row of that
+        layer's attention (mean over heads, or one ``head``) on the patch
+        grid, repeated (nearest neighbour) to the volume's resolution."""
+        att = cls_attention_grid(self.attention_maps(x), self.token_grid,
+                                 num_register_tokens=self.model.num_register_tokens,
+                                 layer=layer, head=head)
+        for axis, g in enumerate(self.token_grid):
+            att = np.repeat(att, self.img_size // g, axis=axis + 1)
+        return att
+
+
+def cls_attention_grid(att_maps: Sequence[np.ndarray], grid: Sequence[int],
+                       num_register_tokens: int = 0, layer: int = -1,
+                       head: Optional[int] = None) -> np.ndarray:
+    """Per-layer [B, H, T, T] attention -> [B, *grid] CLS-to-patch maps. The
+    tokens are [CLS, registers..., patches...] (``ViT.forward``), so the CLS
+    query row skips itself and the registers before it is laid on the grid."""
+    m = np.asarray(att_maps[layer])
+    cls_row = m[:, :, 0, 1 + int(num_register_tokens):]  # [B, H, P]
+    att = cls_row.mean(axis=1) if head is None else cls_row[:, head]
+    grid = tuple(int(g) for g in grid)
+    if att.shape[1] != int(np.prod(grid)):
+        raise ValueError(f"{att.shape[1]} patch tokens do not fill the grid {grid}")
+    return att.reshape(att.shape[0], *grid).astype(np.float32)
 
 
 def build_extractor_from_config(config, checkpoint_path: Optional[str] = None,

@@ -24,7 +24,14 @@ GELU is the tanh approximation unless ``HEADCT_EXACT_GELU=1`` (erf), read
 at call time, as in the JAX package. Every projection is a ``layers.Linear``:
 float32 parameters computed in ``dtype`` (JAX ``models/attention.py:91-163``,
 flax ``dtype`` / ``param_dtype``), so with ``dtype=bfloat16`` the residual
-stream is bfloat16. ``save_attn`` is not ported yet.
+stream is bfloat16.
+
+``save_attn`` (JAX ``:68-120``; reference: src/models/attentionblock.py:36,
+62-64): the attention is computed unfused, ``softmax(float32(q k^T D^-1/2))``
+after LoRA's deltas, and the probabilities are kept as the attribute
+``att_mat`` [B, H, T, T] float32; the output is ``probs.to(q.dtype) @ v``.
+It never calls ``dot_product_attention``, so no kernel runs: leave it off
+outside visualisation.
 
 Dropout (JAX ``:130``, ``:154``, ``:163``) runs in ``train()`` mode at a rate
 above 0, its masks drawn from the ``generator`` handed to ``forward`` (a
@@ -81,6 +88,8 @@ class SelfAttention(nn.Module):
         if hidden_size % num_heads:
             raise ValueError("hidden_size should be divisible by num_heads.")
         self.num_heads = num_heads
+        self.save_attn = False  # set by ViT.set_save_attn
+        self.att_mat: Optional[torch.Tensor] = None
         self.dropout_rate = dropout
         self.qkv = Linear(hidden_size, 3 * hidden_size, bias=qkv_bias, dtype=dtype)
         if lora:
@@ -100,7 +109,13 @@ class SelfAttention(nn.Module):
         if self.lora_q is not None:  # after the head split (reference :57-59)
             q = q + self.lora_q(x).reshape(B, N, H, C // H)
             v = v + self.lora_v(x).reshape(B, N, H, C // H)
-        y = self.proj(dot_product_attention(q, k, v).reshape(B, N, C))
+        if self.save_attn:  # unfused, the probabilities kept: no kernel
+            logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / float(C // H) ** 0.5)
+            self.att_mat = torch.softmax(logits.float(), dim=-1)
+            y = torch.einsum("bhqk,bkhd->bqhd", self.att_mat.to(q.dtype), v)
+        else:
+            y = dot_product_attention(q, k, v)
+        y = self.proj(y.reshape(B, N, C))
         return dropout(y, self.dropout_rate if self.training else 0.0, generator)
 
 

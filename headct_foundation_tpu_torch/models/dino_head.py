@@ -2,8 +2,9 @@
 
 Port of the JAX package's ``models/dino_head.py:20-99`` (reference:
 src/models/dino_head.py:7-41): an MLP of ``nlayers`` Linears with GELU
-between them, an L2 normalisation in float32 (floor 1e-12), then a
-weight-normalised last Linear onto the prototypes.
+(and, with ``use_bn``, BatchNorm) between them, an L2 normalisation in
+float32 (floor 1e-12), then a weight-normalised last Linear onto the
+prototypes.
 
 * ``WeightNormDense`` keeps torch's ``weight_norm`` split as two parameters,
   ``weight_v`` [out, in] and ``weight_g`` [out, 1], so reference checkpoints
@@ -13,9 +14,14 @@ weight-normalised last Linear onto the prototypes.
   ``nn.Sequential`` with GELU between them), the names the JAX package's
   ``tree_to_torch`` gives ``mlp_0``, ``mlp_1``, ...; parameters are float32,
   computed in ``dtype``.
-* ``use_bn=True`` (the BatchNorm head) raises NotImplementedError (ROADMAP
-  A.10: the head's BatchNorm layers, their statistics in the DINO state and
-  checkpoints). The shipped config sets ``DINO.USE_BN: False``.
+* ``use_bn=True`` (``DINO.USE_BN``, the config default; the shipped yaml
+  turns it off): [Linear, BatchNorm, GELU] x (nlayers - 1), then the last
+  Linear, so the Linears sit at ``mlp.{3i}`` and the BatchNorms at
+  ``mlp.{3i+1}`` (JAX ``mlp_i`` and ``mlp_bn_i``). Each BatchNorm is
+  ``TorchBatchNorm(momentum=0.1, eps=1e-5, affine=True, dtype=dtype)``: JAX
+  ``TorchBatchNorm(momentum=0.9, epsilon=1e-5, dtype=self.dtype)`` with its
+  scale and bias, train-mode batch statistics in ``train()`` and the
+  running ones in ``eval()``, global under ``torch.distributed``.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import torch
 from torch import nn
 
 from headct_foundation_tpu_torch.models.attention import gelu
-from headct_foundation_tpu_torch.models.layers import Linear, trunc_normal_
+from headct_foundation_tpu_torch.models.layers import Linear, TorchBatchNorm, trunc_normal_
 
 
 class _GELU(nn.Module):
@@ -54,16 +60,15 @@ class DINOHead(nn.Module):
                  norm_last_layer: bool = True, nlayers: int = 3, hidden_dim: int = 2048,
                  bottleneck_dim: int = 256, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if use_bn:
-            raise NotImplementedError(
-                "DINO.USE_BN: True (the BatchNorm head) is not ported yet (ROADMAP A.10). "
-                "Set DINO.USE_BN: False")
         self.norm_last_layer = norm_last_layer  # read by the engine's trainable mask
         nlayers = max(nlayers, 1)
         dims = [in_dim] + [hidden_dim] * (nlayers - 1) + [bottleneck_dim]
         layers = []
         for i in range(nlayers):
             if i:
+                if use_bn:
+                    layers.append(TorchBatchNorm(dims[i], momentum=0.1, eps=1e-5, affine=True,
+                                                 dtype=dtype))
                 layers.append(_GELU())
             layers.append(Linear(dims[i], dims[i + 1], dtype=dtype))
         self.mlp = nn.Sequential(*layers)
@@ -72,10 +77,14 @@ class DINOHead(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator] = None) -> "DINOHead":
         """The JAX head's initializers: truncated normal (std 0.02) kernels
-        and ``weight_v``, zero biases, unit ``weight_g``."""
+        and ``weight_v``, zero biases, unit ``weight_g``, BatchNorm scale 1
+        and bias 0."""
         for mod in self.mlp:
             if isinstance(mod, nn.Linear):
                 trunc_normal_(mod.weight, generator=generator)
+                mod.bias.zero_()
+            elif isinstance(mod, TorchBatchNorm):
+                mod.weight.fill_(1.0)
                 mod.bias.zero_()
         trunc_normal_(self.last_layer.weight_v, generator=generator)
         self.last_layer.weight_g.fill_(1.0)

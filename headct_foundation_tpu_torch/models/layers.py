@@ -18,6 +18,8 @@
   variance is the unbiased one). Under ``torch.distributed`` the train-mode
   statistics are the global batch's (the JAX package's BatchNorm under jit
   sees the whole sharded batch): one differentiable all-reduce of the sums.
+  ``affine`` and ``dtype`` give the DINO head's variant (a float32 scale and
+  bias, the output in the head's compute dtype).
 * ``dropout``: inverted dropout whose keep mask is drawn from an explicit
   generator, so a step is reproducible from its seed.
 
@@ -138,18 +140,29 @@ class TorchBatchNorm(nn.Module):
     raises on one value per channel; eval mode with the running statistics.
     Under ``torch.distributed`` the batch is the global one: the sums of
     each pass are all-reduced (every rank holds a batch of the same size).
-    The output is float32 and there is no scale or bias, as the JAX
-    classifiers ask (``dtype=float32``, ``use_scale`` / ``use_bias`` off).
-    Buffers ``running_mean`` and
-    ``running_var`` are the names ``tree_to_torch`` gives the JAX
-    ``batch_stats`` ``mean`` and ``var``."""
+    By default the output is float32 and there is no scale or bias, as the
+    JAX classifiers ask (``dtype=float32``, ``use_scale`` / ``use_bias``
+    off). ``affine=True`` adds the float32 parameters ``weight`` (ones) and
+    ``bias`` (zeros), applied in float32 after the normalisation, and
+    ``dtype`` is the output's: the DINO head's BatchNorm (JAX
+    ``models/dino_head.py:66-84``, ``use_scale`` / ``use_bias`` on, computed
+    in the head's ``dtype``). Buffers ``running_mean`` and ``running_var``
+    and the parameters are the names ``tree_to_torch`` gives the JAX
+    ``batch_stats`` ``mean`` and ``var`` and params ``scale`` and ``bias``."""
 
-    def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5):
+    def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5,
+                 affine: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.dtype = dtype
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        if affine:
+            self.weight = nn.Parameter(torch.ones(num_features))
+            self.bias = nn.Parameter(torch.zeros(num_features))
+        else:
+            self.weight = self.bias = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
@@ -171,7 +184,10 @@ class TorchBatchNorm(nn.Module):
                 self.running_var.mul_(1.0 - m).add_(m * var * (n / (n - 1)))
         else:
             mean, var = self.running_mean, self.running_var
-        return (xf - mean) * torch.rsqrt(var + self.eps)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            y = y * self.weight + self.bias
+        return y.to(self.dtype)
 
 
 def keep_mask(shape, rate: float, generator: Optional[torch.Generator],

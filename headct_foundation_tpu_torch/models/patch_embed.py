@@ -11,6 +11,12 @@ Parameters stay float32; ``dtype`` is the compute dtype that patches,
 weight, bias and position embedding are cast to, as flax's ``dtype`` /
 ``param_dtype`` (JAX ``models/patch_embed.py:120-135``).
 
+An input whose spatial size is not ``img_size`` takes the position
+embedding interpolated to its own patch grid, which may be non-cubic
+(``interpolate_pos_embed(pe, 0, new_grid=spatial // patch)``, JAX
+``:119-137``; reference: src/utils/patch_embedding.py:135-146). A size that
+the patch does not divide raises.
+
 Dropout (JAX ``:115,137``) follows the position embedding in ``train()``
 mode at a rate above 0, its mask drawn from the ``generator`` handed to
 ``forward``.
@@ -29,7 +35,10 @@ import torch
 from torch import nn
 
 from headct_foundation_tpu_torch.models.layers import dropout
-from headct_foundation_tpu_torch.models.pos_embed import build_sincos_position_embedding
+from headct_foundation_tpu_torch.models.pos_embed import (
+    build_sincos_position_embedding,
+    interpolate_pos_embed,
+)
 
 
 def patchify3d(x: torch.Tensor, patch_size: Sequence[int]) -> torch.Tensor:
@@ -95,16 +104,19 @@ class PatchEmbeddingBlock(nn.Module):
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         """[B, C, H, W, D] -> [B, L, hidden]."""
-        if tuple(x.shape[2:]) != self.img_size:
-            raise ValueError(
-                f"input spatial size {tuple(x.shape[2:])} != img_size "
-                f"{self.img_size}; position-embedding interpolation is not ported"
-            )
+        spatial = tuple(x.shape[2:])
+        if any(s % p for s, p in zip(spatial, self.patch_size)):
+            raise ValueError(f"input spatial size {spatial} is not divisible by the patch size "
+                             f"{self.patch_size}")
         dt = self.dtype
         w = self.patch_embeddings.weight
         kernel = w.permute(2, 3, 4, 1, 0).reshape(-1, w.shape[0]).to(dt)
         tokens = patchify3d(x, self.patch_size).to(dt) @ kernel
         tokens = tokens + self.patch_embeddings.bias.to(dt)
         if self.position_embeddings is not None:
-            tokens = tokens + self.position_embeddings.to(dt)
+            pe = self.position_embeddings
+            if spatial != self.img_size:  # the input's own grid, which may be non-cubic
+                pe = interpolate_pos_embed(
+                    pe, 0, new_grid=tuple(s // p for s, p in zip(spatial, self.patch_size)))
+            tokens = tokens + pe.to(dt)
         return dropout(tokens, self.dropout_rate if self.training else 0.0, generator)

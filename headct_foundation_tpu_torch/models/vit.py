@@ -14,6 +14,11 @@ MLP half of every block in the backward (JAX ``models/vit.py:102-117``).
 downstream ``TRAIN.LORA``). Dropout at ``dropout_rate`` runs after the patch
 embedding and in every block in ``train()`` mode, its masks drawn from the
 ``generator`` handed to ``forward``; ``eval()`` is deterministic.
+``set_save_attn(True)`` makes every block keep its attention
+probabilities as ``blocks[i].attn.att_mat`` [B, H, T, T] float32, computed
+unfused without a kernel (JAX ``models/vit.py:49,108``). An input of
+another spatial size than ``img_size`` takes its position embedding
+interpolated to its own patch grid (``models/patch_embed.py``).
 
 Parameter names are the reference torch names that the JAX package's
 ``tree_to_torch`` emits (``blocks.3.attn.qkv.weight``, ``cls_token``, ...),
@@ -90,6 +95,15 @@ class ViT(nn.Module):
         self.norm = make_norm(norm_layer, hidden_size, eps=1e-6)
         if classification:
             self.classification_head = Linear(hidden_size, num_classes, dtype=dtype)
+
+    def set_save_attn(self, on: bool) -> bool:
+        """Turn ``save_attn`` on or off in every block; returns the previous
+        setting (of the first block) and drops any kept ``att_mat``."""
+        prev = bool(self.blocks[0].attn.save_attn) if len(self.blocks) else False
+        for blk in self.blocks:
+            blk.attn.save_attn = bool(on)
+            blk.attn.att_mat = None
+        return prev
 
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator] = None) -> "ViT":

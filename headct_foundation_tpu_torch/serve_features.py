@@ -169,7 +169,8 @@ def main(argv: Optional[list] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--checkpoint", default=None,
-                    help="reference .pt to load (seeded random init if omitted)")
+                    help="reference .pt or a pickle of either package to load (seeded "
+                         "random init if omitted)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8476)

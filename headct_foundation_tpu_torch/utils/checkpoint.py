@@ -21,9 +21,10 @@ to and from them). Either package reads the other's files.
 * The MAE state's trees are ``params`` and ``opt_state`` (``model_trees``).
   A DINO state adds the JAX DINO trainer's extras (its ``:598-606``):
   ``momentum_model_state_dict`` (the teacher's parameter tree), ``center``,
-  ``head_stats`` and ``teacher_head_stats`` (empty: the BatchNorm head is
-  not ported). A downstream state's are the JAX downstream trainer's (its
-  ``:592-601``): ``params`` is ``{"model", "classifier"}``, ``opt_state``
+  ``head_stats`` and ``teacher_head_stats`` (the student's and the teacher's
+  head BatchNorm running statistics, ``{"mlp_bn_N": {"mean", "var"}}``;
+  ``{}`` without the BatchNorm head). A downstream state's are the JAX
+  downstream trainer's (its ``:592-601``): ``params`` is ``{"model", "classifier"}``, ``opt_state``
   the ``multi_transform`` state of its two optimizers
   (``utils/torch_interop.py``), and ``batch_stats`` the classifier's
   BatchNorm running statistics; ``restore_downstream_state`` fills one
@@ -59,6 +60,7 @@ from headct_foundation_tpu_torch.utils.torch_interop import (
     CheckpointDtypeError,
     downstream_opt_state_from_jax,
     downstream_state_dicts_from_jax,
+    is_stat,
     jax_tree_from_state_dict,
     load_native_pickle,
     opt_state_from_jax,
@@ -192,11 +194,16 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
         return load_native_pickle(f)
 
 
-def _tensors_of(model: torch.nn.Module, tree: Any) -> Dict[str, torch.Tensor]:
-    """A JAX parameter tree as tensors for ``model``'s state_dict, checked
-    (names, dtypes, shapes) before anything is copied."""
-    sd = model.state_dict()
-    source = state_dict_from_jax(tree)
+def _tensors_of(model: torch.nn.Module, tree: Any, stats: Any = None,
+                prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A JAX parameter tree (or, given ``stats``, a ``batch_stats`` tree) as
+    tensors for ``model``'s state_dict entries of that kind under
+    ``prefix``, checked (names, dtypes, shapes) before anything is copied."""
+    sd = {k: v for k, v in model.state_dict().items()
+          if k.startswith(prefix) and (stats is None) != is_stat(k)}
+    source = {prefix + k: v for k, v in (
+        state_dict_from_jax(tree) if stats is None
+        else state_dict_from_jax({}, batch_stats=stats)).items()}
     if set(source) != set(sd):
         raise KeyError(f"checkpoint parameters do not fit the model: missing "
                        f"{sorted(set(sd) - set(source))[:5]}, unexpected "
@@ -205,9 +212,10 @@ def _tensors_of(model: torch.nn.Module, tree: Any) -> Dict[str, torch.Tensor]:
 
 
 def _copy_into(model: torch.nn.Module, tensors: Dict[str, torch.Tensor]) -> None:
+    sd = model.state_dict()
     with torch.no_grad():
-        for k, v in model.state_dict().items():
-            v.copy_(tensors[k])
+        for k, v in tensors.items():
+            sd[k].copy_(v)
 
 
 def restore_state(state, payload: Dict[str, Any]) -> Tuple[Any, int, float]:
@@ -244,14 +252,16 @@ def restore_dino_state(state, payload: Dict[str, Any], logger=None) -> Tuple[Any
     def restore_center(value):
         state.center = tensor_from_leaf(value, state.center, "center")
 
-    def restore_stats(value):
-        if dict(value):
-            raise ValueError("BatchNorm statistics; the port's DINO head has no BatchNorm")
+    def stats_of(model):
+        def restore(value):
+            _copy_into(model, _tensors_of(model, None, stats=dict(value), prefix="head."))
+        return restore
 
     _copy_into(state.student, tensors)
     for key, restore in (("momentum_model_state_dict", restore_teacher),
                          ("opt_state", restore_opt), ("center", restore_center),
-                         ("head_stats", restore_stats), ("teacher_head_stats", restore_stats)):
+                         ("head_stats", stats_of(state.student)),
+                         ("teacher_head_stats", stats_of(state.teacher))):
         if key not in payload:
             skipped.append(key)
             continue

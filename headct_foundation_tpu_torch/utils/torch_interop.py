@@ -47,7 +47,12 @@ and the port's modules.
   runs nothing: only numpy arrays, dtypes and plain containers load.
 * ``merge_params`` (``:210``) and ``load_pretrained_into`` (``:465``):
   strict=False warm starts into a module's state_dict, from a torch file or
-  from either package's pickle, routed by content.
+  from either package's pickle, routed by content; a position embedding of
+  another grid is interpolated to the model's.
+* The BatchNorm DINO head (``DINO.USE_BN``): its ``mlp_N`` at ``mlp.{3N}``,
+  ``mlp_bn_N`` ``{scale, bias}`` at ``mlp.{3N+1}.weight`` / ``.bias``, and
+  its ``batch_stats`` ``{mean, var}`` at ``running_mean`` / ``running_var``
+  (``bn_layout_of`` tells the layout from the names).
 
 The pickle format is ``utils/checkpoint.py``'s. Orbax directories need JAX
 and raise ``OrbaxNotSupportedError``. A leaf in a ``ml_dtypes`` type
@@ -64,6 +69,8 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from headct_foundation_tpu_torch.models.pos_embed import interpolate_pos_embed, nth_root
 
 PREFIXES = ("module.", "backbone.", "_orig_mod.")
 
@@ -88,13 +95,35 @@ def _patch_kernel_to_conv(k: np.ndarray) -> np.ndarray:
     raise ValueError(f"cannot infer conv shape from kernel {k.shape}")
 
 
-def _torch_module_name(name: str) -> str:
+def _torch_module_name(name: str, bn_layout: bool = False) -> str:
+    """A JAX module name as the reference's. The DINO head's ``nn.Sequential``
+    holds [Linear, GELU]* without BatchNorm (``mlp_N`` at ``mlp.{2N}``) and
+    [Linear, BN, GELU]* with it (``mlp_N`` at ``mlp.{3N}``, ``mlp_bn_N`` at
+    ``mlp.{3N+1}``; JAX ``utils/torch_interop.py:154-174,296-333``)."""
     for base in ("blocks", "decoder_blocks"):
         if name.startswith(base + "_") and name[len(base) + 1:].isdigit():
             return f"{base}.{name[len(base) + 1:]}"
-    if name.startswith("mlp_") and name[4:].isdigit():  # the DINO head's Linears, GELU between
-        return f"mlp.{2 * int(name[4:])}"
+    if name.startswith("mlp_bn_") and name[7:].isdigit():
+        return f"mlp.{3 * int(name[7:]) + 1}"
+    if name.startswith("mlp_") and name[4:].isdigit():
+        return f"mlp.{(3 if bn_layout else 2) * int(name[4:])}"
     return name
+
+
+def _has_bn(tree: Any) -> bool:
+    """Whether a JAX tree holds a DINO head BatchNorm (``mlp_bn_N``)."""
+    return isinstance(tree, Mapping) and any(
+        str(k).startswith("mlp_bn_") or _has_bn(v) for k, v in tree.items())
+
+
+def bn_layout_of(names) -> bool:
+    """Whether reference names are of the BatchNorm head's layout: only it
+    puts a module at an odd ``mlp.N`` (JAX decides it by a pre-scan, ``:85``)."""
+    for name in names:
+        parts = name.split(".")
+        if any(a == "mlp" and b.isdigit() and int(b) % 2 for a, b in zip(parts, parts[1:])):
+            return True
+    return False
 
 
 BN_STATS = {"mean": "running_mean", "var": "running_var"}  # JAX batch_stats -> torch buffers
@@ -105,14 +134,16 @@ def state_dict_from_jax(params: Mapping[str, Any],
                         ) -> Dict[str, torch.Tensor]:
     """JAX ViT parameter tree (numpy leaves) -> reference-named state_dict;
     BatchNorm statistics ``{"bn": {"mean", "var"}}`` from ``batch_stats``
-    become ``bn.running_mean`` / ``bn.running_var``."""
+    become ``bn.running_mean`` / ``bn.running_var``; a DINO head with
+    BatchNorm (``mlp_bn_N``) takes the reference's [Linear, BN, GELU] names."""
     out: Dict[str, np.ndarray] = {}
+    bn_layout = _has_bn(params) or _has_bn(batch_stats)
 
     def walk(tree: Mapping[str, Any], prefix: str, in_patch_embed: bool) -> None:
         for key, val in tree.items():
             name = str(key)
             if isinstance(val, Mapping):
-                sub = _torch_module_name(name)
+                sub = _torch_module_name(name, bn_layout)
                 walk(val, f"{prefix}.{sub}" if prefix else sub,
                      in_patch_embed or name == "patch_embedding")
                 continue
@@ -132,7 +163,8 @@ def state_dict_from_jax(params: Mapping[str, Any],
 
     def walk_stats(tree: Mapping[str, Any], prefix: str) -> None:
         for key, val in tree.items():
-            name = f"{prefix}.{_torch_module_name(str(key))}" if prefix else str(key)
+            module = _torch_module_name(str(key), bn_layout)
+            name = f"{prefix}.{module}" if prefix else module
             if isinstance(val, Mapping):
                 walk_stats(val, name)
             else:
@@ -169,7 +201,7 @@ def refuse_orbax(path: Optional[str] = None, fmt: str = "pickle") -> None:
         raise ValueError(f"unknown checkpoint format {fmt!r}")
 
 
-def _jax_module_path(parts: List[str]) -> List[str]:
+def _jax_module_path(parts: List[str], bn_layout: bool = False) -> List[str]:
     out, i = [], 0
     while i < len(parts):
         if (parts[i] in ("blocks", "decoder_blocks") and i + 1 < len(parts)
@@ -177,7 +209,13 @@ def _jax_module_path(parts: List[str]) -> List[str]:
             out.append(f"{parts[i]}_{parts[i + 1]}")
             i += 2
         elif parts[i] == "mlp" and i + 1 < len(parts) and parts[i + 1].isdigit():
-            out.append(f"mlp_{int(parts[i + 1]) // 2}")  # the DINO head's mlp.{2N}
+            idx = int(parts[i + 1])
+            if not bn_layout:  # the DINO head's Linears at mlp.{2N}
+                out.append(f"mlp_{idx // 2}")
+            elif idx % 3 == 2:
+                raise KeyError(f"mlp.{idx} is a GELU of the BatchNorm head; it holds nothing")
+            else:  # Linears at mlp.{3N}, BatchNorms at mlp.{3N+1}
+                out.append(f"mlp_{idx // 3}" if idx % 3 == 0 else f"mlp_bn_{idx // 3}")
             i += 2
         else:
             out.append(parts[i])
@@ -185,18 +223,21 @@ def _jax_module_path(parts: List[str]) -> List[str]:
     return out
 
 
-def _jax_leaf(name: str, ndim: int, norm_layer: str) -> Tuple[List[str], str]:
+def _jax_leaf(name: str, ndim: int, norm_layer: str,
+              bn_layout: bool = False) -> Tuple[List[str], str]:
     """Port state_dict name -> (JAX tree path, layout): "linear" (kernel
     [in, out] of a Linear weight [out, in]), "patch" (the patch-embed matmul
-    kernel of a Conv3d weight) or "plain"."""
+    kernel of a Conv3d weight) or "plain". A BatchNorm's weight is its
+    ``scale`` whatever the ViT's norm."""
     parts = name.split(".")
     if len(parts) >= 2 and parts[-2] == "patch_embeddings":
         return _jax_module_path(parts[:-2]) + ["kernel" if parts[-1] == "weight" else "bias"], (
             "patch" if parts[-1] == "weight" else "plain")
-    path = _jax_module_path(parts[:-1])
+    path = _jax_module_path(parts[:-1], bn_layout)
     if parts[-1] == "weight" and ndim == 2:
         return path + ["kernel"], "linear"
-    if parts[-1] == "weight" and ndim == 1 and norm_layer != "rmsnorm":
+    if parts[-1] == "weight" and ndim == 1 and (
+            norm_layer != "rmsnorm" or path[-1].startswith("mlp_bn_")):
         return path + ["scale"], "plain"
     return path + [parts[-1]], "plain"
 
@@ -236,11 +277,11 @@ def _get(tree: Mapping, path: List[str], what: str) -> Any:
 
 
 def jax_path(name: str, ndim: int, norm_layer: str = "layernorm") -> List[str]:
-    """The JAX tree path of a port parameter name."""
+    """The JAX tree path of a port parameter name (not of a BatchNorm DINO head)."""
     return _jax_leaf(name, ndim, norm_layer)[0]
 
 
-def _is_stat(name: str) -> bool:
+def is_stat(name: str) -> bool:
     return name.rsplit(".", 1)[-1] in BN_STATS.values()
 
 
@@ -252,10 +293,11 @@ def jax_tree_from_state_dict(sd: Mapping[str, torch.Tensor],
     ``weight`` -> ``scale``. BatchNorm running statistics are left out
     (``batch_stats_from_state_dict``)."""
     tree: Dict[str, Any] = {}
+    bn_layout = bn_layout_of(sd)
     for name, v in sd.items():
-        if _is_stat(name):
+        if is_stat(name):
             continue
-        path, layout = _jax_leaf(name, v.dim(), norm_layer)
+        path, layout = _jax_leaf(name, v.dim(), norm_layer, bn_layout)
         _nest(tree, path, _to_jax_layout(v, layout))
     return tree
 
@@ -265,10 +307,11 @@ def batch_stats_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any
     ``batch_stats`` tree: ``bn.running_mean`` -> ``bn/mean``."""
     tree: Dict[str, Any] = {}
     inverse = {v: k for k, v in BN_STATS.items()}
+    bn_layout = bn_layout_of(sd)
     for name, v in sd.items():
-        if _is_stat(name):
+        if is_stat(name):
             parts = name.split(".")
-            _nest(tree, _jax_module_path(parts[:-1]) + [inverse[parts[-1]]],
+            _nest(tree, _jax_module_path(parts[:-1], bn_layout) + [inverse[parts[-1]]],
                   v.detach().contiguous().cpu().numpy())
     return tree
 
@@ -360,9 +403,10 @@ def _pretrain_layout(optimizer: torch.optim.Optimizer, model: torch.nn.Module, c
     """The pretraining engines' ``multi_transform({"train", "freeze"})`` over
     ``chain([clip], ...)``: (branches, leaves, kinds, clip_outside)."""
     norm_layer = _norm_layer(config, norm_layer)
+    bn_layout = bn_layout_of(n for n, _ in model.named_parameters())
     leaves = []
     for name, p, _ in _trainable(model, optimizer):
-        path, layout = _jax_leaf(name, p.dim(), norm_layer)
+        path, layout = _jax_leaf(name, p.dim(), norm_layer, bn_layout)
         leaves.append((path, p, layout))
     return {"train": optimizer}, leaves, _chain(config), False
 
@@ -572,13 +616,24 @@ def classify_checkpoint(path: str) -> Tuple[bool, Optional[Dict[str, Any]]]:
     return (False, payload) if ours else (True, None)
 
 
+# Position embeddings that a warm start interpolates to the model's grid;
+# both hold patch tokens only (CLS and registers are separate parameters).
+POS_EMBED_LEAVES = ("position_embeddings", "decoder_pos_embed")
+
+
+def _is_cube(n: int) -> bool:
+    return nth_root(int(n), 3) ** 3 == int(n)
+
+
 def merge_params(target: Mapping[str, torch.Tensor], source: Mapping[str, Any]
                  ) -> Tuple[Dict[str, torch.Tensor], List[str], List[str]]:
     """strict=False merge of ``source`` into the state_dict ``target``:
     (merged, missing keys, unexpected keys). A leaf is taken where its name
     and shape match and cast to the target's dtype, as torch's
-    ``load_state_dict`` copies; a position embedding of another grid needs
-    ``interpolate_pos_embed``, which is not ported, and raises."""
+    ``load_state_dict`` copies. A position embedding of another grid (both
+    token counts cubes, the same width) is interpolated to the target's
+    (JAX ``:186-272``; reference: main_pretrain_mae.py:132); any other shape
+    mismatch is reported as unexpected."""
     merged, missing, unexpected = dict(target), [], []
     for name, t in target.items():
         if name not in source:
@@ -587,12 +642,13 @@ def merge_params(target: Mapping[str, torch.Tensor], source: Mapping[str, Any]
         v = torch.as_tensor(np.asarray(source[name])) if not isinstance(
             source[name], torch.Tensor) else source[name]
         if tuple(v.shape) != tuple(t.shape):
-            if name.rsplit(".", 1)[-1] in ("position_embeddings", "decoder_pos_embed"):
-                raise NotImplementedError(
-                    f"{name}: a {tuple(v.shape)} position embedding into {tuple(t.shape)} needs "
-                    "interpolate_pos_embed, which the port does not have yet")
-            unexpected.append(f"{name} (shape {tuple(v.shape)} != {tuple(t.shape)})")
-            continue
+            if (name.rsplit(".", 1)[-1] in POS_EMBED_LEAVES and v.dim() == t.dim() == 3
+                    and v.shape[0] == t.shape[0] == 1 and v.shape[-1] == t.shape[-1]
+                    and _is_cube(v.shape[1]) and _is_cube(t.shape[1])):
+                v = interpolate_pos_embed(v.float(), 0, new_num_patches=t.shape[1])
+            else:
+                unexpected.append(f"{name} (shape {tuple(v.shape)} != {tuple(t.shape)})")
+                continue
         merged[name] = v.to(dtype=t.dtype, device=t.device)
     unexpected += [k for k in source if k not in target]
     return merged, missing, unexpected

@@ -129,8 +129,19 @@ def test_dino_head_matches_jax(dtype, nlayers):
 
 
 def test_dino_head_bn_raises():
-    with pytest.raises(NotImplementedError, match="USE_BN"):
-        DINOHead(48, 128, use_bn=True)
+    """The BatchNorm head (once refused) builds, with the reference's
+    [Linear, BN, GELU] names: Linears at mlp.{3i}, BatchNorms at mlp.{3i+1}
+    with their scale, bias and running statistics, nothing at the GELUs."""
+    head = DINOHead(48, 128, use_bn=True, hidden_dim=64, bottleneck_dim=16)
+    names = set(head.state_dict())
+    assert {f"mlp.{i}.weight" for i in (0, 3, 6)} <= names
+    for bn in ("mlp.1", "mlp.4"):
+        assert {f"{bn}.{leaf}" for leaf in ("weight", "bias", "running_mean",
+                                            "running_var")} <= names
+    assert not any(k.startswith(("mlp.2.", "mlp.5.")) for k in names)
+    assert set(DINOHead(48, 128, hidden_dim=64, bottleneck_dim=16).state_dict()) == {
+        "mlp.0.weight", "mlp.0.bias", "mlp.2.weight", "mlp.2.bias", "mlp.4.weight",
+        "mlp.4.bias", "last_layer.weight_v", "last_layer.weight_g"}
 
 
 def _boxes(b: int, inside: bool, integer: bool, seed: int):

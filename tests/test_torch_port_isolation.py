@@ -1,6 +1,7 @@
 """PyTorch port: imports no JAX and nothing of the JAX package, nor pandas,
 orbax, scikit-learn or matplotlib (it imports every module, the token-major
-tool's and the CLIs' included, and runs a serving forward, tiny MAE train
+tool's and the CLIs' included, and runs a serving forward, attention maps,
+an input of another size, a retrieval mAP, tiny MAE train
 steps, one of them on the blocked attention path and one with the fused
 Lion update, a checkpoint save and restore, the manifest reader, a tiny
 DINO step with its checkpoint, and the downstream CLI end to end (LoRA,
@@ -68,6 +69,15 @@ fe = FeatureExtractor(device="cpu", img_size=24, patch_size=12, in_chans=3, hidd
                       mlp_dim=96, num_layers=2, num_heads=4)
 out, hidden = fe(np.random.RandomState(0).rand(2, 3, 24, 24, 24))
 assert out.shape == (2, 9, 48) and len(hidden) == 2 and bool(torch.isfinite(out).all())
+# attention maps, another input size, retrieval
+maps = fe.attention_maps(np.random.RandomState(1).rand(2, 3, 24, 24, 24))
+assert len(maps) == 2 and maps[0].shape == (2, 4, 9, 9)
+out, _ = fe(np.random.RandomState(2).rand(1, 3, 24, 36, 24))
+assert out.shape == (1, 13, 48)
+from headct_foundation_tpu_torch.eval.retrieval import retrieval_map_per_class
+
+assert set(retrieval_map_per_class(np.random.RandomState(3).randn(6, 8),
+                                   {"a": np.array([1, 1, 0, 1, 0, 0])})) == {"a"}
 from headct_foundation_tpu_torch.config import default_config
 from headct_foundation_tpu_torch.data.transforms import hu16_encode
 from headct_foundation_tpu_torch.engines import mae_engine

@@ -120,6 +120,12 @@ def test_feature_extractor_loads_a_reference_checkpoint(tmp_path):
 
 
 def test_vit_rejects_other_input_sizes():
-    vit = ViT(**TINY)
-    with pytest.raises(ValueError, match="interpolation is not ported"):
-        vit(torch.zeros(1, 3, 36, 24, 24))
+    """A size the patch does not divide still raises; a non-cubic one (once
+    refused) runs on its own grid, its position embedding interpolated."""
+    vit = ViT(**TINY).eval()
+    with pytest.raises(ValueError, match="not divisible by the patch size"):
+        vit(torch.zeros(1, 3, 30, 24, 24))
+    with torch.no_grad():
+        out, hidden = vit(torch.rand(1, 3, 36, 24, 24))
+    assert out.shape == (1, 1 + 3 * 2 * 2, 48) and len(hidden) == 2
+    assert bool(torch.isfinite(out).all())
