@@ -171,12 +171,36 @@ Phases, each printing a line; any failure raises and exits non-zero:
              for bit against those outputs, then the unfused step against
              it; B6 timed over every trainable tensor; the same timings as
              the train phase.
-15. tm     - the token-major attention tool: kernels B7 and B8 against their
+15. dropout - the MAE step (96^3 as shipped) and the DINO step (as
+             shipped) at dropout 0.1, batch 4: each with the kernels against
+             the plain attention on the same generators (the train and dino
+             phases' limits), then one step each with exactly 8 B1 + 8 B2
+             (MAE) and 24 B1 + 12 B2 (DINO); a second run from seed 0
+             bit-identical, the rate-0 step different.
+16. context - the ``seq`` split of B3/B4/B5 on one card: the 96^3 decoder
+             [32,513,16,48] and the 192^3 decoder [2,4097,16,48] and encoder
+             [2,1025,12,64], bf16, at s = 2 and 4: the port's sharded branch
+             (``ops.attention.attend_shard``) once per emulated rank, its Q
+             shard against the padded whole K, V with kv_len, its backward
+             summing the dK, dV partials in rank order; O, dQ, dK, dV held
+             against the unsharded kernel call and the plain versions
+             (rel_l2 <= 1e-2); each shard's B3, B4, B5 timed beside its bound
+             and the whole sequence's.
+17. tensor - the ``tensor`` split of B1/B2: [32,513,16,48] and the DINO
+             student [256,517,12,64] at t = 2 and 4 local heads against the
+             matching heads of the full call (bit for bit expected), timed
+             beside the bound, and each rank against the plain version; the
+             Megatron linears' float32 partial products against the
+             unsplit linear; on a machine with two cards or more the MAE
+             CLI at SEQ 2 and at TENSOR 2 under torchrun against one
+             process in bf16 (``tools/check_data_parallel.py``), else one
+             line says it did not run.
+18. tm     - the token-major attention tool: kernels B7 and B8 against their
              plain versions at the tool's four shapes (bf16) and at float32
              and ragged ones, and against B1 and B2 on the same inputs (bit
              for bit: the same tile code), then ``tools.bench_tm_attention``
              at its four shapes.
-16. report - a JSON line of the kernels, the card line, then the result line.
+19. report - a JSON line of the kernels, the card line, then the result line.
 
 Float32 matmuls and convolutions are pinned to full float32 (TF32 off for
 cuBLAS and cuDNN): the serving forward is float32, like the JAX package's.
@@ -1668,7 +1692,7 @@ def phase_cli(workdir: Path, card: str, train_volumes_per_s: float) -> dict:
     return launches
 
 
-def dino_compare(cfg, state, wire, label: str, skip=()) -> dict:
+def dino_compare(cfg, state, wire, label: str, skip=(), dropout_seed=None) -> dict:
     """One DINO step at DINO_COMPARE_BATCH volumes of ``wire`` with the
     kernels against the plain attention: the same weights, crops, teacher
     and centre, in bf16 (the state's networks) and in float32 (copies), over
@@ -1680,7 +1704,9 @@ def dino_compare(cfg, state, wire, label: str, skip=()) -> dict:
     within its limit, the gradients at cosine 0.17, though B1/B2 agree with
     their plain versions), so in bf16
     the loss is held on the batch's statistics and the loss and gradients
-    on the running ones, as the downstream phase holds its head."""
+    on the running ones, as the downstream phase holds its head.
+    ``dropout_seed``: both runs draw the backbones' dropout masks from
+    generators seeded alike from it (the teacher's and the student's)."""
     from headct_foundation_tpu_torch.data.augment import apply_dino_multicrop, draw_dino_multicrop
     from headct_foundation_tpu_torch.data.device_preprocess import wire_to_compute
     from headct_foundation_tpu_torch.engines import dino_engine, mae_engine
@@ -1710,9 +1736,12 @@ def dino_compare(cfg, state, wire, label: str, skip=()) -> dict:
                     t_model.head.eval()
                 s_model.zero_grad(set_to_none=True)
                 crops = apply_dino_multicrop(wire_to_compute(wire0, cfg, in_chans), draws, roi)
+                t_drop, s_drop = ((None, None) if dropout_seed is None else
+                                  (mae_engine.step_generator(dev, dropout_seed, k)
+                                   for k in (101, 102)))
                 with torch.no_grad():
-                    t_out = t_model(crops[:2])
-                loss = dino_loss(s_model(crops), t_out, state.center, temp, ncrops)
+                    t_out = t_model(crops[:2], t_drop)
+                loss = dino_loss(s_model(crops, s_drop), t_out, state.center, temp, ncrops)
                 loss.backward()
                 params = dict(s_model.named_parameters())
                 grads = {n: without_key_bias(n, params[n].grad.detach().clone()) for n in names}
@@ -2647,6 +2676,432 @@ def phase_downstream_cli(workdir: Path, card: str) -> dict:
 # bf16 forward at 5 padded head dims x 2 copy widths and the float32 forward
 # at 5 (16-byte copies only) in each of B1's, B3's and B7's library; the dK/dV
 # and dQ passes at 5 x 2 each in B2's, B4/B5's and B8's.
+DROPOUT_RATE = 0.1      # the dropout phase's MAE.DROPOUT_RATE and VIT.DROPOUT_RATE
+DROPOUT_BATCH = 4       # volumes of each dropout step
+CONTEXT_SHAPES = [MAE_DECODER, STRETCH_DECODER, STRETCH_ENCODER]  # [B, T, H, D] bf16
+CONTEXT_SPLITS = (2, 4)
+TENSOR_SHAPES = [MAE_DECODER, DINO_STUDENT]
+TENSOR_SPLITS = (2, 4)
+BLOCKED_LABEL = {"flash_attention_blocked_fwd": "B3", "flash_attention_blocked_dkv": "B4",
+                 "flash_attention_blocked_dq": "B5"}
+
+
+def mae_dropout_state(rate: float, dev):
+    """The shipped 96^3 MAE at dropout ``rate``, seed 0, and its config."""
+    from headct_foundation_tpu_torch.config import default_config
+    from headct_foundation_tpu_torch.engines import mae_engine
+
+    cfg = default_config()
+    cfg.merge_from_file(str(ROOT / MAE_CONFIG))
+    cfg.merge_from_list(["DATA.WIRE_FORMAT", "hu16", "MAE.DROPOUT_RATE", rate])
+    return cfg, mae_engine.create_train_state(cfg, 10, 0, seed=0, device=dev)[0]
+
+
+def dino_dropout_state(rate: float, dev):
+    from headct_foundation_tpu_torch.config import default_config
+    from headct_foundation_tpu_torch.engines import dino_engine
+
+    cfg = default_config()
+    cfg.merge_from_file(str(ROOT / DINO_CONFIG))
+    cfg.merge_from_list(["DATA.WIRE_FORMAT", "hu16", "VIT.DROPOUT_RATE", rate])
+    return cfg, dino_engine.create_train_state(cfg, 10, 0, 5, seed=0, device=dev)
+
+
+def phase_dropout(card: str) -> dict:
+    """The MAE step (96^3 as shipped) and the DINO step (as shipped) at
+    dropout DROPOUT_RATE, batch DROPOUT_BATCH: each with the kernels against
+    the plain attention on the same generators (the train and dino phases'
+    limits), then one step on the main path with exactly the shipped
+    launches (8 B1 + 8 B2 for the MAE, 24 B1 + 12 B2 for DINO); a second run
+    from the same seed bit-identical, the rate-0 step different."""
+    from headct_foundation_tpu_torch.data.augment import draw_mae_augment
+    from headct_foundation_tpu_torch.engines import dino_engine, mae_engine
+    from headct_foundation_tpu_torch.ops import attention as port_attn
+
+    dev = torch.device("cuda")
+    runs = {}
+    wire = torch.from_numpy(head_phantoms(900, DROPOUT_BATCH)).to(dev)
+
+    # MAE: the kernels against the plain attention, every trainable gradient
+    cfg, state = mae_dropout_state(DROPOUT_RATE, dev)
+    g = mae_engine.step_generator(dev, 7, 0, 0)
+    n_tok = int(np.prod(state.model.grid_size))
+    draws = {"noise": torch.rand((DROPOUT_BATCH, n_tok), generator=g, device=dev),
+             "augment": draw_mae_augment(DROPOUT_BATCH, g, dev)}
+    grads = mae_engine.make_grad_step(augment=True, config=cfg)
+    names = [n for n, p in state.model.named_parameters() if p.requires_grad]
+
+    def mae_loss_and_grads(backend):
+        prev = port_attn.set_attention_backend(backend)
+        try:
+            step_draws = [{**draws, "dropout": mae_engine.step_generator(dev, 7, 0, 0, 1)}]
+            loss = grads(state, wire, 0, step_draws).item()
+            params = dict(state.model.named_parameters())
+            out = {n: params[n].grad.detach().clone() for n in names}
+            state.optimizer.zero_grad(set_to_none=True)
+            return loss, out
+        finally:
+            port_attn.set_attention_backend(prev)
+
+    compare = {"mae": hold_backends(mae_loss_and_grads, torch.bfloat16, "dropout mae",
+                                    "trainable")}
+    step = mae_engine.make_train_step(augment=True, config=cfg)
+    zero_launches()
+    state, m = step(state, wire, 0)
+    torch.cuda.synchronize()
+    runs["mae"] = launches()
+    results = [m["loss"].item(), {n: p.detach().clone() for n, p in
+                                  state.model.named_parameters()}]
+    for rate in (DROPOUT_RATE, 0.0):
+        cfg_r, again = mae_dropout_state(rate, dev)
+        again, m_r = mae_engine.make_train_step(augment=True, config=cfg_r)(again, wire, 0)
+        same = m_r["loss"].item() == results[0] and all(
+            torch.equal(p, results[1][n]) for n, p in again.model.named_parameters())
+        check(same == (rate == DROPOUT_RATE),
+              f"dropout mae: the rate-{rate} step is {'not ' if not same else ''}bit-identical "
+              f"to the rate-{DROPOUT_RATE} step")
+        del again
+    del state, results
+    torch.cuda.empty_cache()
+
+    # DINO: teacher and student drop out, each from its own generator
+    cfg, state = dino_dropout_state(DROPOUT_RATE, dev)
+    compare["dino"] = dino_compare(cfg, state, wire.cpu().numpy(), "dropout dino",
+                                   dropout_seed=17)[torch.bfloat16]
+    step = dino_engine.make_train_step(cfg)
+    zero_launches()
+    state, m = step(state, wire, 0, 0.996, 0.04, False)
+    torch.cuda.synchronize()
+    runs["dino"] = launches()
+    loss = m["loss"].item()
+    for rate in (DROPOUT_RATE, 0.0):
+        cfg_r, again = dino_dropout_state(rate, dev)
+        again, m_r = dino_engine.make_train_step(cfg_r)(again, wire, 0, 0.996, 0.04, False)
+        same = m_r["loss"].item() == loss and all(
+            torch.equal(p, q) for p, q in zip(again.student.parameters(), state.student.parameters()))
+        check(same == (rate == DROPOUT_RATE),
+              f"dropout dino: the rate-{rate} step is {'not ' if not same else ''}bit-identical "
+              f"to the rate-{DROPOUT_RATE} step")
+        del again
+    depth = {"mae": 8, "dino": 12}
+    want = {"mae": {"flash_attention_fwd": depth["mae"], "flash_attention_bwd": depth["mae"]},
+            "dino": {"flash_attention_fwd": 2 * depth["dino"],
+                     "flash_attention_bwd": depth["dino"]}}
+    for k in runs:
+        expected = {n: want[k].get(n, 0) for n in runs[k]}
+        check(runs[k] == expected, f"dropout {k}: launches {runs[k]}; expected {expected}")
+    print(f"dropout: MAE (96^3 as shipped) and DINO (as shipped) at rate {DROPOUT_RATE}, batch "
+          f"{DROPOUT_BATCH}: kernels against plain attention held; one step each on the main "
+          f"path with launches {json.dumps(runs)} (the shipped counts, exactly); a second run "
+          f"from seed 0 bit-identical, the rate-0 step different | {card}", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return {"runs": runs, "compare": compare}
+
+
+def pad_tokens(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x [B, T, H, D] with zero rows appended to n tokens."""
+    if x.shape[1] == n:
+        return x
+    pad = torch.zeros((x.shape[0], n - x.shape[1]) + tuple(x.shape[2:]), dtype=x.dtype,
+                      device=x.device)
+    return torch.cat([x, pad], dim=1)
+
+
+def phase_context(card: str) -> dict:
+    """The ``seq`` split of B3/B4/B5 on one card: at each CONTEXT_SHAPES
+    shape and s in CONTEXT_SPLITS, the port's sharded branch
+    (``ops.attention.attend_shard``, through ``BlockedFusedAttention``) called
+    once per emulated rank, its Q shard of ceil(T/s) rows against the whole
+    padded K, V with kv_len = T, and its backward; the dK and dV partials
+    summed in rank order. O, dQ, dK and dV are held against the unsharded
+    kernel call (``flash_attention``) and the plain versions at the bf16
+    normwise limit (BF16_REL_L2). Each shard's B3, B4 and B5 are timed
+    (CUDA events) beside their bound and the whole sequence's. Returns the
+    launches of the emulated ranks and the timings."""
+    from headct_foundation_tpu_torch.ops import attention as port_attn
+    from headct_foundation_tpu_torch.ops import flash_attention as fa
+    from headct_foundation_tpu_torch.parallel import mesh
+
+    dt, timings, total = torch.bfloat16, [], {}
+    names = ("flash_attention_blocked_fwd", "flash_attention_blocked_dkv",
+             "flash_attention_blocked_dq")
+    for shape in CONTEXT_SHAPES:
+        B, T, H, D = shape
+        q, k, v, do = blocked_inputs(shape, T, dt, seed=T + H)
+        # the unsharded kernel call and the plain versions
+        qf, kf, vf = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        o_k = fa.flash_attention(qf, kf, vf)
+        o_k.backward(do)
+        kernel = {"o": o_k.detach(), "dq": qf.grad, "dk": kf.grad, "dv": vf.grad}
+        o_p, lse_p = fa.blocked_attention_reference(q, k, v)
+        delta = fa.attention_delta(o_p, do)
+        dk_p, dv_p = fa.blocked_attention_dkv_reference(q, k, v, do, lse_p, delta)
+        plain = {"o": o_p, "dq": fa.blocked_attention_dq_reference(q, k, v, do, lse_p, delta),
+                 "dk": dk_p, "dv": dv_p}
+        whole = {}
+        for name in names:  # the whole sequence on the blocked kernels, for its efficiency
+            whole[name] = blocked_shard_ms(fa, name, q, k, v, do, T)
+        for s in CONTEXT_SPLITS:
+            tl = mesh.tokens_per_rank(T, s)
+            qp, dop = pad_tokens(q, s * tl), pad_tokens(do, s * tl)
+            kp = pad_tokens(k, s * tl).requires_grad_()
+            vp = pad_tokens(v, s * tl).requires_grad_()
+            zero_launches()
+            outs, dqs = [], []
+            for r in range(s):
+                qr = qp[:, r * tl:(r + 1) * tl].clone().requires_grad_()
+                o = port_attn.attend_shard(qr, kp, vp, T)
+                o.backward(dop[:, r * tl:(r + 1) * tl])  # dK, dV partials summed in rank order
+                outs.append(o.detach())
+                dqs.append(qr.grad)
+            torch.cuda.synchronize()
+            n = launches()
+            for name in names:
+                check(n[name] == s, f"context {shape} s={s}: {name} launched {n[name]} times, "
+                                    f"expected {s}")
+                total[name] = total.get(name, 0) + n[name]
+            got = {"o": torch.cat(outs, 1)[:, :T], "dq": torch.cat(dqs, 1)[:, :T],
+                   "dk": kp.grad[:, :T], "dv": vp.grad[:, :T]}
+            check(not kp.grad[:, T:].any() and not vp.grad[:, T:].any(),
+                  f"context {shape} s={s}: the padded keys took a gradient")
+            errs = {f"{x} vs {ref_name}": rel_l2(got[x], ref[x])
+                    for ref_name, ref in (("kernel", kernel), ("plain", plain)) for x in got}
+            worst = max(errs, key=errs.get)
+            check(errs[worst] <= BF16_REL_L2,
+                  f"context {shape} s={s}: {worst} rel_l2 {errs[worst]:.3e} > {BF16_REL_L2}")
+            q0 = qp[:, :tl]
+            plain_ms = blocked_shard_ms(fa, names, q0, kp.detach(), vp.detach(), dop[:, :tl],
+                                        T, plain=True)
+            # the library: SDPA over the T real keys; its backward covers B4 and B5 together
+            _, lib_fwd, _, lib_bwd = sdpa_backward_ms(q0, k, v, dop[:, :tl])
+            shard = {}
+            for name in names:
+                ms = blocked_shard_ms(fa, name, q0, kp.detach(), vp.detach(), dop[:, :tl], T)
+                bound, by = blocked_bound_ms(name, (B, tl, H, D), s * tl, T, dt)
+                w_bound = blocked_bound_ms(name, shape, T, T, dt)[0]
+                shard[name] = {"ms": ms, "bound_ms": bound, "bound_by": by,
+                               "plain_ms": plain_ms[name],
+                               "library_ms": lib_fwd if name == names[0] else None,
+                               "library_backward_ms": None if name == names[0] else lib_bwd,
+                               "whole_ms": whole[name], "whole_bound_ms": w_bound}
+            timings.append({"shape": list(shape), "s": s, "q_shard": [B, tl, H, D],
+                            "keys": s * tl, "kv_len": T, "rel_l2_worst": errs[worst],
+                            "kernels": shard})
+            print(f"context: {list(shape)} bf16 at seq {s}: Q shards [{B},{tl},{H},{D}] against "
+                  f"{s * tl} gathered keys, kv_len {T}; O, dQ, dK, dV against the unsharded "
+                  f"kernel call and the plain version worst rel_l2 {errs[worst]:.3e} ({worst}; "
+                  f"limit {BF16_REL_L2}); per shard (CUDA events): " + "; ".join(
+                      f"{BLOCKED_LABEL[name]} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
+                      f"{r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f}%; plain "
+                      f"{r['plain_ms']:.4f} ms; whole sequence {r['whole_ms']:.4f} ms, "
+                      f"{100 * r['whole_bound_ms'] / r['whole_ms']:.1f}%)"
+                      for name, r in shard.items()) + f"; scaled_dot_product_attention on the "
+                  f"shard, device: forward {lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms "
+                  f"(against B4 + B5 + delta) | {card}", flush=True)
+        del q, k, v, do, qf, kf, vf, kernel, plain
+        torch.cuda.empty_cache()
+    return {"launches": total, "timings": timings}
+
+
+def blocked_shard_ms(fa, name, q, k, v, do, kv_len, plain: bool = False):
+    """Device time (CUDA events) of one blocked kernel on these inputs; with
+    ``plain``, ``name`` is a tuple of kernels and the result {name: ms} of
+    their plain versions."""
+    o, lse = fa.blocked_fused_attention(q, k, v, None, kv_len)
+    delta = fa.attention_delta(o, do)
+    if plain:
+        calls = {"flash_attention_blocked_fwd": lambda: fa.blocked_attention_reference(
+                     q, k, v, None, kv_len),
+                 "flash_attention_blocked_dkv": lambda: fa.blocked_attention_dkv_reference(
+                     q, k, v, do, lse, delta, None, kv_len),
+                 "flash_attention_blocked_dq": lambda: fa.blocked_attention_dq_reference(
+                     q, k, v, do, lse, delta, None, kv_len)}
+        return {n: cuda_ms(calls[n], iters=3, warmup=1) for n in name}
+    call = {"flash_attention_blocked_fwd": lambda: fa.blocked_fused_attention(q, k, v, None,
+                                                                              kv_len),
+            "flash_attention_blocked_dkv": lambda: fa.blocked_attention_dkv(
+                q, k, v, do, lse, delta, None, kv_len),
+            "flash_attention_blocked_dq": lambda: fa.blocked_attention_dq(
+                q, k, v, do, lse, delta, None, kv_len)}[name]
+    return cuda_ms(call, iters=10, warmup=2, ahead=AHEAD_ONE)
+
+
+def phase_tensor(card: str) -> dict:
+    """The ``tensor`` split of B1/B2: at each TENSOR_SHAPES shape and t in
+    TENSOR_SPLITS, each emulated rank's H / t heads (strided views of a
+    local [B, T, 3, H/t, D] qkv, as the column-parallel projection gives
+    them) through ``FusedAttention`` and its backward, held against the
+    matching heads of the full call: bit for bit, heads being independent
+    (a difference is printed and then held at BF16_REL_L2), and against the
+    plain version on the same inputs at BF16_REL_L2. Timed per rank beside
+    the bound. Then ``split_linear_check``, and, on a machine with two cards
+    or more, the MAE CLI under torchrun at SEQ 2 and at TENSOR 2 against one
+    process in bf16 (``tools.check_data_parallel``); on one card a line says
+    it did not run."""
+    from headct_foundation_tpu_torch.ops import flash_attention as fa
+
+    dt, total, timings = torch.bfloat16, {}, []
+    for shape in TENSOR_SHAPES:
+        B, T, H, D = shape
+        g = torch.Generator(device="cuda").manual_seed(T + H)
+        qkv = torch.randn((B, T, 3, H, D), generator=g, device="cuda", dtype=dt)
+        do = torch.randn((B, T, H, D), generator=g, device="cuda", dtype=dt)
+        full = qkv.clone().requires_grad_()
+        o = fa.FusedAttention.apply(full[:, :, 0], full[:, :, 1], full[:, :, 2])[0]
+        o.backward(do)
+        o_full, g_full = o.detach(), full.grad
+        del o, full
+        for t in TENSOR_SPLITS:
+            hl = H // t
+            zero_launches()
+            parts = []
+            for r in range(t):
+                local = qkv[:, :, :, r * hl:(r + 1) * hl].contiguous().requires_grad_()
+                o = fa.FusedAttention.apply(local[:, :, 0], local[:, :, 1], local[:, :, 2])[0]
+                o.backward(do[:, :, r * hl:(r + 1) * hl].contiguous())
+                parts.append((o.detach(), local.grad))
+            torch.cuda.synchronize()
+            n = launches()
+            plain_err = 0.0  # each rank against the plain version on its own inputs
+            for r, (o_r, g_r) in enumerate(parts):
+                q, k, v = (qkv[:, :, j, r * hl:(r + 1) * hl].contiguous() for j in range(3))
+                o_ref, lse_ref = fa.fused_attention_reference(q, k, v)
+                d_ref = fa.fused_attention_bwd_reference(
+                    q, k, v, o_ref, do[:, :, r * hl:(r + 1) * hl].contiguous(), lse_ref)
+                err = max(rel_l2(o_r, o_ref), rel_l2(g_r, torch.stack(d_ref, dim=2)))
+                check(err <= BF16_REL_L2, f"tensor {shape} t={t} rank {r}: rel_l2 {err:.3e} "
+                                          f"against the plain version (limit {BF16_REL_L2})")
+                plain_err = max(plain_err, err)
+            del q, k, v, o_ref, lse_ref, d_ref
+            for name in ("flash_attention_fwd", "flash_attention_bwd"):
+                check(n[name] == t, f"tensor {shape} t={t}: {name} launched {n[name]} times")
+                total[name] = total.get(name, 0) + n[name]
+            o_got = torch.cat([p[0] for p in parts], dim=2)
+            g_got = torch.cat([p[1] for p in parts], dim=3)
+            equal = torch.equal(o_got, o_full) and torch.equal(g_got, g_full)
+            note = "bit-equal"
+            if not equal:
+                err = max(rel_l2(o_got, o_full), rel_l2(g_got, g_full))
+                note = (f"NOT bit-equal: max |diff| {(o_got - o_full).abs().max().item():.3e} "
+                        f"(O), {(g_got - g_full).abs().max().item():.3e} (dQKV), rel_l2 "
+                        f"{err:.3e} (limit {BF16_REL_L2})")
+                check(err <= BF16_REL_L2, f"tensor {shape} t={t}: {note}")
+            local = qkv[:, :, :, :hl].contiguous()
+            q, k, v = local[:, :, 0], local[:, :, 1], local[:, :, 2]
+            o, lse = fa.fused_attention(q, k, v)
+            dshape = (B, T, hl, D)
+            fwd_ms = cuda_ms(lambda: fa.fused_attention(q, k, v), iters=10, warmup=2,
+                             ahead=AHEAD_ONE)
+            bwd_ms = cuda_ms(lambda: fa.fused_attention_bwd(q, k, v, o, do[:, :, :hl], lse),
+                             iters=10, warmup=2, ahead=AHEAD_ONE)
+            fb, fby = attention_bound_ms(dshape, dt)
+            bb, bby = attention_bound_ms(dshape, dt, backward=True)
+            d_l = do[:, :, :hl]
+            fwd_plain = cuda_ms(lambda: fa.fused_attention_reference(q, k, v), iters=3, warmup=1)
+            bwd_plain = cuda_ms(lambda: fa.fused_attention_bwd_reference(q, k, v, o, d_l, lse),
+                                iters=3, warmup=1)
+            _, lib_fwd, _, lib_bwd = sdpa_backward_ms(q, k, v, d_l)
+            timings.append({"shape": list(shape), "t": t, "local": list(dshape),
+                            "bit_equal": equal, "plain_rel_l2": plain_err,
+                            "flash_attention_fwd": {"ms": fwd_ms, "bound_ms": fb, "bound_by": fby,
+                                                    "plain_ms": fwd_plain,
+                                                    "library_ms": lib_fwd},
+                            "flash_attention_bwd": {"ms": bwd_ms, "bound_ms": bb, "bound_by": bby,
+                                                    "plain_ms": bwd_plain,
+                                                    "library_ms": lib_bwd}})
+            print(f"tensor: {list(shape)} bf16 at tensor {t}: {t} ranks of {hl} heads against "
+                  f"the full call's heads: {note}; against the plain version on each rank's "
+                  f"inputs: max rel_l2 {plain_err:.3e} (O and dQKV, limit {BF16_REL_L2}); per rank (CUDA events, device) B1 "
+                  f"{fwd_ms:.4f} ms (bound {fb:.4f} ms by {fby}, {100 * fb / fwd_ms:.1f}%; plain "
+                  f"{fwd_plain:.4f} ms; scaled_dot_product_attention {lib_fwd:.4f} ms), B2 "
+                  f"{bwd_ms:.4f} ms (bound {bb:.4f} ms by {bby}, {100 * bb / bwd_ms:.1f}%; plain "
+                  f"{bwd_plain:.4f} ms; scaled_dot_product_attention backward {lib_bwd:.4f} ms) "
+                  f"| {card}", flush=True)
+        del qkv, do, o_full, g_full
+        torch.cuda.empty_cache()
+    split_linear = split_linear_check(card)
+    multi = None
+    if torch.cuda.device_count() >= 2:
+        multi = {}
+        for axis in ("seq", "tensor"):
+            cmd = [sys.executable, "-m", "headct_foundation_tpu_torch.tools.check_data_parallel",
+                   "--nproc", "2", f"--{axis}", "2"]
+            proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900)
+            tail = proc.stdout.strip().splitlines()[-3:]
+            print(f"tensor: multi-process run at {axis.upper()} 2 (2 processes, bf16): exit "
+                  f"{proc.returncode}; " + " | ".join(tail), flush=True)
+            check(proc.returncode == 0, f"the MAE CLI at {axis.upper()} 2 failed the tool's "
+                                        f"limits or did not run: {proc.stderr[-2000:]}")
+            multi[axis] = json.loads(tail[-1])
+    else:
+        print(f"tensor: the multi-process run (MAE CLI at SEQ 2 and at TENSOR 2 under torchrun) "
+              f"did not take place on this machine: it has {torch.cuda.device_count()} card",
+              flush=True)
+    return {"launches": total, "timings": timings, "split_linear": split_linear, "multi": multi}
+
+
+def split_linear_check(card: str) -> dict:
+    """The Megatron linears' partial products on the card, at the 96^3
+    decoder's MLP ([32, 513] tokens, 768 <-> 3072, bf16), t = 2 emulated
+    ranks: the row-parallel ``linear2``'s forward and the column-parallel
+    ``linear1``'s input gradient, each the ranks' float32 partials
+    (``models/layers.py _LinearF32``) summed and rounded once, against the
+    unsplit bf16 linear and against partials rounded to bf16 before the sum.
+    Each is measured against the float64 product; the float32 partials are
+    held at BF16_REL_L2 of the unsplit result."""
+    from headct_foundation_tpu_torch.models import layers
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    dt, (B, T, C, F), t = torch.bfloat16, (32, 513, 768, 3072), 2
+    out = {}
+    # row-parallel linear2: [B, T, F] -> [B, T, C], input columns split
+    lin = layers.Linear(F, C, dtype=dt).cuda()
+    with torch.no_grad():
+        lin.weight.copy_(torch.randn((C, F), generator=g, device="cuda") * F ** -0.5)
+        lin.bias.copy_(torch.randn((C,), generator=g, device="cuda") * 0.1)
+    x = torch.randn((B, T, F), generator=g, device="cuda", dtype=dt)
+    w, w64 = lin.weight.to(dt), lin.weight.to(dt).double()
+    truth = x.double() @ w64.t() + lin.bias.to(dt).double()
+    w_cols = F // t
+    parts = [layers._LinearF32.apply(x[..., r * w_cols:(r + 1) * w_cols],
+                                     w[:, r * w_cols:(r + 1) * w_cols]) for r in range(t)]
+    split = layers._add_bias(lin, sum(parts))
+    rounded = (sum(torch.nn.functional.linear(x[..., r * w_cols:(r + 1) * w_cols],
+                                              w[:, r * w_cols:(r + 1) * w_cols]).float()
+                   for r in range(t)) + lin.bias.to(dt).float()).to(dt)
+    out["row_forward"] = {"unsplit": rel_l2(lin(x), truth), "float32_partials": rel_l2(split, truth),
+                          "bf16_partials": rel_l2(rounded, truth),
+                          "against_unsplit": rel_l2(split, lin(x))}
+    # column-parallel linear1: [B, T, C] -> [B, T, F], its input gradient
+    # the sum of the ranks' partials
+    w1 = (torch.randn((F, C), generator=g, device="cuda") * C ** -0.5).to(dt)
+    dy = torch.randn((B, T, F), generator=g, device="cuda", dtype=dt)
+    truth = dy.double() @ w1.double()
+    gx = 0
+    for r in range(t):
+        x32 = torch.zeros((B, T, C), device="cuda", requires_grad=True)
+        layers._LinearF32.apply(x32, w1[r * w_cols:(r + 1) * w_cols]).backward(
+            dy[..., r * w_cols:(r + 1) * w_cols].float())
+        gx = gx + x32.grad
+    gx = gx.to(dt)
+    rounded = sum((dy[..., r * w_cols:(r + 1) * w_cols] @ w1[r * w_cols:(r + 1) * w_cols])
+                  .float() for r in range(t)).to(dt)
+    out["column_input_grad"] = {"unsplit": rel_l2(dy @ w1, truth),
+                                "float32_partials": rel_l2(gx, truth),
+                                "bf16_partials": rel_l2(rounded, truth),
+                                "against_unsplit": rel_l2(gx, dy @ w1)}
+    for name, e in out.items():
+        check(e["against_unsplit"] <= BF16_REL_L2,
+              f"split linear {name}: rel_l2 {e['against_unsplit']:.3e} against the unsplit one")
+        print(f"tensor: split linear {name} at tensor {t} ([{B}, {T}] tokens, {C} <-> {F}, "
+              f"bf16), rel_l2 against the float64 product: unsplit {e['unsplit']:.4e}, "
+              f"float32 partials summed then rounded {e['float32_partials']:.4e}, bf16 partials "
+              f"{e['bf16_partials']:.4e}; float32 partials against the unsplit "
+              f"{e['against_unsplit']:.4e} (limit {BF16_REL_L2}) | {card}", flush=True)
+    return out
+
+
 WGMMA_BUILDS = {"flash_attention_fwd": 15, "flash_attention_blocked_fwd": 15,
                 "flash_attention_bwd": 20, "flash_attention_blocked_bwd": 20,
                 "tm_attention": 35}
@@ -2806,6 +3261,16 @@ def main() -> int:
         overrides=["TRAIN.OPTIMIZER", "Lion", "TRAIN.LION_FUSED", True, "TRAIN.GRAD_CLIP", 1.0],
         compare=False)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dropout = phase_dropout(card)
+    print(f"dropout: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
+    t0 = time.perf_counter()
+    context = phase_context(card)
+    print(f"context: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
+    t0 = time.perf_counter()
+    tensor = phase_tensor(card)
+    print(f"tensor: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
+    torch.cuda.empty_cache()
     tm_launches = phase_tm_bench()
 
     by_path = {
@@ -2834,7 +3299,11 @@ def main() -> int:
                                 "extract card":
                                     extract["runs"]["extract card"]["flash_attention_fwd"],
                                 "extract size 641":
-                                    extract["runs"]["size 641"]["flash_attention_fwd"]},
+                                    extract["runs"]["size 641"]["flash_attention_fwd"],
+                                "dropout mae training": dropout["runs"]["mae"]["flash_attention_fwd"],
+                                "dropout dino training":
+                                    dropout["runs"]["dino"]["flash_attention_fwd"],
+                                "tensor heads": tensor["launches"]["flash_attention_fwd"]},
         "flash_attention_bwd": {"training": train["train"]["flash_attention_bwd"],
                                 "lion training": lion["train"]["flash_attention_bwd"],
                                 "cli training": cli["cli training"]["flash_attention_bwd"],
@@ -2845,13 +3314,20 @@ def main() -> int:
                                     downstream["train"]["flash_attention_bwd"],
                                 "downstream-cli training":
                                     downstream_cli["cli training"]["flash_attention_bwd"],
-                                "dino-bn training": dino_bn["train"]["flash_attention_bwd"]},
+                                "dino-bn training": dino_bn["train"]["flash_attention_bwd"],
+                                "dropout mae training": dropout["runs"]["mae"]["flash_attention_bwd"],
+                                "dropout dino training":
+                                    dropout["runs"]["dino"]["flash_attention_bwd"],
+                                "tensor heads": tensor["launches"]["flash_attention_bwd"]},
         "flash_attention_blocked_fwd": {"stretch training": stretch["train"][blocked[0]],
                                         "stretch eval": stretch["eval"][blocked[0]],
                                         "extract grid 192":
-                                            extract["runs"]["grid 192"][blocked[0]]},
-        "flash_attention_blocked_dkv": {"stretch training": stretch["train"][blocked[1]]},
-        "flash_attention_blocked_dq": {"stretch training": stretch["train"][blocked[2]]},
+                                            extract["runs"]["grid 192"][blocked[0]],
+                                        "context seq shards": context["launches"][blocked[0]]},
+        "flash_attention_blocked_dkv": {"stretch training": stretch["train"][blocked[1]],
+                                        "context seq shards": context["launches"][blocked[1]]},
+        "flash_attention_blocked_dq": {"stretch training": stretch["train"][blocked[2]],
+                                       "context seq shards": context["launches"][blocked[2]]},
         "lion_update": {"lion training": lion["train"]["lion_update"]},
         "tm_attention_fwd": {"tm bench": tm_launches["tm_attention_fwd"]},
         "tm_attention_bwd": {"tm bench": tm_launches["tm_attention_bwd"]},
@@ -2884,7 +3360,10 @@ def main() -> int:
         source, entry = (("flash_fwd_sm90.cuh", "flash_attention_blocked_fwd.cu")
                          if name == blocked[0] else
                          ("flash_bwd_sm90.cuh", "flash_attention_blocked_bwd.cu"))
-        entry = {"entry": f"headct_foundation_tpu_torch/csrc/{entry}"}
+        entry = {"entry": f"headct_foundation_tpu_torch/csrc/{entry}",
+                 "at_seq_shards": [{"shape": c["shape"], "s": c["s"], "q_shard": c["q_shard"],
+                                    "keys": c["keys"], "kv_len": c["kv_len"],
+                                    **c["kernels"][name]} for c in context["timings"]]}
         if name == blocked[0]:
             entry.update(f32_source, at_extract_192_shape=extract["b3_4097"])
         return row(name, source, replaces, {**dec, "max_abs_err": err}, STRETCH_DECODER, torch.bfloat16,
@@ -2914,13 +3393,19 @@ def main() -> int:
             at_dino_teacher_shape=at(kernel_rows, DINO_TEACHER),
             at_downstream_shape=at(kernel_rows, DOWNSTREAM),
             at_extract_641_shape={"shape": list(EXTRACT_641), "dtype": "float32",
-                                  **{k: extract["b1_641"][k] for k in timing_keys}}),
+                                  **{k: extract["b1_641"][k] for k in timing_keys}},
+            at_tensor_heads=[{"shape": c["shape"], "t": c["t"], "local": c["local"],
+                              "bit_equal": c["bit_equal"], **c["flash_attention_fwd"]}
+                             for c in tensor["timings"]]),
         # bf16 B2 and B8 run the passes of the sm_90a header; their C entries are in the .cu
         row("flash_attention_bwd", "flash_bwd_sm90.cuh", 86, bwd_mae, MAE_DECODER,
             torch.bfloat16, entry="headct_foundation_tpu_torch/csrc/flash_attention_bwd.cu",
             **{k: bwd_mae[k] for k in ("ms_device", "library_ms_device")},
             at_dino_student_shape=at(bwd_rows, DINO_STUDENT),
-            at_downstream_shape=at(bwd_rows, DOWNSTREAM)),
+            at_downstream_shape=at(bwd_rows, DOWNSTREAM),
+            at_tensor_heads=[{"shape": c["shape"], "t": c["t"], "local": c["local"],
+                              "bit_equal": c["bit_equal"], **c["flash_attention_bwd"]}
+                             for c in tensor["timings"]]),
         blocked_row(blocked[0], 256),
         blocked_row(blocked[1], 292),
         blocked_row(blocked[2], 342),

@@ -18,7 +18,12 @@ engine_pretrain_dino.py):
   (decisions drawn from a generator seeded from (seed, step, micro-batch),
   or handed in as ``draws``, one list of crop decisions per micro-batch),
   the teacher on the 2 global crops without gradients, the student on all
-  crops, ``dino_loss`` and its backward. With the BatchNorm head
+  crops, ``dino_loss`` and its backward. Both networks run in ``train()``
+  mode, as the reference trains them, so a ``VIT.DROPOUT_RATE`` above 0
+  drops out in both backbones, the teacher's masks from a generator seeded
+  from (seed, step, micro-batch, 101), the student's from (..., 102)
+  (JAX ``:279-302`` folds 101 and 102 into the micro-batch's key); each
+  rank takes its rows of the global batch's masks. With the BatchNorm head
   (``DINO.USE_BN``) both networks run in ``train()`` mode, so each head
   normalises with its batch's statistics (the teacher's over its 2 x B
   global crops, the student's over all its crops in one call) and updates
@@ -228,12 +233,8 @@ def create_train_state(
 ) -> DINOTrainState:
     """Student, teacher, optimizer, schedules and centre on ``device``
     (default cuda). Raises NotImplementedError for FSDP/TENSOR/SEQ/PIPE above
-    1 and for a backbone dropout above 0 (the DINO step does not draw
-    dropout masks)."""
+    1 (``refuse_unported_axes``)."""
     refuse_unported_axes(config)
-    if config.VIT.DROPOUT_RATE:
-        raise NotImplementedError("VIT.DROPOUT_RATE > 0 in DINO pretraining is not ported; "
-                                  "the shipped DINO config uses rate 0")
     device = resolve_device(device)
     set_pallas_min_t(config.PARALLEL.PALLAS_MIN_T)
     g = torch.Generator().manual_seed(seed)
@@ -306,6 +307,7 @@ def make_train_step(config) -> Callable:
     in_chans = int(config.VIT.IN_CHANS)
     ncrops = int(config.DINO.LOCAL_CROP_NUM) + 2
     accum_steps = int(config.TRAIN.ACCUM_STEPS)
+    drops = bool(config.VIT.DROPOUT_RATE)
 
     def train_step(state: DINOTrainState, batch: torch.Tensor, seed: int, momentum: float,
                    teacher_temp: float, cancel_last_layer: bool, draws: Optional[Draws] = None):
@@ -323,9 +325,13 @@ def make_train_step(config) -> Callable:
             g = None if draws is not None else step_generator(device, seed, state.step, i)
             crops = _crops(config, batch[i * n:(i + 1) * n], g,
                            None if draws is None else draws[i])
+            # the teacher's and the student's backbone dropout, from keys of
+            # their own (JAX folds 101 and 102 into the micro-batch's key)
+            t_drop, s_drop = ((step_generator(device, seed, state.step, i, k) for k in (101, 102))
+                              if drops else (None, None))
             with torch.no_grad():
-                t_out = teacher(crops[:2])
-            loss = dino_loss(student(crops), t_out, state.center, teacher_temp, ncrops)
+                t_out = teacher(crops[:2], t_drop)
+            loss = dino_loss(student(crops, s_drop), t_out, state.center, teacher_temp, ncrops)
             loss.backward()  # float32 .grad of float32 params: the sum over micro-batches
             loss_sum += loss.detach()
             t_sum += t_out.float().mean(dim=0)

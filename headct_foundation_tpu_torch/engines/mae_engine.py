@@ -23,14 +23,28 @@ Port of the JAX package's ``engines/mae_engine.py:44-163, 226-491``
   ``tx``).
 * Randomness is explicit: micro-batch ``i`` of update ``step`` draws its mask
   noise and then its augmentation decisions from a generator seeded from
-  (seed, step, i). ``draws`` lets a caller inject both instead (one dict per
-  micro-batch with ``"noise"`` [n, L] and ``"augment"`` decisions).
+  (seed, step, i), and its dropout masks (``MAE.DROPOUT_RATE`` above 0; JAX
+  ``:252-272`` splits ``mask_rng, drop_rng``) from one seeded from (seed,
+  step, i, 1), so dropout leaves the masks as they are. ``draws`` lets a
+  caller inject them instead (one dict per micro-batch with ``"noise"`` [n,
+  L], the ``"augment"`` decisions and optionally a ``"dropout"`` generator).
 * Under data parallelism (``parallel/distributed.py``) each rank draws the
-  noise and augmentation decisions of the global micro-batch and takes its
-  own rows, and the gradients (with the loss) are averaged across the ranks
-  once per update, after the accumulation and before the clip: world 2 at
-  batch n computes what world 1 computes at batch 2n on the concatenated
-  batch. The eval step draws its noise the same way.
+  noise, augmentation decisions and dropout masks of the global micro-batch
+  and takes its own rows, and the gradients (with the loss) are averaged
+  across the data ranks once per update, after the accumulation and before
+  the clip: world 2 at batch n computes what world 1 computes at batch 2n on
+  the concatenated batch. The eval step draws its noise the same way.
+* ``seq`` and ``tensor`` (``parallel/mesh.py``, JAX ``ops/attention.py:120-186``
+  and its rule table): the ranks of a data slice take the same batch; each
+  ``seq`` rank holds ceil(T / s) tokens of each trunk (``models/mae.py``) and
+  each ``tensor`` rank the Megatron part of every block
+  (``models/attention.py shard_block_``). ``create_train_state`` draws the full
+  seed-``seed`` weights and keeps this rank's part, so any mesh starts from
+  the one-process weights. Every gradient is summed over ``seq`` (each rank
+  differentiated its tokens' share); a split parameter keeps its part's
+  gradient, whose clip norm is taken over all its parts. The step is
+  ``make_grad_step`` (the gradients) then ``apply_update``. ``full_view`` /
+  ``load_full`` give checkpoints the whole tensors at any mesh.
 * ``train_one_epoch`` takes its batches through ``data/pipeline.py
   DevicePrefetcher`` (pinned copies on a side stream), fetches the losses in
   groups of ``LOSS_FLUSH`` (one device-to-host copy per group) and exits on a
@@ -64,11 +78,12 @@ from headct_foundation_tpu_torch.data.augment import apply_mae_augment, draw_mae
 from headct_foundation_tpu_torch.data.device_preprocess import wire_to_compute
 from headct_foundation_tpu_torch.data.pipeline import DevicePrefetcher
 from headct_foundation_tpu_torch.feature_extraction import resolve_device
+from headct_foundation_tpu_torch.models.attention import shard_block_
 from headct_foundation_tpu_torch.models.mae import MaskedAutoencoderViT
 from headct_foundation_tpu_torch.ops.attention import set_pallas_min_t
 from headct_foundation_tpu_torch.optim.lr_sched import Schedule, get_lr_schedule
 from headct_foundation_tpu_torch.optim.optimizers import clip_by_per_param_norm, get_optimizer
-from headct_foundation_tpu_torch.parallel import distributed
+from headct_foundation_tpu_torch.parallel import distributed, mesh
 from headct_foundation_tpu_torch.utils.checkpoint import (
     clone_opt_state,
     clone_state_dict,
@@ -107,6 +122,56 @@ class TrainState:
         at update ``step``, when given)."""
         return model_trees(self, step, *(snapshot or (None, None)))
 
+    def full_view(self) -> "TrainState":
+        """This state with its tensor-split parameters and their optimizer
+        moments whole, in a model and an optimizer of their own (every
+        tensor rank must call it: the parts are all-gathered); the state
+        itself when ``tensor`` is 1. Checkpoints are written and read
+        through it, so a file holds the JAX layout at any mesh."""
+        m = mesh.current()
+        if m.size("tensor") == 1:
+            return self
+        with torch.device("meta"):
+            model = build_mae_model(self.config, dtype=self.model.dtype)
+        pairs = []
+        for name, p in self.model.named_parameters():
+            full = torch.nn.Parameter(mesh.all_gather_param(name, p.detach(), m),
+                                      requires_grad=p.requires_grad)
+            owner, leaf = model.get_submodule(name.rpartition(".")[0]), name.rpartition(".")[2]
+            setattr(owner, leaf, full)
+            pairs.append((name, p, full))
+        optimizer = get_optimizer(self.config, model.parameters())
+        for name, p, full in pairs:
+            if p in self.optimizer.state:
+                optimizer.state[full] = {
+                    k: mesh.all_gather_param(name, v, m)
+                    if isinstance(v, torch.Tensor) and v.shape == p.shape else v
+                    for k, v in sorted(self.optimizer.state[p].items())}
+        return TrainState(model, optimizer, self.lr_schedule, self.step, self.grad_clip,
+                          self.config)
+
+    def load_full(self, full: "TrainState") -> "TrainState":
+        """Take this rank's parts of ``full`` (a ``full_view`` the caller
+        filled, e.g. from a checkpoint): parameters, moments and step. A
+        no-op when ``full`` is this state."""
+        if full is self:
+            return self
+        m = mesh.current()
+        t, c = m.size("tensor"), m.coord("tensor")
+        fulls = dict(full.model.named_parameters())
+        with torch.no_grad():
+            for name, p in self.model.named_parameters():
+                whole = fulls[name]
+                p.copy_(mesh.split_param(name, whole.detach(), t, c))
+                self.optimizer.state.pop(p, None)
+                if whole in full.optimizer.state:
+                    self.optimizer.state[p] = {
+                        k: mesh.split_param(name, v, t, c)
+                        if isinstance(v, torch.Tensor) and v.shape == whole.shape else v
+                        for k, v in full.optimizer.state[whole].items()}
+        self.step = full.step
+        return self
+
 
 def build_mae_model(config, dtype: torch.dtype = torch.bfloat16) -> MaskedAutoencoderViT:
     """The MAE from config keys (reference: main_pretrain_mae.py:103-126)."""
@@ -132,15 +197,29 @@ def mae_trainable_mask(model: torch.nn.Module, pos_embed: str) -> Dict[str, bool
             for name, _ in model.named_parameters()}
 
 
-def refuse_unported_axes(config) -> None:
-    """NotImplementedError for ``PARALLEL.FSDP``, ``TENSOR``, ``SEQ`` or
-    ``PIPE`` above 1: the port trains data-parallel only and has no sharded,
-    sequence-parallel or pipelined trunk yet."""
+def refuse_unported_axes(config, ported: Sequence[str] = ()) -> None:
+    """NotImplementedError for a ``PARALLEL`` axis above 1 that the engine
+    does not take: ``FSDP`` and ``PIPE`` anywhere, ``SEQ`` and ``TENSOR``
+    outside the MAE step (``ported``) — ROADMAP A.8."""
     for axis in ("FSDP", "TENSOR", "SEQ", "PIPE"):
-        if int(getattr(config.PARALLEL, axis)) > 1:
+        n = int(getattr(config.PARALLEL, axis))
+        if n > 1 and axis not in ported:
+            where = "outside the MAE step" if axis in ("SEQ", "TENSOR") else "in the port"
             raise NotImplementedError(
-                f"PARALLEL.{axis} = {getattr(config.PARALLEL, axis)} is not ported; "
-                f"the port trains with FSDP = TENSOR = SEQ = PIPE = 1")
+                f"PARALLEL.{axis} = {n} is not ported {where} (ROADMAP A.8)")
+
+
+def _check_mesh(config) -> mesh.Mesh:
+    """The process's mesh, which must have the config's ``SEQ`` and ``TENSOR``."""
+    m = mesh.current()
+    for axis in ("SEQ", "TENSOR"):
+        want = int(getattr(config.PARALLEL, axis))
+        if m.size(axis.lower()) != want:
+            raise ValueError(
+                f"PARALLEL.{axis} = {want} but the process's mesh has {axis.lower()} = "
+                f"{m.size(axis.lower())}: start the ranks under torchrun and lay the mesh "
+                "out with distributed.init_from_env(device, config=config)")
+    return m
 
 
 def create_train_state(
@@ -149,13 +228,25 @@ def create_train_state(
 ) -> Tuple[TrainState, Schedule]:
     """Model, optimizer and LR schedule on ``device`` (default cuda).
 
-    Raises NotImplementedError for ``PARALLEL.FSDP``, ``TENSOR``, ``SEQ`` or
-    ``PIPE`` above 1 (``refuse_unported_axes``)."""
-    refuse_unported_axes(config)
+    The weights are the full seed-``seed`` draw at any mesh; under
+    ``PARALLEL.TENSOR`` each rank keeps its Megatron part of every block
+    (``models/attention.py shard_block_``). Raises NotImplementedError for
+    ``PARALLEL.FSDP`` or ``PIPE`` above 1 (``refuse_unported_axes``), and
+    for ``Lamb`` under ``TENSOR`` (its trust ratio takes whole norms)."""
+    refuse_unported_axes(config, ported=("SEQ", "TENSOR"))
+    m = _check_mesh(config)
+    t = m.size("tensor")
+    if t > 1 and str(config.TRAIN.OPTIMIZER) == "Lamb":
+        raise NotImplementedError("Lamb under PARALLEL.TENSOR > 1 is not ported: its trust "
+                                  "ratio needs each parameter's norm over all its shards")
     device = resolve_device(device)
     set_pallas_min_t(config.PARALLEL.PALLAS_MIN_T)
     model = build_mae_model(config, dtype=dtype)
-    model.init_weights(torch.Generator().manual_seed(seed)).to(device)
+    model.init_weights(torch.Generator().manual_seed(seed))
+    if t > 1:
+        for blk in list(model.blocks) + list(model.decoder_blocks):
+            shard_block_(blk, t, m.coord("tensor"), m.group("tensor"))
+    model.to(device)
     trainable = mae_trainable_mask(model, config.MAE.POS_EMBED)
     for name, p in model.named_parameters():
         p.requires_grad_(trainable[name])
@@ -178,16 +269,15 @@ def _rows(decisions: Dict[str, torch.Tensor], lo: int, hi: int) -> Dict[str, tor
     return {k: v[..., lo:hi] for k, v in decisions.items()}
 
 
-def make_train_step(augment: bool = False, accum_steps: int = 1, config=None) -> Callable:
-    """step(state, batch, seed, draws=None) -> (state, {"loss": device scalar}).
-
-    ``batch`` is a wire batch [B, C or 1, R, R, R]; ``config.DATA.WIRE_FORMAT``
-    says how to window it. Under data parallelism ``batch`` is this rank's
-    share of the global batch and the loss is the global mean."""
+def make_grad_step(augment: bool = False, accum_steps: int = 1, config=None) -> Callable:
+    """grads(state, batch, seed, draws=None) -> the loss (device scalar):
+    the forward and backward of every micro-batch, the gradients left in
+    ``.grad``, averaged over the micro-batches, summed over ``seq`` and
+    averaged over ``data`` (``make_train_step``'s first half)."""
     in_chans = int(config.MAE.IN_CHANS) if config is not None else 0
 
-    def train_step(state: TrainState, batch: torch.Tensor, seed: int,
-                   draws: Optional[Sequence[dict]] = None):
+    def grads(state: TrainState, batch: torch.Tensor, seed: int,
+              draws: Optional[Sequence[dict]] = None) -> torch.Tensor:
         model, device = state.model, state.device
         model.train()
         batch = wire_to_compute(batch.to(device), config, in_chans)
@@ -195,7 +285,8 @@ def make_train_step(augment: bool = False, accum_steps: int = 1, config=None) ->
         if B % accum_steps:
             raise ValueError(f"batch {B} does not split into {accum_steps} micro-batches")
         n = B // accum_steps
-        world, rank = distributed.world(), distributed.rank()
+        world, rank = distributed.data_world(), distributed.data_rank()
+        drops = bool(model.patch_embedding.dropout_rate)
         loss_sum = torch.zeros((), device=device)
         for i in range(accum_steps):
             mb = batch[i * n:(i + 1) * n]
@@ -205,30 +296,65 @@ def make_train_step(augment: bool = False, accum_steps: int = 1, config=None) ->
                                    device=device)[rank * n:(rank + 1) * n]
                 decisions = (_rows(draw_mae_augment(world * n, g, device), rank * n,
                                    (rank + 1) * n) if augment else None)
+                # apart from the masking draw, so dropout leaves the masks as they are
+                g_drop = step_generator(device, seed, state.step, i, 1) if drops else None
             else:
                 noise, decisions = draws[i]["noise"], draws[i].get("augment")
+                g_drop = draws[i].get("dropout")
             if augment:
                 mb = apply_mae_augment(mb, decisions)
-            loss, _, _ = model(mb, noise=noise)
+            with mesh.global_dropout():
+                loss, _, _ = model(mb, noise=noise, dropout_generator=g_drop)
             loss.backward()  # float32 .grad of float32 params: the sum over micro-batches
             loss_sum += loss.detach().float()
+        gs = [p.grad for p in model.parameters() if p.grad is not None]
         if accum_steps > 1:
-            for p in model.parameters():
-                if p.grad is not None:
-                    p.grad.div_(accum_steps)
+            torch._foreach_div_(gs, accum_steps)
         loss = loss_sum / accum_steps
-        # one average across the ranks per update, before the clip (a no-op at world 1)
-        distributed.all_reduce_mean_([loss] + [p.grad for p in model.parameters()
-                                               if p.grad is not None])
-        if state.grad_clip:
-            clip_by_per_param_norm(model.parameters(), state.grad_clip)
-        lr = state.lr_schedule(state.step)  # optax's count before the increment
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        state.optimizer.step()
-        state.optimizer.zero_grad(set_to_none=True)
-        state.step += 1
-        return state, {"loss": loss}
+        seq = mesh.current().group("seq")
+        if seq is not None:  # each seq rank differentiated its tokens' share
+            distributed.all_reduce_sum_(gs, seq)
+        # one average across the data ranks per update, before the clip
+        distributed.data_mean_([loss] + gs)
+        return loss
+
+    return grads
+
+
+def apply_update(state: TrainState) -> TrainState:
+    """The update from the gradients in ``.grad`` (``make_train_step``'s
+    second half): the per-parameter clip (a split parameter's norm over all
+    its shards), the LR of this step, the optimizer step."""
+    model = state.model
+    if state.grad_clip:
+        group = mesh.current().group("tensor")
+        sharded = () if group is None else [
+            p for n, p in model.named_parameters() if mesh.param_sharding(n)]
+        clip_by_per_param_norm(model.parameters(), state.grad_clip, group=group,
+                               sharded=sharded)
+    lr = state.lr_schedule(state.step)  # optax's count before the increment
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr
+    state.optimizer.step()
+    state.optimizer.zero_grad(set_to_none=True)
+    state.step += 1
+    return state
+
+
+def make_train_step(augment: bool = False, accum_steps: int = 1, config=None) -> Callable:
+    """step(state, batch, seed, draws=None) -> (state, {"loss": device scalar}).
+
+    ``batch`` is a wire batch [B, C or 1, R, R, R]; ``config.DATA.WIRE_FORMAT``
+    says how to window it. Under data parallelism ``batch`` is this rank's
+    share of the global batch and the loss is the global mean; the ``seq``
+    and ``tensor`` ranks of a data slice take the same batch. ``draws[i]``
+    may also hold ``"dropout"``, the micro-batch's dropout generator."""
+    grads = make_grad_step(augment, accum_steps, config)
+
+    def train_step(state: TrainState, batch: torch.Tensor, seed: int,
+                   draws: Optional[Sequence[dict]] = None):
+        loss = grads(state, batch, seed, draws)
+        return apply_update(state), {"loss": loss}
 
     return train_step
 
@@ -245,13 +371,13 @@ def make_eval_step(config=None) -> Callable:
         model = state.model
         model.eval()
         batch = wire_to_compute(batch.to(state.device), config, in_chans)
-        B, world, rank = batch.shape[0], distributed.world(), distributed.rank()
+        B, world, rank = batch.shape[0], distributed.data_world(), distributed.data_rank()
         noise = None
         if generator is not None:
             noise = torch.rand((world * B, int(np.prod(model.grid_size))), generator=generator,
                                device=state.device)[rank * B:(rank + 1) * B]
         loss, _, _ = model(batch, noise=noise)
-        distributed.all_reduce_mean_([loss])
+        distributed.data_mean_([loss])
         return {"loss": loss}
 
     return eval_step

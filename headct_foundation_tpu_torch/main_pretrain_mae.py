@@ -9,8 +9,11 @@ reference surface: main_pretrain_mae.py).
 The path: CSV manifests -> disk cache (native decoder) -> threaded loader ->
 pinned prefetch -> the MAE train step -> trainer with latest/best
 checkpoints -> tester. It runs on ``cuda`` (``cuda:LOCAL_RANK`` under
-``torchrun``, one process per card, gradients averaged across them) unless
-``--device cpu`` is given.
+``torchrun``, one process per card) unless ``--device cpu`` is given. The
+ranks lay out as ``PARALLEL.DATA x SEQ x TENSOR`` (``parallel/mesh.py``):
+the gradients are averaged over ``data``, each ``seq`` rank holds a share
+of the tokens and each ``tensor`` rank a share of the heads and MLP
+columns, and the ranks of one data slice read the same batches.
 
 * The LR is scaled as the JAX main does (``:109-118``): ``BASE_LR x
   BATCH_SIZE x world / 256`` and ``MIN_LR = BASE_LR x 1e-3``.
@@ -41,6 +44,7 @@ import argparse
 import json
 import os
 import sys
+from functools import partial
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -50,7 +54,7 @@ from headct_foundation_tpu_torch.config import get_config
 from headct_foundation_tpu_torch.engines import mae_engine
 from headct_foundation_tpu_torch.feature_extraction import resolve_device
 from headct_foundation_tpu_torch.logger import create_logger
-from headct_foundation_tpu_torch.parallel import distributed
+from headct_foundation_tpu_torch.parallel import distributed, mesh
 from headct_foundation_tpu_torch.utils.checkpoint import restore_state
 from headct_foundation_tpu_torch.utils.torch_interop import (
     classify_checkpoint,
@@ -128,22 +132,28 @@ def init_wandb(config):
 
 
 def resume(state, path: str, logger):
-    """Content-routed ``--model_load_path``; returns (state, start_epoch)."""
+    """Content-routed ``--model_load_path``; returns (state, start_epoch).
+    A state split over ``tensor`` loads the full file into its
+    ``full_view`` and keeps its parts (any mesh reads any file)."""
+    full = state.full_view() if hasattr(state, "full_view") else state
     is_torch, payload = classify_checkpoint(path)
+    start_epoch = 0
     if is_torch:
-        load_pretrained_into(state.model, path, logger=logger)
-        return state, 0
-    try:
-        state, start_epoch, _ = restore_state(state, payload)
-    except (ValueError, KeyError, TypeError) as e:
-        # an architecture-mismatched or params-only pickle: a strict=False warm
-        # start (the reference's load_model; the epoch is not restored)
-        logger.info(f"Full resume failed ({e}); merging params only")
-        merged, _, _ = merge_params(state.model.state_dict(),
-                                    state_dict_of_payload(payload, into=state.model.state_dict()))
-        state.model.load_state_dict(merged)
-        return state, 0
-    logger.info(f"Resumed from {path} at epoch {start_epoch}")
+        load_pretrained_into(full.model, path, logger=logger)
+    else:
+        try:
+            full, start_epoch, _ = restore_state(full, payload)
+            logger.info(f"Resumed from {path} at epoch {start_epoch}")
+        except (ValueError, KeyError, TypeError) as e:
+            # an architecture-mismatched or params-only pickle: a strict=False warm
+            # start (the reference's load_model; the epoch is not restored)
+            logger.info(f"Full resume failed ({e}); merging params only")
+            merged, _, _ = merge_params(full.model.state_dict(),
+                                        state_dict_of_payload(payload,
+                                                              into=full.model.state_dict()))
+            full.model.load_state_dict(merged)
+    if full is not state:
+        state.load_full(full)
     return state, start_epoch
 
 
@@ -162,7 +172,8 @@ def prepare_run(config, device: torch.device, logger) -> Dict[str, Any]:
     load_path = None if load_path in (None, "", "None") else str(load_path)
     if load_path is not None:
         refuse_orbax(load_path)
-    rank, world = distributed.rank(), distributed.world()
+    # the seq and tensor ranks of one data slice read the same batches
+    rank, world = distributed.data_rank(), distributed.data_world()
     if str(config.DATA.WIRE_FORMAT) == "auto":
         config.defrost()
         config.DATA.WIRE_FORMAT = resolve_wire_format(config, device)
@@ -186,11 +197,11 @@ def prepare_run(config, device: torch.device, logger) -> Dict[str, Any]:
 
 
 def count_placeholders(loaders, device: torch.device) -> int:
-    """Scans served as placeholders over ``loaders`` and every rank."""
+    """Scans served as placeholders over ``loaders`` and every data rank."""
     placeholders = torch.tensor(float(sum(loader.dataset.placeholders for loader in loaders)),
                                 device=device)
-    distributed.all_reduce_mean_([placeholders])
-    return round(placeholders.item() * distributed.world())
+    distributed.data_mean_([placeholders])
+    return round(placeholders.item() * distributed.data_world())
 
 
 def finish_run(run: Dict[str, Any], device: torch.device, start_epoch: int,
@@ -203,23 +214,29 @@ def finish_run(run: Dict[str, Any], device: torch.device, start_epoch: int,
     for loader in (val_loader, test_loader):
         loader.close()
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
-    return {"device": str(device), "world": run["world"], "start_epoch": start_epoch,
+    m = mesh.current()
+    return {"device": str(device), "world": distributed.world(),
+            "mesh": {a: m.size(a) for a in ("data", "seq", "tensor")},
+            "start_epoch": start_epoch,
             "epochs": history, "best_val_loss": best_loss, "test": test_stats,
             "placeholders": count_placeholders(run["loaders"], device),
             "peak_memory_bytes": peak}
 
 
-def create_state(config, run: Dict[str, Any], device):
-    """The train state the CLI starts from (weights from ``SEED``); ``run``
-    holds ``prepare_run``'s step counts."""
+def create_state(config, run: Dict[str, Any], device, dtype: torch.dtype = torch.bfloat16):
+    """The train state the CLI starts from (weights from ``SEED``, compute in
+    ``dtype``); ``run`` holds ``prepare_run``'s step counts."""
     return mae_engine.create_train_state(config, run["total_steps"], run["num_warmup_steps"],
-                                         seed=int(config.SEED), device=device)[0]
+                                         seed=int(config.SEED), dtype=dtype, device=device)[0]
 
 
-def main(config, device: torch.device, logger, wandb_run=None) -> Dict[str, Any]:
+def main(config, device: torch.device, logger, wandb_run=None,
+         dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
+    """The run; ``dtype`` is the compute dtype (bfloat16 as the JAX main;
+    float32 for ``tools/check_data_parallel.py --float32``)."""
     run = prepare_run(config, device, logger)
     train_loader, val_loader, test_loader = run["loaders"]
-    state = create_state(config, run, device)
+    state = create_state(config, run, device, dtype)
     start_epoch = 0
     if run["load_path"] is not None:
         state, start_epoch = resume(state, run["load_path"], logger)
@@ -246,7 +263,7 @@ def run_cli(argv: Optional[List[str]], main_fn, description: str,
     wandb_run)``; rank 0 prints its result as one JSON line ``{"cli": ...}``."""
     args, config = parse(argv, description)
     device = resolve_run_device(args.device)  # this process's card, before NCCL starts
-    distributed.init_from_env(device.type, int(config.PARALLEL.DATA))
+    distributed.init_from_env(device.type, config=config)
     try:
         rank = distributed.rank()
         np.random.seed(int(config.SEED) + rank)
@@ -266,8 +283,9 @@ def run_cli(argv: Optional[List[str]], main_fn, description: str,
         distributed.shutdown()
 
 
-def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
-    return run_cli(argv, main, "MAE 3D pretraining (PyTorch)")
+def run(argv: Optional[List[str]] = None, dtype: torch.dtype = torch.bfloat16
+        ) -> Dict[str, Any]:
+    return run_cli(argv, partial(main, dtype=dtype), "MAE 3D pretraining (PyTorch)")
 
 
 if __name__ == "__main__":

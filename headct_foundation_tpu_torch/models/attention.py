@@ -38,6 +38,13 @@ above 0, its masks drawn from the ``generator`` handed to ``forward`` (a
 missing one raises: no mask comes from the global RNG); ``eval()`` and
 rate 0 are deterministic. The MLP's two masks are drawn before a
 ``remat_mlp`` checkpoint, so its recomputation applies the same ones.
+
+Tensor parallelism (``shard_block_``, the JAX rule table's Megatron split):
+qkv and ``linear1`` are column-parallel, ``proj`` and ``linear2``
+row-parallel with one all-reduce over ``tensor`` after each
+(``layers.column_parallel`` / ``row_parallel``); the attention runs the
+kernels unchanged on this rank's H / t heads. Without a group every
+projection is the plain ``Linear`` call it was.
 """
 
 from __future__ import annotations
@@ -51,7 +58,14 @@ from torch.utils.checkpoint import checkpoint
 
 from typing import Optional
 
-from headct_foundation_tpu_torch.models.layers import Linear, dropout, keep_mask, make_norm
+from headct_foundation_tpu_torch.models.layers import (
+    Linear,
+    column_parallel,
+    dropout,
+    keep_mask,
+    make_norm,
+    row_parallel,
+)
 from headct_foundation_tpu_torch.ops.attention import dot_product_attention
 
 
@@ -87,10 +101,13 @@ class SelfAttention(nn.Module):
         super().__init__()
         if hidden_size % num_heads:
             raise ValueError("hidden_size should be divisible by num_heads.")
-        self.num_heads = num_heads
+        self.num_heads = num_heads  # this rank's heads under tensor parallelism
+        self.head_dim = hidden_size // num_heads
+        self.tensor_group = None  # set by shard_block_ under tensor parallelism
         self.save_attn = False  # set by ViT.set_save_attn
         self.att_mat: Optional[torch.Tensor] = None
         self.dropout_rate = dropout
+        self.dropout_sites = (":0", ":1")  # set by label_dropout_sites
         self.qkv = Linear(hidden_size, 3 * hidden_size, bias=qkv_bias, dtype=dtype)
         if lora:
             self.lora_q = LoraLinear(hidden_size, hidden_size, r=128, dtype=dtype)
@@ -101,22 +118,23 @@ class SelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
-        B, N, C = x.shape
-        H = self.num_heads
-        qkv = self.qkv(x).reshape(B, N, 3, H, C // H)
+        B, N, _ = x.shape
+        H, D = self.num_heads, self.head_dim
+        qkv = column_parallel(self.qkv, x, self.tensor_group).reshape(B, N, 3, H, D)
         # strided views of the fused projection; the kernel reads them in place
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         if self.lora_q is not None:  # after the head split (reference :57-59)
-            q = q + self.lora_q(x).reshape(B, N, H, C // H)
-            v = v + self.lora_v(x).reshape(B, N, H, C // H)
+            q = q + self.lora_q(x).reshape(B, N, H, D)
+            v = v + self.lora_v(x).reshape(B, N, H, D)
         if self.save_attn:  # unfused, the probabilities kept: no kernel
-            logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / float(C // H) ** 0.5)
+            logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / float(D) ** 0.5)
             self.att_mat = torch.softmax(logits.float(), dim=-1)
             y = torch.einsum("bhqk,bkhd->bqhd", self.att_mat.to(q.dtype), v)
         else:
             y = dot_product_attention(q, k, v)
-        y = self.proj(y.reshape(B, N, C))
-        return dropout(y, self.dropout_rate if self.training else 0.0, generator)
+        y = row_parallel(self.proj, y.reshape(B, N, H * D), self.tensor_group)
+        return dropout(y, self.dropout_rate if self.training else 0.0, generator,
+                       site=self.dropout_sites[0])
 
 
 class MLPBlock(nn.Module):
@@ -124,17 +142,31 @@ class MLPBlock(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dropout_rate = dropout_rate
+        self.dropout_sites = (":0", ":1")  # set by label_dropout_sites
+        self.tensor_group = None  # set by shard_block_ under tensor parallelism
         self.linear1 = Linear(hidden_size, mlp_dim, dtype=dtype)
         self.linear2 = Linear(mlp_dim, hidden_size, dtype=dtype)
+
+    def draw_masks(self, h: torch.Tensor, generator: Optional[torch.Generator]) -> tuple:
+        """The two keep masks of input ``h``, drawn in the forward's order."""
+        rate, (B, N, C) = self.dropout_rate, h.shape
+        split = self.tensor_group is not None
+        return (keep_mask((B, N, self.linear1.out_features), rate, generator, h.device,
+                          self.dropout_sites[0], split),
+                keep_mask((B, N, C), rate, generator, h.device, self.dropout_sites[1]))
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 masks: Optional[tuple] = None) -> torch.Tensor:
         """The two dropout masks are drawn from ``generator``, or given as
-        ``masks`` (``keep_mask``'s)."""
+        ``masks`` (``draw_masks``'). Under tensor parallelism ``linear1`` is
+        column-parallel (its first mask this rank's columns of the global
+        one) and ``linear2`` row-parallel (its mask whole on every rank)."""
         rate = self.dropout_rate if self.training else 0.0
         m1, m2 = masks if masks is not None else (None, None)
-        x = dropout(gelu(self.linear1(x)), rate, generator, m1)
-        return dropout(self.linear2(x), rate, generator, m2)
+        group, sites = self.tensor_group, self.dropout_sites
+        x = dropout(gelu(column_parallel(self.linear1, x, group)), rate, generator, m1,
+                    sites[0], group is not None)
+        return dropout(row_parallel(self.linear2, x, group), rate, generator, m2, sites[1])
 
 
 class AttentionBlock(nn.Module):
@@ -159,8 +191,30 @@ class AttentionBlock(nn.Module):
                 return x + checkpoint(self.mlp, h, use_reentrant=False)
             return x + self.mlp(h)
         if self.remat_mlp and torch.is_grad_enabled():  # the recomputation applies the same
-            rate, (B, N, C) = self.mlp.dropout_rate, h.shape
-            masks = (keep_mask((B, N, self.mlp.linear1.out_features), rate, generator, h.device),
-                     keep_mask((B, N, C), rate, generator, h.device))
+            masks = self.mlp.draw_masks(h, generator)
             return x + checkpoint(self.mlp, h, None, masks, use_reentrant=False)
         return x + self.mlp(h, generator)
+
+
+def shard_block_(block: AttentionBlock, t: int, i: int, group) -> AttentionBlock:
+    """Make ``block`` tensor rank ``i``'s of ``t`` (Megatron): its qkv and
+    ``linear1`` keep their columns of the split (``parallel/mesh.py
+    split_param``), ``proj`` and ``linear2`` their input columns, and the
+    attention its H / t heads; norms and the row-parallel biases stay whole.
+    The parameters keep their objects (their data is replaced)."""
+    from headct_foundation_tpu_torch.parallel.mesh import split_param
+
+    attn, mlp = block.attn, block.mlp
+    if attn.lora_q is not None:
+        raise NotImplementedError("LoRA under tensor parallelism is not ported")
+    if attn.num_heads % t:
+        raise ValueError(f"{attn.num_heads} heads do not split over tensor = {t}")
+    with torch.no_grad():
+        for prefix, mod in (("attn.qkv", attn.qkv), ("attn.proj", attn.proj),
+                            ("mlp.linear1", mlp.linear1), ("mlp.linear2", mlp.linear2)):
+            for leaf, p in mod.named_parameters(recurse=False):
+                p.data = split_param(f"{prefix}.{leaf}", p.data, t, i)
+            mod.out_features, mod.in_features = mod.weight.shape
+    attn.num_heads //= t
+    attn.tensor_group = mlp.tensor_group = group
+    return block

@@ -21,7 +21,12 @@
   ``affine`` and ``dtype`` give the DINO head's variant (a float32 scale and
   bias, the output in the head's compute dtype).
 * ``dropout``: inverted dropout whose keep mask is drawn from an explicit
-  generator, so a step is reproducible from its seed.
+  generator, so a step is reproducible from its seed; under
+  ``parallel.mesh.global_dropout`` the mask is this rank's slice of the
+  global batch's. ``set_mask_hook`` (tests) hands in the masks by site
+  (``label_dropout_sites``: the dropping module's name in the model).
+* ``column_parallel`` / ``row_parallel``: the Megatron linears over the
+  ``tensor`` group (``parallel/comm.py``).
 
 Parameter names follow the reference torch modules (``weight``, ``bias``),
 which is what the JAX package's ``tree_to_torch`` emits.
@@ -30,12 +35,14 @@ which is what the JAX package's ``tree_to_torch`` emits.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from headct_foundation_tpu_torch.parallel import comm, mesh
 
 
 class LayerNorm(nn.Module):
@@ -190,25 +197,124 @@ class TorchBatchNorm(nn.Module):
         return y.to(self.dtype)
 
 
-def keep_mask(shape, rate: float, generator: Optional[torch.Generator],
-              device) -> torch.Tensor:
+# A test-only source of dropout masks: hook(site, global shape) -> a boolean
+# keep mask of that shape, or None to draw it (``set_mask_hook``).
+_MASK_HOOK: Optional[Callable] = None
+
+
+def set_mask_hook(hook: Optional[Callable]) -> Optional[Callable]:
+    """Take every dropout mask from ``hook(site, shape)`` (tests hand in the
+    masks they give the JAX model); returns the previous hook."""
+    global _MASK_HOOK
+    prev, _MASK_HOOK = _MASK_HOOK, hook
+    return prev
+
+
+def keep_mask(shape, rate: float, generator: Optional[torch.Generator], device,
+              site: Optional[str] = None, cols_split: bool = False) -> torch.Tensor:
     """A boolean mask keeping each element with probability 1 - ``rate``,
-    drawn from ``generator`` (a missing generator raises)."""
-    if generator is None:
-        raise ValueError("dropout at a rate above 0 draws its mask from an explicit "
-                         "torch.Generator; none was given")
-    return torch.rand(shape, generator=generator, device=device) >= rate
+    drawn from ``generator`` (a missing generator raises). Under
+    ``parallel.mesh.global_dropout`` it is this rank's slice of the mask a
+    single process draws for the global batch (``cols_split``: ``shape``'s
+    last axis is this rank's columns of a column-parallel output).
+    ``site`` names the mask for ``set_mask_hook``."""
+    layout = mesh.dropout_slice(shape, cols_split)
+    full = tuple(shape) if layout is None else layout[0]
+    m = None if _MASK_HOOK is None or site is None else _MASK_HOOK(site, full)
+    if m is None:
+        if generator is None:
+            raise ValueError("dropout at a rate above 0 draws its mask from an explicit "
+                             "torch.Generator; none was given")
+        m = torch.rand(full, generator=generator, device=device) >= rate
+    m = torch.as_tensor(m, device=device)
+    return m if layout is None else layout[1](m)
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
-            keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+            keep: Optional[torch.Tensor] = None, site: Optional[str] = None,
+            cols_split: bool = False) -> torch.Tensor:
     """Inverted dropout (flax ``nn.Dropout``): each element kept with
     probability 1 - ``rate`` and scaled by 1 / (1 - rate), the mask ``keep``
-    or else drawn from ``generator``. Rate 0 returns ``x``; rate 1 zeros it."""
+    or else ``keep_mask``'s. Rate 0 returns ``x``; rate 1 zeros it."""
     if not rate:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     if keep is None:
-        keep = keep_mask(x.shape, rate, generator, x.device)
+        keep = keep_mask(x.shape, rate, generator, x.device, site, cols_split)
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def label_dropout_sites(model: nn.Module) -> nn.Module:
+    """Give every module that drops out its name in ``model``
+    (``dropout_sites``: "<name>:0", "<name>:1"), the keys of its masks for
+    ``set_mask_hook``."""
+    for name, mod in model.named_modules():
+        if hasattr(mod, "dropout_sites"):
+            mod.dropout_sites = (f"{name}:0", f"{name}:1")
+    return model
+
+
+def _f32_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in float32, accumulated in float32 and not rounded to the
+    operands' lower precision (``torch.mm``'s ``out_dtype`` on the card)."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _LinearF32(torch.autograd.Function):
+    """x @ w.T with a float32 result, for a split linear whose partial sums
+    meet across ranks: forward the product of x (cast to w's dtype, exact
+    for the values a split linear is given) and w, unrounded; backward the
+    input's gradient likewise in float32 when x is, rounded to x's dtype
+    otherwise, and w's gradient in w's dtype as an unsplit linear's. The
+    incoming gradient is that of an output rounded to w's dtype, so casting
+    it there is exact."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xb = x.to(w.dtype)
+        ctx.save_for_backward(xb, w)
+        ctx.x_dtype = x.dtype
+        return _f32_mm(xb.reshape(-1, xb.shape[-1]), w.t()).reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, w = ctx.saved_tensors
+        gb = g.to(w.dtype).reshape(-1, g.shape[-1])
+        gx = _f32_mm(gb, w).to(ctx.x_dtype).reshape(xb.shape)
+        return gx, gb.t() @ xb.reshape(-1, xb.shape[-1])
+
+
+def _split_linear(linear: "Linear", x: torch.Tensor) -> torch.Tensor:
+    """``linear`` on its split weight, the product in float32 (``_LinearF32``)."""
+    return _LinearF32.apply(x, linear.weight.to(linear.compute_dtype))
+
+
+def _add_bias(linear: "Linear", y: torch.Tensor) -> torch.Tensor:
+    """The bias in the compute dtype added to a float32 product, then one
+    rounding to the compute dtype, as an unsplit linear's epilogue."""
+    dt = linear.compute_dtype
+    return (y if linear.bias is None else y + linear.bias.to(dt).float()).to(dt)
+
+
+def column_parallel(linear: "Linear", x: torch.Tensor, group) -> torch.Tensor:
+    """A column-parallel linear (its output columns split over ``group``):
+    backward the ranks' partial gradients of the input summed in float32
+    and rounded once. Without a group it is ``linear(x)``."""
+    if group is None:
+        return linear(x)
+    return _add_bias(linear, _split_linear(linear, comm.copy_to_group(x.float(), group)))
+
+
+def row_parallel(linear: "Linear", x: torch.Tensor, group) -> torch.Tensor:
+    """A row-parallel linear (its input columns split over ``group``): the
+    partial products summed in float32 across the group and the whole bias
+    added, then one rounding to the compute dtype. Without a group it is
+    ``linear(x)``."""
+    if group is None:
+        return linear(x)
+    return _add_bias(linear, comm.reduce_from_group(_split_linear(linear, x), group))

@@ -21,8 +21,22 @@ JAX model's tree. The sincos position embeddings are frozen parameters
 ``remat`` (config ``PARALLEL.REMAT``) recomputes the MLP half of every
 encoder and decoder block in the backward (JAX ``models/mae.py:54,70,149``).
 
-``forward(imgs, noise=None, generator=None)`` returns (loss, pred, mask).
-The masking noise [B, L] is drawn from ``generator`` unless passed in.
+``forward(imgs, noise=None, generator=None, dropout_generator=None)``
+returns (loss, pred, mask). The masking noise [B, L] is drawn from
+``generator`` unless passed in. Dropout (JAX ``:193``, ``:42-80``: after the
+patch embedding and in every encoder and decoder block; none on the
+attention probabilities) runs in ``train()`` mode at ``dropout_rate`` above
+0, its masks drawn from ``dropout_generator``; ``eval()`` and rate 0 draw
+nothing.
+
+Under ``seq`` parallelism (``parallel/mesh.py``) the two trunks hold each
+rank's ceil(T / s) tokens (``trunk``); the patch embedding, masking, the
+unshuffle and the targets run on the whole sequence at the trunks' edges
+(JAX's ``encode_prefix`` / ``decode_prefix`` split, ``:188-248``), the
+encoder's tokens gathered after ``decoder_embed``. ``pred`` is then this
+rank's patches, and the loss, the masked MSE over the global masked
+patches, is the sum of the ranks' shares. Under ``tensor`` parallelism the
+blocks split their heads and MLP columns (``models/attention.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +50,7 @@ from torch import nn
 from headct_foundation_tpu_torch.models.attention import AttentionBlock
 from headct_foundation_tpu_torch.models.layers import (
     Linear,
+    label_dropout_sites,
     make_norm,
     trunc_normal_,
     xavier_uniform_,
@@ -46,6 +61,7 @@ from headct_foundation_tpu_torch.models.pos_embed import (
     build_sincos_position_embedding,
 )
 from headct_foundation_tpu_torch.ops.masking import random_masking
+from headct_foundation_tpu_torch.parallel import comm, mesh
 
 _LOSS_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -78,10 +94,6 @@ class MaskedAutoencoderViT(nn.Module):
         super().__init__()
         if spatial_dims != 3:
             raise ValueError("the MAE is built for 3D volumes")
-        if dropout_rate:
-            raise NotImplementedError(
-                "the MAE's dropout is not ported (ROADMAP A); every shipped MAE config uses "
-                "rate 0")
         if loss_dtype not in _LOSS_DTYPES:
             raise ValueError(f"loss_dtype {loss_dtype!r} is not one of {sorted(_LOSS_DTYPES)}")
         self.input_size = _to_tuple(input_size, 3)
@@ -123,6 +135,7 @@ class MaskedAutoencoderViT(nn.Module):
                                     dtype=dtype)
         self.decoder_pred = Linear(decoder_embed_dim, patch_dim * in_chans, bias=use_bias,
                                    dtype=dtype)
+        label_dropout_sites(self)
 
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator] = None) -> "MaskedAutoencoderViT":
@@ -150,26 +163,43 @@ class MaskedAutoencoderViT(nn.Module):
     def encode_prefix(
         self, x: torch.Tensor, noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        dropout_generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """patch embed -> random masking -> prepend CLS."""
-        x = self.patch_embedding(x)
+        x = self.patch_embedding(x, dropout_generator)
         x, mask, ids_restore, _ = random_masking(x, self.mask_ratio, generator, noise)
         cls = self.cls_token.to(x.dtype).expand(x.shape[0], -1, -1)
         return torch.cat([cls, x], dim=1), mask, ids_restore
 
+    def trunk(self, blocks: nn.ModuleList, x: torch.Tensor,
+              dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The block stack. Under ``seq`` parallelism x [B, T, C] is whole on
+        every rank and the result is this rank's ceil(T / s) tokens: the
+        blocks run on them, attention against the keys of all ranks."""
+        m = mesh.current()
+        group = m.group("seq")
+        if group is None:
+            for blk in blocks:
+                x = blk(x, dropout_generator)
+            return x
+        t = x.shape[1]
+        x = comm.split_tokens(x, group, mesh.tokens_per_rank(t, m.size("seq")))
+        with mesh.token_shard(t):
+            for blk in blocks:
+                x = blk(x, dropout_generator)
+        return x
+
     def forward_encoder(
         self, x: torch.Tensor, noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        dropout_generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        x, mask, ids_restore = self.encode_prefix(x, noise, generator)
-        for blk in self.blocks:
-            x = blk(x)
-        return self.norm(x), mask, ids_restore
+        x, mask, ids_restore = self.encode_prefix(x, noise, generator, dropout_generator)
+        return self.norm(self.trunk(self.blocks, x, dropout_generator)), mask, ids_restore
 
-    def decode_prefix(self, x: torch.Tensor, ids_restore: torch.Tensor) -> torch.Tensor:
-        """decoder embed -> mask tokens put back in token order -> + decoder
-        CLS / position embedding (JAX ``models/mae.py:213-235``)."""
-        x = self.decoder_embed(x)
+    def unshuffle(self, x: torch.Tensor, ids_restore: torch.Tensor) -> torch.Tensor:
+        """Mask tokens put back in token order -> + decoder CLS / position
+        embedding, on the embedded [B, 1 + kept, C] encoder output."""
         B, _, C = x.shape
         L = ids_restore.shape[1]
         mask_tokens = self.mask_token.to(x.dtype).expand(B, L + 1 - x.shape[1], C)
@@ -179,16 +209,43 @@ class MaskedAutoencoderViT(nn.Module):
         dec_pe = torch.cat([self.decoder_cls_token, self.decoder_pos_embed], dim=1)
         return x + dec_pe.to(x.dtype)
 
-    def forward_decoder(self, x: torch.Tensor, ids_restore: torch.Tensor) -> torch.Tensor:
-        x = self.decode_prefix(x, ids_restore)
-        for blk in self.decoder_blocks:
-            x = blk(x)
-        return self.decoder_pred(self.decoder_norm(x))[:, 1:]
+    def decode_prefix(self, x: torch.Tensor, ids_restore: torch.Tensor) -> torch.Tensor:
+        """decoder embed -> mask tokens put back in token order -> + decoder
+        CLS / position embedding (JAX ``models/mae.py:213-235``). Under
+        ``seq`` ``x`` is this rank's encoder tokens, gathered after the
+        embedding into the 1 + kept tokens of the whole sequence."""
+        L = ids_restore.shape[1]
+        x = comm.gather_tokens(self.decoder_embed(x), mesh.current().group("seq"),
+                               1 + int(L * (1 - self.mask_ratio)))
+        return self.unshuffle(x, ids_restore)
 
-    def forward_loss(self, imgs: torch.Tensor, pred: torch.Tensor,
-                     mask: torch.Tensor) -> torch.Tensor:
+    def seq_patches(self, num_patches: int) -> slice:
+        """The patches whose decoder tokens this rank holds (all of them on
+        one ``seq`` rank): its share of tokens 1 .. L of the L + 1."""
+        m = mesh.current()
+        t = num_patches + 1
+        n = mesh.tokens_per_rank(t, m.size("seq"))
+        lo = m.coord("seq") * n
+        return slice(max(lo, 1) - 1, max(min(lo + n, t), 1) - 1)
+
+    def forward_decoder(self, x: torch.Tensor, ids_restore: torch.Tensor,
+                        dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The prediction of this rank's patches (``seq_patches``): every
+        patch, the CLS dropped, on one ``seq`` rank."""
+        x = self.trunk(self.decoder_blocks, self.decode_prefix(x, ids_restore),
+                       dropout_generator)
+        x = self.decoder_pred(self.decoder_norm(x))
+        p = self.seq_patches(ids_restore.shape[1])
+        lo = mesh.current().coord("seq") * x.shape[1]  # this rank's first token
+        return x[:, p.start + 1 - lo:p.stop + 1 - lo]
+
+    def forward_loss(self, imgs: torch.Tensor, pred: torch.Tensor, mask: torch.Tensor,
+                     patches: slice = slice(None)) -> torch.Tensor:
+        """The masked MSE; ``pred`` holds the patches ``patches`` of the
+        image (a share of them under ``seq``), whose loss is divided by the
+        masked patches of the whole image."""
         ldt = self.loss_dtype
-        target = self.patchify(imgs).to(ldt)
+        target = self.patchify(imgs)[:, patches].to(ldt)
         if self.norm_pix_loss:
             t32 = target.float()
             mean = t32.mean(dim=-1, keepdim=True)
@@ -197,12 +254,19 @@ class MaskedAutoencoderViT(nn.Module):
             target = ((target - mean) / torch.sqrt(var + 1.0e-6)).to(ldt)
         loss = (pred.to(ldt) - target).square().mean(dim=-1, dtype=torch.float32)
         mask = mask.float()
-        return (loss * mask).sum() / mask.sum()
+        return (loss * mask[:, patches]).sum() / mask.sum()
 
     def forward(
         self, imgs: torch.Tensor, noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        dropout_generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        latent, mask, ids_restore = self.forward_encoder(imgs, noise, generator)
-        pred = self.forward_decoder(latent, ids_restore)
-        return self.forward_loss(imgs, pred, mask), pred, mask
+        """(loss, pred, mask): ``forward_encoder``, ``forward_decoder``, then
+        ``forward_loss`` on this rank's patches. Under ``seq`` ``pred`` is
+        this rank's patches and the loss the sum of the ranks' shares (its
+        gradient stays each rank's own)."""
+        latent, mask, ids_restore = self.forward_encoder(imgs, noise, generator,
+                                                         dropout_generator)
+        pred = self.forward_decoder(latent, ids_restore, dropout_generator)
+        loss = self.forward_loss(imgs, pred, mask, self.seq_patches(mask.shape[1]))
+        return comm.reduce_from_group(loss, mesh.current().group("seq")), pred, mask

@@ -13,16 +13,20 @@ the JAX package's ``{'backbone', 'head'}`` parameter tree.
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 from torch import nn
 
+from headct_foundation_tpu_torch.parallel import mesh
 
-def multicrop_forward(backbone: Callable, head: Callable,
-                      crops: Sequence[torch.Tensor]) -> torch.Tensor:
+
+def multicrop_forward(backbone: Callable, head: Callable, crops: Sequence[torch.Tensor],
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """crops: [B, C, H, W, D] batches -> head output [len(crops) * B, K], crop
-    order kept. ``backbone(x)`` returns (tokens [N, T, C], hidden states)."""
+    order kept. ``backbone(x, generator)`` returns (tokens [N, T, C], hidden
+    states); ``generator`` draws its dropout masks, each pass's as the
+    global batch's blocks of crops (``mesh.global_dropout``)."""
     features: List[torch.Tensor] = []
     start = 0
     while start < len(crops):
@@ -30,7 +34,8 @@ def multicrop_forward(backbone: Callable, head: Callable,
         shape = crops[start].shape[2:]
         while end < len(crops) and crops[end].shape[2:] == shape:
             end += 1
-        tokens, _ = backbone(torch.cat(list(crops[start:end]), dim=0))
+        with mesh.global_dropout(end - start):
+            tokens, _ = backbone(torch.cat(list(crops[start:end]), dim=0), generator)
         features.append(tokens[:, 0])  # the CLS feature of each crop
         start = end
     return head(torch.cat(features, dim=0))
@@ -44,5 +49,6 @@ class DINOModel(nn.Module):
         self.backbone = backbone
         self.head = head
 
-    def forward(self, crops: Sequence[torch.Tensor]) -> torch.Tensor:
-        return multicrop_forward(self.backbone, self.head, crops)
+    def forward(self, crops: Sequence[torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return multicrop_forward(self.backbone, self.head, crops, generator)

@@ -78,6 +78,7 @@ class PatchEmbeddingBlock(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.dropout_rate = dropout_rate
+        self.dropout_sites = (":0", ":1")  # set by label_dropout_sites
         for m, p in zip(img_size, patch_size):
             if m < p:
                 raise ValueError("patch_size should be smaller than img_size")
@@ -119,4 +120,5 @@ class PatchEmbeddingBlock(nn.Module):
                 pe = interpolate_pos_embed(
                     pe, 0, new_grid=tuple(s // p for s, p in zip(spatial, self.patch_size)))
             tokens = tokens + pe.to(dt)
-        return dropout(tokens, self.dropout_rate if self.training else 0.0, generator)
+        return dropout(tokens, self.dropout_rate if self.training else 0.0, generator,
+                       site=self.dropout_sites[0])

@@ -34,7 +34,7 @@ import torch
 from torch import nn
 
 from headct_foundation_tpu_torch.models.attention import AttentionBlock
-from headct_foundation_tpu_torch.models.layers import Linear, make_norm
+from headct_foundation_tpu_torch.models.layers import Linear, label_dropout_sites, make_norm
 from headct_foundation_tpu_torch.models.patch_embed import PatchEmbeddingBlock
 from headct_foundation_tpu_torch.models.pos_embed import _to_tuple
 
@@ -95,6 +95,7 @@ class ViT(nn.Module):
         self.norm = make_norm(norm_layer, hidden_size, eps=1e-6)
         if classification:
             self.classification_head = Linear(hidden_size, num_classes, dtype=dtype)
+        label_dropout_sites(self)
 
     def set_save_attn(self, on: bool) -> bool:
         """Turn ``save_attn`` on or off in every block; returns the previous

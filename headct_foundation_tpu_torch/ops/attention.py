@@ -10,8 +10,23 @@ rectangular ones. Both run their CUDA kernels on a CUDA tensor and their
 plain versions on a CPU tensor. Shorter sequences take the plain PyTorch
 attention, where the JAX package takes XLA's ``jax.nn.dot_product_attention``.
 
-The sharded and context-parallel branches of the JAX module (``:139-186``)
-are not ported yet.
+The sharded branches (JAX ``:139-186``), on the port's mesh
+(``parallel/mesh.py``):
+
+* ``tensor``: q, k and v arrive with this rank's H / t heads (the
+  column-parallel qkv of ``models/attention.py``) and take the same
+  dispatch; heads are independent, so nothing else changes.
+* ``seq``: inside a trunk whose T tokens are split over the ranks
+  (``mesh.token_shard``), q, k and v are this rank's ceil(T / s) tokens,
+  the last rank's tail padding. K and V are all-gathered over ``seq``
+  (``parallel/comm.py gather_tokens``, whose backward sums the ranks' dK
+  and dV partials and keeps this rank's), and ``attend_shard`` runs the Q
+  shard against them with ``kv_len`` = T, so the padded keys carry no
+  weight; the padded query rows are dropped at the trunk's end and carry
+  no gradient. As in JAX (``:207``), the kernel-or-plain choice is taken on
+  the global T: a Q shard shorter than ``pallas_min_t()`` still takes the
+  blocked kernel when T does not, and a short trunk (the 96^3 encoder's
+  129 tokens) takes the plain attention over the gathered keys.
 """
 
 from __future__ import annotations
@@ -23,6 +38,7 @@ import torch
 
 from headct_foundation_tpu_torch.ops import flash_attention as _fa
 from headct_foundation_tpu_torch.ops.flash_attention import fused_attention_reference
+from headct_foundation_tpu_torch.parallel import comm, mesh
 
 # "kernel" | "plain" | None (auto: the kernel on CUDA tensors, plain on CPU).
 _BACKEND: Optional[str] = None
@@ -69,6 +85,24 @@ def dot_product_attention(
     """Multi-head attention over [B, T, H, D] tensors -> [B, Tq, H, D] in q.dtype.
     Differentiable on every branch: the kernel branches through their own
     backward, the plain branch through autograd."""
+    t = mesh.current_tokens()
+    if t is not None and mesh.current().group("seq") is not None:
+        group = mesh.current().group("seq")
+        return attend_shard(q, comm.gather_tokens(k, group), comm.gather_tokens(v, group), t,
+                            scale=scale)
     if get_attention_backend(q.device) == "kernel" and q.shape[1] >= pallas_min_t():
         return _fa.flash_attention(q, k, v, scale=scale)
     return fused_attention_reference(q, k, v, scale)[0]
+
+
+def attend_shard(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: int, *,
+                 tq: Optional[int] = None, scale: Optional[float] = None) -> torch.Tensor:
+    """One ``seq`` rank's attention: its Q shard [B, Tl, H, D] against the
+    gathered (padded) K, V [B, s Tl, H, D], of which the first ``kv_len``
+    are real. The kernel or the plain version is chosen on the global
+    query count ``tq`` (default ``kv_len``): ``BlockedFusedAttention`` with
+    ``kv_len``, else the plain attention over the real keys."""
+    tq = kv_len if tq is None else tq
+    if get_attention_backend(q.device) == "kernel" and tq >= pallas_min_t():
+        return _fa.BlockedFusedAttention.apply(q, k, v, scale, kv_len)[0]
+    return fused_attention_reference(q, k[:, :kv_len], v[:, :kv_len], scale)[0]

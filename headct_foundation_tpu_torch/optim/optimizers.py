@@ -40,20 +40,30 @@ from typing import Iterable, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from headct_foundation_tpu_torch.ops.lion_kernel import lion_update_leaf, sign_keep_nan
 
 
 @torch.no_grad()
 def clip_by_per_param_norm(params: Iterable[torch.nn.Parameter], clip: float,
-                           eps: float = 1e-6) -> None:
+                           eps: float = 1e-6, group=None, sharded: Iterable = ()) -> None:
     """Scale each trainable ``.grad`` in place by min(clip / (||g||_2 + eps), 1),
     the norm taken in float32 (the reference clip_gradients: each
-    parameter's gradient on its own, not the global norm)."""
-    grads = [p.grad for p in params if p.requires_grad and p.grad is not None]
+    parameter's gradient on its own, not the global norm). Under tensor
+    parallelism the norm of a parameter in ``sharded`` is over all its
+    shards: its sum of squares all-reduced over ``group``."""
+    params = [p for p in params if p.requires_grad and p.grad is not None]
+    grads = [p.grad for p in params]
     if not grads:
         return
     norms = torch.stack(torch._foreach_norm([g.float() for g in grads]))
+    if group is not None:
+        ids = {id(p) for p in sharded}
+        split = torch.tensor([id(p) in ids for p in params], device=norms.device)
+        sq = torch.where(split, norms.square(), torch.zeros_like(norms))
+        dist.all_reduce(sq, group=group)
+        norms = torch.where(split, sq.sqrt(), norms)
     coefs = torch.clamp(clip / (norms + eps), max=1.0)
     torch._foreach_mul_(grads, list(coefs))  # in float32, rounded to g's dtype
 

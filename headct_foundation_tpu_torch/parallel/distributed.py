@@ -1,17 +1,23 @@
-"""Data-parallel training across processes: the counterpart of the JAX
-package's ``data`` mesh axis and of ``jax.process_index`` / ``process_count``.
+"""Training across processes: the counterpart of ``jax.process_index`` /
+``process_count`` and of the JAX package's mesh, whose layout is
+``parallel/mesh.py``'s.
 
 * ``init_from_env`` starts the process group from the ``torchrun``
   environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
   ``MASTER_PORT``) with its address given explicitly
-  (``tcp://MASTER_ADDR:MASTER_PORT``): NCCL on the card, gloo on the CPU.
-  Without ``WORLD_SIZE`` (or at 1) it starts nothing and the process is
-  rank 0 of 1. ``PARALLEL.DATA`` is the world size the run asks for; a
-  mismatch raises.
-* ``rank`` / ``world`` / ``local_rank`` serve the loaders and the logger.
-* ``all_reduce_mean_`` averages tensors across the ranks in place, in
-  buckets of at most ``BUCKET_BYTES`` flattened together, one
-  ``all_reduce`` each. The train step calls it once per update on the
+  (``tcp://MASTER_ADDR:MASTER_PORT``): NCCL on the card, gloo on the CPU,
+  and makes the config's mesh the process's (``mesh.set_mesh``). Without
+  ``WORLD_SIZE`` (or at 1) it starts nothing and the process is rank 0 of
+  1. The world must be ``PARALLEL.DATA x SEQ x TENSOR`` (``DATA`` -1: what
+  the world leaves); a mismatch raises, as ``FSDP`` or ``PIPE`` above 1 do.
+* ``rank`` / ``world`` / ``local_rank`` serve the logger; ``data_rank`` /
+  ``data_world`` (this rank's place on the ``data`` axis) the loaders and
+  the engines' draws, since the ``seq`` and ``tensor`` ranks of one data
+  slice take the same batch.
+* ``all_reduce_mean_`` averages tensors across the ranks of ``group``
+  (default all) in place, in buckets of at most ``BUCKET_BYTES``
+  flattened together, one ``all_reduce`` each; ``all_reduce_sum_`` sums
+  them. The train step calls it once per update on the
   accumulated gradients, before the clip and the optimizer, so every rank
   takes the same update: the module is never wrapped in
   ``DistributedDataParallel``, its parameter names stay the model's, and
@@ -25,6 +31,8 @@ from typing import List, Sequence
 
 import torch
 import torch.distributed as dist
+
+from headct_foundation_tpu_torch.parallel import mesh
 
 BUCKET_BYTES = 64 << 20
 
@@ -41,27 +49,50 @@ def local_rank() -> int:
     return int(os.environ.get("LOCAL_RANK", "0"))
 
 
-def init_from_env(device_type: str, data_axis: int = -1) -> int:
-    """Join the process group ``torchrun`` describes; returns the world size.
+def _laid_out() -> bool:
+    """True once a mesh is set (without one every rank is on ``data``)."""
+    m = mesh.current()
+    return m.sharded or m.size("data") > 1
 
-    ``data_axis`` is ``PARALLEL.DATA`` (-1: whatever the launcher gives)."""
+
+def data_rank() -> int:
+    return mesh.current().coord("data") if _laid_out() else rank()
+
+
+def data_world() -> int:
+    return mesh.current().size("data") if _laid_out() else world()
+
+
+def init_from_env(device_type: str, data_axis: int = -1, config=None) -> int:
+    """Join the process group ``torchrun`` describes and set the process's
+    mesh; returns the world size. ``data_axis`` is ``PARALLEL.DATA`` (-1:
+    what the launcher gives); ``config`` lays out its whole ``PARALLEL``
+    section instead (``seq`` and ``tensor`` too)."""
     size = int(os.environ.get("WORLD_SIZE", "1"))
-    if data_axis not in (-1, size):
-        raise ValueError(f"PARALLEL.DATA = {data_axis} but the launcher started {size} "
-                         f"processes; the port runs one process per data-parallel rank")
-    if size == 1 or dist.is_initialized():
-        return world()
-    addr = os.environ.get("MASTER_ADDR", "localhost")
-    port = os.environ["MASTER_PORT"]
-    dist.init_process_group(backend="nccl" if device_type == "cuda" else "gloo",
-                            init_method=f"tcp://{addr}:{port}",
-                            rank=int(os.environ["RANK"]), world_size=size)
-    return size
+    axes = dict(data=int(data_axis))
+    if config is not None:
+        p = config.PARALLEL
+        axes = dict(data=int(p.DATA), fsdp=int(p.FSDP), seq=int(p.SEQ), pipe=int(p.PIPE),
+                    tensor=int(p.TENSOR))
+    mesh.layout(world=size, **axes)  # raises before any process group starts
+    if size > 1 and not dist.is_initialized():
+        addr = os.environ.get("MASTER_ADDR", "localhost")
+        port = os.environ["MASTER_PORT"]
+        dist.init_process_group(backend="nccl" if device_type == "cuda" else "gloo",
+                                init_method=f"tcp://{addr}:{port}",
+                                rank=int(os.environ["RANK"]), world_size=size)
+    mesh.set_mesh(mesh.make_mesh(**axes))
+    return world()
 
 
 def shutdown() -> None:
+    mesh.set_mesh(None)
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def _group_size(group) -> int:
+    return world() if group is None else dist.get_world_size(group)
 
 
 def _buckets(tensors: Sequence[torch.Tensor]) -> List[List[torch.Tensor]]:
@@ -79,16 +110,31 @@ def _buckets(tensors: Sequence[torch.Tensor]) -> List[List[torch.Tensor]]:
 
 
 @torch.no_grad()
-def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
-    """Each tensor becomes its mean over the ranks (a no-op at world 1)."""
-    n = world()
-    if n == 1:
+def all_reduce_sum_(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """Each tensor becomes its sum over the ranks of ``group`` (default all;
+    a no-op over one rank)."""
+    if _group_size(group) == 1:
         return
     for bucket in _buckets(list(tensors)):
         flat = torch.cat([t.reshape(-1) for t in bucket])
-        dist.all_reduce(flat)
-        flat.div_(n)
+        dist.all_reduce(flat, group=group)
         offset = 0
         for t in bucket:
             t.copy_(flat[offset:offset + t.numel()].view_as(t))
             offset += t.numel()
+
+
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """Each tensor becomes its mean over the ranks of ``group`` (default all)."""
+    n = _group_size(group)
+    if n > 1:
+        all_reduce_sum_(tensors, group)
+        torch._foreach_div_(list(tensors), n)
+
+
+def data_mean_(tensors: Sequence[torch.Tensor]) -> None:
+    """Each tensor becomes its mean over the ``data`` axis (a no-op on one
+    data slice)."""
+    if _laid_out() and data_world() == 1:
+        return
+    all_reduce_mean_(tensors, mesh.current().group("data"))

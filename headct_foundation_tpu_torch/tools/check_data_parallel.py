@@ -1,7 +1,20 @@
-"""Data-parallel training through the CLI on the card: N processes against one.
+"""Data- and model-parallel training through the CLI on the card: N
+processes against one.
 
     python -m headct_foundation_tpu_torch.tools.check_data_parallel [--nproc 4] \
-        [--config configs/dino/dino_HeadCT.yaml]
+        [--config configs/dino/dino_HeadCT.yaml] [--seq S] [--tensor T] \
+        [--batch B] [--dropout RATE]
+
+``--seq`` and ``--tensor`` (the MAE only) lay the N processes out as
+``PARALLEL.DATA x SEQ x TENSOR`` with DATA = N / (S x T): each data slice's
+S x T ranks read the same batches of B / DATA rows, split the tokens over
+``seq`` and the heads and MLP columns over ``tensor``. ``--batch`` (default
+64) is the global batch; ``--dropout`` sets ``MAE.DROPOUT_RATE`` in both
+runs, whose masks every rank draws as the global batch's and slices.
+``--float32`` runs the MAE main computing in float32 in every run (its
+worker mode ``--float32-mae`` is ``main_pretrain_mae.run(argv,
+dtype=torch.float32)``): the layouts then differ only by float32
+rounding.
 
 Writes 32 synthetic head scans (``tools/cli_runs.py``, 0.5 x 0.5 x 1.0 mm)
 and manifests, then runs the CLI of ``--config``'s ``MODEL.NAME`` (``CLIS``:
@@ -57,7 +70,7 @@ import json
 import socket
 import sys
 import tempfile
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from pathlib import Path
 from typing import Callable, Tuple
 
@@ -135,14 +148,23 @@ def float32_downstream(argv) -> None:
     main_downstream.run(argv, dtype=torch.float32)
 
 
-def pretrain_manifests(path_n: Path, path_1: Path, rows: list, nproc: int, seed: int) -> None:
+def float32_mae(argv) -> None:
+    """The MAE main, computing in float32."""
+    from headct_foundation_tpu_torch import main_pretrain_mae
+
+    main_pretrain_mae.run(argv, dtype=torch.float32)
+
+
+def pretrain_manifests(path_n: Path, path_1: Path, rows: list, nproc: int, seed: int,
+                       batch: int = BATCH) -> None:
     """Image lists: the N-process run's in order, the one-process run's
-    reordered to the ranks' concatenated global batches."""
-    for path, order in ((path_n, rows), (path_1, interleaved(rows, nproc, BATCH))):
+    reordered to the data ranks' (``nproc``) concatenated global batches."""
+    for path, order in ((path_n, rows), (path_1, interleaved(rows, nproc, batch))):
         path.write_text("img_path\n" + "".join(f"{x}\n" for x in order))
 
 
-def label_manifests(path_n: Path, path_1: Path, rows: list, nproc: int, seed: int) -> None:
+def label_manifests(path_n: Path, path_1: Path, rows: list, nproc: int, seed: int,
+                    batch: int = BATCH) -> None:
     """The same cq500 label manifest for both runs."""
     for path in (path_n, path_1):
         write_label_manifest(path, rows, seed=seed)
@@ -176,13 +198,25 @@ def main(argv=None) -> int:
     if argv[:1] == ["--float32-downstream"]:
         float32_downstream(argv[1:])
         return 0
+    if argv[:1] == ["--float32-mae"]:
+        float32_mae(argv[1:])
+        return 0
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--nproc", type=int, default=4)
     ap.add_argument("--config", default=CONFIG)
+    ap.add_argument("--seq", type=int, default=1)
+    ap.add_argument("--tensor", type=int, default=1)
+    ap.add_argument("--batch", type=int, default=BATCH)
+    ap.add_argument("--dropout", type=float, default=0.0)
+    ap.add_argument("--float32", action="store_true",
+                    help="the MAE main computing in float32 (every run)")
     args = ap.parse_args(argv)
-    if BATCH % args.nproc:
-        raise ValueError(f"batch {BATCH} does not split over {args.nproc} processes")
+    batch = args.batch
+    data, rem = divmod(args.nproc, args.seq * args.tensor)
+    if rem or batch % data:
+        raise ValueError(f"{args.nproc} processes at seq {args.seq} x tensor {args.tensor} "
+                         f"do not split batch {batch} over a data axis")
     if torch.cuda.device_count() < args.nproc:
         raise RuntimeError(f"{args.nproc} processes need {args.nproc} CUDA devices, "
                            f"found {torch.cuda.device_count()}")
@@ -192,6 +226,12 @@ def main(argv=None) -> int:
     cfg = default_config()
     cfg.merge_from_file(str(ROOT / args.config))
     cli = CLIS[str(cfg.MODEL.NAME)]
+    if args.float32:
+        if str(cfg.MODEL.NAME) != "mae":
+            raise ValueError("--float32 runs the MAE main only")
+        cli = replace(cli, run=("tools.check_data_parallel", "--float32-mae"))
+    layout = ("PARALLEL.SEQ", str(args.seq), "PARALLEL.TENSOR", str(args.tensor))
+    common = ("MAE.DROPOUT_RATE", str(args.dropout)) if args.dropout else ()
     init = importlib.import_module(f"headct_foundation_tpu_torch.{cli.module}").create_state(
         cfg, {"total_steps": 10, "num_warmup_steps": 1, "niter_per_ep": 1}, "cpu")
     before = flat_params(init.jax_trees(0)["params"])  # as the checkpoints name them
@@ -201,20 +241,23 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         work = Path(tmp)
         scans = write_scans(work, range(1000, 1000 + SCANS))
-        rows = {"train": scans * (BATCH // SCANS * STEPS), "val": scans * 2, "test": scans * 2}
+        reps = max(1, -(-batch * STEPS // SCANS))
+        rows = {"train": (scans * reps)[:batch * STEPS], "val": scans * 2, "test": scans * 2}
         for i, (split, r) in enumerate(rows.items()):
-            cli.manifests(work / f"{split}_n.csv", work / f"{split}_1.csv", r, args.nproc, i)
+            cli.manifests(work / f"{split}_n.csv", work / f"{split}_1.csv", r, data, i, batch)
 
         results = {}
-        runs = [("n", args.nproc, ()), ("1", 1, ())]
+        runs = [("n", args.nproc, layout), ("1", 1, ())]
         if cli.floor:
             runs.append(("plain", 1, ("PARALLEL.PALLAS_MIN_T", str(PLAIN_MIN_T))))
         for label, nproc, extra in runs:
             manifests = "n" if nproc > 1 else "1"
-            opts = ["DATA.BATCH_SIZE", str(BATCH // nproc), "DATA.CACHE_DIR", str(work / "cache"),
+            per = batch // (data if nproc > 1 else 1)
+            opts = ["DATA.BATCH_SIZE", str(per), "DATA.CACHE_DIR", str(work / "cache"),
                     "MODEL.DIR", str(work / f"model_{label}"),
                     "LOG.OUTPUT_DIR", str(work / f"log_{label}"), "OUTPUT", "",
-                    "TRAIN.MAX_EPOCHS", "1", "TRAIN.VAL_EVERY", "1", *cli.opts, *extra]
+                    "TRAIN.MAX_EPOCHS", "1", "TRAIN.VAL_EVERY", "1", *cli.opts, *common,
+                    *extra]
             for split in rows:
                 opts += [f"DATA.{split.upper()}_CSV_PATH", str(work / f"{split}_{manifests}.csv")]
             launcher = (["-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
@@ -247,8 +290,9 @@ def main(argv=None) -> int:
                 f"iter_time {e['train']['iter_time'] * 1e3:.1f} ms, data_time "
                 f"{e['train']['data_time'] * 1e3:.1f} ms")
 
-    print(f"data parallel: {args.nproc} processes at batch {BATCH // args.nproc} "
-          f"({timing(n_res, n_s)}) against 1 at batch {BATCH} ({timing(one, one_s)}) "
+    print(f"{'data' if data == args.nproc else 'model'} parallel: {args.nproc} processes "
+          f"(data {data} x seq {args.seq} x tensor {args.tensor}) at batch {batch // data} "
+          f"({timing(n_res, n_s)}) against 1 at batch {batch} ({timing(one, one_s)}) "
           f"on {args.config}: losses relative "
           f"{', '.join(f'{k} {v:.3e}' for k, v in check.items())} (limit {LOSS_REL}); "
           f"parameter updates worst {worst} {rels[worst]:.3e} over {len(rels)} tensors "
@@ -259,6 +303,8 @@ def main(argv=None) -> int:
               f"updates worst {floor['worst_update']} {floor['worst_update_rel']:.3e} (not held) "
               f"| {card}", flush=True)
     print(json.dumps({"ok": ok, "nproc": args.nproc, "config": args.config, "device": card,
+                      "seq": args.seq, "tensor": args.tensor, "batch": batch,
+                      "dropout": args.dropout, "float32": args.float32,
                       **check,
                       "worst_update_rel": rels[worst], "worst_update": worst,
                       "floor": floor,

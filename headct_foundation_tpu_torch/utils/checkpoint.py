@@ -9,7 +9,11 @@ leaves (``utils/torch_interop.py`` maps the port's modules and optimizers
 to and from them). Either package reads the other's files.
 
 * ``save_checkpoint`` writes through a temporary file and ``os.replace``;
-  under data parallelism rank 0 writes and the others return. The state
+  under data parallelism rank 0 writes and the others return. Under tensor
+  parallelism every rank first gathers the MAE state's split parameters
+  and moments whole (``TrainState.full_view``), so the file has the JAX
+  layout at any mesh; ``TrainState.load_full`` takes a rank's parts back
+  from a full state that ``restore_state`` filled. The state
   gives the payload's trees itself: ``state.jax_trees(step, snapshot)``
   (``engines/*_engine.py``) returns them in the JAX layout, of the live
   state or of ``state.snapshot()``. With ``async_save`` the state is
@@ -150,9 +154,13 @@ def save_checkpoint(state, epoch: int, best_loss: float, dir_add: str,
                     filename: str = "model.ckpt", logger=None,
                     extra: Optional[Dict[str, Any]] = None, async_save: bool = False,
                     fmt: str = "pickle") -> str:
-    """Write ``dir_add/filename``; returns its path (written by rank 0 only)."""
+    """Write ``dir_add/filename``; returns its path (written by rank 0 only).
+    A state with a ``full_view`` (the MAE's) is gathered whole first, on
+    every rank."""
     refuse_orbax(fmt=fmt)
     path = os.path.join(dir_add, filename)
+    if hasattr(state, "full_view"):
+        state = state.full_view()
     if distributed.rank() != 0:
         return path
     os.makedirs(dir_add, exist_ok=True)

@@ -638,3 +638,64 @@ def test_cuda_downstream_step_launches(mode):
     out = downstream_engine.make_eval_step(cfg)(state, wire, target)
     assert [c.launches - b for c, b in zip(counters, before)] == [2, 0, 0]
     assert math.isfinite(out["loss"].item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,s", [((4, 513, 16, 48), 2), ((4, 513, 16, 48), 4),
+                                     ((1, 1025, 12, 64), 4)])
+def test_cuda_seq_shards_against_gathered_keys_match_the_whole_call(shape, s):
+    """The ``seq`` branch on one card: each emulated rank's Q shard against
+    the padded whole K, V with kv_len (``attend_shard``: B3, and B4/B5 in its
+    backward), the dK, dV partials summed in rank order, against the
+    unsharded kernel call, bf16 within the normwise limit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    B, T, H, D = shape
+    g = torch.Generator(device="cuda").manual_seed(T + s)
+    q, k, v, do = (_randn(shape, 0, g, torch.bfloat16) for _ in range(4))
+    tl = -(-T // s)
+    pad = lambda x: torch.cat([x, torch.zeros(B, s * tl - T, H, D, device="cuda",  # noqa: E731
+                                              dtype=x.dtype)], dim=1)
+    kp, vp = pad(k).requires_grad_(), pad(v).requires_grad_()
+    qp, dop = pad(q), pad(do)
+    before = blocked_fused_attention.launches
+    outs, dqs = [], []
+    for r in range(s):
+        qr = qp[:, r * tl:(r + 1) * tl].clone().requires_grad_()
+        o = port_attn.attend_shard(qr, kp, vp, T)
+        o.backward(dop[:, r * tl:(r + 1) * tl])
+        outs.append(o.detach())
+        dqs.append(qr.grad)
+    assert blocked_fused_attention.launches - before == s
+    qf, kf, vf = (x.clone().requires_grad_() for x in (q, k, v))
+    o_ref = BlockedFusedAttention.apply(qf, kf, vf)[0] if T > 1024 else FusedAttention.apply(
+        qf, kf, vf)[0]
+    o_ref.backward(do)
+    for got, want, name in ((torch.cat(outs, 1)[:, :T], o_ref, "o"),
+                            (torch.cat(dqs, 1)[:, :T], qf.grad, "dq"),
+                            (kp.grad[:, :T], kf.grad, "dk"), (vp.grad[:, :T], vf.grad, "dv")):
+        assert_matches(got, want.detach(), 2e-2, 2e-2, name)
+    assert not kp.grad[:, T:].any() and not vp.grad[:, T:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [2, 4])
+def test_cuda_tensor_heads_equal_the_full_call(t):
+    """The ``tensor`` split: each rank's H / t heads, strided views of its
+    local qkv, through B1 and B2 give the full call's heads bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    B, T, H, D = 4, 513, 16, 48
+    g = torch.Generator(device="cuda").manual_seed(t)
+    qkv = _randn((B, T, 3, H, D), 0, g, torch.bfloat16)
+    do = _randn((B, T, H, D), 0, g, torch.bfloat16)
+    full = qkv.clone().requires_grad_()
+    o = FusedAttention.apply(full[:, :, 0], full[:, :, 1], full[:, :, 2])[0]
+    o.backward(do)
+    hl = H // t
+    for r in range(t):
+        local = qkv[:, :, :, r * hl:(r + 1) * hl].contiguous().requires_grad_()
+        o_r = FusedAttention.apply(local[:, :, 0], local[:, :, 1], local[:, :, 2])[0]
+        o_r.backward(do[:, :, r * hl:(r + 1) * hl].contiguous())
+        assert torch.equal(o_r, o[:, :, r * hl:(r + 1) * hl])
+        assert torch.equal(local.grad, full.grad[:, :, :, r * hl:(r + 1) * hl])

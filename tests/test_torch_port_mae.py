@@ -217,5 +217,8 @@ def test_mae_bfloat16_compute_keeps_float32_params():
     loss.backward()
     assert all(p.dtype == torch.float32 for p in port.parameters())
     assert port.blocks[0].attn.qkv.weight.grad.dtype == torch.float32
-    with pytest.raises(NotImplementedError):
-        MaskedAutoencoderViT(dropout_rate=0.1, **TINY)
+    # dropout is ported: a rate above 0 draws its masks from an explicit generator
+    drop = MaskedAutoencoderViT(dtype=torch.bfloat16, dropout_rate=0.1, **TINY).init_weights(
+        torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="explicit torch.Generator"):
+        drop(x.bfloat16(), generator=torch.Generator().manual_seed(2))
