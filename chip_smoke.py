@@ -146,8 +146,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
              configs/downstream/vit_HeadCT_cq500.yaml`` on the cli phase's heads
              and cache with cq500 label manifests, TRAIN.MAX_EPOCHS 2: a
              fine-tune warm-started from the cli phase's MAE latest_ file,
-             --lock --few_shots 4, and --lora --classifier attentive; each
-             exit 0, 0 placeholders, the exact launches counted in the CLI
+             --lock --few_shots 4, and --lora --classifier attentive, the
+             three processes side by side on the card; each exit 0, 0 placeholders, the exact launches counted in the CLI
              process, a best_ file whose params and batch_stats restore bit
              for bit, a predictions pickle of the test manifest, the warm
              start's merged count printed, the mean AUROC printed (random
@@ -186,21 +186,43 @@ Phases, each printing a line; any failure raises and exits non-zero:
              against the unsharded kernel call and the plain versions
              (rel_l2 <= 1e-2); each shard's B3, B4, B5 timed beside its bound
              and the whole sequence's.
-17. tensor - the ``tensor`` split of B1/B2: [32,513,16,48] and the DINO
-             student [256,517,12,64] at t = 2 and 4 local heads against the
-             matching heads of the full call (bit for bit expected), timed
-             beside the bound, and each rank against the plain version; the
-             Megatron linears' float32 partial products against the
-             unsplit linear; on a machine with two cards or more the MAE
-             CLI at SEQ 2 and at TENSOR 2 under torchrun against one
-             process in bf16 (``tools/check_data_parallel.py``), else one
-             line says it did not run.
-18. tm     - the token-major attention tool: kernels B7 and B8 against their
+17. tensor - the ``tensor`` split of B1/B2: [32,513,16,48] at t = 2 and 4
+             local heads against the matching heads of the full call (bit
+             for bit expected), timed beside the bound, and each rank
+             against the plain version; the Megatron linears' float32
+             partial products against the unsplit linear; on a machine with
+             two cards or more the MAE CLI at SEQ 2 and at TENSOR 2 under
+             torchrun against one process in bf16
+             (``tools/check_data_parallel.py``), else one line says it did
+             not run.
+18. dino-mesh - the DINO step's attention on the mesh, emulated on one card:
+             the student [256,517,12,64] (B1, B2) and the teacher
+             [128,517,12,64] (B1) on t = 2 and 4 ranks' heads, bit for bit
+             against the full call and within 1e-2 of the plain version;
+             their B3 (student: B4, B5 too) on s = 2 and 4 ranks' Q shards
+             against the gathered keys with kv_len 517, within 1e-2 of the
+             unsharded call and the plain version, the padded keys' dK and
+             dV exactly 0; each timed beside its bound, the plain version
+             and SDPA, with exact launch counts.
+19. downstream-mesh - the same for the fine-tune at [64,513,12,64] on
+             LoRA's layout (q and v contiguous, k a view of the projection).
+20. fsdp   - every parameter of the three shipped models (the MAE, the DINO
+             student, the downstream ViT with LoRA and its attentive head),
+             built at full width on the card, split by the rule table into
+             f = 2 and 4 shards and joined back bit for bit, each rank's
+             parameter and AdamW bytes printed; B6 on an fsdp shard bit for
+             bit and timed; on a machine with two cards or more
+             ``tools/check_data_parallel.py --fsdp 2`` for the three mains
+             and ``--seq 2`` / ``--tensor 2`` for DINO and the downstream
+             main (DINO's fsdp and tensor runs in float32 at batch 32; a
+             downstream miss printed, not raised), else one line says they
+             did not run.
+21. tm     - the token-major attention tool: kernels B7 and B8 against their
              plain versions at the tool's four shapes (bf16) and at float32
              and ragged ones, and against B1 and B2 on the same inputs (bit
              for bit: the same tile code), then ``tools.bench_tm_attention``
              at its four shapes.
-19. report - a JSON line of the kernels, the card line, then the result line.
+22. report - a JSON line of the kernels, the card line, then the result line.
 
 Float32 matmuls and convolutions are pinned to full float32 (TF32 off for
 cuBLAS and cuDNN): the serving forward is float32, like the JAX package's.
@@ -208,6 +230,7 @@ cuBLAS and cuDNN): the serving forward is float32, like the JAX package's.
 
 from __future__ import annotations
 
+import concurrent.futures
 import http.client
 import json
 import logging
@@ -2588,7 +2611,8 @@ def phase_downstream(card: str) -> dict:
 def phase_downstream_cli(workdir: Path, card: str) -> dict:
     """The downstream CLI end to end on the cli phase's heads and cache, with
     cq500 label manifests: a fine-tune warm-started from the MAE cli run's
-    latest_ file, --lock --few_shots 4, and --lora --classifier attentive;
+    latest_ file, --lock --few_shots 4, and --lora --classifier attentive,
+    the three processes side by side on the card (about 37 GiB together);
     returns the B1 and B2 launches of its runs by path."""
     from headct_foundation_tpu_torch.config import default_config
     from headct_foundation_tpu_torch.engines import downstream_engine
@@ -2608,12 +2632,13 @@ def phase_downstream_cli(workdir: Path, card: str) -> dict:
     mae_latest = workdir / "model_saved" / f"latest_{mae_cfg.MODEL.SAVE_NAME}"
     launches_by_path = {"cli training": {"flash_attention_fwd": 0, "flash_attention_bwd": 0},
                         "cli eval": {"flash_attention_fwd": 0, "flash_attention_bwd": 0}}
-    for label, flags, per in (
-            ("fine-tune", ["--model_load_path", str(mae_latest)],
+    runs = (("fine-tune", ["--model_load_path", str(mae_latest)],
              {"flash_attention_fwd": depth, "flash_attention_bwd": depth}),
             ("lock-few-shot", ["--lock", "--few_shots", "4"], {"flash_attention_fwd": depth}),
             ("lora-attentive", ["--lora", "--classifier", "attentive"],
-             {"flash_attention_fwd": depth, "flash_attention_bwd": depth})):
+             {"flash_attention_fwd": depth, "flash_attention_bwd": depth}))
+
+    def launch(label, flags):
         out = workdir / f"downstream_{label}"
         out.mkdir()
         opts = ["DATA.TRAIN_CSV_PATH", str(manifests["train"]),
@@ -2622,10 +2647,15 @@ def phase_downstream_cli(workdir: Path, card: str) -> dict:
                 "DATA.CACHE_DIR", str(workdir / "cache"), "MODEL.DIR", str(out / "saved"),
                 "LOG.OUTPUT_DIR", str(out / "log"), "OUTPUT", "", "TRAIN.VAL_EVERY", "1",
                 "TRAIN.MAX_EPOCHS", "2"]
-        log, result, wall = run_cli(
+        return run_cli(
             ["--cfg", str(ROOT / DOWNSTREAM_CONFIG), "--device", "cuda", "--dataset", "cq500",
              "--label_name", "ICH", "--preds_save_name", label, *flags, "--opts", *opts],
             f"downstream-cli {label}", module="main_downstream", cwd=out)
+
+    with concurrent.futures.ThreadPoolExecutor(len(runs)) as pool:
+        done = list(pool.map(lambda run: launch(*run[:2]), runs))
+    for (label, flags, per), (log, result, wall) in zip(runs, done):
+        out = workdir / f"downstream_{label}"
         check(result["placeholders"] == 0,
               f"downstream-cli {label}: {result['placeholders']} scans were placeholders")
         losses = [e["train"]["loss"] for e in result["epochs"]] + [result["test"]["loss"]]
@@ -2657,7 +2687,8 @@ def phase_downstream_cli(workdir: Path, card: str) -> dict:
         del state
         ws = result["warm_start"]
         print(f"downstream-cli {label}: python -m headct_foundation_tpu_torch.main_downstream "
-              f"--cfg {DOWNSTREAM_CONFIG} {' '.join(flags)} exit 0 in {wall:.2f} s; epochs "
+              f"--cfg {DOWNSTREAM_CONFIG} {' '.join(flags)} exit 0 in {wall:.2f} s (the three "
+              f"runs side by side); epochs "
               f"{[e['train']['steps'] for e in result['epochs']]} steps, train losses "
               f"{[round(e['train']['loss'], 6) for e in result['epochs']]}, best val mean AUROC "
               f"{result['best_val_mean_auroc']:.4f}, test loss {result['test']['loss']:.6f} mean "
@@ -2680,8 +2711,9 @@ DROPOUT_RATE = 0.1      # the dropout phase's MAE.DROPOUT_RATE and VIT.DROPOUT_R
 DROPOUT_BATCH = 4       # volumes of each dropout step
 CONTEXT_SHAPES = [MAE_DECODER, STRETCH_DECODER, STRETCH_ENCODER]  # [B, T, H, D] bf16
 CONTEXT_SPLITS = (2, 4)
-TENSOR_SHAPES = [MAE_DECODER, DINO_STUDENT]
+TENSOR_SHAPES = [MAE_DECODER]  # the DINO student's heads are the dino-mesh phase's
 TENSOR_SPLITS = (2, 4)
+MESH_SPLITS = (2, 4)  # t and s of the dino-mesh and downstream-mesh phases
 BLOCKED_LABEL = {"flash_attention_blocked_fwd": "B3", "flash_attention_blocked_dkv": "B4",
                  "flash_attention_blocked_dq": "B5"}
 
@@ -2808,99 +2840,121 @@ def pad_tokens(x: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([x, pad], dim=1)
 
 
-def phase_context(card: str) -> dict:
-    """The ``seq`` split of B3/B4/B5 on one card: at each CONTEXT_SHAPES
-    shape and s in CONTEXT_SPLITS, the port's sharded branch
-    (``ops.attention.attend_shard``, through ``BlockedFusedAttention``) called
-    once per emulated rank, its Q shard of ceil(T/s) rows against the whole
-    padded K, V with kv_len = T, and its backward; the dK and dV partials
-    summed in rank order. O, dQ, dK and dV are held against the unsharded
-    kernel call (``flash_attention``) and the plain versions at the bf16
-    normwise limit (BF16_REL_L2). Each shard's B3, B4 and B5 are timed
-    (CUDA events) beside their bound and the whole sequence's. Returns the
-    launches of the emulated ranks and the timings."""
+BLOCKED_NAMES = ("flash_attention_blocked_fwd", "flash_attention_blocked_dkv",
+                 "flash_attention_blocked_dq")
+
+
+def seq_shards_case(shape, s: int, card: str, label: str, backward: bool = True) -> dict:
+    """One emulated ``seq`` split of B3 (and with ``backward`` B4/B5) at
+    ``shape`` [B, T, H, D] bf16: the port's sharded branch
+    (``ops.attention.attend_shard``, through ``BlockedFusedAttention``) once
+    per emulated rank, its Q shard of ceil(T/s) rows against the whole padded
+    K, V with kv_len = T, and its backward summing the dK and dV partials in
+    rank order. O (dQ, dK, dV) are held against the unsharded kernel call
+    (``flash_attention``) and the plain versions at BF16_REL_L2, and the
+    padded keys' dK and dV must be exactly 0. Each shard's kernels are timed
+    (CUDA events) beside their bound, the plain versions, SDPA on the
+    shard's real keys and the whole sequence. Returns the timing record and
+    the launches of the emulated ranks."""
     from headct_foundation_tpu_torch.ops import attention as port_attn
     from headct_foundation_tpu_torch.ops import flash_attention as fa
     from headct_foundation_tpu_torch.parallel import mesh
 
-    dt, timings, total = torch.bfloat16, [], {}
-    names = ("flash_attention_blocked_fwd", "flash_attention_blocked_dkv",
-             "flash_attention_blocked_dq")
-    for shape in CONTEXT_SHAPES:
-        B, T, H, D = shape
-        q, k, v, do = blocked_inputs(shape, T, dt, seed=T + H)
-        # the unsharded kernel call and the plain versions
-        qf, kf, vf = (x.detach().clone().requires_grad_() for x in (q, k, v))
-        o_k = fa.flash_attention(qf, kf, vf)
+    dt = torch.bfloat16
+    names = BLOCKED_NAMES if backward else BLOCKED_NAMES[:1]
+    B, T, H, D = shape
+    q, k, v, do = blocked_inputs(shape, T, dt, seed=T + H + s)
+    qf, kf, vf = (x.detach().clone().requires_grad_(backward) for x in (q, k, v))
+    o_k = fa.flash_attention(qf, kf, vf)
+    o_p, lse_p = fa.blocked_attention_reference(q, k, v)
+    kernel, plain = {"o": o_k.detach()}, {"o": o_p}
+    if backward:
         o_k.backward(do)
-        kernel = {"o": o_k.detach(), "dq": qf.grad, "dk": kf.grad, "dv": vf.grad}
-        o_p, lse_p = fa.blocked_attention_reference(q, k, v)
+        kernel.update(dq=qf.grad, dk=kf.grad, dv=vf.grad)
         delta = fa.attention_delta(o_p, do)
         dk_p, dv_p = fa.blocked_attention_dkv_reference(q, k, v, do, lse_p, delta)
-        plain = {"o": o_p, "dq": fa.blocked_attention_dq_reference(q, k, v, do, lse_p, delta),
-                 "dk": dk_p, "dv": dv_p}
-        whole = {}
-        for name in names:  # the whole sequence on the blocked kernels, for its efficiency
-            whole[name] = blocked_shard_ms(fa, name, q, k, v, do, T)
-        for s in CONTEXT_SPLITS:
-            tl = mesh.tokens_per_rank(T, s)
-            qp, dop = pad_tokens(q, s * tl), pad_tokens(do, s * tl)
-            kp = pad_tokens(k, s * tl).requires_grad_()
-            vp = pad_tokens(v, s * tl).requires_grad_()
-            zero_launches()
-            outs, dqs = [], []
-            for r in range(s):
-                qr = qp[:, r * tl:(r + 1) * tl].clone().requires_grad_()
+        plain.update(dq=fa.blocked_attention_dq_reference(q, k, v, do, lse_p, delta),
+                     dk=dk_p, dv=dv_p)
+    whole = {name: blocked_shard_ms(fa, name, q, k, v, do, T) for name in names}
+    tl = mesh.tokens_per_rank(T, s)
+    qp, dop = pad_tokens(q, s * tl), pad_tokens(do, s * tl)
+    kp = pad_tokens(k, s * tl).requires_grad_(backward)
+    vp = pad_tokens(v, s * tl).requires_grad_(backward)
+    zero_launches()
+    outs, dqs = [], []
+    for r in range(s):
+        qr = qp[:, r * tl:(r + 1) * tl].clone().requires_grad_(backward)
+        if backward:
+            o = port_attn.attend_shard(qr, kp, vp, T)
+            o.backward(dop[:, r * tl:(r + 1) * tl])  # dK, dV partials summed in rank order
+            dqs.append(qr.grad)
+        else:
+            with torch.no_grad():
                 o = port_attn.attend_shard(qr, kp, vp, T)
-                o.backward(dop[:, r * tl:(r + 1) * tl])  # dK, dV partials summed in rank order
-                outs.append(o.detach())
-                dqs.append(qr.grad)
-            torch.cuda.synchronize()
-            n = launches()
-            for name in names:
-                check(n[name] == s, f"context {shape} s={s}: {name} launched {n[name]} times, "
-                                    f"expected {s}")
-                total[name] = total.get(name, 0) + n[name]
-            got = {"o": torch.cat(outs, 1)[:, :T], "dq": torch.cat(dqs, 1)[:, :T],
-                   "dk": kp.grad[:, :T], "dv": vp.grad[:, :T]}
-            check(not kp.grad[:, T:].any() and not vp.grad[:, T:].any(),
-                  f"context {shape} s={s}: the padded keys took a gradient")
-            errs = {f"{x} vs {ref_name}": rel_l2(got[x], ref[x])
-                    for ref_name, ref in (("kernel", kernel), ("plain", plain)) for x in got}
-            worst = max(errs, key=errs.get)
-            check(errs[worst] <= BF16_REL_L2,
-                  f"context {shape} s={s}: {worst} rel_l2 {errs[worst]:.3e} > {BF16_REL_L2}")
-            q0 = qp[:, :tl]
-            plain_ms = blocked_shard_ms(fa, names, q0, kp.detach(), vp.detach(), dop[:, :tl],
-                                        T, plain=True)
-            # the library: SDPA over the T real keys; its backward covers B4 and B5 together
-            _, lib_fwd, _, lib_bwd = sdpa_backward_ms(q0, k, v, dop[:, :tl])
-            shard = {}
-            for name in names:
-                ms = blocked_shard_ms(fa, name, q0, kp.detach(), vp.detach(), dop[:, :tl], T)
-                bound, by = blocked_bound_ms(name, (B, tl, H, D), s * tl, T, dt)
-                w_bound = blocked_bound_ms(name, shape, T, T, dt)[0]
-                shard[name] = {"ms": ms, "bound_ms": bound, "bound_by": by,
-                               "plain_ms": plain_ms[name],
-                               "library_ms": lib_fwd if name == names[0] else None,
-                               "library_backward_ms": None if name == names[0] else lib_bwd,
-                               "whole_ms": whole[name], "whole_bound_ms": w_bound}
-            timings.append({"shape": list(shape), "s": s, "q_shard": [B, tl, H, D],
-                            "keys": s * tl, "kv_len": T, "rel_l2_worst": errs[worst],
-                            "kernels": shard})
-            print(f"context: {list(shape)} bf16 at seq {s}: Q shards [{B},{tl},{H},{D}] against "
-                  f"{s * tl} gathered keys, kv_len {T}; O, dQ, dK, dV against the unsharded "
-                  f"kernel call and the plain version worst rel_l2 {errs[worst]:.3e} ({worst}; "
-                  f"limit {BF16_REL_L2}); per shard (CUDA events): " + "; ".join(
-                      f"{BLOCKED_LABEL[name]} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
-                      f"{r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f}%; plain "
-                      f"{r['plain_ms']:.4f} ms; whole sequence {r['whole_ms']:.4f} ms, "
-                      f"{100 * r['whole_bound_ms'] / r['whole_ms']:.1f}%)"
-                      for name, r in shard.items()) + f"; scaled_dot_product_attention on the "
-                  f"shard, device: forward {lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms "
-                  f"(against B4 + B5 + delta) | {card}", flush=True)
-        del q, k, v, do, qf, kf, vf, kernel, plain
-        torch.cuda.empty_cache()
+        outs.append(o.detach())
+    torch.cuda.synchronize()
+    n = launches()
+    for name in names:
+        check(n[name] == s, f"{label} {shape} s={s}: {name} launched {n[name]} times, "
+                            f"expected {s}")
+    got = {"o": torch.cat(outs, 1)[:, :T]}
+    if backward:
+        got.update(dq=torch.cat(dqs, 1)[:, :T], dk=kp.grad[:, :T], dv=vp.grad[:, :T])
+        check(not kp.grad[:, T:].any() and not vp.grad[:, T:].any(),
+              f"{label} {shape} s={s}: the padded keys took a gradient")
+    errs = {f"{x} vs {ref_name}": rel_l2(got[x], ref[x])
+            for ref_name, ref in (("kernel", kernel), ("plain", plain)) for x in got}
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= BF16_REL_L2,
+          f"{label} {shape} s={s}: {worst} rel_l2 {errs[worst]:.3e} > {BF16_REL_L2}")
+    q0, kd, vd = qp[:, :tl], kp.detach(), vp.detach()
+    plain_ms = blocked_shard_ms(fa, names, q0, kd, vd, dop[:, :tl], T, plain=True)
+    # the library: SDPA over the T real keys; its backward covers B4 and B5 together
+    _, lib_fwd, _, lib_bwd = sdpa_backward_ms(q0, k, v, dop[:, :tl])
+    shard = {}
+    for name in names:
+        ms = blocked_shard_ms(fa, name, q0, kd, vd, dop[:, :tl], T)
+        bound, by = blocked_bound_ms(name, (B, tl, H, D), s * tl, T, dt)
+        w_bound = blocked_bound_ms(name, shape, T, T, dt)[0]
+        shard[name] = {"ms": ms, "bound_ms": bound, "bound_by": by, "plain_ms": plain_ms[name],
+                       "library_ms": lib_fwd if name == names[0] else None,
+                       "library_backward_ms": None if name == names[0] else lib_bwd,
+                       "whole_ms": whole[name], "whole_bound_ms": w_bound}
+    print(f"{label}: {list(shape)} bf16 at seq {s}: Q shards [{B},{tl},{H},{D}] against "
+          f"{s * tl} gathered keys, kv_len {T}; {', '.join(got)} against the unsharded kernel "
+          f"call and the plain version worst rel_l2 {errs[worst]:.3e} ({worst}; limit "
+          f"{BF16_REL_L2}){'; padded dK, dV exactly 0' if backward else ''}; launches "
+          f"{ {BLOCKED_LABEL[x]: n[x] for x in names} }; per shard (CUDA events): " + "; ".join(
+              f"{BLOCKED_LABEL[name]} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f}%; plain "
+              f"{r['plain_ms']:.4f} ms; whole sequence {r['whole_ms']:.4f} ms, "
+              f"{100 * r['whole_bound_ms'] / r['whole_ms']:.1f}%)"
+              for name, r in shard.items()) + f"; scaled_dot_product_attention on the "
+          f"shard, device: forward {lib_fwd:.4f} ms" + (
+              f", backward {lib_bwd:.4f} ms (against B4 + B5 + delta)" if backward else "")
+          + f" | {card}", flush=True)
+    record = {"shape": list(shape), "s": s, "q_shard": [B, tl, H, D], "keys": s * tl,
+              "kv_len": T, "rel_l2_worst": errs[worst], "kernels": shard}
+    del q, k, v, do, qf, kf, vf, kernel, plain, kp, vp
+    torch.cuda.empty_cache()
+    return {"timing": record, "launches": {x: n[x] for x in names}}
+
+
+def _add(total: dict, n: dict) -> None:
+    for name, count in n.items():
+        total[name] = total.get(name, 0) + count
+
+
+def phase_context(card: str) -> dict:
+    """The ``seq`` split of B3/B4/B5 on one card: ``seq_shards_case`` at each
+    CONTEXT_SHAPES shape and s in CONTEXT_SPLITS. Returns the launches of
+    the emulated ranks and the timings."""
+    timings, total = [], {}
+    for shape in CONTEXT_SHAPES:
+        for s in CONTEXT_SPLITS:
+            case = seq_shards_case(shape, s, card, "context")
+            timings.append(case["timing"])
+            _add(total, case["launches"])
     return {"launches": total, "timings": timings}
 
 
@@ -2927,118 +2981,299 @@ def blocked_shard_ms(fa, name, q, k, v, do, kv_len, plain: bool = False):
     return cuda_ms(call, iters=10, warmup=2, ahead=AHEAD_ONE)
 
 
-def phase_tensor(card: str) -> dict:
-    """The ``tensor`` split of B1/B2: at each TENSOR_SHAPES shape and t in
-    TENSOR_SPLITS, each emulated rank's H / t heads (strided views of a
-    local [B, T, 3, H/t, D] qkv, as the column-parallel projection gives
-    them) through ``FusedAttention`` and its backward, held against the
-    matching heads of the full call: bit for bit, heads being independent
-    (a difference is printed and then held at BF16_REL_L2), and against the
-    plain version on the same inputs at BF16_REL_L2. Timed per rank beside
-    the bound. Then ``split_linear_check``, and, on a machine with two cards
-    or more, the MAE CLI under torchrun at SEQ 2 and at TENSOR 2 against one
-    process in bf16 (``tools.check_data_parallel``); on one card a line says
-    it did not run."""
+def _head_leaves(shape, layout, g, dt) -> dict:
+    """The leaf tensors the attention's q, k, v come from, with the axis of
+    their heads: one [B, T, 3, H, D] projection, or on LoRA's layout q and v
+    contiguous [B, T, H, D] and k a view of the projection."""
+    B, T, H, D = shape
+    qkv = torch.randn((B, T, 3, H, D), generator=g, device="cuda", dtype=dt)
+    if LORA not in layout:
+        return {"qkv": (qkv, 3)}
+    return {"q": (torch.randn(shape, generator=g, device="cuda", dtype=dt), 2),
+            "qkv": (qkv, 3), "v": (torch.randn(shape, generator=g, device="cuda", dtype=dt), 2)}
+
+
+def _qkv_of(leaves: dict) -> tuple:
+    qkv = leaves["qkv"]
+    return (leaves.get("q", qkv[:, :, 0]), qkv[:, :, 1], leaves.get("v", qkv[:, :, 2]))
+
+
+def tensor_heads_case(shape, t: int, card: str, label: str, backward: bool = True,
+                      layout=()) -> dict:
+    """One emulated ``tensor`` split of B1 (and with ``backward`` B2) at
+    ``shape`` [B, T, H, D] bf16: each rank's H / t heads of the inputs (as
+    the column-parallel projection gives them: strided views of a local
+    [B, T, 3, H/t, D] qkv, or on LoRA's layout q and v contiguous) through
+    ``FusedAttention`` and its backward, held against the matching heads of
+    the full call: bit for bit, heads being independent (a difference is
+    printed and then held at BF16_REL_L2), and against the plain version
+    on the same inputs at BF16_REL_L2. Timed per rank beside the bound, the
+    plain version and SDPA. Returns the timing record and the launches."""
     from headct_foundation_tpu_torch.ops import flash_attention as fa
 
-    dt, total, timings = torch.bfloat16, {}, []
-    for shape in TENSOR_SHAPES:
-        B, T, H, D = shape
-        g = torch.Generator(device="cuda").manual_seed(T + H)
-        qkv = torch.randn((B, T, 3, H, D), generator=g, device="cuda", dtype=dt)
-        do = torch.randn((B, T, H, D), generator=g, device="cuda", dtype=dt)
-        full = qkv.clone().requires_grad_()
-        o = fa.FusedAttention.apply(full[:, :, 0], full[:, :, 1], full[:, :, 2])[0]
+    dt = torch.bfloat16
+    B, T, H, D = shape
+    g = torch.Generator(device="cuda").manual_seed(T + H + t)
+    base = _head_leaves(shape, layout, g, dt)
+    do = torch.randn((B, T, H, D), generator=g, device="cuda", dtype=dt)
+    full = {k: x.clone().requires_grad_(backward) for k, (x, _) in base.items()}
+    o = fa.FusedAttention.apply(*_qkv_of(full))[0]
+    if backward:
         o.backward(do)
-        o_full, g_full = o.detach(), full.grad
-        del o, full
-        for t in TENSOR_SPLITS:
-            hl = H // t
-            zero_launches()
-            parts = []
-            for r in range(t):
-                local = qkv[:, :, :, r * hl:(r + 1) * hl].contiguous().requires_grad_()
-                o = fa.FusedAttention.apply(local[:, :, 0], local[:, :, 1], local[:, :, 2])[0]
-                o.backward(do[:, :, r * hl:(r + 1) * hl].contiguous())
-                parts.append((o.detach(), local.grad))
-            torch.cuda.synchronize()
-            n = launches()
-            plain_err = 0.0  # each rank against the plain version on its own inputs
-            for r, (o_r, g_r) in enumerate(parts):
-                q, k, v = (qkv[:, :, j, r * hl:(r + 1) * hl].contiguous() for j in range(3))
-                o_ref, lse_ref = fa.fused_attention_reference(q, k, v)
-                d_ref = fa.fused_attention_bwd_reference(
-                    q, k, v, o_ref, do[:, :, r * hl:(r + 1) * hl].contiguous(), lse_ref)
-                err = max(rel_l2(o_r, o_ref), rel_l2(g_r, torch.stack(d_ref, dim=2)))
-                check(err <= BF16_REL_L2, f"tensor {shape} t={t} rank {r}: rel_l2 {err:.3e} "
-                                          f"against the plain version (limit {BF16_REL_L2})")
-                plain_err = max(plain_err, err)
-            del q, k, v, o_ref, lse_ref, d_ref
-            for name in ("flash_attention_fwd", "flash_attention_bwd"):
-                check(n[name] == t, f"tensor {shape} t={t}: {name} launched {n[name]} times")
-                total[name] = total.get(name, 0) + n[name]
-            o_got = torch.cat([p[0] for p in parts], dim=2)
-            g_got = torch.cat([p[1] for p in parts], dim=3)
-            equal = torch.equal(o_got, o_full) and torch.equal(g_got, g_full)
-            note = "bit-equal"
-            if not equal:
-                err = max(rel_l2(o_got, o_full), rel_l2(g_got, g_full))
-                note = (f"NOT bit-equal: max |diff| {(o_got - o_full).abs().max().item():.3e} "
-                        f"(O), {(g_got - g_full).abs().max().item():.3e} (dQKV), rel_l2 "
-                        f"{err:.3e} (limit {BF16_REL_L2})")
-                check(err <= BF16_REL_L2, f"tensor {shape} t={t}: {note}")
-            local = qkv[:, :, :, :hl].contiguous()
-            q, k, v = local[:, :, 0], local[:, :, 1], local[:, :, 2]
-            o, lse = fa.fused_attention(q, k, v)
-            dshape = (B, T, hl, D)
-            fwd_ms = cuda_ms(lambda: fa.fused_attention(q, k, v), iters=10, warmup=2,
-                             ahead=AHEAD_ONE)
-            bwd_ms = cuda_ms(lambda: fa.fused_attention_bwd(q, k, v, o, do[:, :, :hl], lse),
-                             iters=10, warmup=2, ahead=AHEAD_ONE)
-            fb, fby = attention_bound_ms(dshape, dt)
-            bb, bby = attention_bound_ms(dshape, dt, backward=True)
-            d_l = do[:, :, :hl]
-            fwd_plain = cuda_ms(lambda: fa.fused_attention_reference(q, k, v), iters=3, warmup=1)
-            bwd_plain = cuda_ms(lambda: fa.fused_attention_bwd_reference(q, k, v, o, d_l, lse),
-                                iters=3, warmup=1)
-            _, lib_fwd, _, lib_bwd = sdpa_backward_ms(q, k, v, d_l)
-            timings.append({"shape": list(shape), "t": t, "local": list(dshape),
-                            "bit_equal": equal, "plain_rel_l2": plain_err,
-                            "flash_attention_fwd": {"ms": fwd_ms, "bound_ms": fb, "bound_by": fby,
-                                                    "plain_ms": fwd_plain,
-                                                    "library_ms": lib_fwd},
-                            "flash_attention_bwd": {"ms": bwd_ms, "bound_ms": bb, "bound_by": bby,
-                                                    "plain_ms": bwd_plain,
-                                                    "library_ms": lib_bwd}})
-            print(f"tensor: {list(shape)} bf16 at tensor {t}: {t} ranks of {hl} heads against "
-                  f"the full call's heads: {note}; against the plain version on each rank's "
-                  f"inputs: max rel_l2 {plain_err:.3e} (O and dQKV, limit {BF16_REL_L2}); per rank (CUDA events, device) B1 "
-                  f"{fwd_ms:.4f} ms (bound {fb:.4f} ms by {fby}, {100 * fb / fwd_ms:.1f}%; plain "
-                  f"{fwd_plain:.4f} ms; scaled_dot_product_attention {lib_fwd:.4f} ms), B2 "
-                  f"{bwd_ms:.4f} ms (bound {bb:.4f} ms by {bby}, {100 * bb / bwd_ms:.1f}%; plain "
-                  f"{bwd_plain:.4f} ms; scaled_dot_product_attention backward {lib_bwd:.4f} ms) "
-                  f"| {card}", flush=True)
-        del qkv, do, o_full, g_full
-        torch.cuda.empty_cache()
-    split_linear = split_linear_check(card)
-    multi = None
-    if torch.cuda.device_count() >= 2:
-        multi = {}
-        for axis in ("seq", "tensor"):
-            cmd = [sys.executable, "-m", "headct_foundation_tpu_torch.tools.check_data_parallel",
-                   "--nproc", "2", f"--{axis}", "2"]
-            proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900)
-            tail = proc.stdout.strip().splitlines()[-3:]
-            print(f"tensor: multi-process run at {axis.upper()} 2 (2 processes, bf16): exit "
-                  f"{proc.returncode}; " + " | ".join(tail), flush=True)
-            check(proc.returncode == 0, f"the MAE CLI at {axis.upper()} 2 failed the tool's "
-                                        f"limits or did not run: {proc.stderr[-2000:]}")
-            multi[axis] = json.loads(tail[-1])
-    else:
-        print(f"tensor: the multi-process run (MAE CLI at SEQ 2 and at TENSOR 2 under torchrun) "
+    o_full = o.detach()
+    g_full = {k: x.grad for k, x in full.items()} if backward else {}
+    del o, full
+    hl = H // t
+    heads = lambda x, ax, r: x.narrow(ax, r * hl, hl).contiguous()  # noqa: E731
+    zero_launches()
+    parts = []
+    for r in range(t):
+        local = {k: heads(x, ax, r).requires_grad_(backward) for k, (x, ax) in base.items()}
+        if backward:
+            o = fa.FusedAttention.apply(*_qkv_of(local))[0]
+            o.backward(heads(do, 2, r))
+        else:
+            with torch.no_grad():
+                o = fa.FusedAttention.apply(*_qkv_of(local))[0]
+        parts.append((o.detach(), {k: x.grad for k, x in local.items()}, local))
+    torch.cuda.synchronize()
+    n = launches()
+    names = ("flash_attention_fwd", "flash_attention_bwd") if backward else \
+        ("flash_attention_fwd",)
+    for name in names:
+        check(n[name] == t, f"{label} {shape} t={t}: {name} launched {n[name]} times")
+    plain_err = 0.0  # each rank against the plain version on its own inputs
+    for r, (o_r, g_r, local) in enumerate(parts):
+        q, k, v = (x.detach() for x in _qkv_of(local))
+        o_ref, lse_ref = fa.fused_attention_reference(q, k, v)
+        err = rel_l2(o_r, o_ref)
+        if backward:
+            d_ref = fa.fused_attention_bwd_reference(q, k, v, o_ref, heads(do, 2, r), lse_ref)
+            got = _qkv_of({kk: gg for kk, gg in g_r.items()})
+            err = max([err] + [rel_l2(a, b) for a, b in zip(got, d_ref)])
+        check(err <= BF16_REL_L2, f"{label} {shape} t={t} rank {r}: rel_l2 {err:.3e} "
+                                  f"against the plain version (limit {BF16_REL_L2})")
+        plain_err = max(plain_err, err)
+    o_got = torch.cat([p[0] for p in parts], dim=2)
+    pairs = [(o_got, o_full)] + [
+        (torch.cat([p[1][k] for p in parts], dim=ax), g_full[k])
+        for k, (_, ax) in base.items() if backward]
+    equal = all(torch.equal(a, b) for a, b in pairs)
+    note = "bit-equal"
+    if not equal:
+        err = max(rel_l2(a, b) for a, b in pairs)
+        note = (f"NOT bit-equal: max |diff| {max((a - b).abs().max().item() for a, b in pairs):.3e}"
+                f", rel_l2 {err:.3e} (limit {BF16_REL_L2})")
+        check(err <= BF16_REL_L2, f"{label} {shape} t={t}: {note}")
+    local = parts[0][2]
+    q, k, v = (x.detach() for x in _qkv_of(local))
+    o, lse = fa.fused_attention(q, k, v)
+    dshape = (B, T, hl, D)
+    d_l = heads(do, 2, 0)
+    record = {"shape": list(shape), "t": t, "local": list(dshape), "bit_equal": equal,
+              "plain_rel_l2": plain_err, "layout": "lora" if LORA in layout else "fused"}
+    timed = [("flash_attention_fwd", lambda: fa.fused_attention(q, k, v),
+              lambda: fa.fused_attention_reference(q, k, v), False)]
+    if backward:
+        timed.append(("flash_attention_bwd", lambda: fa.fused_attention_bwd(q, k, v, o, d_l, lse),
+                      lambda: fa.fused_attention_bwd_reference(q, k, v, o, d_l, lse), True))
+    _, lib_fwd, _, lib_bwd = sdpa_backward_ms(q, k, v, d_l)
+    for name, call, plain, bwd in timed:
+        ms = cuda_ms(call, iters=10, warmup=2, ahead=AHEAD_ONE)
+        bound, by = attention_bound_ms(dshape, dt, backward=bwd)
+        record[name] = {"ms": ms, "bound_ms": bound, "bound_by": by,
+                        "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+                        "library_ms": lib_bwd if bwd else lib_fwd}
+    print(f"{label}: {list(shape)} bf16{' on LoRA layout' if LORA in layout else ''} at tensor "
+          f"{t}: {t} ranks of {hl} heads against the full call's heads: {note}; against the "
+          f"plain version on each rank's inputs: max rel_l2 {plain_err:.3e} (limit "
+          f"{BF16_REL_L2}); launches { {x: n[x] for x in names} }; per rank (CUDA events, "
+          f"device) " + ", ".join(
+              f"{'B2' if name.endswith('bwd') else 'B1'} {r['ms']:.4f} ms (bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f}%; "
+              f"plain {r['plain_ms']:.4f} ms; scaled_dot_product_attention "
+              f"{'backward ' if name.endswith('bwd') else ''}{r['library_ms']:.4f} ms)"
+              for name, r in record.items() if name.startswith("flash")) + f" | {card}",
+          flush=True)
+    del base, do, o_full, g_full, parts, q, k, v, o, lse
+    torch.cuda.empty_cache()
+    return {"timing": record, "launches": {x: n[x] for x in names}}
+
+
+def multi_card_runs(label: str, runs, recorded=()) -> dict:
+    """On a machine with two cards or more, ``tools.check_data_parallel``
+    for each (config, flags) of ``runs`` (torchrun against one process, at
+    the tool's limits); on one card a line says they did not run. A run in
+    ``recorded`` is one whose miss of the tool's limits on H100s is recorded
+    in PERF.md and ROADMAP.md (the downstream main's): it must run to its
+    result line, and a miss is printed, not raised."""
+    if torch.cuda.device_count() < 2:
+        print(f"{label}: the multi-process runs ({'; '.join(' '.join(f) for _, f in runs)}) "
               f"did not take place on this machine: it has {torch.cuda.device_count()} card",
               flush=True)
+        return None
+    out = {}
+    for config, flags in runs:
+        cmd = [sys.executable, "-m", "headct_foundation_tpu_torch.tools.check_data_parallel",
+               "--config", config, *flags]
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=1800)
+        tail = proc.stdout.strip().splitlines()[-3:]
+        key = f"{config} {' '.join(flags)}"
+        result = json.loads(tail[-1]) if tail and tail[-1].startswith('{"ok"') else None
+        missed = proc.returncode != 0 and result is not None and (config, flags) in recorded
+        print(f"{label}: {key}: exit {proc.returncode}"
+              f"{' (a miss recorded in PERF.md)' if missed else ''}; " + " | ".join(tail),
+              flush=True)
+        check(proc.returncode == 0 or missed, f"{key} failed the tool's limits or did not "
+                                              f"run: {proc.stderr[-2000:]}")
+        check(result is not None and result["placeholders"] == 0,
+              f"{key}: no result line, or placeholders")
+        out[key] = result
+    return out
+
+
+def phase_tensor(card: str) -> dict:
+    """The ``tensor`` split of B1/B2: ``tensor_heads_case`` at each
+    TENSOR_SHAPES shape and t in TENSOR_SPLITS. Then ``split_linear_check``,
+    and, on a machine with two cards or more, the MAE CLI under torchrun at
+    SEQ 2 and at TENSOR 2 against one process in bf16
+    (``tools.check_data_parallel``); on one card a line says it did not
+    run."""
+    total, timings = {}, []
+    for shape in TENSOR_SHAPES:
+        for t in TENSOR_SPLITS:
+            case = tensor_heads_case(shape, t, card, "tensor")
+            timings.append(case["timing"])
+            _add(total, case["launches"])
+    split_linear = split_linear_check(card)
+    multi = multi_card_runs("tensor", [(MAE_CONFIG, ["--nproc", "2", f"--{axis}", "2"])
+                                       for axis in ("seq", "tensor")])
     return {"launches": total, "timings": timings, "split_linear": split_linear, "multi": multi}
+
+
+def phase_mesh(label: str, student, teacher, card: str, layout=()) -> dict:
+    """The mesh of one engine's attention on one card: the student's (or
+    fine-tune's) B1/B2 on ``tensor`` heads and B3/B4/B5 on ``seq`` shards,
+    and the teacher's forward (B1 heads, B3 shards) when given, at t and s
+    in MESH_SPLITS. Returns the launches and the timings by kind."""
+    total = {}
+    out = {"tensor": [], "seq": []}
+    for shape, backward in ((student, True), (teacher, False)):
+        if shape is None:
+            continue
+        for n in MESH_SPLITS:
+            case = tensor_heads_case(shape, n, card, label, backward, layout)
+            out["tensor"].append(case["timing"])
+            _add(total, case["launches"])
+            case = seq_shards_case(shape, n, card, label, backward)
+            out["seq"].append(case["timing"])
+            _add(total, case["launches"])
+    out["launches"] = total
+    return out
+
+
+def phase_fsdp(card: str) -> dict:
+    """The ``fsdp`` layout of the three shipped models on one card: every
+    parameter of the MAE, the DINO student (and its teacher's layout, the
+    same) and the downstream ViT with LoRA and its attentive classifier,
+    built at full width on the card, split into f shards by the rule table
+    (``parallel/mesh.py fsdp_dim``, after the ``tensor`` split at t = 1) and
+    joined back, bit for bit, at f = 2 and 4; each rank's parameter and
+    AdamW-moment bytes printed beside one process's. Kernel B6 on an
+    ``fsdp`` shard (the MLP weight's half) against its plain version bit for
+    bit, timed beside its bound. On a machine with two cards or more,
+    ``tools.check_data_parallel --fsdp 2`` for the three mains and ``--seq
+    2`` / ``--tensor 2`` for DINO and the downstream main (DINO's fsdp and
+    tensor runs in float32 at batch 32, a miss of the downstream main's
+    printed); on one card a line says they did not run."""
+    from headct_foundation_tpu_torch.config import default_config
+    from headct_foundation_tpu_torch.engines import dino_engine, downstream_engine, mae_engine
+    from headct_foundation_tpu_torch.ops.lion_kernel import (
+        lion_update_leaf,
+        lion_update_leaf_reference,
+    )
+    from headct_foundation_tpu_torch.parallel import mesh
+
+    def config(path, extra=()):
+        cfg = default_config()
+        cfg.merge_from_file(str(ROOT / path))
+        cfg.merge_from_list(list(extra))
+        return cfg
+
+    models = {
+        "mae": mae_engine.build_mae_model(config(MAE_CONFIG)),
+        "dino": dino_engine.build_dino_model(config(DINO_CONFIG)),
+        "downstream": torch.nn.ModuleDict({
+            "model": dino_engine.build_vit_model(config(DOWNSTREAM_CONFIG), lora=True),
+            "classifier": downstream_engine.build_classifier(
+                config(DOWNSTREAM_CONFIG, ["TRAIN.CLASSIFIER", "attentive"]))})}
+    models = {k: m.to("cuda") for k, m in models.items()}
+    g = torch.Generator(device="cuda").manual_seed(17)
+    layout = {}
+    for label, model in models.items():
+        named = list(model.named_parameters())
+        with torch.no_grad():
+            for _, p in named:
+                p.normal_(generator=g)
+        one = {"params": sum(p.numel() * 4 for _, p in named),
+               "optimizer": sum(2 * p.numel() * 4 for _, p in named)}
+        layout[label] = {"one_process": one}
+        for f in (2, 4):
+            held, split = {"params": 0, "optimizer": 0}, 0
+            for name, p in named:
+                leaf = name.split(".", 1)[1] if label == "downstream" else name
+                dim = mesh.fsdp_dim(leaf, p.shape, f)
+                shards = [mesh.split_param(leaf, p, f, j, "fsdp", dim) for j in range(f)]
+                check(torch.equal(mesh.join_params(leaf, shards, "fsdp", dim), p),
+                      f"fsdp: {label} {name} at f={f} does not join back bit for bit")
+                check(all(sh.shape == shards[0].shape for sh in shards),
+                      f"fsdp: {label} {name} at f={f}: uneven shards")
+                split += dim is not None
+                held["params"] += shards[0].numel() * 4
+                held["optimizer"] += 2 * shards[0].numel() * 4
+            layout[label][f"f{f}"] = {**held, "split_tensors": split}
+            print(f"fsdp: {label} at FSDP {f}: {len(named)} tensors, {split} split by the rule "
+                  f"table, each split and joined bit for bit; per rank {held['params']} "
+                  f"parameter bytes and {held['optimizer']} AdamW-moment bytes (one process "
+                  f"{one['params']} and {one['optimizer']}; "
+                  f"{100 * held['params'] / one['params']:.1f}%) | {card}", flush=True)
+    del models
+    torch.cuda.empty_cache()
+    # B6 on a shard: the MAE MLP's [3072, 768] weight at FSDP 2 is [3072, 384] per rank
+    shape = (3072, 384)
+    p = torch.randn(shape, generator=g, device="cuda")
+    grad = 1e-2 * torch.randn(shape, generator=g, device="cuda")
+    m = 1e-3 * torch.randn(shape, generator=g, device="cuda")
+    zero_launches()
+    delta, m_new = lion_update_leaf(p, grad, m, *LION_SCALARS)
+    torch.cuda.synchronize()
+    n = launches()["lion_update"]
+    check(n == 1, f"fsdp: lion_update launched {n} times on the shard, expected 1")
+    want = lion_update_leaf_reference(p, grad, m, *LION_SCALARS)
+    same = torch.equal(delta, want[0]) and torch.equal(m_new, want[1])
+    check(same, "fsdp: lion_update on the [3072, 384] shard disagrees with its plain version")
+    err = max((a - b).abs().max().item() for a, b in zip((delta, m_new), want))
+    ms = cuda_ms(lambda: lion_update_leaf(p, grad, m, *LION_SCALARS), ahead=AHEAD_ONE)
+    plain_ms = cuda_ms(lambda: lion_update_leaf_reference(p, grad, m, *LION_SCALARS),
+                       ahead=AHEAD_ONE)
+    bound, by = lion_bound_ms(p.numel(), torch.float32)
+    print(f"fsdp: B6 on a [3072, 384] shard (FSDP 2 of the MAE MLP weight) bit-identical to "
+          f"its plain version; {ms:.4f} ms (bound {bound:.4f} ms by {by}, "
+          f"{100 * bound / ms:.1f}%; plain {plain_ms:.4f} ms; no library call) | {card}",
+          flush=True)
+    lion_shard = {"shape": list(shape), "ms": ms, "bound_ms": bound, "bound_by": by,
+                  "plain_ms": plain_ms, "library_ms": None, "max_abs_err": err, "launches": n}
+    # DINO in bf16 misses the update limit at DATA 2 (= FSDP 2) and TENSOR 2
+    # by rounding (PERF.md §5): those layouts are held in float32
+    dino_f32 = ["--float32", "--batch", "32"]
+    runs = [(MAE_CONFIG, ["--nproc", "2", "--fsdp", "2"]),
+            (DINO_CONFIG, ["--nproc", "2", "--fsdp", "2", *dino_f32]),
+            (DINO_CONFIG, ["--nproc", "2", "--seq", "2"]),
+            (DINO_CONFIG, ["--nproc", "2", "--tensor", "2", *dino_f32])]
+    downstream = [(DOWNSTREAM_CONFIG, ["--nproc", "2", f"--{axis}", "2"])
+                  for axis in ("fsdp", "seq", "tensor")]
+    multi = multi_card_runs("fsdp", runs + downstream, recorded=downstream)
+    return {"layout": layout, "lion_shard": lion_shard, "multi": multi}
 
 
 def split_linear_check(card: str) -> dict:
@@ -3271,7 +3506,18 @@ def main() -> int:
     tensor = phase_tensor(card)
     print(f"tensor: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dino_mesh = phase_mesh("dino-mesh", DINO_STUDENT, DINO_TEACHER, card)
+    print(f"dino-mesh: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
+    t0 = time.perf_counter()
+    downstream_mesh = phase_mesh("downstream-mesh", DOWNSTREAM, None, card, layout=(LORA,))
+    print(f"downstream-mesh: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
+    t0 = time.perf_counter()
+    fsdp = phase_fsdp(card)
+    print(f"fsdp: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
+    torch.cuda.empty_cache()
     tm_launches = phase_tm_bench()
+    meshes = {"dino-mesh": dino_mesh, "downstream-mesh": downstream_mesh}
 
     by_path = {
         "flash_attention_fwd": {"serving": serve_launches,
@@ -3303,7 +3549,9 @@ def main() -> int:
                                 "dropout mae training": dropout["runs"]["mae"]["flash_attention_fwd"],
                                 "dropout dino training":
                                     dropout["runs"]["dino"]["flash_attention_fwd"],
-                                "tensor heads": tensor["launches"]["flash_attention_fwd"]},
+                                "tensor heads": tensor["launches"]["flash_attention_fwd"],
+                                **{f"{k} tensor heads": m["launches"]["flash_attention_fwd"]
+                                   for k, m in meshes.items()}},
         "flash_attention_bwd": {"training": train["train"]["flash_attention_bwd"],
                                 "lion training": lion["train"]["flash_attention_bwd"],
                                 "cli training": cli["cli training"]["flash_attention_bwd"],
@@ -3318,17 +3566,26 @@ def main() -> int:
                                 "dropout mae training": dropout["runs"]["mae"]["flash_attention_bwd"],
                                 "dropout dino training":
                                     dropout["runs"]["dino"]["flash_attention_bwd"],
-                                "tensor heads": tensor["launches"]["flash_attention_bwd"]},
+                                "tensor heads": tensor["launches"]["flash_attention_bwd"],
+                                **{f"{k} tensor heads": m["launches"]["flash_attention_bwd"]
+                                   for k, m in meshes.items()}},
         "flash_attention_blocked_fwd": {"stretch training": stretch["train"][blocked[0]],
                                         "stretch eval": stretch["eval"][blocked[0]],
                                         "extract grid 192":
                                             extract["runs"]["grid 192"][blocked[0]],
-                                        "context seq shards": context["launches"][blocked[0]]},
+                                        "context seq shards": context["launches"][blocked[0]],
+                                        **{f"{k} seq shards": m["launches"][blocked[0]]
+                                           for k, m in meshes.items()}},
         "flash_attention_blocked_dkv": {"stretch training": stretch["train"][blocked[1]],
-                                        "context seq shards": context["launches"][blocked[1]]},
+                                        "context seq shards": context["launches"][blocked[1]],
+                                        **{f"{k} seq shards": m["launches"][blocked[1]]
+                                           for k, m in meshes.items()}},
         "flash_attention_blocked_dq": {"stretch training": stretch["train"][blocked[2]],
-                                       "context seq shards": context["launches"][blocked[2]]},
-        "lion_update": {"lion training": lion["train"]["lion_update"]},
+                                       "context seq shards": context["launches"][blocked[2]],
+                                       **{f"{k} seq shards": m["launches"][blocked[2]]
+                                          for k, m in meshes.items()}},
+        "lion_update": {"lion training": lion["train"]["lion_update"],
+                        "fsdp shard": fsdp["lion_shard"]["launches"]},
         "tm_attention_fwd": {"tm bench": tm_launches["tm_attention_fwd"]},
         "tm_attention_bwd": {"tm bench": tm_launches["tm_attention_bwd"]},
     }
@@ -3364,6 +3621,11 @@ def main() -> int:
                  "at_seq_shards": [{"shape": c["shape"], "s": c["s"], "q_shard": c["q_shard"],
                                     "keys": c["keys"], "kv_len": c["kv_len"],
                                     **c["kernels"][name]} for c in context["timings"]]}
+        for k, m in meshes.items():
+            entry[f"at_{k.replace('-', '_')}_seq_shards"] = [
+                {"shape": c["shape"], "s": c["s"], "q_shard": c["q_shard"], "keys": c["keys"],
+                 "kv_len": c["kv_len"], **c["kernels"][name]}
+                for c in m["seq"] if name in c["kernels"]]
         if name == blocked[0]:
             entry.update(f32_source, at_extract_192_shape=extract["b3_4097"])
         return row(name, source, replaces, {**dec, "max_abs_err": err}, STRETCH_DECODER, torch.bfloat16,
@@ -3379,6 +3641,12 @@ def main() -> int:
     def at(rows, shape):
         return {"shape": list(shape), "dtype": "bfloat16",
                 **{k: rows[(shape, torch.bfloat16)][k] for k in timing_keys}}
+
+    def mesh_heads(name):
+        return {f"at_{k.replace('-', '_')}_tensor_heads": [
+            {"shape": c["shape"], "t": c["t"], "local": c["local"], "layout": c["layout"],
+             "bit_equal": c["bit_equal"], **c[name]} for c in m["tensor"] if name in c]
+            for k, m in meshes.items()}
 
     print(json.dumps({"kernels": [
         # float32 B1 runs the 3xTF32 kernel of the sm_90a header; its C entry is in the .cu
@@ -3396,7 +3664,8 @@ def main() -> int:
                                   **{k: extract["b1_641"][k] for k in timing_keys}},
             at_tensor_heads=[{"shape": c["shape"], "t": c["t"], "local": c["local"],
                               "bit_equal": c["bit_equal"], **c["flash_attention_fwd"]}
-                             for c in tensor["timings"]]),
+                             for c in tensor["timings"]],
+            **mesh_heads("flash_attention_fwd")),
         # bf16 B2 and B8 run the passes of the sm_90a header; their C entries are in the .cu
         row("flash_attention_bwd", "flash_bwd_sm90.cuh", 86, bwd_mae, MAE_DECODER,
             torch.bfloat16, entry="headct_foundation_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -3405,12 +3674,14 @@ def main() -> int:
             at_downstream_shape=at(bwd_rows, DOWNSTREAM),
             at_tensor_heads=[{"shape": c["shape"], "t": c["t"], "local": c["local"],
                               "bit_equal": c["bit_equal"], **c["flash_attention_bwd"]}
-                             for c in tensor["timings"]]),
+                             for c in tensor["timings"]],
+            **mesh_heads("flash_attention_bwd")),
         blocked_row(blocked[0], 256),
         blocked_row(blocked[1], 292),
         blocked_row(blocked[2], 342),
         row("lion_update", "lion_update.cu", "headct_foundation_tpu/ops/lion_kernel.py:31",
-            lion_row, LION_CASES[0][0], torch.float32, all_trainable_tensors=lion["lion"]),
+            lion_row, LION_CASES[0][0], torch.float32, all_trainable_tensors=lion["lion"],
+            at_fsdp_shard=fsdp["lion_shard"]),
         row("tm_attention_fwd", "tm_attention.cu", "tools/experimental_tm_attention.py:55",
             tm_rows["tm_attention_fwd"], MAE_DECODER, torch.bfloat16, **f32_source),
         row("tm_attention_bwd", "flash_bwd_sm90.cuh", "tools/experimental_tm_attention.py:80",

@@ -54,6 +54,21 @@ engine_pretrain_dino.py):
 The teacher runs the whole-sequence kernels at T = 517 (512 patches, CLS, 4
 registers) like the student: a step at ACCUM_STEPS 1 launches 12 B1 for the
 teacher, 12 B1 and 12 B2 for the student; an eval batch 24 B1.
+
+The mesh (``parallel/mesh.py``; JAX applies its rule table in
+``engines/dino_engine.py:162``): the batch is split over ``data`` x
+``fsdp`` (``distributed.data_rank``); under ``tensor`` the student's and
+the teacher's blocks keep their Megatron parts (``shard_block_``: B1/B2 on
+H / t heads), under ``fsdp`` their ZeRO-3 shards (``parallel/fsdp.py``),
+and the teacher's EMA runs on the shards; under ``seq`` every crop's trunk
+holds ceil(T / s) tokens (B3/B4/B5 on Q shards against the gathered keys,
+``models/vit.py``) and the CLS token is gathered before the head, which
+stays whole. Each ``seq`` rank computes the head and the loss on the same
+gathered features, so it backpropagates 1 / s of the loss and the
+gradients are summed over ``seq``; they are averaged over ``data`` x
+``fsdp`` (an ``fsdp`` shard's summed over ``fsdp`` by its gather's
+backward), as are the loss, the centre's input and the BatchNorm head's
+statistics. ``full_view`` / ``load_full`` give checkpoints whole tensors.
 """
 
 from __future__ import annotations
@@ -75,7 +90,9 @@ from headct_foundation_tpu_torch.engines.mae_engine import (
     LOSS_FLUSH,
     _batches,
     _launches_since,
+    check_mesh,
     drain_pending_losses,
+    fsdp_grads,
     kernel_launches,
     refuse_unported_axes,
     step_generator,
@@ -87,6 +104,7 @@ from headct_foundation_tpu_torch.losses.dino_loss import (
     teacher_temp_schedule,
     update_center,
 )
+from headct_foundation_tpu_torch.models.attention import shard_block_
 from headct_foundation_tpu_torch.models.dino_head import DINOHead
 from headct_foundation_tpu_torch.models.multicrop import DINOModel
 from headct_foundation_tpu_torch.models.vit import ViT
@@ -99,7 +117,7 @@ from headct_foundation_tpu_torch.optim.optimizers import (
     set_step_hyperparameters,
 )
 from headct_foundation_tpu_torch.optim.schedules import get_momentum_schedule, get_wd_schedule
-from headct_foundation_tpu_torch.parallel import distributed
+from headct_foundation_tpu_torch.parallel import distributed, fsdp, mesh
 from headct_foundation_tpu_torch.utils.checkpoint import (
     clone_opt_state,
     clone_state_dict,
@@ -165,6 +183,35 @@ class DINOTrainState:
         """The optimizer group of the head's trainable last-layer tensors."""
         return self.optimizer.param_groups[1]
 
+    def full_view(self) -> "DINOTrainState":
+        """This state with the student, its optimizer moments and the
+        teacher whole (gathered over ``fsdp`` and ``tensor``: every rank
+        must call it), in modules and an optimizer of their own; the state
+        itself when both axes are 1 (``mae_engine.TrainState.full_view``)."""
+        m = mesh.current()
+        if m.size("tensor") == 1 and m.size("fsdp") == 1:
+            return self
+        dtype = self.student.backbone.patch_embedding.dtype
+        with torch.device("meta"):
+            student, teacher = (build_dino_model(self.config, dtype) for _ in range(2))
+        pairs = fsdp.gather_module(self.student, student, m)
+        fsdp.gather_module(self.teacher, teacher, m)
+        optimizer = _optimizer(self.config, student)
+        fsdp.gather_optimizer_state(self.optimizer, optimizer, pairs, m)
+        return DINOTrainState(student, teacher, optimizer, self.lr_schedule, self.wd_sched,
+                              self.momentum_sched, self.temp_sched, self.center, self.step,
+                              self.grad_clip, self.config)
+
+    def load_full(self, full: "DINOTrainState") -> "DINOTrainState":
+        """Take this rank's shards of ``full`` (a filled ``full_view``): the
+        student, its moments, the teacher, the centre and the step."""
+        if full is self:
+            return self
+        fsdp.load_module(self.student, full.student, self.optimizer, full.optimizer)
+        fsdp.load_module(self.teacher, full.teacher)
+        self.center, self.step = full.center, full.step
+        return self
+
 
 def bn_rounding_only(config) -> Tuple[str, ...]:
     """Tensors of a DINO network whose gradient is 0 but for rounding under
@@ -227,27 +274,51 @@ def _is_last_layer(name: str) -> bool:
     return "last_layer" in name.split(".")
 
 
+def build_dino_model(config, dtype: torch.dtype = torch.bfloat16) -> DINOModel:
+    """A student or teacher network (uninitialised)."""
+    return DINOModel(build_vit_model(config, dtype), build_dino_head(config, dtype))
+
+
+def _optimizer(config, student: DINOModel, split=()) -> torch.optim.Optimizer:
+    """The student's optimizer: the head's last layer in a group of its own."""
+    named = list(student.named_parameters())
+    return get_optimizer(config, [
+        {"params": [p for n, p in named if not _is_last_layer(n)]},
+        {"params": [p for n, p in named if _is_last_layer(n)]}], split=split)
+
+
+def shard_model_(model: torch.nn.Module, blocks, m: mesh.Mesh) -> torch.nn.Module:
+    """This rank's part of ``model`` on the mesh: the Megatron split of
+    ``blocks`` over ``tensor``, then the ZeRO-3 shards over ``fsdp``."""
+    if m.size("tensor") > 1:
+        for blk in blocks:
+            shard_block_(blk, m.size("tensor"), m.coord("tensor"), m.group("tensor"))
+    return fsdp.shard_module_(model, m)
+
+
 def create_train_state(
     config, total_steps: int, num_warmup_steps: int, niter_per_ep: int, seed: int = 0,
     dtype: torch.dtype = torch.bfloat16, device: Union[None, str, torch.device] = None,
 ) -> DINOTrainState:
     """Student, teacher, optimizer, schedules and centre on ``device``
-    (default cuda). Raises NotImplementedError for FSDP/TENSOR/SEQ/PIPE above
-    1 (``refuse_unported_axes``)."""
+    (default cuda). The weights are the full seed-``seed`` draw at any mesh,
+    of which each rank keeps its part (``shard_model_``). Raises
+    NotImplementedError for PIPE above 1 (``refuse_unported_axes``)."""
     refuse_unported_axes(config)
+    m = check_mesh(config)
     device = resolve_device(device)
     set_pallas_min_t(config.PARALLEL.PALLAS_MIN_T)
     g = torch.Generator().manual_seed(seed)
     backbone = build_vit_model(config, dtype).init_weights(g)
-    student = DINOModel(backbone, build_dino_head(config, dtype).init_weights(g)).to(device)
+    student = DINOModel(backbone, build_dino_head(config, dtype).init_weights(g))
+    student = shard_model_(student, backbone.blocks, m).to(device)
     trainable = dino_trainable_mask(student, config)
     for name, p in student.named_parameters():
         p.requires_grad_(trainable[name])
-    teacher = copy.deepcopy(student).requires_grad_(False)
-    named = list(student.named_parameters())
-    optimizer = get_optimizer(config, [
-        {"params": [p for n, p in named if not _is_last_layer(n)]},
-        {"params": [p for n, p in named if _is_last_layer(n)]}])
+    # the process groups are shared, not copied
+    teacher = copy.deepcopy(student, {id(gr): gr for gr in m.groups.values()})
+    teacher.requires_grad_(False)
+    optimizer = _optimizer(config, student, split=fsdp.split_groups(student, m))
     lr_schedule = get_lr_schedule(config, config.TRAIN.BASE_LR, num_warmup_steps, total_steps,
                                   config.TRAIN.MIN_LR)
     d = config.DINO
@@ -278,7 +349,7 @@ def _crops(config, batch: torch.Tensor, generator: Optional[torch.Generator],
            decisions=None) -> List[torch.Tensor]:
     """This rank's crops of ``batch``: the global batch's decisions drawn from
     ``generator`` and this rank's rows taken, unless ``decisions`` are given."""
-    n, world, rank = batch.shape[0], distributed.world(), distributed.rank()
+    n, world, rank = batch.shape[0], distributed.data_world(), distributed.data_rank()
     if decisions is None:
         decisions = _rows(draw_dino_multicrop(world * n, generator, batch.device,
                                               batch.shape[-1], **crop_args(config)),
@@ -298,20 +369,22 @@ def update_teacher(teacher: torch.nn.Module, student: torch.nn.Module, momentum:
     torch._foreach_add_(t, list(student.parameters()), alpha=float(np.float32(1.0) - m))
 
 
-def make_train_step(config) -> Callable:
-    """step(state, batch, seed, momentum, teacher_temp, cancel_last_layer,
-    draws=None) -> (state, {"loss": device scalar}).
-
-    ``batch`` is this rank's wire batch [B, C or 1, R, R, R]; the loss is the
-    global batch's."""
+def make_grad_step(config) -> Callable:
+    """grads(state, batch, seed, teacher_temp, draws=None) -> (loss, t_mean):
+    the crops, the teacher and the student forward and the student's
+    backward of every micro-batch, the gradients left in ``.grad``, averaged
+    over the micro-batches, summed over ``seq`` and averaged over ``data`` x
+    ``fsdp``; the loss and the teacher's mean output are the global
+    batch's (``make_train_step``'s first half)."""
     in_chans = int(config.VIT.IN_CHANS)
     ncrops = int(config.DINO.LOCAL_CROP_NUM) + 2
     accum_steps = int(config.TRAIN.ACCUM_STEPS)
     drops = bool(config.VIT.DROPOUT_RATE)
 
-    def train_step(state: DINOTrainState, batch: torch.Tensor, seed: int, momentum: float,
-                   teacher_temp: float, cancel_last_layer: bool, draws: Optional[Draws] = None):
+    def grads(state: DINOTrainState, batch: torch.Tensor, seed: int, teacher_temp: float,
+              draws: Optional[Draws] = None):
         student, teacher, device = state.student, state.teacher, state.device
+        seq = mesh.current().size("seq")  # each seq rank backpropagates 1 / seq of the loss
         student.train()
         teacher.train()  # a BatchNorm head normalises with the batch's statistics
         batch = wire_to_compute(batch.to(device), config, in_chans)
@@ -332,32 +405,62 @@ def make_train_step(config) -> Callable:
             with torch.no_grad():
                 t_out = teacher(crops[:2], t_drop)
             loss = dino_loss(student(crops, s_drop), t_out, state.center, teacher_temp, ncrops)
-            loss.backward()  # float32 .grad of float32 params: the sum over micro-batches
+            (loss / seq if seq > 1 else loss).backward()  # float32 .grad: the micro-batches' sum
             loss_sum += loss.detach()
             t_sum += t_out.float().mean(dim=0)
-        params = [p for p in student.parameters() if p.grad is not None]
+        gs = [p.grad for p in student.parameters() if p.grad is not None]
         if accum_steps > 1:
-            torch._foreach_div_([p.grad for p in params], accum_steps)
+            torch._foreach_div_(gs, accum_steps)
         loss, t_mean = loss_sum / accum_steps, t_sum / accum_steps
-        # one average across the ranks per update (a no-op at world 1)
-        distributed.all_reduce_mean_([loss, t_mean] + [p.grad for p in params])
-        last = state.last_layer_group()
-        if cancel_last_layer:
-            for p in last["params"]:
-                p.grad.mul_(0.0)
-        if state.grad_clip:
-            clip_by_per_param_norm(student.parameters(), state.grad_clip)
-        # optax's count before the increment
-        set_step_hyperparameters(state.optimizer, state.lr_schedule(state.step),
-                                 scheduled_weight_decay(state.wd_sched, state.step))
-        if cancel_last_layer:
-            last["lr"] = 0.0
-        state.optimizer.step()
-        state.optimizer.zero_grad(set_to_none=True)
-        update_teacher(teacher, student, momentum)
-        state.center = update_center(state.center, t_mean[None])
-        state.step += 1
-        return state, {"loss": loss}
+        if seq > 1:  # the seq ranks' shares
+            distributed.all_reduce_sum_(gs, mesh.current().group("seq"))
+        # one average across the data x fsdp ranks per update (a no-op on one)
+        distributed.data_mean_([loss, t_mean] + gs, sharded=fsdp_grads(student))
+        return loss, t_mean
+
+    return grads
+
+
+def apply_update(state: DINOTrainState, momentum: float, cancel_last_layer: bool,
+                 t_mean: torch.Tensor) -> DINOTrainState:
+    """The update from the gradients in ``.grad`` (``make_train_step``'s
+    second half): the last-layer freeze, the per-parameter clip (a split
+    tensor's norm over its shards), the step's LR and weight decay, the
+    optimizer step, the teacher's EMA and the centre's."""
+    student = state.student
+    last = state.last_layer_group()
+    if cancel_last_layer:
+        for p in last["params"]:
+            p.grad.mul_(0.0)
+    if state.grad_clip:
+        clip_by_per_param_norm(student.parameters(), state.grad_clip,
+                               split=fsdp.split_groups(student))
+    # optax's count before the increment
+    set_step_hyperparameters(state.optimizer, state.lr_schedule(state.step),
+                             scheduled_weight_decay(state.wd_sched, state.step))
+    if cancel_last_layer:
+        last["lr"] = 0.0
+    state.optimizer.step()
+    state.optimizer.zero_grad(set_to_none=True)
+    update_teacher(state.teacher, student, momentum)
+    state.center = update_center(state.center, t_mean[None])
+    state.step += 1
+    return state
+
+
+def make_train_step(config) -> Callable:
+    """step(state, batch, seed, momentum, teacher_temp, cancel_last_layer,
+    draws=None) -> (state, {"loss": device scalar}): ``make_grad_step``
+    then ``apply_update``.
+
+    ``batch`` is this rank's wire batch [B, C or 1, R, R, R]; the loss is the
+    global batch's."""
+    grads = make_grad_step(config)
+
+    def train_step(state: DINOTrainState, batch: torch.Tensor, seed: int, momentum: float,
+                   teacher_temp: float, cancel_last_layer: bool, draws: Optional[Draws] = None):
+        loss, t_mean = grads(state, batch, seed, teacher_temp, draws)
+        return apply_update(state, momentum, cancel_last_layer, t_mean), {"loss": loss}
 
     return train_step
 
@@ -380,7 +483,7 @@ def make_eval_step(config) -> Callable:
         crops = _crops(config, batch, generator, draws)
         loss = dino_loss(state.student(crops), state.teacher(crops[:2]), state.center,
                          teacher_temp, ncrops)
-        distributed.all_reduce_mean_([loss])
+        distributed.data_mean_([loss])
         return {"loss": loss}
 
     return eval_step

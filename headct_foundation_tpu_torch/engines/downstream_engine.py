@@ -22,7 +22,8 @@ engine_downstream.py, main_downstream.py:141-210):
 * ``make_train_step`` returns ``step(state, batch, target, seed,
   draws=None)``: the wire batch windowed to bfloat16, the ViT augmentation
   (``mae_augment`` without the blur), the ViT in train mode (dropout live,
-  its masks from a generator seeded from (seed, step, 1, rank)), the
+  its masks from a generator seeded from (seed, step, 1, rank), the rank
+  on ``data`` x ``fsdp``), the
   features (CLS for ``linear``, every token for ``attentive``; under
   ``LOCK`` the backbone runs without gradients, as JAX's ``stop_gradient``
   leaves it, so no backward kernel runs), the classifier with train-mode
@@ -52,6 +53,17 @@ engine_downstream.py, main_downstream.py:141-210):
 On the card a fine-tune or LoRA train step launches depth B1 and depth B2
 (12 + 12 at ViT-B), a ``LOCK`` step depth B1 and no B2, an eval batch depth
 B1; the attentive head's one-query attention runs plain.
+
+The mesh, as in ``dino_engine``: the batch over ``data`` x ``fsdp`` (rank
+r of that product takes rows r::n), the backbone's blocks over ``tensor``
+(LoRA's B with the heads of its q or v), the ZeRO-3 shards of the backbone
+and the classifier over ``fsdp``, the ViT's tokens over ``seq`` (the CLS
+gathered for ``linear``, every token for ``attentive``); each ``seq`` rank
+backpropagates 1 / s of the loss, the gradients are summed over ``seq``,
+and the classifiers' BatchNorm reduces over ``data`` x ``fsdp``. The
+global-norm clip takes every shard's share. The predictions are gathered
+over ``data`` x ``fsdp``. ``full_view`` / ``load_full`` give checkpoints
+and warm starts the whole tensors.
 """
 
 from __future__ import annotations
@@ -74,10 +86,12 @@ import torch.nn.functional as F
 from headct_foundation_tpu_torch.data.augment import apply_mae_augment, draw_mae_augment
 from headct_foundation_tpu_torch.data.device_preprocess import wire_to_compute
 from headct_foundation_tpu_torch.data.pipeline import DevicePrefetcher
-from headct_foundation_tpu_torch.engines.dino_engine import build_vit_model
+from headct_foundation_tpu_torch.engines.dino_engine import build_vit_model, shard_model_
 from headct_foundation_tpu_torch.engines.mae_engine import (
     LOSS_FLUSH,
     _launches_since,
+    check_mesh,
+    fsdp_grads,
     kernel_launches,
     refuse_unported_axes,
     step_generator,
@@ -88,8 +102,8 @@ from headct_foundation_tpu_torch.models.classifier import AttentionClassifier, L
 from headct_foundation_tpu_torch.models.vit import ViT
 from headct_foundation_tpu_torch.ops.attention import set_pallas_min_t
 from headct_foundation_tpu_torch.optim.lr_sched import Schedule, get_lr_schedule
-from headct_foundation_tpu_torch.optim.optimizers import get_optimizer
-from headct_foundation_tpu_torch.parallel import distributed
+from headct_foundation_tpu_torch.optim.optimizers import get_optimizer, norms_over_shards
+from headct_foundation_tpu_torch.parallel import distributed, fsdp, mesh
 from headct_foundation_tpu_torch.utils.checkpoint import (
     clone_opt_state,
     clone_state_dict,
@@ -142,6 +156,41 @@ class DownstreamTrainState:
     def optimizers(self) -> Dict[str, Optional[torch.optim.Optimizer]]:
         """The ``multi_transform`` branches: label -> optimizer."""
         return {"model": self.model_optimizer, "classifier": self.classifier_optimizer}
+
+    def full_view(self) -> "DownstreamTrainState":
+        """This state with the backbone, the classifier and both optimizers'
+        moments whole (gathered over ``fsdp`` and ``tensor``: every rank must
+        call it), in modules of their own; the state itself when both axes
+        are 1 (``mae_engine.TrainState.full_view``)."""
+        m = mesh.current()
+        if m.size("tensor") == 1 and m.size("fsdp") == 1:
+            return self
+        dtype = self.model.patch_embedding.dtype
+        with torch.device("meta"):
+            model = build_vit_model(self.config, dtype, lora=bool(self.config.TRAIN.LORA))
+            classifier = build_classifier(self.config, dtype)
+        opts = []
+        for sharded, whole in ((self.model, model), (self.classifier, classifier)):
+            pairs = fsdp.gather_module(sharded, whole, m)
+            opt = self.optimizers["model" if whole is model else "classifier"]
+            full_opt = None
+            if opt is not None:
+                full_opt = get_optimizer(self.config, [p for p in whole.parameters()
+                                                       if p.requires_grad])
+                fsdp.gather_optimizer_state(opt, full_opt, pairs, m)
+            opts.append(full_opt)
+        return DownstreamTrainState(model, classifier, opts[0], opts[1], self.lr_model,
+                                    self.lr_clf, self.step, self.grad_clip, self.config)
+
+    def load_full(self, full: "DownstreamTrainState") -> "DownstreamTrainState":
+        """Take this rank's shards of ``full`` (a filled ``full_view``)."""
+        if full is self:
+            return self
+        fsdp.load_module(self.model, full.model, self.model_optimizer, full.model_optimizer)
+        fsdp.load_module(self.classifier, full.classifier, self.classifier_optimizer,
+                         full.classifier_optimizer)
+        self.step = full.step
+        return self
 
     def snapshot(self) -> tuple:
         """Device-side copies of both modules and both optimizers' state."""
@@ -203,16 +252,18 @@ def create_train_state(config, total_steps: int, num_warmup_steps: int, seed: in
                        dtype: torch.dtype = torch.bfloat16,
                        device: Union[None, str, torch.device] = None) -> DownstreamTrainState:
     """Backbone, classifier, the two optimizers and their schedules on
-    ``device`` (default cuda). Raises NotImplementedError for FSDP / TENSOR /
-    SEQ / PIPE above 1."""
+    ``device`` (default cuda); each rank keeps its part of the full
+    seed-``seed`` draw (``dino_engine.shard_model_``). Raises
+    NotImplementedError for PIPE above 1."""
     refuse_unported_axes(config)
+    m = check_mesh(config)
     device = resolve_device(device)
     set_pallas_min_t(config.PARALLEL.PALLAS_MIN_T)
     g = torch.Generator().manual_seed(seed)
     model = build_vit_model(config, dtype, lora=bool(config.TRAIN.LORA)).init_weights(g)
     classifier = build_classifier(config, dtype).init_weights(g)
-    model.to(device)
-    classifier.to(device)
+    shard_model_(model, model.blocks, m).to(device)
+    fsdp.shard_module_(classifier, m).to(device)
     labels = backbone_labels(model, config)
     for name, p in model.named_parameters():
         p.requires_grad_(labels[name] == "model")
@@ -221,46 +272,55 @@ def create_train_state(config, total_steps: int, num_warmup_steps: int, seed: in
     lr_clf = get_lr_schedule(config, base * 1e2, num_warmup_steps, total_steps, base * 1e-1)
     trainable = [p for p in model.parameters() if p.requires_grad]
     return DownstreamTrainState(
-        model, classifier, get_optimizer(config, trainable) if trainable else None,
-        get_optimizer(config, classifier.parameters()), lr_model, lr_clf,
-        grad_clip=float(config.TRAIN.GRAD_CLIP), config=config)
+        model, classifier,
+        get_optimizer(config, trainable, split=fsdp.split_groups(model, m)) if trainable
+        else None,
+        get_optimizer(config, classifier.parameters(), split=fsdp.split_groups(classifier, m)),
+        lr_model, lr_clf, grad_clip=float(config.TRAIN.GRAD_CLIP), config=config)
 
 
 @torch.no_grad()
-def clip_by_global_norm(params: List[torch.nn.Parameter], clip: float) -> None:
+def clip_by_global_norm(params: List[torch.nn.Parameter], clip: float, split=()) -> None:
     """optax's ``clip_by_global_norm``: the gradients of ``params`` scaled by
-    clip / ||g|| when their joint L2 norm ||g|| is at least ``clip``."""
-    grads = [p.grad for p in params if p.grad is not None]
+    clip / ||g|| when their joint L2 norm ||g|| is at least ``clip``; a
+    parameter split over an axis of ``split`` ((group, parameters) pairs)
+    adds every shard's share."""
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
     if not grads:
         return
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    norms = torch.stack(torch._foreach_norm(grads))
+    if split:
+        norms = norms_over_shards(norms.square(), params, split).sqrt()
+    norm = torch.linalg.vector_norm(norms)
     coef = torch.where(norm < clip, torch.ones_like(norm), clip / norm)
     torch._foreach_mul_(grads, [coef] * len(grads))
 
 
 def _features(state: DownstreamTrainState, batch: torch.Tensor, lock: bool,
               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The CLS features (``linear``) or every token (``attentive``)."""
     with torch.no_grad() if lock else contextlib.nullcontext():
-        tokens, _ = state.model(batch, generator)
-    return tokens[:, 0] if state.config.TRAIN.CLASSIFIER == "linear" else tokens
+        return state.model(batch, generator,
+                           cls_only=state.config.TRAIN.CLASSIFIER == "linear")[0]
 
 
-def make_train_step(config, compute_dtype: torch.dtype = torch.bfloat16) -> Callable:
-    """step(state, batch, target, seed, draws=None) -> (state, {"loss",
-    "probs"}); ``batch`` is this rank's wire batch, windowed to
-    ``compute_dtype`` (bfloat16 on the card; float32 for a float32 model, as
-    the JAX step's oracle runs), ``target`` its integer labels; the loss is
-    the global batch's."""
+def make_grad_step(config, compute_dtype: torch.dtype = torch.bfloat16) -> Callable:
+    """grads(state, batch, target, seed, draws=None) -> (loss, logits): the
+    augmentation, the forward and the backward, the gradients left in
+    ``.grad``, summed over ``seq`` and averaged over ``data`` x ``fsdp``
+    (``make_train_step``'s first half)."""
     in_chans = int(config.VIT.IN_CHANS)
     lock = bool(config.TRAIN.LOCK)
 
-    def train_step(state: DownstreamTrainState, batch: torch.Tensor, target: torch.Tensor,
-                   seed: int, draws: Optional[Dict[str, Any]] = None):
+    def grads(state: DownstreamTrainState, batch: torch.Tensor, target: torch.Tensor,
+              seed: int, draws: Optional[Dict[str, Any]] = None):
         device = state.device
+        seq = mesh.current().size("seq")  # each seq rank backpropagates 1 / seq of the loss
         state.model.train()
         state.classifier.train()
         batch = wire_to_compute(batch.to(device), config, in_chans, dtype=compute_dtype)
-        n, world, rank = batch.shape[0], distributed.world(), distributed.rank()
+        n, world, rank = batch.shape[0], distributed.data_world(), distributed.data_rank()
         if draws is None:  # the global batch's decisions; this rank's rows r::world
             g = step_generator(device, seed, state.step)
             decisions = {k: v[..., rank::world]
@@ -271,23 +331,52 @@ def make_train_step(config, compute_dtype: torch.dtype = torch.bfloat16) -> Call
         feats = _features(state, apply_mae_augment(batch, decisions), lock, drop_g)
         logits = state.classifier(feats)
         loss = F.cross_entropy(logits.float(), target.to(device).long())
-        loss.backward()
-        groups = {label: [p for g in opt.param_groups for p in g["params"]]
-                  for label, opt in state.optimizers.items() if opt is not None}
-        grads = [p.grad for ps in groups.values() for p in ps if p.grad is not None]
+        (loss / seq if seq > 1 else loss).backward()
+        gs = [p.grad for opt in state.optimizers.values() if opt is not None
+              for g in opt.param_groups for p in g["params"] if p.grad is not None]
         loss = loss.detach()
-        distributed.all_reduce_mean_([loss] + grads)  # a no-op at world 1
-        for label, params in groups.items():
-            if state.grad_clip:
-                clip_by_global_norm(params, state.grad_clip)
-            opt = state.optimizers[label]
-            lr = (state.lr_model if label == "model" else state.lr_clf)(state.step)
-            for group in opt.param_groups:
-                group["lr"] = lr
-            opt.step()
-            opt.zero_grad(set_to_none=True)
-        state.step += 1
-        return state, {"loss": loss, "probs": torch.softmax(logits.detach().float(), dim=-1)}
+        if seq > 1:  # the seq ranks' shares
+            distributed.all_reduce_sum_(gs, mesh.current().group("seq"))
+        distributed.data_mean_([loss] + gs,  # a no-op on one data x fsdp rank
+                               sharded=fsdp_grads(state.model, state.classifier))
+        return loss, logits.detach()
+
+    return grads
+
+
+def apply_update(state: DownstreamTrainState) -> DownstreamTrainState:
+    """The update from the gradients in ``.grad`` (``make_train_step``'s
+    second half): per optimizer the global-norm clip (every shard's share)
+    and one step at ``lr_model(step)`` or ``lr_clf(step)``."""
+    for label, opt in state.optimizers.items():
+        if opt is None:
+            continue
+        params = [p for g in opt.param_groups for p in g["params"]]
+        if state.grad_clip:
+            module = state.model if label == "model" else state.classifier
+            clip_by_global_norm(params, state.grad_clip, split=fsdp.split_groups(module))
+        lr = (state.lr_model if label == "model" else state.lr_clf)(state.step)
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+    state.step += 1
+    return state
+
+
+def make_train_step(config, compute_dtype: torch.dtype = torch.bfloat16) -> Callable:
+    """step(state, batch, target, seed, draws=None) -> (state, {"loss",
+    "probs"}): ``make_grad_step`` then ``apply_update``. ``batch`` is this
+    rank's wire batch, windowed to ``compute_dtype`` (bfloat16 on the card;
+    float32 for a float32 model, as the JAX step's oracle runs), ``target``
+    its integer labels; the loss is the global batch's."""
+    grads = make_grad_step(config, compute_dtype)
+
+    def train_step(state: DownstreamTrainState, batch: torch.Tensor, target: torch.Tensor,
+                   seed: int, draws: Optional[Dict[str, Any]] = None):
+        loss, logits = grads(state, batch, target, seed, draws)
+        return apply_update(state), {"loss": loss,
+                                     "probs": torch.softmax(logits.float(), dim=-1)}
 
     return train_step
 
@@ -304,29 +393,33 @@ def make_eval_step(config, compute_dtype: torch.dtype = torch.bfloat16) -> Calla
         batch = wire_to_compute(batch.to(state.device), config, in_chans, dtype=compute_dtype)
         logits = state.classifier(_features(state, batch, True)).float()
         loss = F.cross_entropy(logits, target.to(state.device).long())
-        distributed.all_reduce_mean_([loss])
+        distributed.data_mean_([loss])
         return {"loss": loss, "probs": torch.softmax(logits, dim=-1)}
 
     return eval_step
 
 
+def _gather_objects(obj: Any) -> List[Any]:
+    """``obj`` of every rank of the batch (``data`` x ``fsdp``), in rank order."""
+    parts: List[Any] = [None] * distributed.data_world()
+    group = mesh.current().group("batch") if distributed.laid_out() else None
+    dist.all_gather_object(parts, obj, group=group)
+    return parts
+
+
 def gather_rows(arr: np.ndarray) -> np.ndarray:
-    """Every rank's rows, concatenated in rank order (a no-op at world 1):
+    """Every batch rank's rows, concatenated in rank order (a no-op on one):
     metrics and the best-AUROC selection see the global prediction set."""
-    if distributed.world() == 1:
+    if distributed.data_world() == 1:
         return arr
-    parts: List[Any] = [None] * distributed.world()
-    dist.all_gather_object(parts, arr)
-    return np.concatenate(parts, axis=0)
+    return np.concatenate(_gather_objects(arr), axis=0)
 
 
 def gather_strings(strings: List[str]) -> List[str]:
-    """Every rank's strings, in ``gather_rows``' order."""
-    if distributed.world() == 1:
+    """Every batch rank's strings, in ``gather_rows``' order."""
+    if distributed.data_world() == 1:
         return list(strings)
-    parts: List[Any] = [None] * distributed.world()
-    dist.all_gather_object(parts, list(strings))
-    return [s for part in parts for s in part]
+    return [s for part in _gather_objects(list(strings)) for s in part]
 
 
 def _loader(loader: Iterable, device: torch.device) -> DevicePrefetcher:

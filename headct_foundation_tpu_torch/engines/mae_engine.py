@@ -34,6 +34,12 @@ Port of the JAX package's ``engines/mae_engine.py:44-163, 226-491``
   across the data ranks once per update, after the accumulation and before
   the clip: world 2 at batch n computes what world 1 computes at batch 2n on
   the concatenated batch. The eval step draws its noise the same way.
+* ``fsdp`` (ZeRO-3, ``parallel/fsdp.py``): the batch is split over ``data``
+  x ``fsdp`` (``distributed.data_rank``); each rank holds its ``fsdp`` shard
+  of every weight the rule table splits, with its gradient and optimizer
+  state, and gathers it whole only while its Linear runs. The shards'
+  gradients are summed over ``fsdp`` by the gather's backward and averaged
+  over ``data``; the others are averaged over ``data`` x ``fsdp``.
 * ``seq`` and ``tensor`` (``parallel/mesh.py``, JAX ``ops/attention.py:120-186``
   and its rule table): the ranks of a data slice take the same batch; each
   ``seq`` rank holds ceil(T / s) tokens of each trunk (``models/mae.py``) and
@@ -83,7 +89,7 @@ from headct_foundation_tpu_torch.models.mae import MaskedAutoencoderViT
 from headct_foundation_tpu_torch.ops.attention import set_pallas_min_t
 from headct_foundation_tpu_torch.optim.lr_sched import Schedule, get_lr_schedule
 from headct_foundation_tpu_torch.optim.optimizers import clip_by_per_param_norm, get_optimizer
-from headct_foundation_tpu_torch.parallel import distributed, mesh
+from headct_foundation_tpu_torch.parallel import distributed, fsdp, mesh
 from headct_foundation_tpu_torch.utils.checkpoint import (
     clone_opt_state,
     clone_state_dict,
@@ -123,52 +129,29 @@ class TrainState:
         return model_trees(self, step, *(snapshot or (None, None)))
 
     def full_view(self) -> "TrainState":
-        """This state with its tensor-split parameters and their optimizer
-        moments whole, in a model and an optimizer of their own (every
-        tensor rank must call it: the parts are all-gathered); the state
-        itself when ``tensor`` is 1. Checkpoints are written and read
-        through it, so a file holds the JAX layout at any mesh."""
+        """This state with its parameters and their optimizer moments whole
+        (gathered over ``fsdp`` and ``tensor``: every rank must call it), in
+        a model and an optimizer of their own; the state itself when both
+        axes are 1. Checkpoints are written and read through it, so a file
+        holds the JAX layout at any mesh."""
         m = mesh.current()
-        if m.size("tensor") == 1:
+        if m.size("tensor") == 1 and m.size("fsdp") == 1:
             return self
         with torch.device("meta"):
             model = build_mae_model(self.config, dtype=self.model.dtype)
-        pairs = []
-        for name, p in self.model.named_parameters():
-            full = torch.nn.Parameter(mesh.all_gather_param(name, p.detach(), m),
-                                      requires_grad=p.requires_grad)
-            owner, leaf = model.get_submodule(name.rpartition(".")[0]), name.rpartition(".")[2]
-            setattr(owner, leaf, full)
-            pairs.append((name, p, full))
+        pairs = fsdp.gather_module(self.model, model, m)
         optimizer = get_optimizer(self.config, model.parameters())
-        for name, p, full in pairs:
-            if p in self.optimizer.state:
-                optimizer.state[full] = {
-                    k: mesh.all_gather_param(name, v, m)
-                    if isinstance(v, torch.Tensor) and v.shape == p.shape else v
-                    for k, v in sorted(self.optimizer.state[p].items())}
+        fsdp.gather_optimizer_state(self.optimizer, optimizer, pairs, m)
         return TrainState(model, optimizer, self.lr_schedule, self.step, self.grad_clip,
                           self.config)
 
     def load_full(self, full: "TrainState") -> "TrainState":
-        """Take this rank's parts of ``full`` (a ``full_view`` the caller
+        """Take this rank's shards of ``full`` (a ``full_view`` the caller
         filled, e.g. from a checkpoint): parameters, moments and step. A
         no-op when ``full`` is this state."""
         if full is self:
             return self
-        m = mesh.current()
-        t, c = m.size("tensor"), m.coord("tensor")
-        fulls = dict(full.model.named_parameters())
-        with torch.no_grad():
-            for name, p in self.model.named_parameters():
-                whole = fulls[name]
-                p.copy_(mesh.split_param(name, whole.detach(), t, c))
-                self.optimizer.state.pop(p, None)
-                if whole in full.optimizer.state:
-                    self.optimizer.state[p] = {
-                        k: mesh.split_param(name, v, t, c)
-                        if isinstance(v, torch.Tensor) and v.shape == whole.shape else v
-                        for k, v in full.optimizer.state[whole].items()}
+        fsdp.load_module(self.model, full.model, self.optimizer, full.optimizer)
         self.step = full.step
         return self
 
@@ -197,22 +180,20 @@ def mae_trainable_mask(model: torch.nn.Module, pos_embed: str) -> Dict[str, bool
             for name, _ in model.named_parameters()}
 
 
-def refuse_unported_axes(config, ported: Sequence[str] = ()) -> None:
-    """NotImplementedError for a ``PARALLEL`` axis above 1 that the engine
-    does not take: ``FSDP`` and ``PIPE`` anywhere, ``SEQ`` and ``TENSOR``
-    outside the MAE step (``ported``) — ROADMAP A.8."""
-    for axis in ("FSDP", "TENSOR", "SEQ", "PIPE"):
-        n = int(getattr(config.PARALLEL, axis))
-        if n > 1 and axis not in ported:
-            where = "outside the MAE step" if axis in ("SEQ", "TENSOR") else "in the port"
-            raise NotImplementedError(
-                f"PARALLEL.{axis} = {n} is not ported {where} (ROADMAP A.8)")
+def refuse_unported_axes(config) -> None:
+    """NotImplementedError for ``PARALLEL.PIPE`` above 1, the one axis no
+    engine takes yet (ROADMAP A.8)."""
+    n = int(config.PARALLEL.PIPE)
+    if n > 1:
+        raise NotImplementedError(f"PARALLEL.PIPE = {n} is not ported in the port "
+                                  "(ROADMAP A.8)")
 
 
-def _check_mesh(config) -> mesh.Mesh:
-    """The process's mesh, which must have the config's ``SEQ`` and ``TENSOR``."""
+def check_mesh(config) -> mesh.Mesh:
+    """The process's mesh, which must have the config's ``FSDP``, ``SEQ``
+    and ``TENSOR``."""
     m = mesh.current()
-    for axis in ("SEQ", "TENSOR"):
+    for axis in ("FSDP", "SEQ", "TENSOR"):
         want = int(getattr(config.PARALLEL, axis))
         if m.size(axis.lower()) != want:
             raise ValueError(
@@ -230,15 +211,13 @@ def create_train_state(
 
     The weights are the full seed-``seed`` draw at any mesh; under
     ``PARALLEL.TENSOR`` each rank keeps its Megatron part of every block
-    (``models/attention.py shard_block_``). Raises NotImplementedError for
-    ``PARALLEL.FSDP`` or ``PIPE`` above 1 (``refuse_unported_axes``), and
-    for ``Lamb`` under ``TENSOR`` (its trust ratio takes whole norms)."""
-    refuse_unported_axes(config, ported=("SEQ", "TENSOR"))
-    m = _check_mesh(config)
+    (``models/attention.py shard_block_``), under ``FSDP`` its ``fsdp``
+    shard of that (``parallel/fsdp.py shard_module_``), and the optimizer
+    state follows the shards. Raises NotImplementedError for ``PARALLEL.PIPE``
+    above 1 (``refuse_unported_axes``)."""
+    refuse_unported_axes(config)
+    m = check_mesh(config)
     t = m.size("tensor")
-    if t > 1 and str(config.TRAIN.OPTIMIZER) == "Lamb":
-        raise NotImplementedError("Lamb under PARALLEL.TENSOR > 1 is not ported: its trust "
-                                  "ratio needs each parameter's norm over all its shards")
     device = resolve_device(device)
     set_pallas_min_t(config.PARALLEL.PALLAS_MIN_T)
     model = build_mae_model(config, dtype=dtype)
@@ -246,13 +225,14 @@ def create_train_state(
     if t > 1:
         for blk in list(model.blocks) + list(model.decoder_blocks):
             shard_block_(blk, t, m.coord("tensor"), m.group("tensor"))
+    fsdp.shard_module_(model, m)
     model.to(device)
     trainable = mae_trainable_mask(model, config.MAE.POS_EMBED)
     for name, p in model.named_parameters():
         p.requires_grad_(trainable[name])
     lr_schedule = get_lr_schedule(config, config.TRAIN.BASE_LR, num_warmup_steps, total_steps,
                                   config.TRAIN.MIN_LR)
-    optimizer = get_optimizer(config, model.parameters())
+    optimizer = get_optimizer(config, model.parameters(), split=fsdp.split_groups(model, m))
     return (TrainState(model, optimizer, lr_schedule, grad_clip=float(config.TRAIN.GRAD_CLIP),
                        config=config), lr_schedule)
 
@@ -314,11 +294,23 @@ def make_grad_step(augment: bool = False, accum_steps: int = 1, config=None) -> 
         seq = mesh.current().group("seq")
         if seq is not None:  # each seq rank differentiated its tokens' share
             distributed.all_reduce_sum_(gs, seq)
-        # one average across the data ranks per update, before the clip
-        distributed.data_mean_([loss] + gs)
+        # one average across the data x fsdp ranks per update, before the clip
+        distributed.data_mean_([loss] + gs, sharded=fsdp_grads(model))
         return loss
 
     return grads
+
+
+def fsdp_grads(*modules: torch.nn.Module) -> List[torch.Tensor]:
+    """The gradients of the ``fsdp`` shards of ``modules`` (summed over
+    ``fsdp`` by the gather's backward already)."""
+    if mesh.current().size("fsdp") == 1:
+        return []
+    out = []
+    for module in modules:
+        dims = fsdp.sharded_dims(module)
+        out += [p.grad for n, p in module.named_parameters() if n in dims and p.grad is not None]
+    return out
 
 
 def apply_update(state: TrainState) -> TrainState:
@@ -327,11 +319,8 @@ def apply_update(state: TrainState) -> TrainState:
     its shards), the LR of this step, the optimizer step."""
     model = state.model
     if state.grad_clip:
-        group = mesh.current().group("tensor")
-        sharded = () if group is None else [
-            p for n, p in model.named_parameters() if mesh.param_sharding(n)]
-        clip_by_per_param_norm(model.parameters(), state.grad_clip, group=group,
-                               sharded=sharded)
+        clip_by_per_param_norm(model.parameters(), state.grad_clip,
+                               split=fsdp.split_groups(model))
     lr = state.lr_schedule(state.step)  # optax's count before the increment
     for group in state.optimizer.param_groups:
         group["lr"] = lr

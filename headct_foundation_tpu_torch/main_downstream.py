@@ -42,7 +42,12 @@ import torch
 
 from headct_foundation_tpu_torch.config import get_config
 from headct_foundation_tpu_torch.engines import downstream_engine
-from headct_foundation_tpu_torch.main_pretrain_mae import base_parser, count_placeholders, run_cli
+from headct_foundation_tpu_torch.main_pretrain_mae import (
+    base_parser,
+    count_placeholders,
+    mesh_sizes,
+    run_cli,
+)
 from headct_foundation_tpu_torch.parallel import distributed
 from headct_foundation_tpu_torch.utils.torch_interop import load_pretrained_into, refuse_orbax
 
@@ -76,7 +81,8 @@ def make_loaders(config, device: torch.device):
     )
 
     make = get_fewshots_dataloaders if int(config.DATA.FEW_SHOTS) > 0 else get_finetune_dataloaders
-    return make(config, distributed.rank(), distributed.world(), device=device)[:3]
+    # the seq and tensor ranks of one data x fsdp slice read the same batches
+    return make(config, distributed.data_rank(), distributed.data_world(), device=device)[:3]
 
 
 def create_state(config, run: Dict[str, Any], device, dtype: torch.dtype = torch.bfloat16
@@ -117,9 +123,11 @@ def main(config, device: torch.device, logger, wandb_run=None,
                 f"World: {distributed.world()}, Device: {device}")
     state = create_state(config, run, device, dtype)
     warm_start = None
-    if load_path is not None:
-        target = len(state.model.state_dict())
-        missing, unexpected = load_pretrained_into(state.model, load_path, logger=logger)
+    if load_path is not None:  # into the whole backbone; each rank keeps its shards
+        full = state.full_view()
+        target = len(full.model.state_dict())
+        missing, unexpected = load_pretrained_into(full.model, load_path, logger=logger)
+        state.load_full(full)
         warm_start = {"path": load_path, "merged": target - len(missing),
                       "missing": len(missing), "unexpected": len(unexpected)}
         logger.info(f"Warm start: {warm_start['merged']} of {target} backbone tensors merged")
@@ -143,7 +151,8 @@ def main(config, device: torch.device, logger, wandb_run=None,
     for loader in (val_loader, test_loader):
         loader.close()
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
-    return {"device": str(device), "world": distributed.world(), "epochs": history,
+    return {"device": str(device), "world": distributed.world(), "mesh": mesh_sizes(),
+            "epochs": history,
             "best_val_mean_auroc": best_auroc, "test": test_stats,
             "placeholders": count_placeholders(loaders, device), "warm_start": warm_start,
             "peak_memory_bytes": peak}

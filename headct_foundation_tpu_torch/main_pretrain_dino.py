@@ -27,6 +27,7 @@ and the teacher only, at epoch 0.
 from __future__ import annotations
 
 import sys
+from functools import partial
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -45,7 +46,15 @@ from headct_foundation_tpu_torch.utils.torch_interop import (
 
 
 def resume(state: dino_engine.DINOTrainState, path: str, logger):
-    """Content-routed ``--model_load_path``; returns (state, start_epoch)."""
+    """Content-routed ``--model_load_path``; returns (state, start_epoch). A
+    state split over ``fsdp`` or ``tensor`` loads the file into its
+    ``full_view`` and keeps its shards (any mesh reads any file)."""
+    full = state.full_view()
+    full, start_epoch = _resume_full(full, path, logger)
+    return state.load_full(full), start_epoch
+
+
+def _resume_full(state: dino_engine.DINOTrainState, path: str, logger):
     is_torch, payload = classify_checkpoint(path)
     if is_torch:
         load_pretrained_into(state.student, path, logger=logger)
@@ -71,18 +80,22 @@ def resume(state: dino_engine.DINOTrainState, path: str, logger):
     return state, start_epoch
 
 
-def create_state(config, run: Dict[str, Any], device) -> dino_engine.DINOTrainState:
-    """The train state the CLI starts from (weights from ``SEED``); ``run``
-    holds ``prepare_run``'s step counts."""
+def create_state(config, run: Dict[str, Any], device, dtype: torch.dtype = torch.bfloat16
+                 ) -> dino_engine.DINOTrainState:
+    """The train state the CLI starts from (weights from ``SEED``, compute in
+    ``dtype``); ``run`` holds ``prepare_run``'s step counts."""
     return dino_engine.create_train_state(config, run["total_steps"], run["num_warmup_steps"],
                                           run["niter_per_ep"], seed=int(config.SEED),
-                                          device=device)
+                                          dtype=dtype, device=device)
 
 
-def main(config, device: torch.device, logger, wandb_run=None) -> Dict[str, Any]:
+def main(config, device: torch.device, logger, wandb_run=None,
+         dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
+    """The run; ``dtype`` is the compute dtype (bfloat16 as the JAX main;
+    float32 for ``tools/check_data_parallel.py --float32``)."""
     run = prepare_run(config, device, logger)
     train_loader, val_loader, test_loader = run["loaders"]
-    state = create_state(config, run, device)
+    state = create_state(config, run, device, dtype)
     start_epoch = 0
     if run["load_path"] is not None:
         state, start_epoch = resume(state, run["load_path"], logger)
@@ -101,8 +114,9 @@ def main(config, device: torch.device, logger, wandb_run=None) -> Dict[str, Any]
     return finish_run(run, device, start_epoch, history, best_loss, test_stats)
 
 
-def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
-    return run_cli(argv, main, "DINO 3D pretraining (PyTorch)")
+def run(argv: Optional[List[str]] = None, dtype: torch.dtype = torch.bfloat16
+        ) -> Dict[str, Any]:
+    return run_cli(argv, partial(main, dtype=dtype), "DINO 3D pretraining (PyTorch)")
 
 
 if __name__ == "__main__":

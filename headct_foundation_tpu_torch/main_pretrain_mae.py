@@ -133,8 +133,8 @@ def init_wandb(config):
 
 def resume(state, path: str, logger):
     """Content-routed ``--model_load_path``; returns (state, start_epoch).
-    A state split over ``tensor`` loads the full file into its
-    ``full_view`` and keeps its parts (any mesh reads any file)."""
+    A state split over ``fsdp`` or ``tensor`` loads the full file into its
+    ``full_view`` and keeps its shards (any mesh reads any file)."""
     full = state.full_view() if hasattr(state, "full_view") else state
     is_torch, payload = classify_checkpoint(path)
     start_epoch = 0
@@ -204,6 +204,12 @@ def count_placeholders(loaders, device: torch.device) -> int:
     return round(placeholders.item() * distributed.data_world())
 
 
+def mesh_sizes() -> Dict[str, int]:
+    """The process's mesh for the CLI's JSON line."""
+    m = mesh.current()
+    return {a: m.size(a) for a in ("data", "fsdp", "seq", "tensor")}
+
+
 def finish_run(run: Dict[str, Any], device: torch.device, start_epoch: int,
                history: List[Dict[str, Any]], best_loss: float,
                test_stats: Dict[str, Any]) -> Dict[str, Any]:
@@ -214,9 +220,7 @@ def finish_run(run: Dict[str, Any], device: torch.device, start_epoch: int,
     for loader in (val_loader, test_loader):
         loader.close()
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
-    m = mesh.current()
-    return {"device": str(device), "world": distributed.world(),
-            "mesh": {a: m.size(a) for a in ("data", "seq", "tensor")},
+    return {"device": str(device), "world": distributed.world(), "mesh": mesh_sizes(),
             "start_epoch": start_epoch,
             "epochs": history, "best_val_loss": best_loss, "test": test_stats,
             "placeholders": count_placeholders(run["loaders"], device),

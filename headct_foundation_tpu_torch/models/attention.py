@@ -5,7 +5,10 @@ src/models/attentionblock.py:24-99):
 
 * ``LoraLinear`` (JAX ``:41-65``): the low-rank delta ``(x @ A^T) @ B^T``,
   ``lora_matrix_B`` [out, r] zero-initialised, ``lora_matrix_A`` [r, in]
-  drawn from N(0, 1) (reference: src/models/attentionblock.py:6-22).
+  drawn from N(0, 1) (reference: src/models/attentionblock.py:6-22). Under
+  tensor parallelism B keeps the rows of this rank's heads and the rank-r
+  activation ``x @ A^T`` passes ``copy_to_group``, so A's gradient and the
+  input's are the sums over the ranks' heads.
 * ``SelfAttention``: one [C, 3C] qkv projection reshaped as (B, N, 3, H, D),
   attention through ``ops.attention``, a ``proj`` that always has a bias,
   then dropout. With ``lora`` (rank 128, JAX ``:100-106``) the deltas of
@@ -67,6 +70,7 @@ from headct_foundation_tpu_torch.models.layers import (
     row_parallel,
 )
 from headct_foundation_tpu_torch.ops.attention import dot_product_attention
+from headct_foundation_tpu_torch.parallel.comm import copy_to_group
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -81,6 +85,7 @@ class LoraLinear(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.tensor_group = None  # set by shard_block_ under tensor parallelism
         self.lora_matrix_B = nn.Parameter(torch.zeros(out_features, r))
         self.lora_matrix_A = nn.Parameter(torch.zeros(r, in_features))
 
@@ -92,7 +97,8 @@ class LoraLinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        return (x.to(dt) @ self.lora_matrix_A.to(dt).t()) @ self.lora_matrix_B.to(dt).t()
+        h = copy_to_group(x.to(dt) @ self.lora_matrix_A.to(dt).t(), self.tensor_group)
+        return h @ self.lora_matrix_B.to(dt).t()
 
 
 class SelfAttention(nn.Module):
@@ -199,22 +205,26 @@ class AttentionBlock(nn.Module):
 def shard_block_(block: AttentionBlock, t: int, i: int, group) -> AttentionBlock:
     """Make ``block`` tensor rank ``i``'s of ``t`` (Megatron): its qkv and
     ``linear1`` keep their columns of the split (``parallel/mesh.py
-    split_param``), ``proj`` and ``linear2`` their input columns, and the
-    attention its H / t heads; norms and the row-parallel biases stay whole.
+    split_param``), ``proj`` and ``linear2`` their input columns, LoRA's
+    ``lora_matrix_B`` the rows of this rank's heads, and the attention its
+    H / t heads; norms, LoRA's A and the row-parallel biases stay whole.
     The parameters keep their objects (their data is replaced)."""
     from headct_foundation_tpu_torch.parallel.mesh import split_param
 
     attn, mlp = block.attn, block.mlp
-    if attn.lora_q is not None:
-        raise NotImplementedError("LoRA under tensor parallelism is not ported")
     if attn.num_heads % t:
         raise ValueError(f"{attn.num_heads} heads do not split over tensor = {t}")
+    mods = [("attn.qkv", attn.qkv), ("attn.proj", attn.proj),
+            ("mlp.linear1", mlp.linear1), ("mlp.linear2", mlp.linear2)]
+    if attn.lora_q is not None:
+        mods += [("attn.lora_q", attn.lora_q), ("attn.lora_v", attn.lora_v)]
+        attn.lora_q.tensor_group = attn.lora_v.tensor_group = group
     with torch.no_grad():
-        for prefix, mod in (("attn.qkv", attn.qkv), ("attn.proj", attn.proj),
-                            ("mlp.linear1", mlp.linear1), ("mlp.linear2", mlp.linear2)):
+        for prefix, mod in mods:
             for leaf, p in mod.named_parameters(recurse=False):
                 p.data = split_param(f"{prefix}.{leaf}", p.data, t, i)
-            mod.out_features, mod.in_features = mod.weight.shape
+            if isinstance(mod, nn.Linear):
+                mod.out_features, mod.in_features = mod.weight.shape
     attn.num_heads //= t
     attn.tensor_group = mlp.tensor_group = group
     return block

@@ -17,7 +17,9 @@
   axis but the last, with torch's running-statistics rule (the running
   variance is the unbiased one). Under ``torch.distributed`` the train-mode
   statistics are the global batch's (the JAX package's BatchNorm under jit
-  sees the whole sharded batch): one differentiable all-reduce of the sums.
+  sees the whole sharded batch): one differentiable all-reduce of the sums
+  over the batch's ranks (``data`` x ``fsdp``; the ``seq`` and ``tensor``
+  ranks of a slice hold the same rows).
   ``affine`` and ``dtype`` give the DINO head's variant (a float32 scale and
   bias, the output in the head's compute dtype).
 * ``dropout``: inverted dropout whose keep mask is drawn from an explicit
@@ -42,7 +44,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from headct_foundation_tpu_torch.parallel import comm, mesh
+from headct_foundation_tpu_torch.parallel import comm, distributed, mesh
 
 
 class LayerNorm(nn.Module):
@@ -112,26 +114,35 @@ def xavier_uniform_(weight: torch.Tensor,
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """Sum across the ranks; the backward sums the gradients the same way, so
-    each rank's share of the global statistics gets every rank's gradient."""
+    """Sum across the ranks of ``group``; the backward sums the gradients the
+    same way, so each rank's share of the global statistics gets every
+    rank's gradient."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
         x = x.clone()
-        dist.all_reduce(x)
+        dist.all_reduce(x, group=group)
         return x
 
     @staticmethod
-    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+    def backward(ctx, g: torch.Tensor):
         g = g.clone()
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def _batch_ranks() -> int:
+    """The ranks whose rows make the global batch: ``data`` x ``fsdp``."""
+    return distributed.data_world() if dist.is_initialized() else 1
 
 
 def _global_sum(x: torch.Tensor) -> torch.Tensor:
-    if dist.is_initialized() and dist.get_world_size() > 1:
-        return _AllReduceSum.apply(x)
-    return x
+    """The sum over the batch's ranks (``_batch_ranks`` of them)."""
+    if _batch_ranks() == 1:
+        return x
+    return _AllReduceSum.apply(x, mesh.current().group("batch") if distributed.laid_out()
+                               else None)
 
 
 class TorchBatchNorm(nn.Module):
@@ -176,8 +187,7 @@ class TorchBatchNorm(nn.Module):
         if self.training:
             axes, c = tuple(range(x.dim() - 1)), x.shape[-1]
             # every rank holds a batch of the same size (the loaders pad to it)
-            world = dist.get_world_size() if dist.is_initialized() else 1
-            n = x.numel() // c * world
+            n = x.numel() // c * _batch_ranks()
             if n <= 1:
                 raise ValueError("TorchBatchNorm in train mode needs >1 value per channel; got "
                                  f"reduce count {n} for input shape {tuple(x.shape)}")

@@ -24,9 +24,10 @@ from headct_foundation_tpu_torch.parallel import mesh
 def multicrop_forward(backbone: Callable, head: Callable, crops: Sequence[torch.Tensor],
                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """crops: [B, C, H, W, D] batches -> head output [len(crops) * B, K], crop
-    order kept. ``backbone(x, generator)`` returns (tokens [N, T, C], hidden
-    states); ``generator`` draws its dropout masks, each pass's as the
-    global batch's blocks of crops (``mesh.global_dropout``)."""
+    order kept. ``backbone(x, generator, cls_only=True)`` returns (the CLS
+    features [N, C], hidden states); ``generator`` draws its dropout masks,
+    each pass's as the global batch's blocks of crops
+    (``mesh.global_dropout``)."""
     features: List[torch.Tensor] = []
     start = 0
     while start < len(crops):
@@ -35,8 +36,9 @@ def multicrop_forward(backbone: Callable, head: Callable, crops: Sequence[torch.
         while end < len(crops) and crops[end].shape[2:] == shape:
             end += 1
         with mesh.global_dropout(end - start):
-            tokens, _ = backbone(torch.cat(list(crops[start:end]), dim=0), generator)
-        features.append(tokens[:, 0])  # the CLS feature of each crop
+            cls, _ = backbone(torch.cat(list(crops[start:end]), dim=0), generator,
+                              cls_only=True)
+        features.append(cls)  # the CLS feature of each crop
         start = end
     return head(torch.cat(features, dim=0))
 

@@ -20,6 +20,13 @@ unfused without a kernel (JAX ``models/vit.py:49,108``). An input of
 another spatial size than ``img_size`` takes its position embedding
 interpolated to its own patch grid (``models/patch_embed.py``).
 
+Under ``seq`` parallelism (``parallel/mesh.py``) the block stack runs on
+this rank's ceil(T / s) tokens (``comm.split_tokens`` after the tokens are
+put together, attention against the keys of every rank, as the MAE's
+trunks), and the normed tokens are gathered back: all of them, or with
+``cls_only`` the CLS token alone (what the DINO head and the linear
+classifier read); ``hidden_states_out`` then holds this rank's tokens.
+
 Parameter names are the reference torch names that the JAX package's
 ``tree_to_torch`` emits (``blocks.3.attn.qkv.weight``, ``cls_token``, ...),
 so an exported JAX parameter tree loads with ``load_state_dict(strict=True)``.
@@ -27,6 +34,7 @@ so an exported JAX parameter tree loads with ``load_state_dict(strict=True)``.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -37,6 +45,7 @@ from headct_foundation_tpu_torch.models.attention import AttentionBlock
 from headct_foundation_tpu_torch.models.layers import Linear, label_dropout_sites, make_norm
 from headct_foundation_tpu_torch.models.patch_embed import PatchEmbeddingBlock
 from headct_foundation_tpu_torch.models.pos_embed import _to_tuple
+from headct_foundation_tpu_torch.parallel import comm, mesh
 
 
 class ViT(nn.Module):
@@ -132,8 +141,10 @@ class ViT(nn.Module):
                 blk.attn.lora_v.init_weights(generator)
         return self
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
-                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                cls_only: bool = False) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """(tokens [B, T, C], or the CLS token [B, C] with ``cls_only``;
+        with ``classification`` the logits) and the blocks' outputs."""
         x = self.patch_embedding(x, generator)
         B = x.shape[0]
         tokens = [self.cls_token.to(x.dtype).expand(B, -1, -1)]
@@ -142,14 +153,23 @@ class ViT(nn.Module):
         tokens.append(x)
         x = torch.cat(tokens, dim=1)
 
+        m = mesh.current()
+        group, t = m.group("seq"), x.shape[1]
         hidden_states_out: List[torch.Tensor] = []
-        for blk in self.blocks:
-            x = blk(x, generator)
-            hidden_states_out.append(x)
+        if group is not None:
+            x = comm.split_tokens(x, group, mesh.tokens_per_rank(t, m.size("seq")))
+        with mesh.token_shard(t) if group is not None else contextlib.nullcontext():
+            for blk in self.blocks:
+                x = blk(x, generator)
+                hidden_states_out.append(x)
         x = self.norm(x)
+        if cls_only or self.classification:  # the CLS token is rank 0's first
+            x = comm.gather_tokens(x[:, :1], group)[:, 0]
+        else:
+            x = comm.gather_tokens(x, group, t)
 
         if self.classification:
-            logits = self.classification_head(x[:, 0])
+            logits = self.classification_head(x)
             if self.post_activation == "Tanh":
                 logits = torch.tanh(logits)
             return logits, hidden_states_out

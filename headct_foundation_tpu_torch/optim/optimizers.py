@@ -36,7 +36,7 @@ the first update uses ``lr(0)``, as optax does.
 
 from __future__ import annotations
 
-from typing import Iterable, Tuple
+from typing import Iterable, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,25 +45,36 @@ import torch.distributed as dist
 from headct_foundation_tpu_torch.ops.lion_kernel import lion_update_leaf, sign_keep_nan
 
 
+def norms_over_shards(sq: torch.Tensor, params: list, split) -> torch.Tensor:
+    """Per-parameter squared norms ``sq`` [n] (or [k, n]) summed over the
+    shards of each split parameter: for each (group, parameters) of
+    ``split``, the entries of those parameters all-reduced over the group."""
+    for group, members in split:
+        ids = {id(p) for p in members}
+        mask = torch.tensor([id(p) in ids for p in params], device=sq.device)
+        part = torch.where(mask, sq, torch.zeros_like(sq))
+        dist.all_reduce(part, group=group)
+        sq = torch.where(mask, part, sq)
+    return sq
+
+
 @torch.no_grad()
 def clip_by_per_param_norm(params: Iterable[torch.nn.Parameter], clip: float,
-                           eps: float = 1e-6, group=None, sharded: Iterable = ()) -> None:
+                           eps: float = 1e-6, split: Sequence = ()) -> None:
     """Scale each trainable ``.grad`` in place by min(clip / (||g||_2 + eps), 1),
     the norm taken in float32 (the reference clip_gradients: each
-    parameter's gradient on its own, not the global norm). Under tensor
-    parallelism the norm of a parameter in ``sharded`` is over all its
-    shards: its sum of squares all-reduced over ``group``."""
+    parameter's gradient on its own, not the global norm). A parameter
+    split over ``fsdp`` or ``tensor`` takes its norm over all its shards:
+    ``split`` holds (group, parameters split over it) per axis
+    (``parallel/fsdp.py split_groups``), and the sums of squares are
+    all-reduced over each."""
     params = [p for p in params if p.requires_grad and p.grad is not None]
     grads = [p.grad for p in params]
     if not grads:
         return
     norms = torch.stack(torch._foreach_norm([g.float() for g in grads]))
-    if group is not None:
-        ids = {id(p) for p in sharded}
-        split = torch.tensor([id(p) in ids for p in params], device=norms.device)
-        sq = torch.where(split, norms.square(), torch.zeros_like(norms))
-        dist.all_reduce(sq, group=group)
-        norms = torch.where(split, sq.sqrt(), norms)
+    if split:
+        norms = norms_over_shards(norms.square(), params, split).sqrt()
     coefs = torch.clamp(clip / (norms + eps), max=1.0)
     torch._foreach_mul_(grads, list(coefs))  # in float32, rounded to g's dtype
 
@@ -85,15 +96,21 @@ class Lamb(torch.optim.Optimizer):
     """Lamb (arXiv 1904.00962) as the JAX package's ``scale_by_lamb`` followed
     by ``scale_by_learning_rate``: no bias correction, the weight norm clipped
     to [0, 10], the trust ratio 1 where either norm is 0. ``exp_avg_quirk``
-    takes the reference's first moment ``m = b1 m + (1 - b1) g^2``."""
+    takes the reference's first moment ``m = b1 m + (1 - b1) g^2``. The
+    trust ratio takes whole-tensor norms: ``split`` (set by the engines from
+    ``parallel/fsdp.py split_groups``) lists (group, parameters split over
+    it), and each such parameter's two sums of squares are all-reduced over
+    its groups, one call per group for all parameters."""
 
     def __init__(self, params, lr: float = 0.0, betas: Tuple[float, float] = (0.9, 0.999),
                  eps: float = 1e-6, weight_decay: float = 0.0, exp_avg_quirk: bool = False):
         super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay,
                                       exp_avg_quirk=exp_avg_quirk))
+        self.split: Sequence = ()
 
     @torch.no_grad()
     def step(self, closure=None):
+        todo = []  # (parameter, group, Adam step)
         for group in self.param_groups:
             b1, b2 = group["betas"]
             eps, wd = group["eps"], group["weight_decay"]
@@ -108,12 +125,19 @@ class Lamb(torch.optim.Optimizer):
                 g = p.grad.float()
                 m.mul_(b1).add_((1 - b1) * (g * g if group["exp_avg_quirk"] else g))
                 v.mul_(b2).add_((1 - b2) * g * g)
-                p32 = p.float()
-                adam_step = m / (v.sqrt() + eps) + wd * p32
-                w_norm = torch.clamp(torch.linalg.vector_norm(p32), 0.0, 10.0)
-                a_norm = torch.linalg.vector_norm(adam_step)
-                trust = torch.where((w_norm == 0) | (a_norm == 0), 1.0, w_norm / (a_norm + eps))
-                p.add_((trust * adam_step).to(p.dtype) * -group["lr"])
+                todo.append((p, group, m / (v.sqrt() + eps) + wd * p.float()))
+        if not todo:
+            return
+        params = [p for p, _, _ in todo]
+        norms = torch.stack([torch.stack(torch._foreach_norm([p.float() for p in params])),
+                             torch.stack(torch._foreach_norm([a for _, _, a in todo]))])
+        if self.split:
+            norms = norms_over_shards(norms.square(), params, self.split).sqrt()
+        w_norms, a_norms = norms.unbind(0)
+        for (p, group, adam_step), w, a in zip(todo, w_norms, a_norms):
+            w_norm = torch.clamp(w, 0.0, 10.0)
+            trust = torch.where((w_norm == 0) | (a == 0), 1.0, w_norm / (a + group["eps"]))
+            p.add_((trust * adam_step).to(p.dtype) * -group["lr"])
 
 
 class Lion(torch.optim.Optimizer):
@@ -187,11 +211,12 @@ def _trainable(params) -> list:
     return [p for p in params if p.requires_grad]
 
 
-def get_optimizer(config, params: Iterable) -> torch.optim.Optimizer:
+def get_optimizer(config, params: Iterable, split: Sequence = ()) -> torch.optim.Optimizer:
     """The optimizer of ``config.TRAIN.OPTIMIZER`` (SGD, AdamW, Lamb, Lion)
     over the trainable ``params`` (parameters or parameter groups); the
     learning rate, and a scheduled weight decay, are set before each step.
-    The gradient clip is the caller's (``clip_by_per_param_norm``)."""
+    ``split`` is Lamb's (group, parameters split over it) list. The
+    gradient clip is the caller's (``clip_by_per_param_norm``)."""
     t = config.TRAIN
     name = t.OPTIMIZER
     trainable = _trainable(params)
@@ -203,7 +228,9 @@ def get_optimizer(config, params: Iterable) -> torch.optim.Optimizer:
         return torch.optim.AdamW(trainable, lr=0.0, betas=(t.BETA1, t.BETA2), eps=1e-8,
                                  weight_decay=wd)
     if name == "Lamb":
-        return Lamb(trainable, betas=(t.BETA1, t.BETA2), weight_decay=wd)
+        lamb = Lamb(trainable, betas=(t.BETA1, t.BETA2), weight_decay=wd)
+        lamb.split = list(split)
+        return lamb
     if name == "Lion":
         return Lion(trainable, betas=(t.BETA1, t.BETA2), weight_decay=wd,
                     fused=bool(t.LION_FUSED))

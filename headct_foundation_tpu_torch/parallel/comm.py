@@ -15,6 +15,11 @@
   backward the local gradient put back in place, zeros elsewhere. Each rank
   then holds a partial gradient of what came before the split, which the
   engine sums over ``seq`` with the parameters' gradients.
+* ``gather_shards``: the ZeRO-3 pair of the ``fsdp`` axis. Forward the
+  all-gather of a parameter's shards into the whole tensor (cast to the
+  compute dtype first, so the bytes moved are the compute dtype's);
+  backward the reduce-scatter (sum) of the whole tensor's gradient, in
+  float32, onto this rank's shard (``parallel/fsdp.py``).
 
 All of them are the identity when the group is None (an axis of 1).
 """
@@ -121,3 +126,46 @@ class _SplitTokens(torch.autograd.Function):
 
 def split_tokens(x: torch.Tensor, group, tl: int) -> torch.Tensor:
     return x if group is None else _SplitTokens.apply(x, group, tl)
+
+
+def _all_gather_single(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    fn = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    fn(out, x, group=group)
+
+
+def _reduce_scatter_single(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    fn = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+    fn(out, x, group=group)
+
+
+def all_gather_shards(shard: torch.Tensor, group, dim: int,
+                      dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The whole tensor from every rank's ``shard`` (split along ``dim``, in
+    rank order), in ``dtype`` (default the shard's); not differentiable."""
+    x = shard.detach().to(dtype or shard.dtype).contiguous()
+    n = _size(group)
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    _all_gather_single(out, x, group)
+    return out.view((n,) + tuple(x.shape)).movedim(0, dim).flatten(dim, dim + 1) if dim \
+        else out
+
+
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shard, group, dim, dtype):
+        ctx.group, ctx.dim, ctx.shape, ctx.dtype = group, dim, shard.shape, shard.dtype
+        return all_gather_shards(shard, group, dim, dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, dim = _size(ctx.group), ctx.dim
+        parts = g.float().unflatten(dim, (n, ctx.shape[dim])).movedim(dim, 0).contiguous()
+        out = parts.new_empty(ctx.shape)
+        _reduce_scatter_single(out, parts.flatten(0, 1), ctx.group)
+        return out.to(ctx.dtype), None, None, None
+
+
+def gather_shards(shard: torch.Tensor, group, dim: int,
+                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``all_gather_shards`` with the reduce-scatter backward (see above)."""
+    return _GatherShards.apply(shard, group, dim, dtype or shard.dtype)

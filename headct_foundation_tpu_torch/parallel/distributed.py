@@ -8,12 +8,13 @@
   (``tcp://MASTER_ADDR:MASTER_PORT``): NCCL on the card, gloo on the CPU,
   and makes the config's mesh the process's (``mesh.set_mesh``). Without
   ``WORLD_SIZE`` (or at 1) it starts nothing and the process is rank 0 of
-  1. The world must be ``PARALLEL.DATA x SEQ x TENSOR`` (``DATA`` -1: what
-  the world leaves); a mismatch raises, as ``FSDP`` or ``PIPE`` above 1 do.
+  1. The world must be ``PARALLEL.DATA x FSDP x SEQ x TENSOR`` (``DATA`` -1:
+  what the world leaves); a mismatch raises, as ``PIPE`` above 1 does.
 * ``rank`` / ``world`` / ``local_rank`` serve the logger; ``data_rank`` /
-  ``data_world`` (this rank's place on the ``data`` axis) the loaders and
-  the engines' draws, since the ``seq`` and ``tensor`` ranks of one data
-  slice take the same batch.
+  ``data_world`` (this rank's slice of the batch over ``data`` x ``fsdp``,
+  as JAX's ``batch_sharding`` splits it) the loaders and the engines'
+  draws, since the ``seq`` and ``tensor`` ranks of one slice take the same
+  batch.
 * ``all_reduce_mean_`` averages tensors across the ranks of ``group``
   (default all) in place, in buckets of at most ``BUCKET_BYTES``
   flattened together, one ``all_reduce`` each; ``all_reduce_sum_`` sums
@@ -21,7 +22,10 @@
   accumulated gradients, before the clip and the optimizer, so every rank
   takes the same update: the module is never wrapped in
   ``DistributedDataParallel``, its parameter names stay the model's, and
-  the micro-batches need no ``no_sync``.
+  the micro-batches need no ``no_sync``. ``data_mean_`` is that average
+  over the batch's ranks (``data`` x ``fsdp``); the gradients of ``fsdp``
+  shards, which the gather's backward has already summed over ``fsdp``,
+  are summed over ``data`` only.
 """
 
 from __future__ import annotations
@@ -49,18 +53,18 @@ def local_rank() -> int:
     return int(os.environ.get("LOCAL_RANK", "0"))
 
 
-def _laid_out() -> bool:
+def laid_out() -> bool:
     """True once a mesh is set (without one every rank is on ``data``)."""
     m = mesh.current()
     return m.sharded or m.size("data") > 1
 
 
 def data_rank() -> int:
-    return mesh.current().coord("data") if _laid_out() else rank()
+    return mesh.current().batch_coord if laid_out() else rank()
 
 
 def data_world() -> int:
-    return mesh.current().size("data") if _laid_out() else world()
+    return mesh.current().batch_size if laid_out() else world()
 
 
 def init_from_env(device_type: str, data_axis: int = -1, config=None) -> int:
@@ -132,9 +136,23 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
         torch._foreach_div_(list(tensors), n)
 
 
-def data_mean_(tensors: Sequence[torch.Tensor]) -> None:
-    """Each tensor becomes its mean over the ``data`` axis (a no-op on one
-    data slice)."""
-    if _laid_out() and data_world() == 1:
+def data_mean_(tensors: Sequence[torch.Tensor], sharded: Sequence[torch.Tensor] = ()) -> None:
+    """Each tensor becomes its mean over the batch's ranks (``data`` x
+    ``fsdp``; a no-op on one slice). The tensors also in ``sharded`` are
+    gradients of ``fsdp`` shards, already summed over ``fsdp``: they are
+    summed over ``data`` only, then divided alike."""
+    n = data_world()
+    if n == 1:
         return
-    all_reduce_mean_(tensors, mesh.current().group("data"))
+    if not laid_out():
+        all_reduce_mean_(tensors)
+        return
+    m = mesh.current()
+    ids = {id(t) for t in sharded}
+    whole = [t for t in tensors if id(t) not in ids]
+    shards = [t for t in tensors if id(t) in ids]
+    if whole:
+        all_reduce_sum_(whole, m.group("batch"))
+    if shards and m.size("data") > 1:
+        all_reduce_sum_(shards, m.group("data"))
+    torch._foreach_div_(list(tensors), n)

@@ -9,8 +9,10 @@ axis names and rule table copied, not imported:
   ``reshape(data, fsdp, seq, pipe, tensor)`` in rank order (the ``tensor``
   coordinate varies fastest), and builds, on every rank, one group for
   each axis above 1 (the ranks that differ only in that
-  coordinate); ``data = -1`` takes what the world leaves.
-  ``fsdp`` and ``pipe`` above 1 raise NotImplementedError (ROADMAP A.8).
+  coordinate), and the ``batch`` group (the ranks that differ only in
+  ``data`` and ``fsdp``: JAX's ``batch_sharding`` splits the batch over
+  both); ``data = -1`` takes what the world leaves. ``pipe`` above 1
+  raises NotImplementedError (ROADMAP A.8).
 * ``current()`` is the process's mesh (``set_mesh``; a mesh of 1s before
   any), read by the attention dispatch, the dropout masks, the Megatron
   linears and the MAE engine.
@@ -19,16 +21,22 @@ axis names and rule table copied, not imported:
   (the last rank's tail is padding); ``current_tokens()`` reads it.
 * ``global_dropout(row_groups)`` makes every dropout mask the one a single
   process would draw for the global batch, of which each rank takes its
-  slice (``dropout_slice``): its rows over ``data``, its tokens over
+  slice (``dropout_slice``): its rows over ``data`` x ``fsdp``, its tokens over
   ``seq``, its columns of a column-parallel output over ``tensor``.
   ``row_groups`` > 1 says the local batch is that many blocks of rows (the
   DINO crops), each block sliced on its own.
 * ``param_sharding`` applies the rule table to a parameter's name:
   ``(dim, kind)`` for a parameter split over ``tensor``, None for a
-  replicated one. ``split_param`` / ``join_params`` cut a full tensor into
-  rank ``i``'s part and put the parts back, exactly: ``kind`` "qkv" is the
-  head-aligned split of the fused [3C, C] projection (heads h H/t .. (h+1)
-  H/t of q, of k and of v), "even" an even split along ``dim``.
+  replicated one; ``fsdp_dim`` gives the dimension a parameter of a given
+  (tensor-local) shape is split along over ``fsdp``, or None.
+  ``split_param`` / ``join_params`` cut a full tensor into rank ``i``'s part
+  and put the parts back, exactly, over ``tensor`` (``kind`` "qkv" is the
+  head-aligned split of the fused [3C, C] projection: heads h H/t .. (h+1)
+  H/t of q, of k and of v; "even" an even split along ``dim``) or, with
+  ``axis="fsdp"``, over ``fsdp`` (an even split along ``fsdp_dim``). The
+  ``fsdp`` split is taken of the ``tensor`` part, along another dimension.
+  ``shard_param`` / ``all_gather_param`` go from the full tensor to this
+  rank's shard and back over both axes.
 """
 
 from __future__ import annotations
@@ -67,8 +75,19 @@ class Mesh:
 
     @property
     def sharded(self) -> bool:
-        """True when ``seq`` or ``tensor`` is above 1."""
-        return self.size("seq") > 1 or self.size("tensor") > 1
+        """True when ``fsdp``, ``seq`` or ``tensor`` is above 1."""
+        return any(self.size(a) > 1 for a in ("fsdp", "seq", "tensor"))
+
+    @property
+    def batch_size(self) -> int:
+        """The ranks over which the batch is split: ``data`` x ``fsdp``."""
+        return self.size("data") * self.size("fsdp")
+
+    @property
+    def batch_coord(self) -> int:
+        """This rank's slice of the batch (``data`` major, as JAX's
+        ``P(("data", "fsdp"))`` lays it out)."""
+        return self.coord("data") * self.size("fsdp") + self.coord("fsdp")
 
 
 _MESH = Mesh()
@@ -90,19 +109,18 @@ def layout(data: int = -1, fsdp: int = 1, tensor: int = 1, seq: int = 1, pipe: i
            world: int = 1) -> Tuple[int, ...]:
     """The mesh's (data, fsdp, seq, pipe, tensor) over ``world`` ranks
     (``data`` -1: what the world leaves); raises when they do not multiply
-    to ``world``, and NotImplementedError for ``fsdp`` or ``pipe`` above 1."""
-    for axis, n in (("FSDP", fsdp), ("PIPE", pipe)):
-        if int(n) > 1:
-            raise NotImplementedError(
-                f"PARALLEL.{axis} = {n} is not ported; the port shards over data, seq and "
-                f"tensor only ({_NEXT})")
+    to ``world``, and NotImplementedError for ``pipe`` above 1."""
+    if int(pipe) > 1:
+        raise NotImplementedError(
+            f"PARALLEL.PIPE = {pipe} is not ported; the port shards over data, fsdp, seq "
+            f"and tensor only ({_NEXT})")
     inner = fsdp * seq * pipe * tensor
     if data == -1 and world % inner == 0:
         data = world // inner
     if data * inner != world:
         raise ValueError(
-            f"PARALLEL.DATA x SEQ x TENSOR = {data} x {seq} x {tensor} but the launcher "
-            f"started {world} processes; the port runs one process per rank")
+            f"PARALLEL.DATA x FSDP x SEQ x TENSOR = {data} x {fsdp} x {seq} x {tensor} but "
+            f"the launcher started {world} processes; the port runs one process per rank")
     return (data, fsdp, seq, pipe, tensor)
 
 
@@ -126,6 +144,12 @@ def make_mesh(data: int = -1, fsdp: int = 1, tensor: int = 1, seq: int = 1, pipe
             g = dist.new_group([int(r) for r in members]) if shape[i] < world else dist.group.WORLD
             if rank in members:
                 groups[axis] = g
+    if shape[0] * shape[1] > 1:  # data x fsdp: the batch's ranks
+        for members in ranks.reshape(shape[0] * shape[1], -1).T:
+            g = dist.new_group([int(r) for r in members]) if len(members) < world \
+                else dist.group.WORLD
+            if rank in members:
+                groups["batch"] = g
     return Mesh(sizes, coords, groups)
 
 
@@ -174,7 +198,7 @@ def dropout_slice(shape: Sequence[int], cols_split: bool = False
     mesh = current()
     if groups is None:
         return None
-    d, r = mesh.size("data"), mesh.coord("data")
+    d, r = mesh.batch_size, mesh.batch_coord
     t_real, s = current_tokens(), mesh.size("seq")
     t, c = mesh.size("tensor"), mesh.coord("tensor")
     split_tokens = t_real is not None and s > 1 and len(shape) == 3
@@ -210,7 +234,7 @@ def dropout_slice(shape: Sequence[int], cols_split: bool = False
 
 
 # ---------------------------------------------------------------------------
-# The rule table and the tensor split of the parameters.
+# The rule table and the tensor and fsdp splits of the parameters.
 # ---------------------------------------------------------------------------
 
 # The JAX package's rules (its ``:144-156``) for the ``tensor`` axis, in the
@@ -218,19 +242,41 @@ def dropout_slice(shape: Sequence[int], cols_split: bool = False
 # Megatron pairs are column-parallel qkv and linear1 (split over their
 # outputs, biases with them) and row-parallel proj and linear2 (split over
 # their inputs; their biases stay whole and are added after the all-reduce).
-# The port differs from the JAX table in two ways, both forced by computing
+# The port differs from the JAX table in three ways, all forced by computing
 # on the shards rather than letting XLA reshard them: the qkv split is
-# head-aligned (GSPMD splits the 2304 columns evenly and reshards to heads),
-# and the qkv and linear1 biases are split with their columns (JAX keeps
-# them whole). JAX's other tensor entries (the patch embedding,
-# ``decoder_embed``, ``decoder_pred``, the DINO head) are storage layouts
-# that XLA gathers at use; the port keeps those parameters whole. The
-# ``fsdp`` entries wait for that axis (ROADMAP A.8).
+# head-aligned (GSPMD splits the 2304 columns evenly and reshards to heads);
+# the qkv and linear1 biases are split with their columns (JAX keeps
+# them whole); LoRA's up-projections of q and v (``lora_matrix_B`` [C, r])
+# are split with the heads of their outputs (JAX keeps them whole). JAX's
+# other tensor entries (the patch embedding, ``decoder_embed``,
+# ``decoder_pred``, the DINO head) are storage layouts that XLA gathers at
+# use; the port keeps those parameters whole.
 _TENSOR_RULES: Tuple[Tuple[str, int, str], ...] = (
     (r"(.*\.)?attn\.qkv\.(weight|bias)$", 0, "qkv"),
     (r"(.*\.)?attn\.proj\.weight$", 1, "even"),
     (r"(.*\.)?mlp\.linear1\.(weight|bias)$", 0, "even"),
     (r"(.*\.)?mlp\.linear2\.weight$", 1, "even"),
+    (r"(.*\.)?attn\.lora_[qv]\.lora_matrix_B$", 0, "even"),
+)
+
+# The JAX rules' ``fsdp`` entries, (regex, dim or None), for the 2-D weights
+# (JAX's ``kernel`` leaves; every other leaf is replicated): the Megatron
+# pairs' other dimension (JAX ``P("fsdp", "tensor")`` on a [in, out] kernel
+# is dim 1 of the [out, in] weight), no fsdp on the kernels JAX gives to
+# ``tensor`` alone, and JAX's catch-all ``.*kernel$ -> P(None, "fsdp")``
+# (the output dimension) for every other weight. JAX's ``_clamp_spec``
+# holds: a dimension that ``fsdp`` does not divide stays whole.
+_FSDP_RULES: Tuple[Tuple[str, Optional[int]], ...] = (
+    (r"(.*\.)?attn\.qkv\.weight$", 1),
+    (r"(.*\.)?attn\.proj\.weight$", 0),
+    (r"(.*\.)?mlp\.linear1\.weight$", 1),
+    (r"(.*\.)?mlp\.linear2\.weight$", 0),
+    (r"(.*\.)?patch_embeddings\.weight$", None),
+    (r"(.*\.)?decoder_embed\.weight$", None),
+    (r"(.*\.)?decoder_pred\.weight$", None),
+    (r"(.*\.)?head\.mlp\.\d+\.weight$", None),
+    (r"(.*\.)?last_layer\.weight_v$", None),
+    (r".*\.weight$", 0),
 )
 
 
@@ -239,6 +285,19 @@ def param_sharding(name: str) -> Optional[Tuple[int, str]]:
     for pattern, dim, kind in _TENSOR_RULES:
         if re.match(pattern, name):
             return dim, kind
+    return None
+
+
+def fsdp_dim(name: str, shape: Sequence[int], f: int) -> Optional[int]:
+    """The dimension along which the parameter ``name`` of (tensor-local)
+    ``shape`` is split over ``fsdp`` = ``f``; None when it stays whole."""
+    if f == 1 or len(shape) != 2:
+        return None
+    for pattern, dim in _FSDP_RULES:
+        if re.match(pattern, name):
+            if dim is None or shape[dim] % f or shape[dim] < f:
+                return None
+            return dim
     return None
 
 
@@ -253,23 +312,34 @@ def _qkv_index(rows: int, t: int, i: int, device) -> torch.Tensor:
                       for j in range(3)])
 
 
-def split_param(name: str, full: torch.Tensor, t: int, i: int) -> torch.Tensor:
-    """Rank ``i``'s part (a fresh tensor) of the full parameter ``name``."""
-    spec = param_sharding(name)
+def _spec(name: str, axis: str, dim: Optional[int]) -> Optional[Tuple[int, str]]:
+    if axis == "tensor":
+        return param_sharding(name)
+    return None if dim is None else (dim, "even")
+
+
+def split_param(name: str, full: torch.Tensor, t: int, i: int, axis: str = "tensor",
+                dim: Optional[int] = None) -> torch.Tensor:
+    """Rank ``i``'s part (a fresh tensor) of the full parameter ``name``
+    over ``t`` ranks of ``axis``: "tensor" (the rule table), or "fsdp"
+    along ``dim`` (``fsdp_dim``; None: whole)."""
+    spec = _spec(name, axis, dim)
     if spec is None or t == 1:
         return full.detach().clone()
     dim, kind = spec
     if full.shape[dim] % (3 * t if kind == "qkv" else t):
-        raise ValueError(f"{name} {tuple(full.shape)} does not split over tensor = {t}")
+        raise ValueError(f"{name} {tuple(full.shape)} does not split over {axis} = {t}")
     if kind == "qkv":
         return full.detach().index_select(dim, _qkv_index(full.shape[dim], t, i, full.device))
     w = full.shape[dim] // t
     return full.detach().narrow(dim, i * w, w).clone()
 
 
-def join_params(name: str, parts: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The full parameter from its ranks' parts, in rank order (exact)."""
-    spec = param_sharding(name)
+def join_params(name: str, parts: Sequence[torch.Tensor], axis: str = "tensor",
+                dim: Optional[int] = None) -> torch.Tensor:
+    """The full parameter from its ranks' parts over ``axis``, in rank
+    order (exact); ``split_param``'s inverse."""
+    spec = _spec(name, axis, dim)
     if spec is None or len(parts) == 1:
         return parts[0].detach().clone()
     dim, kind = spec
@@ -282,14 +352,32 @@ def join_params(name: str, parts: Sequence[torch.Tensor]) -> torch.Tensor:
     return full
 
 
-def all_gather_param(name: str, local: torch.Tensor, mesh: Optional[Mesh] = None
-                     ) -> torch.Tensor:
-    """The full tensor of a parameter (or of a tensor shaped like it) from
-    every tensor rank's part; collective over ``tensor``."""
+def shard_param(name: str, full: torch.Tensor, mesh: Optional[Mesh] = None,
+                dim: Optional[int] = None) -> torch.Tensor:
+    """This rank's shard of the full parameter ``name`` (or of a tensor
+    shaped like it): its ``tensor`` part, then that part's ``fsdp`` share
+    along ``dim`` (its ``fsdp_dim``; None: not split);
+    ``all_gather_param``'s inverse."""
     mesh = mesh or current()
-    t = mesh.size("tensor")
+    part = split_param(name, full, mesh.size("tensor"), mesh.coord("tensor"))
+    return split_param(name, part, mesh.size("fsdp"), mesh.coord("fsdp"), "fsdp", dim)
+
+
+def _gather(local: torch.Tensor, n: int, group) -> list:
+    parts = [torch.empty_like(local) for _ in range(n)]
+    dist.all_gather(parts, local.contiguous(), group=group)
+    return parts
+
+
+def all_gather_param(name: str, local: torch.Tensor, mesh: Optional[Mesh] = None,
+                     dim: Optional[int] = None) -> torch.Tensor:
+    """The full tensor of a parameter (or of a tensor shaped like it) from
+    every rank's shard: over ``fsdp`` along ``dim`` (its ``fsdp_dim``; None:
+    not split), then over ``tensor``; collective over both."""
+    mesh = mesh or current()
+    f, t = mesh.size("fsdp"), mesh.size("tensor")
+    if f > 1 and dim is not None:
+        local = join_params(name, _gather(local, f, mesh.group("fsdp")), "fsdp", dim)
     if t == 1 or param_sharding(name) is None:
         return local
-    parts = [torch.empty_like(local) for _ in range(t)]
-    dist.all_gather(parts, local.contiguous(), group=mesh.group("tensor"))
-    return join_params(name, parts)
+    return join_params(name, _gather(local, t, mesh.group("tensor")))

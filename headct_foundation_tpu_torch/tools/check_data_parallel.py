@@ -2,19 +2,22 @@
 processes against one.
 
     python -m headct_foundation_tpu_torch.tools.check_data_parallel [--nproc 4] \
-        [--config configs/dino/dino_HeadCT.yaml] [--seq S] [--tensor T] \
-        [--batch B] [--dropout RATE]
+        [--config configs/dino/dino_HeadCT.yaml] [--fsdp F] [--seq S] [--tensor T] \
+        [--batch B] [--dropout RATE] [--float32]
 
-``--seq`` and ``--tensor`` (the MAE only) lay the N processes out as
-``PARALLEL.DATA x SEQ x TENSOR`` with DATA = N / (S x T): each data slice's
-S x T ranks read the same batches of B / DATA rows, split the tokens over
-``seq`` and the heads and MLP columns over ``tensor``. ``--batch`` (default
-64) is the global batch; ``--dropout`` sets ``MAE.DROPOUT_RATE`` in both
-runs, whose masks every rank draws as the global batch's and slices.
-``--float32`` runs the MAE main computing in float32 in every run (its
-worker mode ``--float32-mae`` is ``main_pretrain_mae.run(argv,
+``--fsdp``, ``--seq`` and ``--tensor`` (every main) lay the N processes out
+as ``PARALLEL.DATA x FSDP x SEQ x TENSOR`` with DATA = N / (F x S x T): the
+batch is split over the DATA x F ranks (B / (DATA x F) rows each; the S x T
+ranks of one slice read the same rows), each of the F ranks holds its
+ZeRO-3 shard of the weights, the tokens are split over ``seq`` and the
+heads and MLP columns over ``tensor``. ``--batch`` (default 64) is the
+global batch; ``--dropout`` sets ``MAE.DROPOUT_RATE`` in both runs, whose
+masks every rank draws as the global batch's and slices. ``--float32``
+runs the MAE or the DINO main computing in float32 in every run (its
+worker mode ``--float32-main MODULE`` is ``MODULE.run(argv,
 dtype=torch.float32)``): the layouts then differ only by float32
-rounding.
+rounding. DINO in float32 runs at ``--batch 32``, half bf16's batch, for
+the one-process run's activations on one card.
 
 Writes 32 synthetic head scans (``tools/cli_runs.py``, 0.5 x 0.5 x 1.0 mm)
 and manifests, then runs the CLI of ``--config``'s ``MODEL.NAME`` (``CLIS``:
@@ -36,12 +39,16 @@ and as one process at batch 64. Each ``CLIS`` entry says how its CLI is run:
   global batch's augmentations: both runs read the same manifests; the
   ``best_`` checkpoints are compared. Its BatchNorm statistics are the
   global batch's. It computes in float32 (``python -m
-  headct_foundation_tpu_torch.tools.check_data_parallel --float32-downstream
-  <the main's flags>`` is ``main_downstream.run(argv, dtype=torch.float32)``):
+  headct_foundation_tpu_torch.tools.check_data_parallel --float32-main
+  main_downstream <the main's flags>``):
   in bf16 the head's train-mode BatchNorm over alike random-init CLS
   features turns the per-rank and whole-batch products' different bf16
   roundings into the signal, and N processes and one fail these limits by
   far (four cards did, as two and four gloo processes do on the CPU).
+
+The downstream main misses ``LOSS_REL`` on two and four cards; neither a
+start from a MAE checkpoint nor more steps held it, and the limits stay
+(PERF.md §5).
 
 Held: the train, val and test losses within ``LOSS_REL`` relative, every
 (student) parameter's update within ||du_N - du_1|| / ||du_1|| <= ``UPDATE_REL``
@@ -141,24 +148,23 @@ def differences(run: tuple, reference: tuple) -> tuple:
     return {f"{k}_loss_rel": abs(x - y) / abs(y) for k, (x, y) in losses.items()}, rels
 
 
+def float32_main(module: str, argv) -> None:
+    """The CLI main ``headct_foundation_tpu_torch.<module>``, computing in
+    float32."""
+    importlib.import_module(f"headct_foundation_tpu_torch.{module}").run(
+        argv, dtype=torch.float32)
+
+
 def float32_downstream(argv) -> None:
     """The downstream main, computing in float32."""
-    from headct_foundation_tpu_torch import main_downstream
-
-    main_downstream.run(argv, dtype=torch.float32)
-
-
-def float32_mae(argv) -> None:
-    """The MAE main, computing in float32."""
-    from headct_foundation_tpu_torch import main_pretrain_mae
-
-    main_pretrain_mae.run(argv, dtype=torch.float32)
+    float32_main("main_downstream", argv)
 
 
 def pretrain_manifests(path_n: Path, path_1: Path, rows: list, nproc: int, seed: int,
                        batch: int = BATCH) -> None:
     """Image lists: the N-process run's in order, the one-process run's
-    reordered to the data ranks' (``nproc``) concatenated global batches."""
+    reordered to the batch ranks' (``nproc``: DATA x FSDP) concatenated
+    global batches."""
     for path, order in ((path_n, rows), (path_1, interleaved(rows, nproc, batch))):
         path.write_text("img_path\n" + "".join(f"{x}\n" for x in order))
 
@@ -168,6 +174,14 @@ def label_manifests(path_n: Path, path_1: Path, rows: list, nproc: int, seed: in
     """The same cq500 label manifest for both runs."""
     for path in (path_n, path_1):
         write_label_manifest(path, rows, seed=seed)
+
+
+def _config(path: str):
+    from headct_foundation_tpu_torch.config import default_config
+
+    cfg = default_config()
+    cfg.merge_from_file(str(ROOT / path))
+    return cfg
 
 
 @dataclass(frozen=True)
@@ -186,7 +200,8 @@ CLIS = {  # MODEL.NAME -> its CLI
     # no floor: the plain attention's [256,12,517,517] scores do not fit on 80 GB at batch 64
     "dino": Cli("main_pretrain_dino", ("main_pretrain_dino",), (), pretrain_manifests,
                 "latest_", floor=False),
-    "vit": Cli("main_downstream", ("tools.check_data_parallel", "--float32-downstream"),
+    "vit": Cli("main_downstream", ("tools.check_data_parallel", "--float32-main",
+                                   "main_downstream"),
                # 2 steps of 64: few-shot, the same global batches on N processes and one
                ("DATA.FEW_SHOTS", str(BATCH * STEPS // 2), "DATA.DATASET", "cq500",
                 "TRAIN.LABEL_NAME", "ICH"), label_manifests, "best_"),
@@ -195,42 +210,42 @@ CLIS = {  # MODEL.NAME -> its CLI
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv[:1] == ["--float32-downstream"]:
-        float32_downstream(argv[1:])
-        return 0
-    if argv[:1] == ["--float32-mae"]:
-        float32_mae(argv[1:])
+    if argv[:1] == ["--float32-main"]:
+        float32_main(argv[1], argv[2:])
         return 0
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--nproc", type=int, default=4)
     ap.add_argument("--config", default=CONFIG)
+    ap.add_argument("--fsdp", type=int, default=1)
     ap.add_argument("--seq", type=int, default=1)
     ap.add_argument("--tensor", type=int, default=1)
     ap.add_argument("--batch", type=int, default=BATCH)
     ap.add_argument("--dropout", type=float, default=0.0)
     ap.add_argument("--float32", action="store_true",
-                    help="the MAE main computing in float32 (every run)")
+                    help="the MAE or DINO main computing in float32 (every run)")
     args = ap.parse_args(argv)
     batch = args.batch
-    data, rem = divmod(args.nproc, args.seq * args.tensor)
-    if rem or batch % data:
-        raise ValueError(f"{args.nproc} processes at seq {args.seq} x tensor {args.tensor} "
-                         f"do not split batch {batch} over a data axis")
+    data, rem = divmod(args.nproc, args.fsdp * args.seq * args.tensor)
+    slices = data * args.fsdp  # the batch's ranks
+    if rem or batch % slices:
+        raise ValueError(f"{args.nproc} processes at fsdp {args.fsdp} x seq {args.seq} x "
+                         f"tensor {args.tensor} do not split batch {batch} over data x fsdp")
     if torch.cuda.device_count() < args.nproc:
         raise RuntimeError(f"{args.nproc} processes need {args.nproc} CUDA devices, "
                            f"found {torch.cuda.device_count()}")
 
-    from headct_foundation_tpu_torch.config import default_config
-
-    cfg = default_config()
-    cfg.merge_from_file(str(ROOT / args.config))
+    cfg = _config(args.config)
     cli = CLIS[str(cfg.MODEL.NAME)]
+    if str(cfg.MODEL.NAME) == "vit":  # few-shot draws per class: STEPS steps of ``batch``
+        cli = replace(cli, opts=("DATA.FEW_SHOTS", str(batch * STEPS // 2)) + cli.opts[2:])
     if args.float32:
-        if str(cfg.MODEL.NAME) != "mae":
-            raise ValueError("--float32 runs the MAE main only")
-        cli = replace(cli, run=("tools.check_data_parallel", "--float32-mae"))
-    layout = ("PARALLEL.SEQ", str(args.seq), "PARALLEL.TENSOR", str(args.tensor))
+        if str(cfg.MODEL.NAME) not in ("mae", "dino"):
+            raise ValueError("--float32 runs the MAE or the DINO main (the downstream main "
+                             "always computes in float32)")
+        cli = replace(cli, run=("tools.check_data_parallel", "--float32-main", cli.module))
+    layout = ("PARALLEL.FSDP", str(args.fsdp), "PARALLEL.SEQ", str(args.seq),
+              "PARALLEL.TENSOR", str(args.tensor))
     common = ("MAE.DROPOUT_RATE", str(args.dropout)) if args.dropout else ()
     init = importlib.import_module(f"headct_foundation_tpu_torch.{cli.module}").create_state(
         cfg, {"total_steps": 10, "num_warmup_steps": 1, "niter_per_ep": 1}, "cpu")
@@ -244,7 +259,7 @@ def main(argv=None) -> int:
         reps = max(1, -(-batch * STEPS // SCANS))
         rows = {"train": (scans * reps)[:batch * STEPS], "val": scans * 2, "test": scans * 2}
         for i, (split, r) in enumerate(rows.items()):
-            cli.manifests(work / f"{split}_n.csv", work / f"{split}_1.csv", r, data, i, batch)
+            cli.manifests(work / f"{split}_n.csv", work / f"{split}_1.csv", r, slices, i, batch)
 
         results = {}
         runs = [("n", args.nproc, layout), ("1", 1, ())]
@@ -252,7 +267,7 @@ def main(argv=None) -> int:
             runs.append(("plain", 1, ("PARALLEL.PALLAS_MIN_T", str(PLAIN_MIN_T))))
         for label, nproc, extra in runs:
             manifests = "n" if nproc > 1 else "1"
-            per = batch // (data if nproc > 1 else 1)
+            per = batch // (slices if nproc > 1 else 1)
             opts = ["DATA.BATCH_SIZE", str(per), "DATA.CACHE_DIR", str(work / "cache"),
                     "MODEL.DIR", str(work / f"model_{label}"),
                     "LOG.OUTPUT_DIR", str(work / f"log_{label}"), "OUTPUT", "",
@@ -288,10 +303,12 @@ def main(argv=None) -> int:
         e = res["epochs"][0]
         return (f"{seconds:.2f} s, {e['train']['steps']} steps, epoch {e['seconds']:.2f} s, "
                 f"iter_time {e['train']['iter_time'] * 1e3:.1f} ms, data_time "
-                f"{e['train']['data_time'] * 1e3:.1f} ms")
+                f"{e['train']['data_time'] * 1e3:.1f} ms, rank 0's peak memory "
+                f"{(res['peak_memory_bytes'] or 0) / 2**30:.2f} GiB")
 
     print(f"{'data' if data == args.nproc else 'model'} parallel: {args.nproc} processes "
-          f"(data {data} x seq {args.seq} x tensor {args.tensor}) at batch {batch // data} "
+          f"(data {data} x fsdp {args.fsdp} x seq {args.seq} x tensor {args.tensor}) at batch "
+          f"{batch // slices} "
           f"({timing(n_res, n_s)}) against 1 at batch {batch} ({timing(one, one_s)}) "
           f"on {args.config}: losses relative "
           f"{', '.join(f'{k} {v:.3e}' for k, v in check.items())} (limit {LOSS_REL}); "
@@ -303,12 +320,15 @@ def main(argv=None) -> int:
               f"updates worst {floor['worst_update']} {floor['worst_update_rel']:.3e} (not held) "
               f"| {card}", flush=True)
     print(json.dumps({"ok": ok, "nproc": args.nproc, "config": args.config, "device": card,
-                      "seq": args.seq, "tensor": args.tensor, "batch": batch,
+                      "fsdp": args.fsdp, "seq": args.seq, "tensor": args.tensor,
+                      "batch": batch, "steps": STEPS,
                       "dropout": args.dropout, "float32": args.float32,
                       **check,
                       "worst_update_rel": rels[worst], "worst_update": worst,
                       "floor": floor,
-                      "placeholders": placeholders, "seconds": {"n": n_s, "1": one_s}}),
+                      "placeholders": placeholders, "seconds": {"n": n_s, "1": one_s},
+                      "peak_memory_bytes": {"n": n_res["peak_memory_bytes"],
+                                            "1": one["peak_memory_bytes"]}}),
           flush=True)
     return 0 if ok else 1
 

@@ -24,10 +24,23 @@
   and at each rank of world 2, a corrupt scan as the placeholder, over two
   epochs with the lookahead; ``close()`` leaves no live thread.
 * The ``csv`` manifest reader gives the rows ``pandas.read_csv`` gives.
+
+The JAX package builds its decoder in place (``g++ -o
+native/libheadct_native.so``) from every process that imports its tests,
+so under ``pytest -n`` a worker can load the library while another writes
+it, and its loader then keeps the failure for the life of the process.
+``_heal_jax_native`` runs at import, under a file lock in ``build/``:
+it waits for the library to settle, clears that cached failure and loads
+it again, a few times. It builds nothing itself (a rebuild would write the
+file in place under the JAX tests' workers, which take no lock). Every
+test here fails, and none skips, when the library does not load.
 """
 
+import fcntl
 import os
 import threading
+import time
+from pathlib import Path
 
 import numpy as np
 import pandas as pd
@@ -45,6 +58,67 @@ from headct_foundation_tpu_torch.data import datasets, native_loader, pipeline
 from headct_foundation_tpu_torch.data.device_preprocess import DevicePreprocessor
 from headct_foundation_tpu_torch.data.nifti import save_nifti
 from headct_foundation_tpu_torch.data.transforms import hu16_encode
+
+REPO = Path(__file__).resolve().parent.parent
+SETTLE_S = 2.0  # seconds the JAX library must stay unchanged before it is loaded
+SETTLE_TIMEOUT_S = 600.0
+
+
+def _stat(path: Path):
+    try:
+        st = path.stat()
+    except FileNotFoundError:
+        return None
+    return st.st_ino, st.st_size, st.st_mtime_ns
+
+
+def _settle(path: Path) -> None:
+    """Wait until ``path`` (present or not) has stayed as it is for
+    ``SETTLE_S``: no other process is then writing it."""
+    deadline = time.monotonic() + SETTLE_TIMEOUT_S
+    last = _stat(path)
+    while time.monotonic() < deadline:
+        time.sleep(SETTLE_S)
+        now = _stat(path)
+        if now == last:
+            return
+        last = now
+    raise RuntimeError(f"{path} kept changing for {SETTLE_TIMEOUT_S:.0f} s")
+
+
+def _heal_jax_native() -> str:
+    """Load the JAX package's native library in this process, past a load
+    that met a half-written file: wait for the file to settle, forget the
+    cached failure and load again (a few times). Builds nothing itself.
+    Returns "" or why the library cannot be loaded."""
+    if jax_native._LIB is not None:
+        return ""
+    lock = REPO / "build" / "jax_native.lock"
+    lock.parent.mkdir(parents=True, exist_ok=True)
+    with open(lock, "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            for _ in range(3):
+                _settle(Path(jax_native._SO))
+                with jax_native._LIB_LOCK:
+                    jax_native._LIB, jax_native._LIB_FAILED = None, False
+                if jax_native.get_lib() is not None:
+                    return ""
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+    return (f"the JAX native library {jax_native._SO} does not load after it settled "
+            f"(3 tries): see the JAX package's native_loader")
+
+
+JAX_NATIVE_ERROR = _heal_jax_native()
+
+
+@pytest.fixture(autouse=True)
+def jax_native_library():
+    """Fail, never skip, without the JAX package's decoder."""
+    if JAX_NATIVE_ERROR:
+        pytest.fail(JAX_NATIVE_ERROR)
+
 
 ROI = (24, 24, 24)
 FLIP_PERMUTE = np.array([[0.0, -1.0, 0.0, 0.0], [1.5, 0.0, 0.0, 0.0],

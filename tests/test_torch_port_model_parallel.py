@@ -13,7 +13,8 @@ the decoder has T = 71 tokens and the encoder 29, both odd, so both pad to
   JAX's weights and with its mask and augmentation draws, at dropout 0;
 * the port's one-process step on the same inputs, at dropout 0 and 0.25
   (the masks drawn by each rank as the global batch's, its slice taken) with
-  ``GRAD_CLIP`` 1.0 (the clip's norm of a split parameter is over its shards).
+  ``GRAD_CLIP`` 1.0 (the clip's norm of a split parameter is over its shards),
+  and with Lamb (its trust ratio's two norms over the shards too).
 
 Limits (float32): the loss within 1e-5 relative; the first step's gradients
 and the two AdamW updates (parameters after less before), each tensor
@@ -141,7 +142,9 @@ def runs(tmp_path_factory):
     cases = [dict(name="jax", total_steps=20, warmup=0, batches=batches, draws=draws,
                   weights=init_j, checkpoint=True),
              dict(name="dropout", total_steps=20, warmup=0, batches=batches,
-                  opts=["MAE.DROPOUT_RATE", 0.25, "TRAIN.GRAD_CLIP", 1.0])]
+                  opts=["MAE.DROPOUT_RATE", 0.25, "TRAIN.GRAD_CLIP", 1.0]),
+             dict(name="lamb", total_steps=20, warmup=0, batches=batches, draws=draws,
+                  opts=["TRAIN.OPTIMIZER", "Lamb", "TRAIN.GRAD_CLIP", 1.0])]
     four = _launch(dict(opts=OPTS + MESH, cases=cases, grid=GRID), out, 4)
     one = {c["name"]: _one_process({**c, "checkpoint": False}, out) for c in cases}
     return dict(four=four, one=one, out=out, losses_j=losses_j, loss_j=loss_j,
@@ -175,10 +178,11 @@ def test_four_processes_match_the_jax_mesh_step(runs):
     _assert_updates_close(got, runs["params_j"], runs["init_j"], "JAX mesh")
 
 
-@pytest.mark.parametrize("case", ["jax", "dropout"])
+@pytest.mark.parametrize("case", ["jax", "dropout", "lamb"])
 def test_four_processes_match_one_process(runs, case):
     """The four ranks against the port's one-process step on the same
-    batches, draws and (for ``dropout``) dropout generators."""
+    batches, draws and (for ``dropout``) dropout generators; ``lamb`` takes
+    Lamb's trust ratio with each split tensor's norms over its shards."""
     got, want = runs["four"][case], runs["one"][case]
     np.testing.assert_allclose(got["losses"], want["losses"], rtol=LOSS_REL)
     for name, g in want["grads"].items():
@@ -288,18 +292,25 @@ def test_seq_shards_against_gathered_keys_match_whole_attention(s):
 
 @pytest.mark.parametrize("axis", ["FSDP", "PIPE", "SEQ", "TENSOR"])
 def test_unported_axes_still_raise(axis):
-    """FSDP and PIPE above 1 raise when the mesh is laid out, and in the
-    MAE engine; SEQ and TENSOR raise in the DINO and downstream engines."""
+    """PIPE above 1 raises when the mesh is laid out and in every engine.
+    FSDP, SEQ and TENSOR lay out (at a world they divide), and a single
+    process with one of them above 1 raises in every engine: it has no
+    ranks to split over."""
     cfg = worker.config(OPTS + [f"PARALLEL.{axis}", 2], GRID)
-    if axis in ("FSDP", "PIPE"):
-        with pytest.raises(NotImplementedError, match=f"PARALLEL.{axis} = 2 is not ported"):
+    makes = (lambda: mae_engine.create_train_state(cfg, 10, 0, device="cpu"),
+             lambda: dino_engine.create_train_state(cfg, 10, 0, 1, device="cpu"),
+             lambda: downstream_engine.create_train_state(cfg, 10, 0, device="cpu"))
+    if axis == "PIPE":
+        with pytest.raises(NotImplementedError, match="PARALLEL.PIPE = 2 is not ported"):
             distributed.init_from_env("cpu", config=cfg)
-        with pytest.raises(NotImplementedError, match=f"PARALLEL.{axis} = 2"):
-            mae_engine.create_train_state(cfg, 10, 0, device="cpu")
+        for make in makes:
+            with pytest.raises(NotImplementedError, match="PARALLEL.PIPE = 2"):
+                make()
         return
-    for make in (lambda: dino_engine.create_train_state(cfg, 10, 0, 1, device="cpu"),
-                 lambda: downstream_engine.create_train_state(cfg, 10, 0, device="cpu")):
-        with pytest.raises(NotImplementedError, match="outside the MAE step"):
+    assert mesh.layout(world=4, **{axis.lower(): 2}) == tuple(
+        2 if a == axis.lower() else (2 if a == "data" else 1) for a in mesh.MESH_AXES)
+    for make in makes:
+        with pytest.raises(ValueError, match=f"PARALLEL.{axis} = 2 but the process's mesh"):
             make()
 
 
@@ -320,7 +331,8 @@ def test_cli_under_torchrun_at_seq_and_tensor_resumes_in_one_process(tmp_path):
     assert r.returncode == 0, r.stderr[-3000:]
     result = json.loads(next(line for line in r.stdout.splitlines()[::-1]
                              if line.startswith('{"cli"')))["cli"]
-    assert result["world"] == 4 and result["mesh"] == {"data": 1, "seq": 2, "tensor": 2}
+    assert result["world"] == 4
+    assert result["mesh"] == {"data": 1, "fsdp": 1, "seq": 2, "tensor": 2}
     assert result["placeholders"] == 0 and np.isfinite(result["epochs"][0]["train"]["loss"])
     latest = str(tmp_path / "model_saved" / "latest_debug.pt")
     log, result = _cli(["--cfg", cfg, "--device", "cpu", "--model_load_path", latest,

@@ -245,26 +245,24 @@ def test_optimizer_and_engine_guards():
 
 @pytest.mark.parametrize("axis", ["FSDP", "TENSOR", "SEQ", "PIPE"])
 def test_unported_parallel_axes_raise(axis):
-    """PARALLEL.FSDP and PIPE above 1 raise in the MAE engine, naming the
-    key; SEQ and TENSOR, which the MAE step takes, still raise in the DINO
-    and downstream engines, and in a single process the MAE engine refuses
-    them for want of the ranks to split over (tests/
-    test_torch_port_model_parallel.py runs them)."""
+    """PARALLEL.PIPE above 1 raises in every engine, naming the key. FSDP,
+    SEQ and TENSOR, which every engine takes, raise in a single process for
+    want of the ranks to split over (tests/test_torch_port_model_parallel.py
+    and tests/test_torch_port_fsdp.py run them)."""
     from headct_foundation_tpu_torch.engines import dino_engine, downstream_engine
 
     _, cfg = _configs()
     setattr(cfg.PARALLEL, axis, 2)
-    if axis in ("FSDP", "PIPE"):
-        with pytest.raises(NotImplementedError, match=f"PARALLEL.{axis} = 2"):
-            mae_engine.create_train_state(cfg, 10, 0, device="cpu")
-        return
-    with pytest.raises(ValueError, match=f"PARALLEL.{axis} = 2 but the process's mesh"):
-        mae_engine.create_train_state(cfg, 10, 0, device="cpu")
-    for make in (lambda: dino_engine.create_train_state(cfg, 10, 0, 1, device="cpu"),
-                 lambda: downstream_engine.create_train_state(cfg, 10, 0, device="cpu")):
-        with pytest.raises(NotImplementedError, match=f"PARALLEL.{axis} = 2 is not ported "
-                                                      "outside the MAE step"):
-            make()
+    makes = (lambda: mae_engine.create_train_state(cfg, 10, 0, device="cpu"),
+             lambda: dino_engine.create_train_state(cfg, 10, 0, 1, device="cpu"),
+             lambda: downstream_engine.create_train_state(cfg, 10, 0, device="cpu"))
+    for make in makes:
+        if axis == "PIPE":
+            with pytest.raises(NotImplementedError, match="PARALLEL.PIPE = 2 is not ported"):
+                make()
+        else:
+            with pytest.raises(ValueError, match=f"PARALLEL.{axis} = 2 but the process's mesh"):
+                make()
 
 
 @pytest.mark.parametrize("name", ["mae_HeadCT.yaml", "mae_HeadCT_192.yaml"])
