@@ -16,7 +16,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
              ||kernel - plain|| / ||plain|| <= BF16_REL_L2. The forward (B1;
              bf16 on the wgmma kernel of csrc/flash_fwd_sm90.cuh, float32 on
              the 3xTF32 kernel of csrc/flash_fwd_f32_sm90.cuh) is held at
-             the serving, MAE decoder and DINO student and teacher shapes
+             the serving, MAE decoder (and its pipe microbatches
+             [16,513,16,48] and [8,513,16,48], B2 too) and DINO student and
+             teacher shapes
              ([256,517,12,64] and [128,517,12,64] bf16) and, in both types, at the
              edges of its key tiles and 128-row blocks, head dims 12 to 128
              and a view 4 elements into its storage; two runs must be
@@ -152,6 +154,16 @@ Phases, each printing a line; any failure raises and exits non-zero:
              for bit, a predictions pickle of the test manifest, the warm
              start's merged count printed, the mean AUROC printed (random
              labels: no bound).
+12b. tools - on the cli phase's files: ``tools.build_cache --packed`` of the
+             32 heads (each tensor byte-equal to a cache miss) serving the MAE
+             main's next epoch from the packed index alone (0 placeholders,
+             no per-volume file written, 8 B1 + 8 B2 per step);
+             ``tools.export_torch`` of its latest_ into FeatureExtractor on
+             the card (CLS of 8 heads bit-equal to the pickle's, 12 B1 at
+             [8,513,12,64] float32); ``tools.parity_check`` on its oracle
+             checkpoint at ViT-B/12 (every cosine >= 0.999, 12 B1); the
+             on-card preprocessing against the scipy chain (HEADCT_NATIVE=0)
+             at the JAX tests' native-vs-scipy limits.
 13. stretch - the long-context MAE step of configs/mae/mae_HeadCT_192.yaml at
              full width (192^3, patch 12: encoder T=1025 at 12 heads x 64,
              decoder T=4097 at 16 heads x 48) on batches of 2 synthetic hu16
@@ -217,6 +229,17 @@ Phases, each printing a line; any failure raises and exits non-zero:
              main (DINO's fsdp and tensor runs in float32 at batch 32; a
              downstream miss printed, not raised), else one line says they
              did not run.
+20b. pipe  - GPipe (``parallel/pipeline.py``) of the flagship MAE at batch 32
+             bf16, its stages emulated in this process through the per-stage
+             forward and backward of ``pipeline_apply``: PIPE 2 at M = 2 and
+             4 and PIPE 4 at M = 4 against the unpipelined step (loss and
+             every gradient within TRAIN_TOL), exactly (8 / S) x M B1 + as
+             many B2 per stage; the clip over the stacked leaves against the
+             stacked tensors' clip; the stacked checkpoint at full width
+             warm-started into one process bit for bit; B1/B2 at
+             [16,513,16,48] and [8,513,16,48] in the kernels phase; with two
+             cards or more ``tools/check_data_parallel.py --pipe 2`` (and
+             ``--nproc 4 --pipe 2`` on four).
 21. tm     - the token-major attention tool: kernels B7 and B8 against their
              plain versions at the tool's four shapes (bf16) and at float32
              and ragged ones, and against B1 and B2 on the same inputs (bit
@@ -231,6 +254,7 @@ cuBLAS and cuDNN): the serving forward is float32, like the JAX package's.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import http.client
 import json
 import logging
@@ -267,6 +291,10 @@ DINO_TEACHER = (128, 517, 12, 64)
 # the downstream fine-tune at batch 64: 512 patches + CLS, 12 heads x 64; LoRA
 # hands q and v over as fresh tensors and k as a view of the fused projection
 DOWNSTREAM = (64, 513, 12, 64)
+# the 96^3 decoder's microbatches under pipe at the flagship batch of 32: a
+# PIPE 2 stage at M = 2, and a PIPE 4 stage at M = 4 (or PIPE 2 at M = 4)
+PIPE_2 = (16, 513, 16, 48)
+PIPE_4 = (8, 513, 16, 48)
 LORA = "lora"  # a case's layout: q, v contiguous, k a view of [B, T, 3 H D]
 KERNEL_CASES = [  # (shape [B, T, H, D], dtype, atol, rtol, storage offset) for O; LSE at
     # 1e-4 / 1e-4; reruns bit-identical. q, k, v are strided views of one [B, T, 3, H, D].
@@ -281,6 +309,8 @@ KERNEL_CASES = [  # (shape [B, T, H, D], dtype, atol, rtol, storage offset) for 
     (DINO_STUDENT, torch.bfloat16, 2e-2, 2e-2, 0),         # DINO student and teacher, every
     (DINO_TEACHER, torch.bfloat16, 2e-2, 2e-2, 0),         # block (5 rows in the last tile)
     (DOWNSTREAM, torch.bfloat16, 2e-2, 2e-2, 0, LORA),     # downstream fine-tune and LoRA
+    (PIPE_2, torch.bfloat16, 2e-2, 2e-2, 0),               # the MAE decoder's pipe
+    (PIPE_4, torch.bfloat16, 2e-2, 2e-2, 0),               # microbatches
     ((2, 129, 3, 32), torch.float32, 2e-5, 1e-4, 0),       # ragged tiles
     ((2, 9, 3, 12), torch.float32, 2e-5, 1e-4, 0),
     ((2, 129, 3, 32), torch.bfloat16, 2e-2, 2e-2, 0),      # the tensor-core path's other
@@ -318,6 +348,8 @@ BWD_CASES = [  # (shape, dtype, atol, rtol, storage offset) for dq, dk, dv again
     (MAE_DECODER, torch.bfloat16, 2e-2, 2e-2, 0),          # MAE decoder (main path)
     (DINO_STUDENT, torch.bfloat16, 2e-2, 2e-2, 0),         # DINO student (main path)
     (DOWNSTREAM, torch.bfloat16, 2e-2, 2e-2, 0, LORA),     # downstream fine-tune and LoRA
+    (PIPE_2, torch.bfloat16, 2e-2, 2e-2, 0),               # the MAE decoder's pipe
+    (PIPE_4, torch.bfloat16, 2e-2, 2e-2, 0),               # microbatches
     (MAE_DECODER, torch.float32, 1e-4, 1e-3, 0),
     ((2, 129, 3, 32), torch.float32, 1e-4, 1e-3, 0),       # ragged tiles
     ((2, 9, 3, 12), torch.float32, 1e-4, 1e-3, 0),
@@ -615,7 +647,8 @@ def phase_bwd_kernels(fused_attention, fused_attention_bwd, fused_attention_bwd_
         check(ok, f"flash_attention_bwd disagrees with its plain version at {shape} {dtype} "
                   f"offset {offset}")
         row = {"max_abs_err": max(errs)}
-        if shape in (MAE_DECODER, DINO_STUDENT, DOWNSTREAM) and dtype == torch.bfloat16:
+        if shape in (MAE_DECODER, DINO_STUDENT, DOWNSTREAM, PIPE_2, PIPE_4) \
+                and dtype == torch.bfloat16:
             time_bwd(fused_attention_bwd, fused_attention_bwd_reference, row, q, k, v, o, do,
                      lse, shape, dtype)
         results[(shape, dtype)] = row
@@ -3100,6 +3133,333 @@ def tensor_heads_case(shape, t: int, card: str, label: str, backward: bool = Tru
     return {"timing": record, "launches": {x: n[x] for x in names}}
 
 
+PIPE_LAYOUTS = [(2, 2), (2, 4), (4, 4)]  # (S stages, M microbatches) of the pipe phase
+PIPE_CLIPS = (1.0, 1e-3)   # the pipe phase's clip steps: the 96^3 recipe's value
+                           # (inactive at random init) and one that clips every leaf
+
+
+def _grads_of(model, names, loss_fn) -> tuple:
+    """(loss, {name: gradient}) of one forward and backward of ``loss_fn``."""
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn()
+    loss.backward()
+    params = dict(model.named_parameters())
+    grads = {n: params[n].grad.detach().clone() for n in names}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    return torch.nn.functional.cosine_similarity(a.flatten().double(), b.flatten().double(),
+                                                 dim=0).item()
+
+
+def phase_pipe(card: str) -> dict:
+    """``pipe`` (GPipe, ``parallel/pipeline.py``) of the flagship MAE on one
+    card: NCCL puts no two ranks on one card, so the S stages run in this
+    process, chained microbatch by microbatch through the per-stage forward
+    and backward that ``pipeline_apply`` calls (``emulate_pipeline``), inside
+    the engine's ``pipelined_loss``. At batch 32 in bf16, from the same
+    weights, masks and batch as the unpipelined step, for each (S, M) of
+    PIPE_LAYOUTS: the loss and every trainable gradient within the 96^3
+    bf16 TRAIN_TOL of the unpipelined step's, and exactly (8 / S) x M B1 and
+    as many B2 launches per stage (8 + 8 at PIPE 2, M = 2 and at PIPE 4, M =
+    4), nothing else launched; the forward+backward timed (CUDA events)
+    beside the unpipelined one. Steps clipped at GRAD_CLIP 1.0 and 1e-3 (which
+    clips every leaf) by the port's per-parameter clip over the stacked
+    leaves (``stacked_groups``) against the unpipelined gradients clipped by
+    the norms of the stacked tensors (``torch.stack`` over the layers): each
+    stacked leaf's clipped norm within 1e-2 and its cosine within TRAIN_TOL. The stacked PIPE
+    checkpoint written at full width (as a PIPE state's ``jax_trees`` give
+    it: ``blocks`` [12, ...], ``decoder_blocks`` [8, ...]) and read back by a
+    one-process warm start, every trunk tensor bit-equal. On a machine with
+    two cards or more ``tools.check_data_parallel --pipe 2`` (and with four
+    ``--nproc 4 --pipe 2``, DATA 2 x PIPE 2), else a line says they did not
+    run."""
+    from headct_foundation_tpu_torch.config import default_config
+    from headct_foundation_tpu_torch.data.augment import apply_mae_augment, draw_mae_augment
+    from headct_foundation_tpu_torch.data.device_preprocess import wire_to_compute
+    from headct_foundation_tpu_torch.engines import mae_engine
+    from headct_foundation_tpu_torch.optim.optimizers import clip_by_per_param_norm
+    from headct_foundation_tpu_torch.parallel import pipeline
+    from headct_foundation_tpu_torch.utils import checkpoint
+    from headct_foundation_tpu_torch.utils.torch_interop import load_pretrained_into
+
+    dev = torch.device("cuda")
+    cfg = default_config()
+    cfg.merge_from_file(str(ROOT / MAE_CONFIG))
+    cfg.merge_from_list(["DATA.WIRE_FORMAT", "hu16"])
+    state, _ = mae_engine.create_train_state(cfg, 10, 1, seed=0, device=dev)
+    model = state.model
+    model.train()
+    g = mae_engine.step_generator(dev, 11, 0, 0)
+    wire = torch.from_numpy(head_phantoms(500, TRAIN_BATCH)).to(dev)
+    noise = torch.rand((TRAIN_BATCH, int(np.prod(model.grid_size))), generator=g, device=dev)
+    batch = apply_mae_augment(wire_to_compute(wire, cfg, cfg.MAE.IN_CHANS),
+                              draw_mae_augment(TRAIN_BATCH, g, dev))
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    zero_launches()
+    ref_loss, ref = _grads_of(model, names, lambda: model(batch, noise=noise)[0])
+    ref_launches = launches()
+    check(ref_launches["flash_attention_fwd"] == 8 and ref_launches["flash_attention_bwd"] == 8,
+          f"pipe: the unpipelined step launched {ref_launches}")
+    ref_ms = cuda_ms(lambda: model(batch, noise=noise)[0].backward(), iters=3, warmup=1)
+    model.zero_grad(set_to_none=True)
+    tol = TRAIN_TOL[torch.bfloat16]
+    out = {"layouts": [], "launches": {"flash_attention_fwd": 0, "flash_attention_bwd": 0}}
+    clip_grads = None
+    for S, M in PIPE_LAYOUTS:
+        per_stage = [dict.fromkeys(kernel_wrappers(), 0) for _ in range(S)]
+
+        @contextlib.contextmanager
+        def on_stage(s):
+            before = launches()
+            yield
+            for k, v in launches().items():
+                per_stage[s][k] += v - before[k]
+
+        def trunk(blocks, x, S=S, M=M):
+            return pipeline.emulate_pipeline(pipeline.split_stages(blocks, S), x, M, on_stage)
+
+        zero_launches()
+        loss, got = _grads_of(model, names,
+                              lambda: mae_engine.pipelined_loss(model, batch, noise, trunk))
+        total = launches()
+        per = cfg.MAE.DECODER_DEPTH // S * M
+        want = {k: (per if k in ("flash_attention_fwd", "flash_attention_bwd") else 0)
+                for k in per_stage[0]}
+        check(all(st == want for st in per_stage),
+              f"pipe S={S} M={M}: launches per stage {per_stage}; expected {want} each")
+        check(total == {k: S * v for k, v in want.items()},
+              f"pipe S={S} M={M}: launches {total}")
+        rel = abs(loss - ref_loss) / abs(ref_loss)
+        cos = min(_cosine(got[n], ref[n]) for n in names)
+        ok = rel <= tol["loss_rel"] and cos >= tol["grad_cos"]
+        ms = cuda_ms(lambda: mae_engine.pipelined_loss(model, batch, noise, trunk).backward(),
+                     iters=3, warmup=1)
+        model.zero_grad(set_to_none=True)
+        shape = PIPE_2 if TRAIN_BATCH // M == PIPE_2[0] else PIPE_4
+        print(f"pipe: PIPE {S}, M {M} emulated on one card at batch {TRAIN_BATCH} bf16: loss "
+              f"{loss:.6f} vs unpipelined {ref_loss:.6f} (relative {rel:.3e}, tolerance "
+              f"{tol['loss_rel']}); over {len(names)} trainable gradients min cosine {cos:.6f} "
+              f"(tolerance {tol['grad_cos']}) {'ok' if ok else 'FAILED'}; launches per stage "
+              f"{per} B1 + {per} B2 at {list(shape)}, nothing else, exactly; forward+backward "
+              f"{ms:.2f} ms against the unpipelined {ref_ms:.2f} ms (CUDA events, the stages "
+              f"in series) | {card}", flush=True)
+        check(ok, f"pipe S={S} M={M}: the pipelined step disagrees with the unpipelined one")
+        out["layouts"].append({"S": S, "M": M, "shape": list(shape), "loss_rel": rel,
+                               "grad_cos_min": cos, "per_stage": per, "ms": ms,
+                               "unpipelined_ms": ref_ms})
+        for k in out["launches"]:
+            out["launches"][k] += total[k]
+        if (S, M) == PIPE_LAYOUTS[0]:
+            clip_grads = got
+
+    # the clip over the stacked leaves against the stacked tensors' own norms:
+    # GRAD_CLIP 1.0 (inactive on these gradients) and one that clips every leaf
+    params = dict(model.named_parameters())
+    stacked = pipeline.stacked_groups(model, emulated=True)
+    by_leaf = {}
+    for n in names:
+        m = re.match(r"^(blocks|decoder_blocks)\.(\d+)\.(.+)$", n)
+        by_leaf.setdefault(f"{m.group(1)}.{m.group(3)}" if m else n, []).append(n)
+    out["clip"] = []
+    for clip in PIPE_CLIPS:
+        for n in names:
+            params[n].grad = clip_grads[n].clone()
+        clip_by_per_param_norm(model.parameters(), clip, stacked=stacked)
+        worst_norm, worst_cos, clipped = 0.0, 1.0, 0
+        for leaf, members in by_leaf.items():
+            want = torch.stack([ref[n].float() for n in members])
+            coef = min(clip / (want.norm().item() + 1e-6), 1.0)
+            clipped += coef < 1.0
+            want = want * coef
+            got = torch.stack([params[n].grad.float() for n in members])
+            worst_norm = max(worst_norm, abs(got.norm().item() - want.norm().item())
+                             / max(want.norm().item(), 1e-30))
+            worst_cos = min(worst_cos, _cosine(got, want))
+        model.zero_grad(set_to_none=True)
+        ok = worst_norm <= 1e-2 and worst_cos >= tol["grad_cos"] and (clip >= 1.0 or clipped)
+        print(f"pipe: GRAD_CLIP {clip} over the stacked leaves (PIPE 2, M 2) against the "
+              f"unpipelined gradients clipped by their stacked tensors' norms: {len(by_leaf)} "
+              f"leaves, {clipped} clipped; worst clipped-norm difference {worst_norm:.3e} (limit "
+              f"1e-2), min cosine {worst_cos:.6f} {'ok' if ok else 'FAILED'} | {card}", flush=True)
+        check(ok, f"pipe: the stacked-leaf clip at {clip} disagrees with the stacked tensors'")
+        out["clip"].append({"clip": clip, "leaves": len(by_leaf), "clipped": clipped,
+                            "norm_rel": worst_norm, "cos_min": worst_cos})
+
+    # the stacked checkpoint at full width, and a one-process warm start from it
+    pipe_cfg = cfg.clone()
+    pipe_cfg.defrost()
+    pipe_cfg.PARALLEL.PIPE = 2
+    state.config = pipe_cfg
+    build = ROOT / "build"
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        t0 = time.perf_counter()
+        path = checkpoint.save_checkpoint(state, 0, 1.0, tmp, "pipe.ckpt")
+        write_s = time.perf_counter() - t0
+        state.config = cfg
+        payload = checkpoint.load_checkpoint(path)
+        depths = (payload["params"]["blocks"]["attn"]["qkv"]["kernel"].shape[0],
+                  payload["params"]["decoder_blocks"]["attn"]["qkv"]["kernel"].shape[0])
+        del payload
+        fresh, _ = mae_engine.create_train_state(cfg, 10, 1, seed=7, device=dev)
+        missing, unexpected = load_pretrained_into(fresh.model, path)
+        mine = fresh.model.state_dict()
+        trunk_names = [n for n in model.state_dict() if n.startswith(pipeline.TRUNKS)]
+        same = all(torch.equal(mine[n], t) for n, t in model.state_dict().items())
+        nbytes = os.path.getsize(path)
+    ok = depths == (12, 8) and not missing and not unexpected and same
+    print(f"pipe: the stacked checkpoint ({nbytes / 2**20:.1f} MiB, blocks [{depths[0]}, ...], "
+          f"decoder_blocks [{depths[1]}, ...]) written in {write_s:.2f} s and warm-started into "
+          f"one process: {len(missing)} missing, {len(unexpected)} unexpected, every tensor "
+          f"({len(trunk_names)} in the trunks) bit-equal {same} {'ok' if ok else 'FAILED'} "
+          f"| {card}", flush=True)
+    check(ok, "pipe: the stacked checkpoint did not warm-start every trunk tensor")
+    del fresh, state, model
+    torch.cuda.empty_cache()
+    runs = [(MAE_CONFIG, ["--nproc", "2", "--pipe", "2"])]
+    if torch.cuda.device_count() >= 4:
+        runs.append((MAE_CONFIG, ["--nproc", "4", "--pipe", "2"]))
+    out["multi"] = multi_card_runs("pipe", runs)
+    return out
+
+
+def phase_tools(workdir: Path, card: str) -> dict:
+    """The four tools and the scipy chain on the cli phase's files:
+
+    * ``tools.build_cache --packed`` over the 32 heads (the cli config's
+      windowed wire at 96^3): each packed tensor byte-equal to an uncached
+      ``DiskCache`` miss; the per-volume files removed, the MAE main's next
+      epoch (``TRAIN.MAX_EPOCHS 1`` on the cli manifests) served from the
+      packed index alone: exit 0, 0 placeholders, no per-volume file written,
+      8 B1 + 8 B2 per train step and 8 B1 per eval batch;
+    * ``tools.export_torch`` of the cli phase's ``latest_`` to a reference
+      ``.pt``, loaded into ``FeatureExtractor`` on the card: the CLS of 8
+      heads bit-equal to the extractor loaded from the pickle, 12 B1 counted
+      at [8,513,12,64] float32;
+    * ``tools.parity_check --make-oracle-ckpt`` at ViT-B/12, then the check on
+      8 heads (the port's chain on the card against the oracle on the CPU on
+      the scipy preprocessing): every cosine >= 0.999, 12 B1 counted;
+    * the on-card preprocessing chain (the cache's ``device`` backend)
+      against the scipy chain (``python``, HEADCT_NATIVE=0) on 8 heads:
+      windowed max < 2e-2 and mean < 1e-4 (the JAX tests' native-vs-scipy
+      limits), hu16 steps printed."""
+    from headct_foundation_tpu_torch.data import datasets
+    from headct_foundation_tpu_torch.feature_extraction import FeatureExtractor
+    from headct_foundation_tpu_torch.tools import build_cache, export_torch, parity_check
+
+    scans = [str(workdir / f"scan{1000 + i}.nii.gz") for i in range(CLI_SCANS)]  # phase_cli's
+    check(all(os.path.exists(p) for p in scans), "tools: the cli phase's heads are missing")
+    roi = (96, 96, 96)
+    (workdir / "unique.csv").write_text("img_path\n" + "".join(f"{p}\n" for p in scans))
+    packed = workdir / "packed"
+    t0 = time.perf_counter()
+    counts = build_cache.build(str(workdir / "unique.csv"), str(packed), roi=roi[0],
+                               in_chans=3, wire="windowed", workers=8, packed=True,
+                               log=lambda *a: None)
+    build_s = time.perf_counter() - t0
+    check(counts == {"done": CLI_SCANS, "errors": 0, "packed": CLI_SCANS, "skipped": 0},
+          f"tools: build_cache {counts}")
+    reader = datasets.PackedShardReader.open(str(packed))
+    cache, uncached = datasets.DiskCache(str(packed), roi, 3), datasets.DiskCache(None, roi, 3)
+    differ = [p for p in scans if not np.array_equal(reader.get(cache.key(p)),
+                                                     uncached.load(p))]
+    check(not differ, f"tools: packed tensors differ from a cache miss: {differ[:3]}")
+    for f in packed.glob("*.npy"):
+        f.unlink()
+    opts = ["DATA.TRAIN_CSV_PATH", str(workdir / "train.csv"),
+            "DATA.VAL_CSV_PATH", str(workdir / "val.csv"),
+            "DATA.TEST_CSV_PATH", str(workdir / "test.csv"), "DATA.CACHE_DIR", str(packed),
+            "MODEL.DIR", str(workdir / "model_tools"), "LOG.OUTPUT_DIR", str(workdir / "log_tools"),
+            "OUTPUT", "", "TRAIN.VAL_EVERY", "1", "TRAIN.MAX_EPOCHS", "1"]
+    _, result, wall = run_cli(["--cfg", MAE_CONFIG, "--device", "cuda", "--opts", *opts],
+                              "tools build_cache epoch", module="main_pretrain_mae")
+    runs = check_cli_launches(result, "tools", {"flash_attention_fwd": 8,
+                                                "flash_attention_bwd": 8},
+                              {"flash_attention_fwd": 8})
+    written = list(packed.glob("*.npy"))
+    check(result["placeholders"] == 0 and not written,
+          f"tools: the packed cache's epoch: {result['placeholders']} placeholders, "
+          f"{len(written)} per-volume files written")
+    print(f"tools: build_cache --packed of {CLI_SCANS} heads in {build_s:.2f} s (8 threads, "
+          f"host clock), each tensor byte-equal to a cache miss; the MAE main's epoch on the "
+          f"packed index alone: exit 0 in {wall:.2f} s, 0 placeholders, no per-volume file, "
+          f"launches {json.dumps(runs)} | {card}", flush=True)
+
+    latest = workdir / "model_saved" / "latest_mae_headct.ckpt"
+    pt = workdir / "export.pt"
+    export_torch.export(str(latest), str(pt))
+    heads = scans[:EXTRACT_BATCH]
+    from_pickle = FeatureExtractor(checkpoint_path=str(latest), device="cuda")
+    want = from_pickle.extract_from_files(heads, batch_size=EXTRACT_BATCH)
+    del from_pickle
+    from_pt = FeatureExtractor(checkpoint_path=str(pt), device="cuda")
+    zero_launches()
+    got = from_pt.extract_from_files(heads, batch_size=EXTRACT_BATCH)
+    export_launches = launches()
+    del from_pt
+    ok = (np.array_equal(got, want) and export_launches["flash_attention_fwd"] == 12
+          and sum(export_launches.values()) == 12)
+    print(f"tools: export_torch of {latest.name} -> {pt.name} ({pt.stat().st_size / 2**20:.1f} "
+          f"MiB) into FeatureExtractor on the card: CLS of {len(heads)} heads bit-equal to the "
+          f"pickle's {np.array_equal(got, want)}, launches {export_launches} "
+          f"{'ok' if ok else 'FAILED'} | {card}", flush=True)
+    check(ok, "tools: the exported .pt does not give the pickle's CLS with 12 B1")
+
+    head_dir = workdir / "parity_heads"
+    head_dir.mkdir()
+    for p in heads:
+        os.symlink(p, head_dir / Path(p).name)
+    oracle = workdir / "oracle.pt"
+    parity_check.run(["--make-oracle-ckpt", str(oracle)])
+    zero_launches()
+    t0 = time.perf_counter()
+    report = parity_check.run(["--checkpoint", str(oracle), "--nifti-dir", str(head_dir),
+                               "--device", "cuda"])
+    parity_s = time.perf_counter() - t0
+    parity_launches = launches()
+    ok = report["pass"] and parity_launches["flash_attention_fwd"] == 12
+    print(f"tools: parity_check on its oracle checkpoint (ViT-B/12 at 96^3), {report['n_scans']} "
+          f"heads: min cosine {report['min_cosine']:.6f}, mean {report['mean_cosine']:.6f} "
+          f"(threshold 0.999), {'PASS' if report['pass'] else 'FAIL'} in {parity_s:.2f} s; "
+          f"launches {parity_launches} | {card}", flush=True)
+    check(ok, "tools: parity_check failed on its oracle checkpoint")
+
+    def caches(env):
+        os.environ.update(env)
+        try:
+            return {w: datasets.DiskCache(None, roi, 3, wire=w, device="cuda")
+                    for w in ("windowed", "hu16")}
+        finally:
+            for k in env:
+                os.environ.pop(k, None)
+
+    on_card, scipy_chain = caches({"HEADCT_DEVICE_CACHE": "1"}), caches({"HEADCT_NATIVE": "0"})
+    check(scipy_chain["windowed"].backend == "python" and on_card["hu16"].backend == "device",
+          "tools: the backends were not the device and the python ones")
+    mx = mean = 0.0
+    steps = 0
+    t0 = time.perf_counter()
+    for p in heads:
+        d = np.abs(on_card["windowed"].load(p).astype(np.float32)
+                   - scipy_chain["windowed"].load(p).astype(np.float32))
+        mx, mean = max(mx, float(d.max())), max(mean, float(d.mean()))
+        steps = max(steps, int(np.abs(on_card["hu16"].load(p).astype(np.int32)
+                                      - scipy_chain["hu16"].load(p).astype(np.int32)).max()))
+    ms = (time.perf_counter() - t0) / len(heads) * 1e3
+    ok = mx < 2e-2 and mean < 1e-4
+    print(f"tools: the on-card chain against the scipy chain (HEADCT_NATIVE=0), {len(heads)} "
+          f"heads at 0.5x0.5x1.0 mm: windowed max_abs_err {mx:.3e} (limit 2e-2), worst mean "
+          f"{mean:.3e} (limit 1e-4); hu16 max {steps} steps (printed); {ms:.1f} ms per head for "
+          f"both chains and wires (host clock) {'ok' if ok else 'FAILED'} | {card}", flush=True)
+    check(ok, "tools: the on-card chain disagrees with the scipy chain")
+    return {"cli": runs, "export": export_launches["flash_attention_fwd"],
+            "parity": parity_launches["flash_attention_fwd"],
+            "parity_min_cosine": report["min_cosine"],
+            "scipy": {"max_abs_err": mx, "mean_abs_err": mean, "hu16_steps": steps}}
+
+
 def multi_card_runs(label: str, runs, recorded=()) -> dict:
     """On a machine with two cards or more, ``tools.check_data_parallel``
     for each (config, flags) of ``runs`` (torchrun against one process, at
@@ -3468,7 +3828,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         downstream_cli = phase_downstream_cli(Path(tmp), card)  # its heads, cache, MAE file
-    print(f"downstream-cli: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
+        print(f"downstream-cli: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        tools = phase_tools(Path(tmp), card)  # the cli phase's heads, manifests and latest_
+    print(f"tools: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
     torch.cuda.empty_cache()
 
     blocked = ("flash_attention_blocked_fwd", "flash_attention_blocked_dkv",
@@ -3516,6 +3880,10 @@ def main() -> int:
     fsdp = phase_fsdp(card)
     print(f"fsdp: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pipe = phase_pipe(card)
+    print(f"pipe: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
+    torch.cuda.empty_cache()
     tm_launches = phase_tm_bench()
     meshes = {"dino-mesh": dino_mesh, "downstream-mesh": downstream_mesh}
 
@@ -3551,7 +3919,13 @@ def main() -> int:
                                     dropout["runs"]["dino"]["flash_attention_fwd"],
                                 "tensor heads": tensor["launches"]["flash_attention_fwd"],
                                 **{f"{k} tensor heads": m["launches"]["flash_attention_fwd"]
-                                   for k, m in meshes.items()}},
+                                   for k, m in meshes.items()},
+                                "pipe training": pipe["launches"]["flash_attention_fwd"],
+                                "tools epoch training":
+                                    tools["cli"]["cli training"]["flash_attention_fwd"],
+                                "tools epoch eval": tools["cli"]["cli eval"]["flash_attention_fwd"],
+                                "tools export": tools["export"],
+                                "tools parity": tools["parity"]},
         "flash_attention_bwd": {"training": train["train"]["flash_attention_bwd"],
                                 "lion training": lion["train"]["flash_attention_bwd"],
                                 "cli training": cli["cli training"]["flash_attention_bwd"],
@@ -3568,7 +3942,10 @@ def main() -> int:
                                     dropout["runs"]["dino"]["flash_attention_bwd"],
                                 "tensor heads": tensor["launches"]["flash_attention_bwd"],
                                 **{f"{k} tensor heads": m["launches"]["flash_attention_bwd"]
-                                   for k, m in meshes.items()}},
+                                   for k, m in meshes.items()},
+                                "pipe training": pipe["launches"]["flash_attention_bwd"],
+                                "tools epoch training":
+                                    tools["cli"]["cli training"]["flash_attention_bwd"]},
         "flash_attention_blocked_fwd": {"stretch training": stretch["train"][blocked[0]],
                                         "stretch eval": stretch["eval"][blocked[0]],
                                         "extract grid 192":
@@ -3660,6 +4037,8 @@ def main() -> int:
             at_dino_student_shape=at(kernel_rows, DINO_STUDENT),
             at_dino_teacher_shape=at(kernel_rows, DINO_TEACHER),
             at_downstream_shape=at(kernel_rows, DOWNSTREAM),
+            at_pipe_2_shape=at(kernel_rows, PIPE_2), at_pipe_4_shape=at(kernel_rows, PIPE_4),
+            pipe_layouts=pipe["layouts"],
             at_extract_641_shape={"shape": list(EXTRACT_641), "dtype": "float32",
                                   **{k: extract["b1_641"][k] for k in timing_keys}},
             at_tensor_heads=[{"shape": c["shape"], "t": c["t"], "local": c["local"],
@@ -3672,6 +4051,7 @@ def main() -> int:
             **{k: bwd_mae[k] for k in ("ms_device", "library_ms_device")},
             at_dino_student_shape=at(bwd_rows, DINO_STUDENT),
             at_downstream_shape=at(bwd_rows, DOWNSTREAM),
+            at_pipe_2_shape=at(bwd_rows, PIPE_2), at_pipe_4_shape=at(bwd_rows, PIPE_4),
             at_tensor_heads=[{"shape": c["shape"], "t": c["t"], "local": c["local"],
                               "bit_equal": c["bit_equal"], **c["flash_attention_bwd"]}
                              for c in tensor["timings"]],

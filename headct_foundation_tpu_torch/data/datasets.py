@@ -14,10 +14,11 @@ downstream tasks (reference: src/data/datasets.py):
 * ``DiskCache`` (``:258``): one preprocessed tensor per scan, kept as
   ``<key>.npy`` or in a packed shard, under the JAX package's key (``:330``),
   so a cache directory that either package built serves the other. The
-  backends: ``native`` (the default, ``data/native_loader.py``) and
-  ``device`` (``HEADCT_DEVICE_CACHE=1``: ``DevicePreprocessor`` in the
-  training or hu16 order on the card). The JAX package's scipy backend
-  (``HEADCT_NATIVE=0``) is not ported and raises.
+  backends (``cache_backend``): ``native`` (the default for a cubic ROI,
+  ``data/native_loader.py``), ``device`` (``HEADCT_DEVICE_CACHE=1``:
+  ``DevicePreprocessor`` in the training or hu16 order on the card) and
+  ``python`` (``HEADCT_NATIVE=0`` or a non-cubic ROI: the scipy chain of
+  ``data/transforms.py``).
 * ``PretrainDataset`` (``:432``): manifest rows -> wire tensors, a corrupt or
   unreadable scan shielded to the wire format's placeholder and counted
   (reference: datasets.py:70-96). The decoder itself is built when the
@@ -65,7 +66,10 @@ from headct_foundation_tpu_torch.data.transforms import (
     HU8_PLACEHOLDER,
     HU16_PLACEHOLDER,
     hu8_encode,
+    hu16_decode,
     hu16_encode,
+    load_and_preprocess,
+    load_and_preprocess_hu16,
 )
 
 _PIPELINE_VERSION = "v1"  # the JAX package's; part of every cache key
@@ -164,26 +168,28 @@ class PackedShardReader:
 class PackedCacheWriter:
     """Append-only writer of packed shards (see ``PackedShardReader``).
 
-    Volumes stream to ``pack_<i>.bin``, ``volumes_per_shard`` each; ``close``
-    writes ``pack_index.json`` atomically. Opening over an index builds on
-    it: its entries are kept, its shards are never reopened, and new volumes
-    go to new shards. (The JAX package's rank-parallel builds tag both names
-    per rank; the reader merges their indices.)"""
+    Volumes stream to ``pack_<tag><i>.bin``, ``volumes_per_shard`` each;
+    ``close`` writes ``pack_index<tag>.json`` atomically. Opening over an
+    index of the same ``tag`` builds on it: its entries are kept, its shards
+    are never reopened, and new volumes go to new shards. Rank-parallel
+    builds (``tools/build_cache.py --shard``) give each process its own
+    ``tag``; the reader merges their indices."""
 
     def __init__(self, cache_dir: str, shape: Sequence[int], volumes_per_shard: int = 512,
-                 dtype=np.float16):
+                 dtype=np.float16, tag: str = ""):
         os.makedirs(cache_dir, exist_ok=True)
         self.cache_dir = cache_dir
         self.shape = tuple(shape)
         self.volumes_per_shard = volumes_per_shard
         self.dtype = np.dtype(dtype)
+        self.tag = tag
         self.entries: Dict[str, Tuple[str, int]] = {}
         self.shard_counts: Dict[str, int] = {}
         self._shard_idx = -1
         self._slot = volumes_per_shard  # a new shard at the first add
         self._fh = None
         self._cur_name = ""
-        prev = os.path.join(cache_dir, "pack_index.json")
+        prev = os.path.join(cache_dir, f"pack_index{tag}.json")
         if os.path.exists(prev):
             with open(prev) as f:
                 idx = json.load(f)
@@ -201,7 +207,7 @@ class PackedCacheWriter:
             self._fh.close()
         while True:
             self._shard_idx += 1
-            self._cur_name = f"pack_{self._shard_idx:05d}.bin"
+            self._cur_name = f"pack_{self.tag}{self._shard_idx:05d}.bin"
             path = os.path.join(self.cache_dir, self._cur_name)
             if not os.path.exists(path):
                 break
@@ -226,7 +232,7 @@ class PackedCacheWriter:
         index = {"meta": {"shape": list(self.shape), "dtype": self.dtype.name,
                           "shard_counts": self.shard_counts},
                  "entries": {k: [v[0], v[1]] for k, v in self.entries.items()}}
-        path = os.path.join(self.cache_dir, "pack_index.json")
+        path = os.path.join(self.cache_dir, f"pack_index{self.tag}.json")
         tmp = path + f".tmp{os.getpid()}"
         with open(tmp, "w") as f:
             json.dump(index, f)
@@ -239,19 +245,19 @@ class PackedCacheWriter:
         self.close()
 
 
-def cache_backend() -> str:
-    """The preprocessing backend of the environment: ``device`` under
-    ``HEADCT_DEVICE_CACHE=1``, else ``native``. Part of the cache key, as in
-    the JAX package (the backends agree only to ~1e-5). ``HEADCT_NATIVE=0``
-    asks for the JAX package's scipy chain, which is not ported."""
+def cache_backend(roi: Sequence[int] = (96, 96, 96)) -> str:
+    """The preprocessing backend for ``roi`` (JAX ``DiskCache._backend``,
+    ``:309-328``): ``device`` under ``HEADCT_DEVICE_CACHE=1``; ``native``
+    for a cubic ROI unless ``HEADCT_NATIVE=0``; else ``python``, the scipy
+    chain (``data/transforms.py``), which a non-cubic ROI always takes. Part
+    of the cache key, as in the JAX package (the backends agree only to
+    ~1e-5). A native decoder that fails to build raises when the cache is
+    prepared; it never gives way to the scipy chain."""
     if os.environ.get("HEADCT_DEVICE_CACHE", "0") == "1":
         return "device"
-    if os.environ.get("HEADCT_NATIVE", "1") == "0":
-        raise NotImplementedError(
-            "HEADCT_NATIVE=0 selects the JAX package's scipy preprocessing, which the port "
-            "does not have; use the native decoder (the default) or the on-card chain "
-            "(HEADCT_DEVICE_CACHE=1)")
-    return "native"
+    if os.environ.get("HEADCT_NATIVE", "1") != "0" and len(set(int(r) for r in roi)) == 1:
+        return "native"
+    return "python"
 
 
 class DiskCache:
@@ -268,7 +274,7 @@ class DiskCache:
         self.roi = tuple(int(r) for r in roi)
         self.in_channels = in_channels
         self.wire = wire
-        self.backend = cache_backend()
+        self.backend = cache_backend(self.roi)
         self.device = device
         if cache_dir:
             try:
@@ -305,6 +311,8 @@ class DiskCache:
         and, for the ``device`` backend, its preprocessor on ``device``.
         A failure raises here: inside ``load`` the dataset would shield it
         into a placeholder for every scan."""
+        if self.backend == "python":
+            return self
         from headct_foundation_tpu_torch.data.native_loader import get_lib
 
         get_lib()
@@ -334,6 +342,11 @@ class DiskCache:
             if self.wire == "hu8":
                 return hu8_encode(out)
             return out.astype(np.float16)
+        if self.backend == "python":
+            if self.wire == "windowed":
+                return load_and_preprocess(path, self.roi, self.in_channels)
+            t = load_and_preprocess_hu16(path, self.roi)
+            return hu8_encode(hu16_decode(t)) if self.wire == "hu8" else t
         from headct_foundation_tpu_torch.data.native_loader import load_and_preprocess_native
 
         return load_and_preprocess_native(path, self.roi, self.in_channels, wire=self.wire)

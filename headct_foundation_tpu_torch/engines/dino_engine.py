@@ -94,7 +94,6 @@ from headct_foundation_tpu_torch.engines.mae_engine import (
     drain_pending_losses,
     fsdp_grads,
     kernel_launches,
-    refuse_unported_axes,
     step_generator,
     to_device_batch,
 )
@@ -117,7 +116,7 @@ from headct_foundation_tpu_torch.optim.optimizers import (
     set_step_hyperparameters,
 )
 from headct_foundation_tpu_torch.optim.schedules import get_momentum_schedule, get_wd_schedule
-from headct_foundation_tpu_torch.parallel import distributed, fsdp, mesh
+from headct_foundation_tpu_torch.parallel import distributed, fsdp, mesh, pipeline
 from headct_foundation_tpu_torch.utils.checkpoint import (
     clone_opt_state,
     clone_state_dict,
@@ -303,8 +302,8 @@ def create_train_state(
     """Student, teacher, optimizer, schedules and centre on ``device``
     (default cuda). The weights are the full seed-``seed`` draw at any mesh,
     of which each rank keeps its part (``shard_model_``). Raises
-    NotImplementedError for PIPE above 1 (``refuse_unported_axes``)."""
-    refuse_unported_axes(config)
+    ``pipe`` ranks replicate the step, as JAX's ``pipe`` axis does for an
+    engine that does not pipeline (``mesh.py batch_sharding``)."""
     m = check_mesh(config)
     device = resolve_device(device)
     set_pallas_min_t(config.PARALLEL.PALLAS_MIN_T)
@@ -416,6 +415,7 @@ def make_grad_step(config) -> Callable:
             distributed.all_reduce_sum_(gs, mesh.current().group("seq"))
         # one average across the data x fsdp ranks per update (a no-op on one)
         distributed.data_mean_([loss, t_mean] + gs, sharded=fsdp_grads(student))
+        pipeline.replicate_(gs)  # pipe ranks replicate the step: the same update
         return loss, t_mean
 
     return grads

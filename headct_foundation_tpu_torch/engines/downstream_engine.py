@@ -93,7 +93,6 @@ from headct_foundation_tpu_torch.engines.mae_engine import (
     check_mesh,
     fsdp_grads,
     kernel_launches,
-    refuse_unported_axes,
     step_generator,
     to_device_batch,
 )
@@ -103,7 +102,7 @@ from headct_foundation_tpu_torch.models.vit import ViT
 from headct_foundation_tpu_torch.ops.attention import set_pallas_min_t
 from headct_foundation_tpu_torch.optim.lr_sched import Schedule, get_lr_schedule
 from headct_foundation_tpu_torch.optim.optimizers import get_optimizer, norms_over_shards
-from headct_foundation_tpu_torch.parallel import distributed, fsdp, mesh
+from headct_foundation_tpu_torch.parallel import distributed, fsdp, mesh, pipeline
 from headct_foundation_tpu_torch.utils.checkpoint import (
     clone_opt_state,
     clone_state_dict,
@@ -253,9 +252,9 @@ def create_train_state(config, total_steps: int, num_warmup_steps: int, seed: in
                        device: Union[None, str, torch.device] = None) -> DownstreamTrainState:
     """Backbone, classifier, the two optimizers and their schedules on
     ``device`` (default cuda); each rank keeps its part of the full
-    seed-``seed`` draw (``dino_engine.shard_model_``). Raises
-    NotImplementedError for PIPE above 1."""
-    refuse_unported_axes(config)
+    seed-``seed`` draw (``dino_engine.shard_model_``). The ``pipe`` ranks
+    replicate the step, as JAX's ``pipe`` axis does for an engine that does
+    not pipeline (``mesh.py batch_sharding``)."""
     m = check_mesh(config)
     device = resolve_device(device)
     set_pallas_min_t(config.PARALLEL.PALLAS_MIN_T)
@@ -339,6 +338,7 @@ def make_grad_step(config, compute_dtype: torch.dtype = torch.bfloat16) -> Calla
             distributed.all_reduce_sum_(gs, mesh.current().group("seq"))
         distributed.data_mean_([loss] + gs,  # a no-op on one data x fsdp rank
                                sharded=fsdp_grads(state.model, state.classifier))
+        pipeline.replicate_(gs)  # pipe ranks replicate the step: the same update
         return loss, logits.detach()
 
     return grads

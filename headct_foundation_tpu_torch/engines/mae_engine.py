@@ -51,6 +51,21 @@ Port of the JAX package's ``engines/mae_engine.py:44-163, 226-491``
   gradient, whose clip norm is taken over all its parts. The step is
   ``make_grad_step`` (the gradients) then ``apply_update``. ``full_view`` /
   ``load_full`` give checkpoints the whole tensors at any mesh.
+* ``pipe`` (GPipe, ``parallel/pipeline.py``; JAX ``:110-120``, ``:186-223``):
+  each rank holds the seed-``seed`` weights of blocks [c L/S, (c+1) L/S) of
+  both trunks at ``pipe`` coordinate c (and their optimizer state), and the
+  prefix and suffix whole; the ``pipe`` ranks of a data slice take the same
+  batch. The loss is ``pipelined_loss``: the model's prefix, the trunks
+  through ``pipeline_apply`` in ``PARALLEL.PIPE_MICROBATCH`` microbatches,
+  its suffix, with ``accum_steps`` and ``PARALLEL.REMAT`` inside. The
+  gradients are averaged over ``data``; those of the prefix and suffix are
+  made ``pipe`` coordinate 0's (``pipeline.replicate_``), so they stay
+  bit-equal. The clip and Lamb take each block parameter's norm over its
+  stacked leaf (every layer of every stage), as JAX's optimizer sees the
+  stacked [L] leaf. Checkpoints hold the stacked trunks, params and
+  moments, as the JAX package's ``PIPE`` state (``jax_trees``);
+  ``MAE.DROPOUT_RATE`` above 0 and a depth that ``PIPE`` does not divide
+  raise ValueError (``check_pipe``).
 * ``train_one_epoch`` takes its batches through ``data/pipeline.py
   DevicePrefetcher`` (pinned copies on a side stream), fetches the losses in
   groups of ``LOSS_FLUSH`` (one device-to-host copy per group) and exits on a
@@ -89,7 +104,7 @@ from headct_foundation_tpu_torch.models.mae import MaskedAutoencoderViT
 from headct_foundation_tpu_torch.ops.attention import set_pallas_min_t
 from headct_foundation_tpu_torch.optim.lr_sched import Schedule, get_lr_schedule
 from headct_foundation_tpu_torch.optim.optimizers import clip_by_per_param_norm, get_optimizer
-from headct_foundation_tpu_torch.parallel import distributed, fsdp, mesh
+from headct_foundation_tpu_torch.parallel import distributed, fsdp, mesh, pipeline
 from headct_foundation_tpu_torch.utils.checkpoint import (
     clone_opt_state,
     clone_state_dict,
@@ -123,35 +138,46 @@ class TrainState:
         """Device-side copies of the parameters and the optimizer state."""
         return clone_state_dict(self.model), clone_opt_state(self.optimizer)
 
+    @property
+    def pipelined(self) -> bool:
+        """True under ``PARALLEL.PIPE`` above 1 (stacked checkpoints)."""
+        return int(self.config.PARALLEL.PIPE) > 1
+
     def jax_trees(self, step: int, snapshot: Optional[tuple] = None) -> Dict[str, Any]:
         """The checkpoint's ``params`` and ``opt_state`` (of ``snapshot``, taken
-        at update ``step``, when given)."""
-        return model_trees(self, step, *(snapshot or (None, None)))
+        at update ``step``, when given), the trunks stacked under ``PIPE``."""
+        trees = model_trees(self, step, *(snapshot or (None, None)))
+        if self.pipelined:
+            trees = {k: pipeline.stack_trunks(v) for k, v in trees.items()}
+        return trees
 
     def full_view(self) -> "TrainState":
         """This state with its parameters and their optimizer moments whole
-        (gathered over ``fsdp`` and ``tensor``: every rank must call it), in
-        a model and an optimizer of their own; the state itself when both
-        axes are 1. Checkpoints are written and read through it, so a file
-        holds the JAX layout at any mesh."""
+        (gathered over ``fsdp`` and ``tensor``, and every stage's blocks over
+        ``pipe``: every rank must call it), in a model and an optimizer of
+        their own; the state itself when those axes are 1. Checkpoints are
+        written and read through it, so a file holds the JAX layout at any
+        mesh."""
         m = mesh.current()
-        if m.size("tensor") == 1 and m.size("fsdp") == 1:
+        if m.size("tensor") == 1 and m.size("fsdp") == 1 and m.size("pipe") == 1:
             return self
         with torch.device("meta"):
             model = build_mae_model(self.config, dtype=self.model.dtype)
-        pairs = fsdp.gather_module(self.model, model, m)
+        gather = pipeline if m.size("pipe") > 1 else fsdp
+        pairs = gather.gather_module(self.model, model, m)
         optimizer = get_optimizer(self.config, model.parameters())
-        fsdp.gather_optimizer_state(self.optimizer, optimizer, pairs, m)
+        gather.gather_optimizer_state(self.optimizer, optimizer, pairs, m)
         return TrainState(model, optimizer, self.lr_schedule, self.step, self.grad_clip,
                           self.config)
 
     def load_full(self, full: "TrainState") -> "TrainState":
-        """Take this rank's shards of ``full`` (a ``full_view`` the caller
-        filled, e.g. from a checkpoint): parameters, moments and step. A
-        no-op when ``full`` is this state."""
+        """Take this rank's shards (or stage) of ``full`` (a ``full_view``
+        the caller filled, e.g. from a checkpoint): parameters, moments and
+        step. A no-op when ``full`` is this state."""
         if full is self:
             return self
-        fsdp.load_module(self.model, full.model, self.optimizer, full.optimizer)
+        load = pipeline if mesh.current().size("pipe") > 1 else fsdp
+        load.load_module(self.model, full.model, self.optimizer, full.optimizer)
         self.step = full.step
         return self
 
@@ -180,20 +206,24 @@ def mae_trainable_mask(model: torch.nn.Module, pos_embed: str) -> Dict[str, bool
             for name, _ in model.named_parameters()}
 
 
-def refuse_unported_axes(config) -> None:
-    """NotImplementedError for ``PARALLEL.PIPE`` above 1, the one axis no
-    engine takes yet (ROADMAP A.8)."""
-    n = int(config.PARALLEL.PIPE)
-    if n > 1:
-        raise NotImplementedError(f"PARALLEL.PIPE = {n} is not ported in the port "
-                                  "(ROADMAP A.8)")
+def check_pipe(config) -> int:
+    """``PARALLEL.PIPE``, after the JAX engine's checks (its ``:110-120``):
+    above 1 it takes no dropout and must divide both depths (ValueError)."""
+    pipe = int(config.PARALLEL.PIPE)
+    if pipe > 1:
+        if config.MAE.DROPOUT_RATE > 0:
+            raise ValueError("PARALLEL.PIPE > 1 requires MAE.DROPOUT_RATE=0")
+        if config.MAE.ENCODER_DEPTH % pipe or config.MAE.DECODER_DEPTH % pipe:
+            raise ValueError(f"PIPE={pipe} must divide encoder depth {config.MAE.ENCODER_DEPTH} "
+                             f"and decoder depth {config.MAE.DECODER_DEPTH}")
+    return pipe
 
 
 def check_mesh(config) -> mesh.Mesh:
-    """The process's mesh, which must have the config's ``FSDP``, ``SEQ``
-    and ``TENSOR``."""
+    """The process's mesh, which must have the config's ``FSDP``, ``SEQ``,
+    ``PIPE`` and ``TENSOR``."""
     m = mesh.current()
-    for axis in ("FSDP", "SEQ", "TENSOR"):
+    for axis in ("FSDP", "SEQ", "PIPE", "TENSOR"):
         want = int(getattr(config.PARALLEL, axis))
         if m.size(axis.lower()) != want:
             raise ValueError(
@@ -213,9 +243,9 @@ def create_train_state(
     ``PARALLEL.TENSOR`` each rank keeps its Megatron part of every block
     (``models/attention.py shard_block_``), under ``FSDP`` its ``fsdp``
     shard of that (``parallel/fsdp.py shard_module_``), and the optimizer
-    state follows the shards. Raises NotImplementedError for ``PARALLEL.PIPE``
-    above 1 (``refuse_unported_axes``)."""
-    refuse_unported_axes(config)
+    state follows the shards. Under ``PIPE`` each rank keeps its stage's
+    blocks of both trunks (``pipeline.keep_stage_``), after ``check_pipe``."""
+    check_pipe(config)
     m = check_mesh(config)
     t = m.size("tensor")
     device = resolve_device(device)
@@ -225,6 +255,7 @@ def create_train_state(
     if t > 1:
         for blk in list(model.blocks) + list(model.decoder_blocks):
             shard_block_(blk, t, m.coord("tensor"), m.group("tensor"))
+    pipeline.keep_stage_(model, m.size("pipe"), m.coord("pipe"))
     fsdp.shard_module_(model, m)
     model.to(device)
     trainable = mae_trainable_mask(model, config.MAE.POS_EMBED)
@@ -232,7 +263,8 @@ def create_train_state(
         p.requires_grad_(trainable[name])
     lr_schedule = get_lr_schedule(config, config.TRAIN.BASE_LR, num_warmup_steps, total_steps,
                                   config.TRAIN.MIN_LR)
-    optimizer = get_optimizer(config, model.parameters(), split=fsdp.split_groups(model, m))
+    optimizer = get_optimizer(config, model.parameters(), split=fsdp.split_groups(model, m),
+                              stacked=pipeline.stacked_groups(model, m))
     return (TrainState(model, optimizer, lr_schedule, grad_clip=float(config.TRAIN.GRAD_CLIP),
                        config=config), lr_schedule)
 
@@ -249,12 +281,42 @@ def _rows(decisions: Dict[str, torch.Tensor], lo: int, hi: int) -> Dict[str, tor
     return {k: v[..., lo:hi] for k, v in decisions.items()}
 
 
+def pipelined_loss(model: MaskedAutoencoderViT, imgs: torch.Tensor, noise: torch.Tensor,
+                   trunk: Callable[[Any, torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """The MAE loss with each trunk run by ``trunk(blocks, x)`` (JAX
+    ``_make_pipelined_loss``, ``:186-223``): the model's own prefix and
+    suffix around it."""
+    x, mask, ids_restore = model.encode_prefix(imgs, noise)
+    latent = model.encode_suffix(trunk(model.blocks, x))
+    x = trunk(model.decoder_blocks, model.decode_prefix(latent, ids_restore))
+    return model.forward_loss(imgs, model.decode_suffix(x), mask)
+
+
+def pipe_trunk(config) -> Optional[Callable]:
+    """``trunk(blocks, x)`` for ``pipelined_loss`` over the process's ``pipe``
+    group in ``PARALLEL.PIPE_MICROBATCH`` microbatches; None at ``PIPE`` 1."""
+    if config is None or int(config.PARALLEL.PIPE) == 1:
+        return None
+    group = mesh.current().group("pipe")
+    m = int(config.PARALLEL.PIPE_MICROBATCH)
+    return lambda blocks, x: pipeline.pipeline_apply(blocks, x, group, m)
+
+
+def replicated_grads(model: torch.nn.Module) -> List[torch.Tensor]:
+    """The gradients of the parameters every ``pipe`` stage holds (all of
+    them at ``pipe`` 1)."""
+    return [p.grad for n, p in model.named_parameters()
+            if p.grad is not None and not n.startswith(pipeline.TRUNKS)]
+
+
 def make_grad_step(augment: bool = False, accum_steps: int = 1, config=None) -> Callable:
     """grads(state, batch, seed, draws=None) -> the loss (device scalar):
     the forward and backward of every micro-batch, the gradients left in
     ``.grad``, averaged over the micro-batches, summed over ``seq`` and
-    averaged over ``data`` (``make_train_step``'s first half)."""
+    averaged over ``data`` (``make_train_step``'s first half). Under
+    ``PIPE`` the loss is ``pipelined_loss``."""
     in_chans = int(config.MAE.IN_CHANS) if config is not None else 0
+    trunk = pipe_trunk(config)
 
     def grads(state: TrainState, batch: torch.Tensor, seed: int,
               draws: Optional[Sequence[dict]] = None) -> torch.Tensor:
@@ -283,8 +345,11 @@ def make_grad_step(augment: bool = False, accum_steps: int = 1, config=None) -> 
                 g_drop = draws[i].get("dropout")
             if augment:
                 mb = apply_mae_augment(mb, decisions)
-            with mesh.global_dropout():
-                loss, _, _ = model(mb, noise=noise, dropout_generator=g_drop)
+            if trunk is not None:
+                loss = pipelined_loss(model, mb, noise, trunk)
+            else:
+                with mesh.global_dropout():
+                    loss, _, _ = model(mb, noise=noise, dropout_generator=g_drop)
             loss.backward()  # float32 .grad of float32 params: the sum over micro-batches
             loss_sum += loss.detach().float()
         gs = [p.grad for p in model.parameters() if p.grad is not None]
@@ -296,6 +361,8 @@ def make_grad_step(augment: bool = False, accum_steps: int = 1, config=None) -> 
             distributed.all_reduce_sum_(gs, seq)
         # one average across the data x fsdp ranks per update, before the clip
         distributed.data_mean_([loss] + gs, sharded=fsdp_grads(model))
+        if trunk is not None:  # the prefix and suffix stay bit-equal over pipe
+            pipeline.replicate_(replicated_grads(model))
         return loss
 
     return grads
@@ -316,11 +383,13 @@ def fsdp_grads(*modules: torch.nn.Module) -> List[torch.Tensor]:
 def apply_update(state: TrainState) -> TrainState:
     """The update from the gradients in ``.grad`` (``make_train_step``'s
     second half): the per-parameter clip (a split parameter's norm over all
-    its shards), the LR of this step, the optimizer step."""
+    its shards, a block parameter's under ``PIPE`` over its stacked leaf),
+    the LR of this step, the optimizer step."""
     model = state.model
     if state.grad_clip:
         clip_by_per_param_norm(model.parameters(), state.grad_clip,
-                               split=fsdp.split_groups(model))
+                               split=fsdp.split_groups(model),
+                               stacked=pipeline.stacked_groups(model))
     lr = state.lr_schedule(state.step)  # optax's count before the increment
     for group in state.optimizer.param_groups:
         group["lr"] = lr
@@ -351,8 +420,10 @@ def make_train_step(augment: bool = False, accum_steps: int = 1, config=None) ->
 def make_eval_step(config=None) -> Callable:
     """step(state, batch, generator=None) -> {"loss": device scalar}; the mask
     noise of the global batch is drawn from ``generator``, this rank's rows
-    taken, and the loss averaged across the ranks."""
+    taken, and the loss averaged across the ranks (``pipelined_loss`` under
+    ``PIPE``)."""
     in_chans = int(config.MAE.IN_CHANS) if config is not None else 0
+    trunk = pipe_trunk(config)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: torch.Tensor,
@@ -365,7 +436,10 @@ def make_eval_step(config=None) -> Callable:
         if generator is not None:
             noise = torch.rand((world * B, int(np.prod(model.grid_size))), generator=generator,
                                device=state.device)[rank * B:(rank + 1) * B]
-        loss, _, _ = model(batch, noise=noise)
+        if trunk is not None:
+            loss = pipelined_loss(model, batch, noise, trunk)
+        else:
+            loss, _, _ = model(batch, noise=noise)
         distributed.data_mean_([loss])
         return {"loss": loss}
 

@@ -10,10 +10,13 @@ The path: CSV manifests -> disk cache (native decoder) -> threaded loader ->
 pinned prefetch -> the MAE train step -> trainer with latest/best
 checkpoints -> tester. It runs on ``cuda`` (``cuda:LOCAL_RANK`` under
 ``torchrun``, one process per card) unless ``--device cpu`` is given. The
-ranks lay out as ``PARALLEL.DATA x SEQ x TENSOR`` (``parallel/mesh.py``):
-the gradients are averaged over ``data``, each ``seq`` rank holds a share
-of the tokens and each ``tensor`` rank a share of the heads and MLP
-columns, and the ranks of one data slice read the same batches.
+ranks lay out as ``PARALLEL.DATA x FSDP x SEQ x PIPE x TENSOR``
+(``parallel/mesh.py``): the gradients are averaged over ``data``, each
+``fsdp`` rank holds a shard of the weights, each ``seq`` rank a share of the
+tokens, each ``pipe`` rank a stage of both trunks (GPipe,
+``parallel/pipeline.py``; ``PIPE`` takes ``FSDP``, ``SEQ`` and ``TENSOR``
+at 1) and each ``tensor`` rank a share of the heads and MLP columns, and the
+ranks of one data slice read the same batches.
 
 * The LR is scaled as the JAX main does (``:109-118``): ``BASE_LR x
   BATCH_SIZE x world / 256`` and ``MIN_LR = BASE_LR x 1e-3``.
@@ -207,7 +210,7 @@ def count_placeholders(loaders, device: torch.device) -> int:
 def mesh_sizes() -> Dict[str, int]:
     """The process's mesh for the CLI's JSON line."""
     m = mesh.current()
-    return {a: m.size(a) for a in ("data", "fsdp", "seq", "tensor")}
+    return {a: m.size(a) for a in ("data", "fsdp", "seq", "pipe", "tensor")}
 
 
 def finish_run(run: Dict[str, Any], device: torch.device, start_epoch: int,

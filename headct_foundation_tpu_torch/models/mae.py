@@ -29,6 +29,14 @@ attention probabilities) runs in ``train()`` mode at ``dropout_rate`` above
 0, its masks drawn from ``dropout_generator``; ``eval()`` and rate 0 draw
 nothing.
 
+The forward splits as the JAX model's does (``:188-260``): ``encode_prefix``
+-> the encoder trunk -> ``encode_suffix`` -> ``decode_prefix`` -> the decoder
+trunk -> ``decode_suffix`` -> ``forward_loss``, so that the ``pipe`` step
+(``engines/mae_engine.py pipelined_loss``) runs the trunks through
+``parallel/pipeline.py`` and everything else as here. Every block comes from
+``mae_encoder_block`` / ``mae_decoder_block`` (JAX ``:42-80``), which the
+pipelined trunks share, so the two forwards cannot drift.
+
 Under ``seq`` parallelism (``parallel/mesh.py``) the two trunks hold each
 rank's ceil(T / s) tokens (``trunk``); the patch embedding, masking, the
 unshuffle and the targets run on the whole sequence at the trunks' edges
@@ -64,6 +72,21 @@ from headct_foundation_tpu_torch.ops.masking import random_masking
 from headct_foundation_tpu_torch.parallel import comm, mesh
 
 _LOSS_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def mae_encoder_block(m: "MaskedAutoencoderViT") -> AttentionBlock:
+    """The encoder block the model builds (JAX ``mae_encoder_block``): the
+    one factory of the unpipelined and the pipelined trunks."""
+    return AttentionBlock(m.encoder_embed_dim, m.encoder_mlp_dim, m.encoder_num_heads,
+                          qkv_bias=m.use_bias, norm_layer=m.norm_layer,
+                          dropout_rate=m.dropout_rate, remat_mlp=m.remat, dtype=m.dtype)
+
+
+def mae_decoder_block(m: "MaskedAutoencoderViT") -> AttentionBlock:
+    """Decoder twin of ``mae_encoder_block``."""
+    return AttentionBlock(m.decoder_embed_dim, m.decoder_mlp_dim, m.decoder_num_heads,
+                          qkv_bias=m.use_bias, norm_layer=m.norm_layer,
+                          dropout_rate=m.dropout_rate, remat_mlp=m.remat, dtype=m.dtype)
 
 
 class MaskedAutoencoderViT(nn.Module):
@@ -103,6 +126,12 @@ class MaskedAutoencoderViT(nn.Module):
         self.norm_pix_loss = norm_pix_loss
         self.loss_dtype = _LOSS_DTYPES[loss_dtype]
         self.dtype = dtype
+        self.encoder_embed_dim, self.encoder_mlp_dim = encoder_embed_dim, encoder_mlp_dim
+        self.encoder_num_heads = encoder_num_heads
+        self.decoder_embed_dim, self.decoder_mlp_dim = decoder_embed_dim, decoder_mlp_dim
+        self.decoder_num_heads = decoder_num_heads
+        self.use_bias, self.norm_layer = use_bias, norm_layer
+        self.dropout_rate, self.remat = dropout_rate, remat
         num_patches = int(np.prod(self.grid_size))
         patch_dim = int(np.prod(self.patch_size))
 
@@ -119,16 +148,9 @@ class MaskedAutoencoderViT(nn.Module):
             img_size=self.input_size, patch_size=self.patch_size, in_channels=in_chans,
             hidden_size=encoder_embed_dim, pos_embed=pos_embed, dropout_rate=dropout_rate,
             dtype=dtype)
-        self.blocks = nn.ModuleList(
-            AttentionBlock(encoder_embed_dim, encoder_mlp_dim, encoder_num_heads,
-                           qkv_bias=use_bias, norm_layer=norm_layer,
-                           dropout_rate=dropout_rate, remat_mlp=remat, dtype=dtype)
-            for _ in range(encoder_depth))
-        self.decoder_blocks = nn.ModuleList(
-            AttentionBlock(decoder_embed_dim, decoder_mlp_dim, decoder_num_heads,
-                           qkv_bias=use_bias, norm_layer=norm_layer,
-                           dropout_rate=dropout_rate, remat_mlp=remat, dtype=dtype)
-            for _ in range(decoder_depth))
+        self.blocks = nn.ModuleList(mae_encoder_block(self) for _ in range(encoder_depth))
+        self.decoder_blocks = nn.ModuleList(mae_decoder_block(self)
+                                            for _ in range(decoder_depth))
         self.norm = make_norm(norm_layer, encoder_embed_dim)
         self.decoder_norm = make_norm(norm_layer, decoder_embed_dim)
         self.decoder_embed = Linear(encoder_embed_dim, decoder_embed_dim, bias=use_bias,
@@ -189,13 +211,16 @@ class MaskedAutoencoderViT(nn.Module):
                 x = blk(x, dropout_generator)
         return x
 
+    def encode_suffix(self, x: torch.Tensor) -> torch.Tensor:
+        return self.norm(x)
+
     def forward_encoder(
         self, x: torch.Tensor, noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         dropout_generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         x, mask, ids_restore = self.encode_prefix(x, noise, generator, dropout_generator)
-        return self.norm(self.trunk(self.blocks, x, dropout_generator)), mask, ids_restore
+        return self.encode_suffix(self.trunk(self.blocks, x, dropout_generator)), mask, ids_restore
 
     def unshuffle(self, x: torch.Tensor, ids_restore: torch.Tensor) -> torch.Tensor:
         """Mask tokens put back in token order -> + decoder CLS / position
@@ -228,16 +253,20 @@ class MaskedAutoencoderViT(nn.Module):
         lo = m.coord("seq") * n
         return slice(max(lo, 1) - 1, max(min(lo + n, t), 1) - 1)
 
-    def forward_decoder(self, x: torch.Tensor, ids_restore: torch.Tensor,
-                        dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """The prediction of this rank's patches (``seq_patches``): every
-        patch, the CLS dropped, on one ``seq`` rank."""
-        x = self.trunk(self.decoder_blocks, self.decode_prefix(x, ids_restore),
-                       dropout_generator)
+    def decode_suffix(self, x: torch.Tensor) -> torch.Tensor:
+        """decoder norm -> prediction head -> this rank's patches
+        (``seq_patches``): every patch, the CLS dropped, on one ``seq`` rank."""
         x = self.decoder_pred(self.decoder_norm(x))
-        p = self.seq_patches(ids_restore.shape[1])
+        p = self.seq_patches(int(np.prod(self.grid_size)))
         lo = mesh.current().coord("seq") * x.shape[1]  # this rank's first token
         return x[:, p.start + 1 - lo:p.stop + 1 - lo]
+
+    def forward_decoder(self, x: torch.Tensor, ids_restore: torch.Tensor,
+                        dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The prediction of this rank's patches (``decode_suffix``)."""
+        return self.decode_suffix(self.trunk(self.decoder_blocks,
+                                             self.decode_prefix(x, ids_restore),
+                                             dropout_generator))
 
     def forward_loss(self, imgs: torch.Tensor, pred: torch.Tensor, mask: torch.Tensor,
                      patches: slice = slice(None)) -> torch.Tensor:

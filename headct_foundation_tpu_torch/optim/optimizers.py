@@ -58,23 +58,41 @@ def norms_over_shards(sq: torch.Tensor, params: list, split) -> torch.Tensor:
     return sq
 
 
+def whole_norms(norms: torch.Tensor, params: list, split: Sequence = (),
+                stacked: Tuple = (None, [])) -> torch.Tensor:
+    """Per-parameter L2 norms [n] (or [k, n]) of what JAX holds as one leaf:
+    a parameter split over ``fsdp`` or ``tensor`` takes its norm over all its
+    shards (``split``: (group, parameters) per axis), and a block parameter
+    of a ``pipe`` stage the norm of its stacked leaf, over every layer of
+    every stage (``stacked``: ``parallel/pipeline.py stacked_groups``)."""
+    if split:
+        norms = norms_over_shards(norms.square(), params, split).sqrt()
+    if stacked[1]:
+        from headct_foundation_tpu_torch.parallel.pipeline import stacked_sq_norms
+
+        norms = stacked_sq_norms(norms.square(), params, stacked).sqrt()
+    return norms
+
+
 @torch.no_grad()
 def clip_by_per_param_norm(params: Iterable[torch.nn.Parameter], clip: float,
-                           eps: float = 1e-6, split: Sequence = ()) -> None:
+                           eps: float = 1e-6, split: Sequence = (),
+                           stacked: Tuple = (None, [])) -> None:
     """Scale each trainable ``.grad`` in place by min(clip / (||g||_2 + eps), 1),
     the norm taken in float32 (the reference clip_gradients: each
     parameter's gradient on its own, not the global norm). A parameter
     split over ``fsdp`` or ``tensor`` takes its norm over all its shards:
     ``split`` holds (group, parameters split over it) per axis
     (``parallel/fsdp.py split_groups``), and the sums of squares are
-    all-reduced over each."""
+    all-reduced over each. Under ``pipe`` a block parameter is clipped by
+    the norm of its stacked leaf (``stacked``; JAX's clip sees the [L]
+    leaf whole), summed over the ``pipe`` group."""
     params = [p for p in params if p.requires_grad and p.grad is not None]
     grads = [p.grad for p in params]
     if not grads:
         return
-    norms = torch.stack(torch._foreach_norm([g.float() for g in grads]))
-    if split:
-        norms = norms_over_shards(norms.square(), params, split).sqrt()
+    norms = whole_norms(torch.stack(torch._foreach_norm([g.float() for g in grads])), params,
+                        split, stacked)
     coefs = torch.clamp(clip / (norms + eps), max=1.0)
     torch._foreach_mul_(grads, list(coefs))  # in float32, rounded to g's dtype
 
@@ -100,13 +118,15 @@ class Lamb(torch.optim.Optimizer):
     trust ratio takes whole-tensor norms: ``split`` (set by the engines from
     ``parallel/fsdp.py split_groups``) lists (group, parameters split over
     it), and each such parameter's two sums of squares are all-reduced over
-    its groups, one call per group for all parameters."""
+    its groups, one call per group for all parameters; ``stacked`` (set
+    under ``pipe``) takes a block parameter's norms over its stacked leaf."""
 
     def __init__(self, params, lr: float = 0.0, betas: Tuple[float, float] = (0.9, 0.999),
                  eps: float = 1e-6, weight_decay: float = 0.0, exp_avg_quirk: bool = False):
         super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay,
                                       exp_avg_quirk=exp_avg_quirk))
         self.split: Sequence = ()
+        self.stacked: Tuple = (None, [])
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -131,8 +151,7 @@ class Lamb(torch.optim.Optimizer):
         params = [p for p, _, _ in todo]
         norms = torch.stack([torch.stack(torch._foreach_norm([p.float() for p in params])),
                              torch.stack(torch._foreach_norm([a for _, _, a in todo]))])
-        if self.split:
-            norms = norms_over_shards(norms.square(), params, self.split).sqrt()
+        norms = whole_norms(norms, params, self.split, self.stacked)
         w_norms, a_norms = norms.unbind(0)
         for (p, group, adam_step), w, a in zip(todo, w_norms, a_norms):
             w_norm = torch.clamp(w, 0.0, 10.0)
@@ -211,11 +230,13 @@ def _trainable(params) -> list:
     return [p for p in params if p.requires_grad]
 
 
-def get_optimizer(config, params: Iterable, split: Sequence = ()) -> torch.optim.Optimizer:
+def get_optimizer(config, params: Iterable, split: Sequence = (),
+                  stacked: Tuple = (None, [])) -> torch.optim.Optimizer:
     """The optimizer of ``config.TRAIN.OPTIMIZER`` (SGD, AdamW, Lamb, Lion)
     over the trainable ``params`` (parameters or parameter groups); the
     learning rate, and a scheduled weight decay, are set before each step.
-    ``split`` is Lamb's (group, parameters split over it) list. The
+    ``split`` is Lamb's (group, parameters split over it) list and
+    ``stacked`` its ``pipe`` stage's stacked groups. The
     gradient clip is the caller's (``clip_by_per_param_norm``)."""
     t = config.TRAIN
     name = t.OPTIMIZER
@@ -229,7 +250,7 @@ def get_optimizer(config, params: Iterable, split: Sequence = ()) -> torch.optim
                                  weight_decay=wd)
     if name == "Lamb":
         lamb = Lamb(trainable, betas=(t.BETA1, t.BETA2), weight_decay=wd)
-        lamb.split = list(split)
+        lamb.split, lamb.stacked = list(split), stacked
         return lamb
     if name == "Lion":
         return Lion(trainable, betas=(t.BETA1, t.BETA2), weight_decay=wd,

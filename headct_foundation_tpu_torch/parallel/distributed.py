@@ -8,13 +8,14 @@
   (``tcp://MASTER_ADDR:MASTER_PORT``): NCCL on the card, gloo on the CPU,
   and makes the config's mesh the process's (``mesh.set_mesh``). Without
   ``WORLD_SIZE`` (or at 1) it starts nothing and the process is rank 0 of
-  1. The world must be ``PARALLEL.DATA x FSDP x SEQ x TENSOR`` (``DATA`` -1:
-  what the world leaves); a mismatch raises, as ``PIPE`` above 1 does.
+  1. The world must be ``PARALLEL.DATA x FSDP x SEQ x PIPE x TENSOR``
+  (``DATA`` -1: what the world leaves); a mismatch raises, as ``PIPE``
+  above 1 with another model axis above 1 does.
 * ``rank`` / ``world`` / ``local_rank`` serve the logger; ``data_rank`` /
   ``data_world`` (this rank's slice of the batch over ``data`` x ``fsdp``,
   as JAX's ``batch_sharding`` splits it) the loaders and the engines'
-  draws, since the ``seq`` and ``tensor`` ranks of one slice take the same
-  batch.
+  draws, since the ``seq``, ``pipe`` and ``tensor`` ranks of one slice take
+  the same batch.
 * ``all_reduce_mean_`` averages tensors across the ranks of ``group``
   (default all) in place, in buckets of at most ``BUCKET_BYTES``
   flattened together, one ``all_reduce`` each; ``all_reduce_sum_`` sums
@@ -23,7 +24,8 @@
   takes the same update: the module is never wrapped in
   ``DistributedDataParallel``, its parameter names stay the model's, and
   the micro-batches need no ``no_sync``. ``data_mean_`` is that average
-  over the batch's ranks (``data`` x ``fsdp``); the gradients of ``fsdp``
+  over the batch's ranks (``data`` x ``fsdp``; ``data`` alone under
+  ``pipe``, where ``fsdp`` is 1); the gradients of ``fsdp``
   shards, which the gather's backward has already summed over ``fsdp``,
   are summed over ``data`` only.
 """
@@ -56,7 +58,7 @@ def local_rank() -> int:
 def laid_out() -> bool:
     """True once a mesh is set (without one every rank is on ``data``)."""
     m = mesh.current()
-    return m.sharded or m.size("data") > 1
+    return m.sharded or m.size("data") > 1 or m.size("pipe") > 1
 
 
 def data_rank() -> int:

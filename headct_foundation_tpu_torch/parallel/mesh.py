@@ -11,8 +11,10 @@ axis names and rule table copied, not imported:
   each axis above 1 (the ranks that differ only in that
   coordinate), and the ``batch`` group (the ranks that differ only in
   ``data`` and ``fsdp``: JAX's ``batch_sharding`` splits the batch over
-  both); ``data = -1`` takes what the world leaves. ``pipe`` above 1
-  raises NotImplementedError (ROADMAP A.8).
+  both); ``data = -1`` takes what the world leaves. ``pipe`` above 1 takes
+  ``fsdp``, ``seq`` and ``tensor`` at 1 only (JAX ``parallel/pipeline.py:149-153``:
+  its stages would need collectives of their own); the ``pipe`` ranks of a
+  data slice take the same batch (``parallel/pipeline.py``).
 * ``current()`` is the process's mesh (``set_mesh``; a mesh of 1s before
   any), read by the attention dispatch, the dropout masks, the Megatron
   linears and the MAE engine.
@@ -52,7 +54,6 @@ import torch
 import torch.distributed as dist
 
 MESH_AXES = ("data", "fsdp", "seq", "pipe", "tensor")
-_NEXT = "ROADMAP A.8"
 
 
 @dataclass
@@ -109,17 +110,22 @@ def layout(data: int = -1, fsdp: int = 1, tensor: int = 1, seq: int = 1, pipe: i
            world: int = 1) -> Tuple[int, ...]:
     """The mesh's (data, fsdp, seq, pipe, tensor) over ``world`` ranks
     (``data`` -1: what the world leaves); raises when they do not multiply
-    to ``world``, and NotImplementedError for ``pipe`` above 1."""
+    to ``world``, or when ``pipe`` above 1 meets ``fsdp``, ``seq`` or
+    ``tensor`` above 1."""
     if int(pipe) > 1:
-        raise NotImplementedError(
-            f"PARALLEL.PIPE = {pipe} is not ported; the port shards over data, fsdp, seq "
-            f"and tensor only ({_NEXT})")
+        for other, n in (("fsdp", fsdp), ("seq", seq), ("tensor", tensor)):
+            if int(n) != 1:
+                raise ValueError(
+                    f"pipeline parallelism is manual over every mesh axis; '{other}'={n} "
+                    "would need in-stage collectives (PARALLEL.PIPE takes FSDP, SEQ and "
+                    "TENSOR at 1)")
     inner = fsdp * seq * pipe * tensor
     if data == -1 and world % inner == 0:
         data = world // inner
     if data * inner != world:
         raise ValueError(
-            f"PARALLEL.DATA x FSDP x SEQ x TENSOR = {data} x {fsdp} x {seq} x {tensor} but "
+            f"PARALLEL.DATA x FSDP x SEQ x PIPE x TENSOR = {data} x {fsdp} x {seq} x {pipe} x "
+            f"{tensor} but "
             f"the launcher started {world} processes; the port runs one process per rank")
     return (data, fsdp, seq, pipe, tensor)
 

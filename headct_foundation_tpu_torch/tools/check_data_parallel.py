@@ -2,15 +2,17 @@
 processes against one.
 
     python -m headct_foundation_tpu_torch.tools.check_data_parallel [--nproc 4] \
-        [--config configs/dino/dino_HeadCT.yaml] [--fsdp F] [--seq S] [--tensor T] \
-        [--batch B] [--dropout RATE] [--float32]
+        [--config configs/dino/dino_HeadCT.yaml] [--fsdp F] [--seq S] [--pipe P] \
+        [--tensor T] [--batch B] [--dropout RATE] [--float32]
 
-``--fsdp``, ``--seq`` and ``--tensor`` (every main) lay the N processes out
-as ``PARALLEL.DATA x FSDP x SEQ x TENSOR`` with DATA = N / (F x S x T): the
-batch is split over the DATA x F ranks (B / (DATA x F) rows each; the S x T
-ranks of one slice read the same rows), each of the F ranks holds its
-ZeRO-3 shard of the weights, the tokens are split over ``seq`` and the
-heads and MLP columns over ``tensor``. ``--batch`` (default 64) is the
+``--fsdp``, ``--seq``, ``--pipe`` and ``--tensor`` (every main) lay the N
+processes out as ``PARALLEL.DATA x FSDP x SEQ x PIPE x TENSOR`` with DATA =
+N / (F x S x P x T): the batch is split over the DATA x F ranks (B / (DATA
+x F) rows each; the S x P x T ranks of one slice read the same rows), each
+of the F ranks holds its ZeRO-3 shard of the weights, the tokens are split
+over ``seq``, the trunks' blocks over ``pipe`` (GPipe for the MAE; the
+other mains replicate their step over it) and the heads and MLP columns
+over ``tensor``. ``--batch`` (default 64) is the
 global batch; ``--dropout`` sets ``MAE.DROPOUT_RATE`` in both runs, whose
 masks every rank draws as the global batch's and slices. ``--float32``
 runs the MAE or the DINO main computing in float32 in every run (its
@@ -220,17 +222,19 @@ def main(argv=None) -> int:
     ap.add_argument("--fsdp", type=int, default=1)
     ap.add_argument("--seq", type=int, default=1)
     ap.add_argument("--tensor", type=int, default=1)
+    ap.add_argument("--pipe", type=int, default=1)
     ap.add_argument("--batch", type=int, default=BATCH)
     ap.add_argument("--dropout", type=float, default=0.0)
     ap.add_argument("--float32", action="store_true",
                     help="the MAE or DINO main computing in float32 (every run)")
     args = ap.parse_args(argv)
     batch = args.batch
-    data, rem = divmod(args.nproc, args.fsdp * args.seq * args.tensor)
+    data, rem = divmod(args.nproc, args.fsdp * args.seq * args.pipe * args.tensor)
     slices = data * args.fsdp  # the batch's ranks
     if rem or batch % slices:
         raise ValueError(f"{args.nproc} processes at fsdp {args.fsdp} x seq {args.seq} x "
-                         f"tensor {args.tensor} do not split batch {batch} over data x fsdp")
+                         f"pipe {args.pipe} x tensor {args.tensor} do not split batch {batch} "
+                         "over data x fsdp")
     if torch.cuda.device_count() < args.nproc:
         raise RuntimeError(f"{args.nproc} processes need {args.nproc} CUDA devices, "
                            f"found {torch.cuda.device_count()}")
@@ -245,7 +249,7 @@ def main(argv=None) -> int:
                              "always computes in float32)")
         cli = replace(cli, run=("tools.check_data_parallel", "--float32-main", cli.module))
     layout = ("PARALLEL.FSDP", str(args.fsdp), "PARALLEL.SEQ", str(args.seq),
-              "PARALLEL.TENSOR", str(args.tensor))
+              "PARALLEL.PIPE", str(args.pipe), "PARALLEL.TENSOR", str(args.tensor))
     common = ("MAE.DROPOUT_RATE", str(args.dropout)) if args.dropout else ()
     init = importlib.import_module(f"headct_foundation_tpu_torch.{cli.module}").create_state(
         cfg, {"total_steps": 10, "num_warmup_steps": 1, "niter_per_ep": 1}, "cpu")
@@ -307,7 +311,8 @@ def main(argv=None) -> int:
                 f"{(res['peak_memory_bytes'] or 0) / 2**30:.2f} GiB")
 
     print(f"{'data' if data == args.nproc else 'model'} parallel: {args.nproc} processes "
-          f"(data {data} x fsdp {args.fsdp} x seq {args.seq} x tensor {args.tensor}) at batch "
+          f"(data {data} x fsdp {args.fsdp} x seq {args.seq} x pipe {args.pipe} x tensor "
+          f"{args.tensor}) at batch "
           f"{batch // slices} "
           f"({timing(n_res, n_s)}) against 1 at batch {batch} ({timing(one, one_s)}) "
           f"on {args.config}: losses relative "
@@ -320,7 +325,8 @@ def main(argv=None) -> int:
               f"updates worst {floor['worst_update']} {floor['worst_update_rel']:.3e} (not held) "
               f"| {card}", flush=True)
     print(json.dumps({"ok": ok, "nproc": args.nproc, "config": args.config, "device": card,
-                      "fsdp": args.fsdp, "seq": args.seq, "tensor": args.tensor,
+                      "fsdp": args.fsdp, "seq": args.seq, "pipe": args.pipe,
+                      "tensor": args.tensor,
                       "batch": batch, "steps": STEPS,
                       "dropout": args.dropout, "float32": args.float32,
                       **check,

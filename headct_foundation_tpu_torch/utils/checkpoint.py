@@ -22,7 +22,10 @@ to and from them). Either package reads the other's files.
   a CUDA event recorded after the clones, copies them to the host on a
   stream of its own and writes; at most one write is in flight.
   ``wait_for_saves`` joins it and re-raises its error.
-* The MAE state's trees are ``params`` and ``opt_state`` (``model_trees``).
+* The MAE state's trees are ``params`` and ``opt_state`` (``model_trees``);
+  a ``PIPE`` state's hold the trunks stacked (``parallel/pipeline.py``), as
+  the JAX package's ``PIPE`` state does, and ``restore_state`` reads only
+  the layout of the state it fills (JAX ``:330-388``).
   A DINO state adds the JAX DINO trainer's extras (its ``:598-606``):
   ``momentum_model_state_dict`` (the teacher's parameter tree), ``center``,
   ``head_stats`` and ``teacher_head_stats`` (the student's and the teacher's
@@ -59,7 +62,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from headct_foundation_tpu_torch.parallel import distributed
+from headct_foundation_tpu_torch.parallel import distributed, pipeline
 from headct_foundation_tpu_torch.utils.torch_interop import (
     CheckpointDtypeError,
     downstream_opt_state_from_jax,
@@ -226,14 +229,33 @@ def _copy_into(model: torch.nn.Module, tensors: Dict[str, torch.Tensor]) -> None
             sd[k].copy_(v)
 
 
+def _pretrain_trees(state, payload: Dict[str, Any]) -> Tuple[Any, Any]:
+    """The payload's ``params`` and ``opt_state`` in the per-block layout.
+    A ``PIPE`` state (``state.pipelined``) takes stacked trunks only and any
+    other state per-block ones only: the JAX package's ``restore_state``
+    raises on the other layout (``from_state_dict``'s key check), and so
+    does this (KeyError)."""
+    params, opt = payload["params"], payload.get("opt_state")
+    stacked = pipeline.has_stacked_trunks(params)
+    if stacked != bool(getattr(state, "pipelined", False)):
+        raise KeyError(f"checkpoint trunks are {'stacked' if stacked else 'per block'} and the "
+                       f"state's are {'per block' if stacked else 'stacked'} (PARALLEL.PIPE): "
+                       "the layouts differ")
+    if stacked:
+        params, opt = pipeline.unstack_trunks(params), pipeline.unstack_trunks(opt)
+    return params, opt
+
+
 def restore_state(state, payload: Dict[str, Any]) -> Tuple[Any, int, float]:
     """Fill ``state`` from a checkpoint payload; returns (state, epoch,
     best_loss). The parameters are copied as they are (bit for bit), the
-    optimizer's moments and ``step`` with them."""
-    tensors = _tensors_of(state.model, payload["params"])
+    optimizer's moments and ``step`` with them. A ``PIPE`` state reads a
+    ``PIPE`` checkpoint's stacked trunks (``_pretrain_trees``)."""
+    params, opt = _pretrain_trees(state, payload)
+    tensors = _tensors_of(state.model, params)
     step = int(payload.get("step", 0))
-    if "opt_state" in payload:
-        opt_state_from_jax(payload["opt_state"], state.optimizer, state.model, state.config,
+    if opt is not None:
+        opt_state_from_jax(opt, state.optimizer, state.model, state.config,
                            step, norm_layer=state.norm_layer)
     _copy_into(state.model, tensors)
     state.step = step

@@ -658,12 +658,17 @@ def state_dict_of_payload(payload: Mapping[str, Any], state_key: str = "state_di
                           into: Optional[Mapping[str, Any]] = None) -> Dict[str, Any]:
     """The weights of a pickle-format payload as a reference-named
     state_dict: the JAX tree under ``state_key`` or ``params`` (a DINO
-    checkpoint's ``backbone`` when ``into`` has no such key)."""
+    checkpoint's ``backbone`` when ``into`` has no such key), its trunks
+    per block when a ``PIPE`` run stacked them."""
+    from headct_foundation_tpu_torch.parallel.pipeline import unstack_if_pipelined
+
     tree = payload.get(state_key, payload.get("params", payload))
     if isinstance(tree, Mapping) and set(tree) == {"backbone", "head"} and not any(
             k.startswith("backbone.") for k in (into or {})):
         tree = tree["backbone"]
-    return state_dict_from_jax(tree)
+    # a PIPE checkpoint's stacked trunks, per block (JAX :490-495), so that
+    # no trunk weight is left out of the merge
+    return state_dict_from_jax(unstack_if_pipelined(tree))
 
 
 def _backbone_prefixed(source: Mapping[str, Any], target: Mapping[str, Any]) -> Dict[str, Any]:

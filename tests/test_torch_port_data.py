@@ -18,6 +18,8 @@
   left on the z axis, which it does not zoom (<= 1e-3 abs), and is not the
   scipy chain itself (max >= 0.5); the port's native output is the JAX
   package's byte for byte there too.
+* A non-cubic ROI takes the scipy chain, as JAX's does (ROADMAP C.11):
+  the tensor and the cache key are JAX's.
 * A native decoder that cannot be built stops the loaders when they are
   made, for both cache backends: it is never shielded into placeholders.
 * ``ThreadedLoader`` yields the JAX loader's batches in its order at world 1
@@ -173,10 +175,35 @@ def test_cache_keys_equal_jax(tmp_path, monkeypatch, backend_env):
             port = datasets.DiskCache(str(tmp_path / "c"), roi, chans, wire=wire)
             jax_cache = jax_ds.DiskCache(str(tmp_path / "c"), roi, chans, wire=wire)
             assert port.key("/data/a.nii.gz") == jax_cache._key("/data/a.nii.gz"), wire
-    monkeypatch.setenv("HEADCT_NATIVE", "0")
+    monkeypatch.setenv("HEADCT_NATIVE", "0")  # the scipy chain: JAX's "python" key
     monkeypatch.delenv("HEADCT_DEVICE_CACHE", raising=False)
-    with pytest.raises(NotImplementedError, match="HEADCT_DEVICE_CACHE=1"):
-        datasets.DiskCache(str(tmp_path / "c"), ROI, 3)
+    port = datasets.DiskCache(str(tmp_path / "c"), ROI, 3)
+    assert port.backend == "python"
+    assert port.key("/data/a.nii.gz") == jax_ds.DiskCache(str(tmp_path / "c"), ROI,
+                                                           3)._key("/data/a.nii.gz")
+
+
+@pytest.mark.parametrize("wire", ["windowed", "hu16"])
+def test_a_non_cubic_roi_takes_the_scipy_chain_as_jax(tmp_path, wire):
+    """ROADMAP C.11: JAX's ``DiskCache`` takes the native decoder for a
+    cubic ROI only (``datasets.py:318``) and the scipy chain for any other;
+    the port's took the native chain, which raises on a non-cubic ROI. A
+    ``PretrainDataset`` at ``MODEL.ROI [24, 24, 16]`` gives JAX's tensor
+    byte for byte under JAX's cache key, with no placeholder."""
+    p = _scan(tmp_path, np.diag([2.0, 1.5, 2.5, 1.0]))
+    (tmp_path / "m.csv").write_text(f"img_path\n{p}\n")
+    roi = (24, 24, 16)
+    cfg = default_config()
+    cfg.merge_from_list(["MODEL.ROI", list(roi), "MODEL.IN_CHANS", 3,
+                         "DATA.WIRE_FORMAT", wire])
+    ds = datasets.PretrainDataset(cfg, str(tmp_path / "m.csv"), cache_dir=str(tmp_path / "p"))
+    vol, _ = ds[0]
+    jax_cache = jax_ds.DiskCache(str(tmp_path / "j"), roi, 3, wire=wire)
+    want = jax_cache.load(p)
+    assert ds.placeholders == 0
+    assert vol.dtype == want.dtype and vol.shape == want.shape
+    np.testing.assert_array_equal(vol, want)
+    assert ds.cache.key(p) == jax_cache._key(p)
 
 
 @pytest.mark.parametrize("wire", ["windowed", "hu16", "hu8"])

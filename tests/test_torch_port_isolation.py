@@ -5,8 +5,9 @@ an input of another size, a retrieval mAP, tiny MAE train
 steps, one of them on the blocked attention path and one with the fused
 Lion update, a checkpoint save and restore, the manifest reader, a tiny
 DINO step with its checkpoint, and the downstream CLI end to end (LoRA,
-the attentive head, the metrics, the predictions pickle, no plot), with
-those imports blocked),
+the attentive head, the metrics, the predictions pickle, no plot), the
+scipy chain through the cache tool, the export and parity tools and an
+emulated pipeline, with those imports blocked),
 defaults to CUDA, and builds from its own config copy.
 
 The subprocess blocks the imports with a ``sys.meta_path`` finder rather than
@@ -193,6 +194,36 @@ with tempfile.TemporaryDirectory() as tmp:
     assert preds["fnames"] == scans and result["placeholders"] == 0
     assert 0.0 <= result["test"]["mean_auroc"] <= 1.0
     assert not os.path.exists(os.path.join(tmp, "plots"))  # no matplotlib, no PNG
+# the scipy chain through the cache tool (HEADCT_NATIVE=0), the export tool
+# into the extractor, the parity tool on its oracle and the pipeline emulated
+os.chdir(os.environ["HEADCT_ROOT"])
+from headct_foundation_tpu_torch.parallel import pipeline
+from headct_foundation_tpu_torch.tools import build_cache, export_torch, parity_check
+
+with tempfile.TemporaryDirectory() as tmp:
+    os.makedirs(os.path.join(tmp, "scans"))
+    p = os.path.join(tmp, "scans", "s.nii.gz")
+    save_nifti(p, (rng.rand(30, 32, 28) * 2000 - 1000).astype(np.float32),
+               np.diag([2.0, 2.0, 2.0, 1.0]))
+    with open(os.path.join(tmp, "m.csv"), "w") as f:
+        f.write(f"img_path\n{p}\n")
+    os.environ["HEADCT_NATIVE"] = "0"
+    counts = build_cache.build(os.path.join(tmp, "m.csv"), os.path.join(tmp, "c"), roi=24,
+                               workers=1, packed=True, log=lambda *a: None)
+    del os.environ["HEADCT_NATIVE"]
+    assert counts["done"] == 1 and counts["errors"] == 0 and counts["packed"] == 1, counts
+    path = checkpoint.save_checkpoint(state, 0, 1.0, tmp, "mae.ckpt")
+    export_torch.export(path, os.path.join(tmp, "mae.pt"))
+    geometry = ["--img-size", "24", "--patch-size", "12", "--in-chans", "3", "--hidden-size",
+                "48", "--mlp-dim", "96", "--num-layers", "2", "--num-heads", "4"]
+    parity_check.run(["--make-oracle-ckpt", os.path.join(tmp, "o.pt")] + geometry)
+    report = parity_check.run(["--checkpoint", os.path.join(tmp, "o.pt"), "--nifti-dir",
+                               os.path.join(tmp, "scans"), "--device", "cpu"] + geometry)
+    assert report["pass"], report
+blocks = [torch.nn.Linear(4, 4) for _ in range(4)]
+x = torch.randn(3, 2, 4, requires_grad=True)
+pipeline.emulate_pipeline(pipeline.split_stages(blocks, 2), x, 2).sum().backward()
+assert x.grad is not None and blocks[0].weight.grad is not None
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("imported", len(names), "modules")

@@ -51,7 +51,7 @@ def _torchrun(module: str, nproc: int, args: list, cwd=ROOT) -> dict:
 
 
 def _mesh(**axes) -> dict:
-    return {a: axes.get(a, 1) for a in ("data", "fsdp", "seq", "tensor")}
+    return {a: axes.get(a, 1) for a in ("data", "fsdp", "seq", "pipe", "tensor")}
 
 
 def _log(tmp_path) -> str:

@@ -292,21 +292,17 @@ def test_seq_shards_against_gathered_keys_match_whole_attention(s):
 
 @pytest.mark.parametrize("axis", ["FSDP", "PIPE", "SEQ", "TENSOR"])
 def test_unported_axes_still_raise(axis):
-    """PIPE above 1 raises when the mesh is laid out and in every engine.
-    FSDP, SEQ and TENSOR lay out (at a world they divide), and a single
-    process with one of them above 1 raises in every engine: it has no
-    ranks to split over."""
+    """FSDP, SEQ, PIPE and TENSOR lay out (at a world they divide), and a
+    single process with one of them above 1 raises in every engine: it has
+    no ranks to split over. The layout refuses PIPE above 1 with another
+    model axis above 1 (JAX ``parallel/pipeline.py:149-153``)."""
     cfg = worker.config(OPTS + [f"PARALLEL.{axis}", 2], GRID)
     makes = (lambda: mae_engine.create_train_state(cfg, 10, 0, device="cpu"),
              lambda: dino_engine.create_train_state(cfg, 10, 0, 1, device="cpu"),
              lambda: downstream_engine.create_train_state(cfg, 10, 0, device="cpu"))
-    if axis == "PIPE":
-        with pytest.raises(NotImplementedError, match="PARALLEL.PIPE = 2 is not ported"):
-            distributed.init_from_env("cpu", config=cfg)
-        for make in makes:
-            with pytest.raises(NotImplementedError, match="PARALLEL.PIPE = 2"):
-                make()
-        return
+    if axis != "PIPE":
+        with pytest.raises(ValueError, match="would need in-stage collectives"):
+            mesh.layout(world=4, pipe=2, **{axis.lower(): 2})
     assert mesh.layout(world=4, **{axis.lower(): 2}) == tuple(
         2 if a == axis.lower() else (2 if a == "data" else 1) for a in mesh.MESH_AXES)
     for make in makes:
@@ -332,7 +328,7 @@ def test_cli_under_torchrun_at_seq_and_tensor_resumes_in_one_process(tmp_path):
     result = json.loads(next(line for line in r.stdout.splitlines()[::-1]
                              if line.startswith('{"cli"')))["cli"]
     assert result["world"] == 4
-    assert result["mesh"] == {"data": 1, "fsdp": 1, "seq": 2, "tensor": 2}
+    assert result["mesh"] == {"data": 1, "fsdp": 1, "seq": 2, "pipe": 1, "tensor": 2}
     assert result["placeholders"] == 0 and np.isfinite(result["epochs"][0]["train"]["loss"])
     latest = str(tmp_path / "model_saved" / "latest_debug.pt")
     log, result = _cli(["--cfg", cfg, "--device", "cpu", "--model_load_path", latest,

@@ -245,10 +245,13 @@ def test_optimizer_and_engine_guards():
 
 @pytest.mark.parametrize("axis", ["FSDP", "TENSOR", "SEQ", "PIPE"])
 def test_unported_parallel_axes_raise(axis):
-    """PARALLEL.PIPE above 1 raises in every engine, naming the key. FSDP,
-    SEQ and TENSOR, which every engine takes, raise in a single process for
-    want of the ranks to split over (tests/test_torch_port_model_parallel.py
-    and tests/test_torch_port_fsdp.py run them)."""
+    """FSDP, SEQ, PIPE and TENSOR, which every engine takes, raise in a
+    single process for want of the ranks to split over
+    (tests/test_torch_port_{model_parallel,fsdp,pipeline}.py run them).
+    PIPE raises first where the JAX MAE engine does (its
+    ``create_train_state``, ``engines/mae_engine.py:110-120``): MAE dropout
+    and a depth that PIPE does not divide are ValueErrors naming "DROPOUT"
+    and "divide"."""
     from headct_foundation_tpu_torch.engines import dino_engine, downstream_engine
 
     _, cfg = _configs()
@@ -257,12 +260,15 @@ def test_unported_parallel_axes_raise(axis):
              lambda: dino_engine.create_train_state(cfg, 10, 0, 1, device="cpu"),
              lambda: downstream_engine.create_train_state(cfg, 10, 0, device="cpu"))
     for make in makes:
-        if axis == "PIPE":
-            with pytest.raises(NotImplementedError, match="PARALLEL.PIPE = 2 is not ported"):
-                make()
-        else:
-            with pytest.raises(ValueError, match=f"PARALLEL.{axis} = 2 but the process's mesh"):
-                make()
+        with pytest.raises(ValueError, match=f"PARALLEL.{axis} = 2 but the process's mesh"):
+            make()
+    if axis == "PIPE":
+        for key, value, words in (("DROPOUT_RATE", 0.1, "DROPOUT"),
+                                  ("DECODER_DEPTH", 3, "divide")):
+            bad = cfg.clone()
+            setattr(bad.MAE, key, value)
+            with pytest.raises(ValueError, match=words):
+                mae_engine.create_train_state(bad, 10, 0, device="cpu")
 
 
 @pytest.mark.parametrize("name", ["mae_HeadCT.yaml", "mae_HeadCT_192.yaml"])

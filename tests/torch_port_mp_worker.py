@@ -1,8 +1,9 @@
 """One rank of the port's model-parallel runs, for
 ``tests/test_torch_port_model_parallel.py``, ``tests/test_torch_port_fsdp.py``,
-``tests/test_torch_port_mesh_dino.py`` and
-``tests/test_torch_port_mesh_downstream.py`` (not a test module: it imports
-the port only).
+``tests/test_torch_port_mesh_dino.py``,
+``tests/test_torch_port_mesh_downstream.py`` and
+``tests/test_torch_port_pipeline.py`` (not a test module: it imports the
+port only).
 
     WORLD_SIZE=4 RANK=r MASTER_ADDR=localhost MASTER_PORT=p \\
         python -m tests.torch_port_mp_worker IN.pkl OUT_DIR
@@ -13,9 +14,14 @@ their inputs; each case starts from the seed-0 weights or the given full
 with the given ``draws`` (or its own), and records the losses, the
 gathered first-step gradients and the gathered parameters before and
 after. With ``checkpoint`` it saves the state after its steps, with
-``resume`` it starts from that checkpoint file. A case's ``engine`` is
-"mae" (the default), "dino" or "downstream"; its ``mesh_opts`` (PARALLEL
-keys) lay out a mesh of its own over the launch's ranks. Rank 0 pickles
+``resume`` it starts from that checkpoint file, with ``warm_start`` (MAE)
+from its parameters through ``load_pretrained_into``. A case's ``engine`` is
+"mae" (the default), "dino", "downstream" or "toy" (``pipeline_apply`` on
+the toy layers of ``tests/test_pipeline.py``); its ``mesh_opts`` (PARALLEL
+keys) lay out a mesh of its own over the launch's ranks, and its
+``opts_base`` replaces the launch's ``opts``. A MAE case with
+``augment`` False takes its ``draws`` of mask noise alone; under ``pipe``
+its tensors are gathered from every stage under their global names. Rank 0 pickles
 the results to ``OUT_DIR/results.pkl``. With ``WORLD_SIZE`` unset it is the
 one-process run of the same cases (``mesh_opts`` left out).
 """
@@ -33,7 +39,7 @@ import torch
 from headct_foundation_tpu_torch.config import default_config
 from headct_foundation_tpu_torch.engines import dino_engine, downstream_engine, mae_engine
 from headct_foundation_tpu_torch.ops import attention as port_attn
-from headct_foundation_tpu_torch.parallel import comm, distributed, fsdp, mesh
+from headct_foundation_tpu_torch.parallel import comm, distributed, fsdp, mesh, pipeline
 from headct_foundation_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     restore_dino_state,
@@ -41,12 +47,24 @@ from headct_foundation_tpu_torch.utils.checkpoint import (
     restore_state,
     save_checkpoint,
 )
+from headct_foundation_tpu_torch.utils.torch_interop import load_pretrained_into
 
 DINO_STEPS = dict(total_steps=20, num_warmup_steps=0, niter_per_ep=5)
 MOMENTUM, TEMP = 0.99, 0.04
 
 
+def _stages(model) -> dict:
+    """The local depth of each trunk of a pipelined MAE (``pipe`` above 1)."""
+    if mesh.current().size("pipe") == 1 or not hasattr(model, "decoder_blocks"):
+        return {}
+    return {p: len(getattr(model, p)) for p in pipeline.TRUNKS}
+
+
 def _gathered(model, tensors) -> dict:
+    depth = _stages(model)
+    if depth:
+        return {n: t.detach().clone() for n, t in pipeline.gather_stages(
+            [(n, t.detach()) for n, t in tensors], depth).items()}
     dims = fsdp.sharded_dims(model)
     return {n: mesh.all_gather_param(n, t.detach(), dim=dims.get(n)).clone()
             for n, t in tensors}
@@ -54,6 +72,16 @@ def _gathered(model, tensors) -> dict:
 
 def moments(model, optimizer) -> dict:
     """The optimizer's per-parameter tensors, gathered whole, by name."""
+    depth = _stages(model)
+    if depth:
+        held = [(n, p) for n, p in model.named_parameters() if p in optimizer.state]
+        out: dict = {}
+        for k in sorted(optimizer.state[held[0][1]]) if held else ():
+            named = [(n, optimizer.state[p][k]) for n, p in held
+                     if optimizer.state[p][k].shape == p.shape]
+            for n, v in pipeline.gather_stages(named, depth).items():
+                out.setdefault(n, {})[k] = v.clone()
+        return out
     dims = fsdp.sharded_dims(model)
     return {n: {k: mesh.all_gather_param(n, v, dim=dims.get(n)).clone()
                 for k, v in sorted(optimizer.state[p].items()) if v.shape == p.shape}
@@ -126,7 +154,11 @@ def run_case(case: dict, opts: list, out_dir: str, grid=None) -> dict:
     if case.get("resume") is not None:
         full, _, _ = restore_state(state.full_view(), load_checkpoint(case["resume"]))
         state.load_full(full)
-    grads = mae_engine.make_grad_step(augment=True, config=cfg)
+    if case.get("warm_start") is not None:  # the CLI's params-only start
+        full = state.full_view()
+        load_pretrained_into(full.model, case["warm_start"])
+        state.load_full(full)
+    grads = mae_engine.make_grad_step(augment=case.get("augment", True), config=cfg)
     watch = watch_gathers(state.model)
     init = _gathered(state.model, state.model.named_parameters())
     init_moments = moments(state.model, state.optimizer)
@@ -264,7 +296,42 @@ def run_downstream_case(case: dict, opts: list, out_dir: str, grid=None) -> dict
     return out
 
 
-ENGINES = {"mae": run_case, "dino": run_dino_case, "downstream": run_downstream_case}
+class Toy(torch.nn.Module):
+    """One toy layer of ``tests/test_pipeline.py``: tanh(x w + b)."""
+
+    def __init__(self, w, b):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.as_tensor(w).clone())
+        self.b = torch.nn.Parameter(torch.as_tensor(b).clone())
+
+    def forward(self, x):
+        return torch.tanh(x @ self.w + self.b)
+
+
+def run_toy_case(case: dict, opts: list, out_dir: str, grid=None) -> dict:
+    """``pipeline_apply`` of the stage's toy layers over this launch's
+    ``pipe`` group in ``micro`` microbatches: the output, and the gradients
+    of sum(out * w) for ``x`` and every layer (gathered by stage)."""
+    m = mesh.current()
+    lo, hi = pipeline.stage_range(len(case["ws"]), m.size("pipe"), m.coord("pipe"))
+    blocks = [Toy(case["ws"][i], case["bs"][i]) for i in range(lo, hi)]
+    x = torch.as_tensor(case["x"]).clone().requires_grad_()
+    out = pipeline.pipeline_apply(blocks, x, m.group("pipe"), case["micro"])
+    (out * torch.as_tensor(case["w"])).sum().backward()
+    with torch.no_grad():
+        evaluated = pipeline.pipeline_apply(blocks, torch.as_tensor(case["x"]), m.group("pipe"),
+                                            case["micro"])
+    named = [(f"blocks.{i}.{k}", getattr(b, k).grad) for i, b in enumerate(blocks)
+             for k in ("w", "b")]
+    grads = pipeline.gather_stages(named, {"blocks": hi - lo})
+    n = len(case["ws"])
+    return {"out": out.detach(), "eval": evaluated, "gx": x.grad,
+            "gw": torch.stack([grads[f"blocks.{i}.w"] for i in range(n)]),
+            "gb": torch.stack([grads[f"blocks.{i}.b"] for i in range(n)])}
+
+
+ENGINES = {"mae": run_case, "dino": run_dino_case, "downstream": run_downstream_case,
+           "toy": run_toy_case}
 
 
 def mesh_axes(cfg) -> dict:
@@ -281,7 +348,7 @@ def main(in_path: str, out_dir: str) -> None:
     try:
         results = {}
         for c in job["cases"]:
-            opts = list(job["opts"]) + list(c.get("mesh_opts", []))
+            opts = list(c.get("opts_base", job["opts"])) + list(c.get("mesh_opts", []))
             if c.get("mesh_opts"):
                 mesh.set_mesh(mesh.make_mesh(**mesh_axes(config(opts))))
             results[c["name"]] = ENGINES[c.get("engine", "mae")](c, opts, out_dir,
