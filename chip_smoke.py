@@ -240,6 +240,22 @@ Phases, each printing a line; any failure raises and exits non-zero:
              [16,513,16,48] and [8,513,16,48] in the kernels phase; with two
              cards or more ``tools/check_data_parallel.py --pipe 2`` (and
              ``--nproc 4 --pipe 2`` on four).
+20c. bench - the port's measuring tools in this process at full width, each
+             tool's line printed with the card's name and power limit: the
+             bench's compute-only mode (the MAE CLI's step, 10 chained steps,
+             best of 2; those steps' loss equal within 1e-6 relative to the
+             same steps called one by one from the same seed state),
+             with-loader (a packed cache, one warm and one timed epoch of 4
+             steps, 0 placeholders) and feature-latency (6 scans);
+             tools/perf_breakdown.py's five variants; tools/op_profile.py over
+             2 MAE steps (shares summing to 100%, top kernels by call site);
+             tools/bench_dino.py at 64, tools/bench_downstream.py fine-tune and
+             --lock at 64, tools/bench_longcontext.py at 2; the attention bench
+             and sweep (every kernel path within the plain path's limits).
+             Launches over each timed window held exactly: 8 B1 + 8 B2 a MAE
+             step (the fwd variant 8 B1, the encoder variant none), 24 B1 + 12
+             B2 a DINO step, 12 + 12 a fine-tune step, 12 B1 a lock step, 20
+             B3 + 20 B4 + 20 B5 a 192^3 step.
 21. tm     - the token-major attention tool: kernels B7 and B8 against their
              plain versions at the tool's four shapes (bf16) and at float32
              and ragged ones, and against B1 and B2 on the same inputs (bit
@@ -1263,24 +1279,14 @@ def hold_backends(loss_and_grads_of, dtype, label: str, what: str) -> dict:
     return {"loss_rel": rel, "grad_cos_min": cos, "grad_rel_max": grad_rel}
 
 
-PROFILE_GROUPS = [  # (group, substrings of a kernel name), first match wins
-    # B3-B5 instantiate the shared kernels with the tag "Blocked" in their names
-    ("attention kernels B3/B4/B5", ("blocked",)),
-    ("attention kernels B1/B2", ("flash_fwd", "dkv_", "dq_", "delta_kernel")),
-    ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "matmul")),
-    ("per-parameter clip norms", ("lpnorm",)),
-    ("AdamW", ("adam", "multi_tensor")),
-    ("fused Lion B6", ("lion_kernel",)),
-    ("softmax / norms / reductions", ("softmax", "norm", "reduce")),
-]
-
-
 def profile_steps(run_step, step_ms: float, n: int = 2) -> None:
     """Device time by kernel group over n train steps (torch.profiler; each
     ``run_step()``), and the device busy share: summed kernel time per step
     over the unprofiled median step time ``step_ms`` (the profiler slows the
     host)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from headct_foundation_tpu_torch.tools.op_profile import category
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -1298,9 +1304,7 @@ def profile_steps(run_step, step_ms: float, n: int = 2) -> None:
             continue
         us = float(getattr(ev, "self_device_time_total", 0.0))
         total += us
-        name = ev.key.lower()
-        group = next((g for g, keys in PROFILE_GROUPS if any(k in name for k in keys)),
-                     "elementwise and other")
+        group = category(ev.key)
         groups[group] = groups.get(group, 0.0) + us
         top.append((us, ev.key[:100]))
     if total <= 0:
@@ -3697,6 +3701,183 @@ def split_linear_check(card: str) -> dict:
     return out
 
 
+BENCH_STEPS, BENCH_RUNS = 10, 2  # compute-only: chained steps a timed run, best of
+BENCH_LOADER_STEPS = 4          # with-loader: steps an epoch, one warm epoch and one timed
+BENCH_SCANS = 6                 # feature-latency: scans (p50 over them)
+BENCH_BREAKDOWN_STEPS = 5       # perf_breakdown: iterations a timed run of each variant
+BENCH_PROFILE_STEPS = 2         # op_profile: profiled MAE steps
+BENCH_ENGINE_STEPS = 3          # the DINO, downstream and 192^3 benches: chained steps a run
+BENCH_ATTN_ITERS = 5            # bench_attention and sweep_attention: timed calls a path
+BENCH_LOG = "build/bench_phase.jsonl"  # every tool's full output, under the root
+
+
+def phase_bench(card: str) -> dict:
+    """The port's measuring tools in this process at full width: the bench's
+    compute-only (its chained loss against the same steps one by one),
+    with-loader and feature-latency modes, perf_breakdown's five variants,
+    op_profile over MAE steps, the DINO, downstream (fine-tune and lock) and
+    192^3 benches, the attention bench and the sweep. Each tool's launches
+    over its timed window are held exactly; returns them by tool. Each tool
+    gets one line here with the card's name and power limit; its own output
+    and full JSON go to ``BENCH_LOG``."""
+    log_path = ROOT / BENCH_LOG
+    log_path.parent.mkdir(parents=True, exist_ok=True)
+    with open(log_path, "w") as log:
+        return bench_tools(card, log)
+
+
+def bench_tools(card: str, log) -> dict:
+    """``phase_bench``'s runs, the tools' own output written to ``log``."""
+    from headct_foundation_tpu_torch import bench
+    from headct_foundation_tpu_torch.tools import (
+        bench_attention,
+        bench_dino,
+        bench_downstream,
+        bench_longcontext,
+        op_profile,
+        perf_breakdown,
+        sweep_attention,
+    )
+
+    mae = {"flash_attention_fwd": 8, "flash_attention_bwd": 8}
+    blocked = {n: 20 for n in ("flash_attention_blocked_fwd", "flash_attention_blocked_dkv",
+                               "flash_attention_blocked_dq")}
+    runs: dict = {}
+
+    def quiet(fn, *args, **kw):
+        """``fn``'s result, its prints sent to the log."""
+        with contextlib.redirect_stdout(log):
+            out = fn(*args, **kw)
+        log.flush()
+        return out
+
+    def held(label: str, result: dict, per_step: dict, steps: int, note: str = "") -> None:
+        got = result["launches"]
+        want = {n: per_step.get(n, 0) * steps for n in got}
+        check(got == want, f"bench {label}: launches {got} over {steps} steps; expected {want}")
+        runs[label] = {n: k for n, k in got.items() if k}
+        log.write(json.dumps({"tool": label, **result}) + "\n")
+        rate = (f"{result['value']:.2f} {result['unit']}, " if "value" in result else "")
+        print(f"bench {label}: {rate}{result['ms_per_step']:.2f} ms a step{note}; launches "
+              f"{json.dumps(runs[label])} = {per_step} a step over {steps} timed steps, "
+              f"exactly | {card}", flush=True)
+
+    t_phase = time.perf_counter()
+    r = quiet(bench.compute_only, device="cuda", steps=BENCH_STEPS, runs=BENCH_RUNS,
+              check_chain=True)
+    c = r["chain_check"]
+    held("compute-only", r, mae, r["timed_steps"],
+         f" (best of {BENCH_RUNS} chains of {BENCH_STEPS}, vs_baseline {r['vs_baseline']:.1f}); "
+         f"the first {BENCH_STEPS} chained steps end on loss {c['chained_loss']:.9g}, the same "
+         f"steps one by one on {c['single_loss']:.9g} (relative {c['rel']:.3e} <= 1e-6)")
+    torch.cuda.empty_cache()
+    r = quiet(bench.with_loader, device="cuda", epochs=2, warm_epochs=1,
+              steps_per_epoch=BENCH_LOADER_STEPS, workdir=str(ROOT / "build"))
+    check(r["placeholders"] == 0 and 0.0 <= r["input_wait_frac"] <= 1.0,
+          f"bench with-loader: placeholders {r['placeholders']}, input_wait_frac "
+          f"{r['input_wait_frac']}")
+    r["ms_per_step"] = TRAIN_BATCH / r["value"] * 1e3
+    held("with-loader", r, mae, r["timed_steps"],
+         f"; input_wait_frac {r['input_wait_frac']:.4f}, 0 placeholders, H2D "
+         f"{r['h2d_MB_per_s']:.0f} MB/s (bound {r['h2d_bound_vols_per_s']:.0f} volumes/s), host "
+         f"loader {json.dumps(r['host_loader_vols_per_s_by_workers'])} volumes/s")
+    torch.cuda.empty_cache()
+    r = quiet(bench.feature_latency, "cuda", n_scans=BENCH_SCANS, workdir=str(ROOT / "build"))
+    check(math.isfinite(r["value"]) and r["value"] > 0, f"bench feature-latency: {r}")
+    log.write(json.dumps({"tool": "feature-latency", **r}) + "\n")
+    print(f"bench feature-latency: p50 {r['value']:.2f} ms a scan over {BENCH_SCANS} scans, "
+          f"{json.dumps(r['decomposition_ms'])} | {card}", flush=True)
+    torch.cuda.empty_cache()
+
+    r = quiet(perf_breakdown.run, batch=TRAIN_BATCH, steps=BENCH_BREAKDOWN_STEPS,
+              runs=BENCH_RUNS, device="cuda")
+    per_variant = {"full": mae, "fwd_bwd": mae, "fwd": {"flash_attention_fwd": 8},
+                   "encoder_fwd_bwd": {}, "optimizer": {}}
+    for name, per in per_variant.items():
+        held(f"perf_breakdown {name}", {"launches": r["launches"][name],
+                                        "ms_per_step": r["ms_per_step"][name]},
+             per, r["steps"] * r["runs"])
+    log.write(json.dumps({"tool": "perf_breakdown", **r}) + "\n")
+    print(f"bench perf_breakdown: derived ms {json.dumps(r['derived_ms'])}, full "
+          f"{r['vols_per_s_per_gpu_full']:.2f} volumes/s | {card}", flush=True)
+    torch.cuda.empty_cache()
+    r = quiet(op_profile.run, "mae", batch=TRAIN_BATCH, steps=BENCH_PROFILE_STEPS,
+              device="cuda")
+    quiet(op_profile.report, r)
+    check(abs(sum(r["categories"].values()) - 100.0) <= 0.1, f"op_profile shares {r['categories']}")
+    held("op_profile", {**r, "ms_per_step": r["device_ms_per_step"]}, mae, BENCH_PROFILE_STEPS,
+         " of device time; " + ", ".join(f"{c} {v:.1f}%" for c, v in r["categories"].items()))
+    for k in r["top_kernels"][:6]:
+        print(f"bench op_profile top: {k['share']:.1f}% {k['ms_per_step']:.3f} ms "
+              f"x{k['count_per_step']:g} {k['kernel'][:60]} <- {k['op']} @ {k['frame']}",
+              flush=True)
+    for k in r["elementwise_sites"][:6]:
+        print(f"bench op_profile elementwise site: {k['share']:.1f}% {k['ms_per_step']:.3f} ms "
+              f"x{k['count_per_step']:g} {k['op']} @ {k['frame']}", flush=True)
+    torch.cuda.empty_cache()
+
+    r = quiet(bench_dino.run, batch=64, steps=BENCH_ENGINE_STEPS, runs=BENCH_RUNS,
+              device="cuda")
+    held("dino", r, {"flash_attention_fwd": 24, "flash_attention_bwd": 12}, r["timed_steps"])
+    torch.cuda.empty_cache()
+    for lock in (False, True):
+        r = quiet(bench_downstream.run, batch=64, lock=lock, steps=BENCH_ENGINE_STEPS,
+                  runs=BENCH_RUNS, device="cuda")
+        per = {"flash_attention_fwd": 12, **({} if lock else {"flash_attention_bwd": 12})}
+        held("downstream lock" if lock else "downstream fine-tune", r, per, r["timed_steps"])
+        torch.cuda.empty_cache()
+    r = quiet(bench_longcontext.run, batch=2, steps=BENCH_ENGINE_STEPS, runs=BENCH_RUNS,
+              device="cuda")
+    held("192^3", r, blocked, r["timed_steps"])
+    torch.cuda.empty_cache()
+
+    r = quiet(bench_attention.run, iters=BENCH_ATTN_ITERS, device="cuda")
+    calls = 3 + BENCH_ATTN_ITERS  # warm-up and timed calls of each mode
+    for name, res in r["shapes"].items():
+        check(res["kernel"]["launches"] == {"flash_attention_fwd": 2 * calls,
+                                            "flash_attention_bwd": calls}
+              and not res["plain"]["launches"] and not res["sdpa"]["launches"],
+              f"bench_attention {name}: launches "
+              f"{[res[p]['launches'] for p in bench_attention.PATHS]}")
+        print(f"bench attention {name} {res['shape']}: forward+backward "
+              + ", ".join(f"{p} {res[p]['fwd_bwd_ms']:.4f} ms ({res[p]['tf_s_fwd_bwd']:.1f} TF/s)"
+                          for p in bench_attention.PATHS)
+              + f"; forward kernel {res['kernel']['fwd_ms']:.4f}, sdpa {res['sdpa']['fwd_ms']:.4f}"
+              f" ms | {card}", flush=True)
+    runs["attention"] = {n: sum(res["kernel"]["launches"].get(n, 0) for res in r["shapes"].values())
+                         for n in ("flash_attention_fwd", "flash_attention_bwd")}
+    log.write(json.dumps({"tool": "bench_attention", **r}) + "\n")
+    torch.cuda.empty_cache()
+    r = quiet(sweep_attention.run, iters=BENCH_ATTN_ITERS, device="cuda")
+    sweep: dict = {}
+    want = {"whole": {"flash_attention_fwd": 2 * calls, "flash_attention_bwd": calls},
+            "blocked": {"flash_attention_blocked_fwd": 2 * calls,
+                        "flash_attention_blocked_dkv": calls, "flash_attention_blocked_dq": calls}}
+    for res in r["points"]:
+        for path, entry in res["paths"].items():
+            check(entry["launches"] == want.get(path, {}),
+                  f"sweep_attention {res['point']} {path}: launches {entry['launches']}")
+            for n, k in entry["launches"].items():
+                sweep[n] = sweep.get(n, 0) + k
+        check(("whole" in res["left_out"]) == (res["shape"][1] > 1024),
+              f"sweep_attention {res['point']}: left out {res['left_out']}")
+        print(f"bench sweep {res['point']} {res['shape']}: forward+backward "
+              + ", ".join(f"{p} {e['fwd_bwd_ms']:.4f} ms" for p, e in res["paths"].items())
+              + "".join(f"; {p} left out: {why}" for p, why in res["left_out"].items())
+              + f"; worst kernel rel_l2 {max(e['agreement'][g]['rel_l2'] for e in res['paths'].values() if 'agreement' in e for g in ('o', 'dq', 'dk', 'dv')):.2e} | {card}",
+              flush=True)
+    runs["sweep"] = sweep
+    log.write(json.dumps({"tool": "sweep_attention", **r}) + "\n")
+    cross = r["crossovers"]
+    print(f"bench sweep: implied pallas_min_t {cross['pallas_min_t']['implied']} (current "
+          f"{cross['pallas_min_t']['current']}), implied VMEM_PATH_MAX_T "
+          f"{cross['VMEM_PATH_MAX_T']['implied']} (current {cross['VMEM_PATH_MAX_T']['current']};"
+          f" the whole path takes no T above it) | {card}", flush=True)
+    print(f"bench: phase in {time.perf_counter() - t_phase:.2f} s; every tool's output in "
+          f"{BENCH_LOG} | {card}", flush=True)
+    return runs
+
+
 WGMMA_BUILDS = {"flash_attention_fwd": 15, "flash_attention_blocked_fwd": 15,
                 "flash_attention_bwd": 20, "flash_attention_blocked_bwd": 20,
                 "tm_attention": 35}
@@ -3884,6 +4065,8 @@ def main() -> int:
     pipe = phase_pipe(card)
     print(f"pipe: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
     torch.cuda.empty_cache()
+    bench = phase_bench(card)
+    torch.cuda.empty_cache()
     tm_launches = phase_tm_bench()
     meshes = {"dino-mesh": dino_mesh, "downstream-mesh": downstream_mesh}
 
@@ -3925,7 +4108,9 @@ def main() -> int:
                                     tools["cli"]["cli training"]["flash_attention_fwd"],
                                 "tools epoch eval": tools["cli"]["cli eval"]["flash_attention_fwd"],
                                 "tools export": tools["export"],
-                                "tools parity": tools["parity"]},
+                                "tools parity": tools["parity"],
+                                **{f"bench {k}": r["flash_attention_fwd"]
+                                   for k, r in bench.items() if r.get("flash_attention_fwd")}},
         "flash_attention_bwd": {"training": train["train"]["flash_attention_bwd"],
                                 "lion training": lion["train"]["flash_attention_bwd"],
                                 "cli training": cli["cli training"]["flash_attention_bwd"],
@@ -3945,22 +4130,30 @@ def main() -> int:
                                    for k, m in meshes.items()},
                                 "pipe training": pipe["launches"]["flash_attention_bwd"],
                                 "tools epoch training":
-                                    tools["cli"]["cli training"]["flash_attention_bwd"]},
+                                    tools["cli"]["cli training"]["flash_attention_bwd"],
+                                **{f"bench {k}": r["flash_attention_bwd"]
+                                   for k, r in bench.items() if r.get("flash_attention_bwd")}},
         "flash_attention_blocked_fwd": {"stretch training": stretch["train"][blocked[0]],
                                         "stretch eval": stretch["eval"][blocked[0]],
                                         "extract grid 192":
                                             extract["runs"]["grid 192"][blocked[0]],
                                         "context seq shards": context["launches"][blocked[0]],
                                         **{f"{k} seq shards": m["launches"][blocked[0]]
-                                           for k, m in meshes.items()}},
+                                           for k, m in meshes.items()},
+                                        **{f"bench {k}": r[blocked[0]]
+                                           for k, r in bench.items() if r.get(blocked[0])}},
         "flash_attention_blocked_dkv": {"stretch training": stretch["train"][blocked[1]],
                                         "context seq shards": context["launches"][blocked[1]],
                                         **{f"{k} seq shards": m["launches"][blocked[1]]
-                                           for k, m in meshes.items()}},
+                                           for k, m in meshes.items()},
+                                        **{f"bench {k}": r[blocked[1]]
+                                           for k, r in bench.items() if r.get(blocked[1])}},
         "flash_attention_blocked_dq": {"stretch training": stretch["train"][blocked[2]],
                                        "context seq shards": context["launches"][blocked[2]],
                                        **{f"{k} seq shards": m["launches"][blocked[2]]
-                                          for k, m in meshes.items()}},
+                                          for k, m in meshes.items()},
+                                       **{f"bench {k}": r[blocked[2]]
+                                          for k, r in bench.items() if r.get(blocked[2])}},
         "lion_update": {"lion training": lion["train"]["lion_update"],
                         "fsdp shard": fsdp["lion_shard"]["launches"]},
         "tm_attention_fwd": {"tm bench": tm_launches["tm_attention_fwd"]},

@@ -157,19 +157,28 @@ class DevicePreprocessor:
         return orientation_ras(data, img.affine)
 
     def __call__(self, source: Source) -> torch.Tensor:
+        return self.transform(*self.ship(*self.decode(source)))
+
+    def decode(self, source: Source) -> Tuple[np.ndarray, np.ndarray]:
+        """The host's part: the volume and its affine, RAS-oriented."""
         if self.decoder is not None and not isinstance(source, bytes):
-            data, affine = self.decoder(os.fspath(source))
-        else:
-            data, affine = self._decode(source)
+            return self.decoder(os.fspath(source))
+        return self._decode(source)
+
+    def ship(self, data: np.ndarray, affine: np.ndarray) -> Tuple[torch.Tensor, List[float]]:
+        """The decoded volume on the device, float32, and its voxel spacing."""
         zooms = [float(z) for z in np.linalg.norm(affine[:3, :3], axis=0)]
         host = np.ascontiguousarray(data, dtype=np.float32)
         # CT voxels are integral HU in practice: when the volume is exactly
         # int16, ship half the bytes and widen on the device.
         as_int = host.astype(np.int16)
         if np.array_equal(as_int.astype(np.float32), host):
-            vol = torch.from_numpy(as_int).to(self.device).to(torch.float32)
-        else:
-            vol = torch.from_numpy(host).to(self.device)
+            return torch.from_numpy(as_int).to(self.device).to(torch.float32), zooms
+        return torch.from_numpy(host).to(self.device), zooms
+
+    def transform(self, vol: torch.Tensor, zooms: Sequence[float]) -> torch.Tensor:
+        """The device's part: resample to 1 mm, area resize to the ROI and
+        window, in this preprocessor's order."""
         if not np.allclose(zooms, 1.0, atol=1e-3):  # 1 mm already: nothing to resample
             mh, mw, md = (self._cubic_op(n, z) for n, z in zip(vol.shape, zooms))
             vol = torch.einsum("ah,hwd->awd", mh, vol)

@@ -105,11 +105,11 @@ class FeatureExtractor:
             self.missing, self.unexpected = load_pretrained_into(model, checkpoint_path,
                                                                  logger=log)
         self.model = model.to(self.device).eval()
-        self._prep = DevicePreprocessor((img_size,) * 3, in_chans, self.device)
+        self.preprocessor = DevicePreprocessor((img_size,) * 3, in_chans, self.device)
 
     def preprocess(self, source: Source) -> torch.Tensor:
         """NIfTI path or bytes -> [C, R, R, R] float32 on the extractor's device."""
-        return self._prep(source)
+        return self.preprocessor(source)
 
     def _input(self, x) -> torch.Tensor:
         x = torch.as_tensor(x).to(self.device, torch.float32)

@@ -237,6 +237,13 @@ def create_state(config, run: Dict[str, Any], device, dtype: torch.dtype = torch
                                          seed=int(config.SEED), dtype=dtype, device=device)[0]
 
 
+def make_train_step(config):
+    """The CLI's train step: augmentation on the card and ``TRAIN.ACCUM_STEPS``
+    micro-batches (the port's bench times this object)."""
+    return mae_engine.make_train_step(augment=True, accum_steps=int(config.TRAIN.ACCUM_STEPS),
+                                      config=config)
+
+
 def main(config, device: torch.device, logger, wandb_run=None,
          dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
     """The run; ``dtype`` is the compute dtype (bfloat16 as the JAX main;
@@ -248,8 +255,7 @@ def main(config, device: torch.device, logger, wandb_run=None,
     if run["load_path"] is not None:
         state, start_epoch = resume(state, run["load_path"], logger)
 
-    train_step = mae_engine.make_train_step(augment=True, accum_steps=int(config.TRAIN.ACCUM_STEPS),
-                                            config=config)
+    train_step = make_train_step(config)
     eval_step = mae_engine.make_eval_step(config)
     history: List[Dict[str, Any]] = []
     state, best_loss = mae_engine.trainer(

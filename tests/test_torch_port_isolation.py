@@ -272,6 +272,23 @@ def test_entry_points_default_to_cuda(monkeypatch):
     from headct_foundation_tpu_torch.engines import downstream_engine
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         downstream_engine.create_train_state(default_config(), 10, 0)
+    # the measuring tools, without --device cpu
+    from headct_foundation_tpu_torch import bench
+    from headct_foundation_tpu_torch.tools import (
+        bench_attention,
+        bench_dino,
+        bench_downstream,
+        bench_longcontext,
+        op_profile,
+        perf_breakdown,
+        sweep_attention,
+    )
+    for tool in (bench, bench_dino, bench_downstream, bench_longcontext, perf_breakdown,
+                 op_profile, bench_attention, sweep_attention):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tool.main([])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench.main(["--compute-only"])
 
 
 def test_build_extractor_from_config_copy():
