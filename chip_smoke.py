@@ -256,6 +256,27 @@ Phases, each printing a line; any failure raises and exits non-zero:
              step (the fwd variant 8 B1, the encoder variant none), 24 B1 + 12
              B2 a DINO step, 12 + 12 a fine-tune step, 12 B1 a lock step, 20
              B3 + 20 B4 + 20 B5 a 192^3 step.
+20d. study - the study tools in this process at full width, each tool's
+             output in build/study_phase.jsonl and its artifacts under
+             build/study/: tools/trajectory.py for the MAE (5 x 20 steps
+             at 16), DINO (5 x 20 at 8) and downstream (5 x 20 at 8), pools
+             on the card, its own assertions holding;
+             tools/wire_equivalence.py (100 steps at 16 on each wire, then
+             16 scans' CLS cosines through the bf16 extractor), both series
+             finite and the bf16 extractor's CLS within BF16_REL_L2 of
+             float32 on the same weights;
+             tools/transfer_study.py --scale tiny with the JAX slow test's
+             arguments and checks (tests/test_transfer.py); a short
+             tools/dino_semantics.py (4 x 50 steps: finite diagnostics,
+             accuracies in [0, 1], no kernel at T = 11); tools/bench_int8.py (the int8
+             products equal to an int64 product); then the bench's
+             compute-only in a new process and under torchrun on every card
+             (on one card the torchrun line has the one-process line's
+             fields, launches and final loss and a rate within
+             TORCHRUN_RATE_BAND of it). Launches exact: 8 B1 + 8 B2 a MAE
+             step, 24 B1 + 12 B2 a DINO step, 12 + 12 a fine-tune step, 12 B1
+             a probe step under lock and an eval or extraction batch, 12 B1
+             bf16 at [4,513,12,64] an extractor call.
 21. tm     - the token-major attention tool: kernels B7 and B8 against their
              plain versions at the tool's four shapes (bf16) and at float32
              and ragged ones, and against B1 and B2 on the same inputs (bit
@@ -311,6 +332,8 @@ DOWNSTREAM = (64, 513, 12, 64)
 # PIPE 2 stage at M = 2, and a PIPE 4 stage at M = 4 (or PIPE 2 at M = 4)
 PIPE_2 = (16, 513, 16, 48)
 PIPE_4 = (8, 513, 16, 48)
+# the bfloat16 extractor of tools/wire_equivalence.py: 4 scans, ViT-B/12
+EXTRACTOR_BF16 = (4, 513, 12, 64)
 LORA = "lora"  # a case's layout: q, v contiguous, k a view of [B, T, 3 H D]
 KERNEL_CASES = [  # (shape [B, T, H, D], dtype, atol, rtol, storage offset) for O; LSE at
     # 1e-4 / 1e-4; reruns bit-identical. q, k, v are strided views of one [B, T, 3, H, D].
@@ -327,6 +350,7 @@ KERNEL_CASES = [  # (shape [B, T, H, D], dtype, atol, rtol, storage offset) for 
     (DOWNSTREAM, torch.bfloat16, 2e-2, 2e-2, 0, LORA),     # downstream fine-tune and LoRA
     (PIPE_2, torch.bfloat16, 2e-2, 2e-2, 0),               # the MAE decoder's pipe
     (PIPE_4, torch.bfloat16, 2e-2, 2e-2, 0),               # microbatches
+    (EXTRACTOR_BF16, torch.bfloat16, 2e-2, 2e-2, 0),       # the bf16 extractor
     ((2, 129, 3, 32), torch.float32, 2e-5, 1e-4, 0),       # ragged tiles
     ((2, 9, 3, 12), torch.float32, 2e-5, 1e-4, 0),
     ((2, 129, 3, 32), torch.bfloat16, 2e-2, 2e-2, 0),      # the tensor-core path's other
@@ -366,6 +390,7 @@ BWD_CASES = [  # (shape, dtype, atol, rtol, storage offset) for dq, dk, dv again
     (DOWNSTREAM, torch.bfloat16, 2e-2, 2e-2, 0, LORA),     # downstream fine-tune and LoRA
     (PIPE_2, torch.bfloat16, 2e-2, 2e-2, 0),               # the MAE decoder's pipe
     (PIPE_4, torch.bfloat16, 2e-2, 2e-2, 0),               # microbatches
+    (EXTRACTOR_BF16, torch.bfloat16, 2e-2, 2e-2, 0),       # the bf16 extractor
     (MAE_DECODER, torch.float32, 1e-4, 1e-3, 0),
     ((2, 129, 3, 32), torch.float32, 1e-4, 1e-3, 0),       # ragged tiles
     ((2, 9, 3, 12), torch.float32, 1e-4, 1e-3, 0),
@@ -3878,6 +3903,224 @@ def bench_tools(card: str, log) -> dict:
     return runs
 
 
+STUDY_LOG = "build/study_phase.jsonl"  # every study tool's output, under the root
+STUDY_DIR = "build/study"              # their artifacts
+# The study runs are cut in steps (the tools' defaults: 10 x 30 / 25 and 300
+# a wire) to hold the phase near 150 s: a step of these loops takes about
+# 110 ms on an H100, most of it the host's launches (PERF.md §6).
+STUDY_EPOCHS, STUDY_STEPS = 5, 20  # each trajectory: epochs x steps an epoch
+WIRE_STEPS, WIRE_SCANS, WIRE_BATCH = 100, 16, 4  # wire_equivalence: steps a wire; cosines
+SEMANTICS_EPOCHS, SEMANTICS_STEPS = 4, 50  # dino_semantics: one short horizon
+TORCHRUN_RATE_BAND = (0.8, 1.25)  # one card under torchrun against the in-process rate
+# tests/test_transfer.py's arguments of the tiny transfer study
+TRANSFER_TINY = ["--scale", "tiny", "--classifier", "linear", "--noise", "0.15", "--warp", "0.2",
+                 "--probe-train", "8", "--pretrain-epochs", "10", "--pretrain-steps", "50",
+                 "--probe-epochs", "4", "--probe-steps", "20", "--pool", "256",
+                 "--margin", "0.01", "--min-auroc", "0.7"]
+
+
+def phase_study(card: str) -> dict:
+    """The study tools in this process at full width (the module docstring's
+    phase 20d); returns each run's launches. Each tool gets a line here with
+    the card's name and power limit; its own output goes to ``STUDY_LOG``."""
+    log_path = ROOT / STUDY_LOG
+    log_path.parent.mkdir(parents=True, exist_ok=True)
+    with open(log_path, "w") as log:
+        return study_tools(card, log)
+
+
+def study_tools(card: str, log) -> dict:
+    """``phase_study``'s runs, the tools' own output written to ``log``."""
+    from headct_foundation_tpu_torch.tools import (
+        bench_int8,
+        dino_semantics,
+        trajectory,
+        transfer_study,
+        wire_equivalence,
+    )
+
+    out = ROOT / STUDY_DIR
+    runs: dict = {}
+    t_phase = time.perf_counter()
+
+    def quiet(fn, *args, **kw):
+        with contextlib.redirect_stdout(log):
+            result = fn(*args, **kw)
+        log.flush()
+        return result
+
+    def held(label: str, want: dict) -> dict:
+        """The launches since ``zero_launches``, exactly ``want``."""
+        got = launches()
+        want = {n: want.get(n, 0) for n in got}
+        check(got == want, f"study {label}: launches {got}; expected {want}")
+        runs[label] = {n: k for n, k in got.items() if k}
+        return runs[label]
+
+    def per(steps: int, fwd: int, bwd: int = 0, extra_fwd: int = 0) -> dict:
+        return {"flash_attention_fwd": steps * fwd + extra_fwd, "flash_attention_bwd": steps * bwd}
+
+    for engine, batch, fwd, bwd in (("mae", 16, 8, 8), ("dino", 8, 24, 12),
+                                    ("downstream", 8, 12, 12)):
+        epochs, steps = STUDY_EPOCHS, STUDY_STEPS
+        zero_launches()
+        t0 = time.perf_counter()
+        r = quiet(trajectory.main, ["--engine", engine, "--epochs", str(epochs),
+                                    "--steps-per-epoch", str(steps), "--batch", str(batch),
+                                    "--device-pool",
+                                    "--out-prefix", str(out / f"trajectory_{engine}")])
+        got = held(f"trajectory {engine}", per(epochs * steps, fwd, bwd))
+        check(all(r["launches"][n] == got.get(n, 0) for n in r["launches"]),
+              f"trajectory {engine}: the epochs' launches {r['launches']}, the wrappers' {got}")
+        what = {"mae": "", "dino": f", ln K {r.get('ln_k', 0):.4f}",
+                "downstream": f", train AUROC by epoch {r.get('epoch_aurocs')}"}[engine]
+        log.write(json.dumps({"tool": f"trajectory {engine}", **r}) + "\n")
+        print(f"study trajectory {engine}: {r['steps']} steps at batch {batch}, loss start "
+              f"{r['start_loss']:.4f}, first 15% {r['head_mean']:.4f}, last 15% "
+              f"{r['tail_mean']:.4f}, min {r['min_loss']:.4f}{what}; the tool's assertions "
+              f"passed; launches {json.dumps(got)} = ({fwd} B1 + {bwd} B2) x {r['steps']}; "
+              f"{time.perf_counter() - t0:.2f} s | {card}", flush=True)
+        torch.cuda.empty_cache()
+
+    zero_launches()
+    t0 = time.perf_counter()
+    r = quiet(wire_equivalence.main, ["--steps", str(WIRE_STEPS), "--batch", "16",
+                                      "--cosine-scans", str(WIRE_SCANS),
+                                      "--out-prefix", str(out / "wire_equivalence")])
+    calls = 2 * -(-WIRE_SCANS // WIRE_BATCH)  # hu16 and hu8 windows, batches of 4
+    got = held("wire_equivalence", per(2 * WIRE_STEPS, 8, 8, extra_fwd=12 * calls))
+    series = np.asarray(r["losses_hu16"] + r["losses_hu8"])
+    check(len(series) == 2 * WIRE_STEPS and bool(np.isfinite(series).all()),
+          "wire_equivalence: a loss series is short or not finite")
+    pool = wire_equivalence.make_hu_pool(WIRE_BATCH, 96)  # the tool's first scans
+    w16, _ = wire_equivalence.windows(pool)
+    bf16 = wire_equivalence.extractor(96, device="cuda").cls_embedding(w16)
+    f32 = wire_equivalence.extractor(96, device="cuda", dtype=torch.float32).cls_embedding(w16)
+    rel = float(np.linalg.norm(bf16 - f32) / np.linalg.norm(f32))
+    check(np.isfinite(bf16).all() and rel <= BF16_REL_L2,
+          f"wire_equivalence: the bf16 extractor's CLS is {rel:.3e} from float32 (> {BF16_REL_L2})")
+    log.write(json.dumps({"tool": "wire_equivalence", **r, "bf16_vs_f32_cls_rel_l2": rel}) + "\n")
+    print(f"study wire_equivalence: {WIRE_STEPS} steps a wire at batch 16, loss hu16 "
+          f"{r['loss_hu16_start']:.4f} -> {r['loss_hu16_final']:.4f}, hu8 -> "
+          f"{r['loss_hu8_final']:.4f}, mean relative |dloss| {r['mean_rel_dloss']:.3e} (max "
+          f"{r['max_rel_dloss']:.3e}), equivalent_training {r['equivalent_training']}; feature "
+          f"cosine min {r['feature_cosine_min']:.6f} mean {r['feature_cosine_mean']:.6f} over "
+          f"{WIRE_SCANS} scans (bf16 extractor, float32 arithmetic), equivalent_features "
+          f"{r['equivalent_features']}; bf16 CLS vs float32 rel_l2 {rel:.3e} (<= {BF16_REL_L2}); "
+          f"launches {json.dumps(got)} = (8 B1 + 8 B2) x {2 * WIRE_STEPS} + 12 B1 bf16 x {calls} "
+          f"extractor calls; {time.perf_counter() - t0:.2f} s | {card}", flush=True)
+    torch.cuda.empty_cache()
+
+    zero_launches()
+    t0 = time.perf_counter()
+    prefix = out / "transfer_tiny"
+    r = quiet(transfer_study.main, TRANSFER_TINY + ["--out-prefix", str(prefix)])
+    held("transfer tiny", {})  # T = 65: the plain attention
+    ok = (r["auroc_margin"] > 0.01 and r["map_margin"] > 0.01
+          and r["probe"]["pretrained"]["best_val_auroc"] > 0.7
+          and r["retrieval"]["pretrained"]["mean_map"] > 2 * r["retrieval"]["chance_map"]
+          and r["pretrain"]["final_loss"] < r["pretrain"]["start_loss"]
+          and (r["png"] is None or os.path.exists(r["png"])))
+    check(ok, f"transfer tiny: the JAX slow test's checks failed: {json.dumps(r)[:2000]}")
+    print(f"study transfer tiny: pretrain loss {r['pretrain']['start_loss']:.4f} -> "
+          f"{r['pretrain']['final_loss']:.4f}; probe best val AUROC pretrained "
+          f"{r['probe']['pretrained']['best_val_auroc']:.4f} / random "
+          f"{r['probe']['random']['best_val_auroc']:.4f} (margin {r['auroc_margin']}); "
+          f"retrieval mAP {r['retrieval']['pretrained']['mean_map']:.4f} / "
+          f"{r['retrieval']['random']['mean_map']:.4f} (margin {r['map_margin']}, chance "
+          f"{r['retrieval']['chance_map']:.4f}); tests/test_transfer.py's checks passed; "
+          f"stages {json.dumps(r['stage_s'])} s; no launches (T = 65); "
+          f"{time.perf_counter() - t0:.2f} s | {card}", flush=True)
+    log.write(json.dumps({"tool": "transfer tiny", **r}) + "\n")
+    torch.cuda.empty_cache()
+
+    zero_launches()
+    t0 = time.perf_counter()
+    r = quiet(dino_semantics.main, ["--epochs", str(SEMANTICS_EPOCHS), "--steps-per-epoch",
+                                    str(SEMANTICS_STEPS),
+                                    "--out-prefix", str(out / "dino_semantics_short")])
+    held("dino_semantics", {})  # T = 11: the plain attention, as in JAX
+    diags = r["runs"][0]["diags"]
+    check(all(math.isfinite(d[k]) for d in diags for k in ("centroid_acc", "within_cos",
+                                                           "between_cos", "loss_tail"))
+          and all(0.0 <= d["centroid_acc"] <= 1.0 for d in diags),
+          f"dino_semantics: diagnostics {diags}")
+    print(f"study dino_semantics: {SEMANTICS_EPOCHS} x {SEMANTICS_STEPS} steps at 16, by epoch "
+          f"centroid accuracy "
+          f"{[d['centroid_acc'] for d in diags]} (chance {r['chance']}), within/between cosine "
+          f"{diags[-1]['within_cos']}/{diags[-1]['between_cos']}, loss tail "
+          f"{diags[-1]['loss_tail']}; semantics_emerged {r['semantics_emerged']}, retained_at_end "
+          f"{r['retained_at_end']} (no gate); no launches (T = 11); "
+          f"{time.perf_counter() - t0:.2f} s | {card}", flush=True)
+    log.write(json.dumps({"tool": "dino_semantics", **r}) + "\n")
+
+    t0 = time.perf_counter()
+    r = quiet(bench_int8.run, "cuda")
+    for name, e in r["report"].items():
+        print(f"study bench_int8 {name} {e['shape']}: bf16 {e['bf16_ms']:.4f} ms "
+              f"({e['bf16_TFs']:.1f} TF/s of {bench_int8.DENSE_PEAK['bf16_TFs']:.0f}), int8 "
+              f"prequantised {e['int8_prequant_ms']:.4f} ms ({e['int8_prequant_TOPs']:.1f} TOP/s "
+              f"of {bench_int8.DENSE_PEAK['int8_TOPs']:.0f}), int8 dynamic "
+              f"{e['int8_dynamic_ms']:.4f} ms; speedups {e['speedup_prequant']:.2f}x / "
+              f"{e['speedup_dynamic']:.2f}x; the products alone bf16 {e['bf16_alone_ms']:.4f} ms, "
+              f"int8 {e['int8_prequant_alone_ms']:.4f} ms ({e['speedup_prequant_alone']:.2f}x); "
+              f"the int8 product's first {e['int8_exact_rows']} rows "
+              f"equal to an int64 product; chains of {bench_int8.CHAIN} (each product's sum "
+              f"feeds the next) | {card}", flush=True)
+    log.write(json.dumps({"tool": "bench_int8", **r}) + "\n")
+    torch.cuda.empty_cache()
+
+    n = torch.cuda.device_count()
+    bench_args = ["-m", "headct_foundation_tpu_torch.bench", "--compute-only",
+                  "--chain-steps", str(BENCH_STEPS), "--runs", str(BENCH_RUNS)]
+    launcher = ["-m", "torch.distributed.run", "--nproc_per_node", str(n), "--master_addr",
+                "localhost", "--master_port", str(free_port())]
+    t0 = time.perf_counter()
+    # the one-process line from a fresh process too: the chained step is set by
+    # the host's launches, which run faster in a new process than in this one
+    one, line = (bench_line(cmd, log, label) for cmd, label in (
+        (bench_args, "bench one process"), (launcher + bench_args, f"bench torchrun x{n}")))
+    if n == 1:
+        ratio = line["value"] / one["value"]
+        check(set(line) == set(one) and line["launches"] == one["launches"]
+              and line["final_loss"] == one["final_loss"]
+              and TORCHRUN_RATE_BAND[0] <= ratio <= TORCHRUN_RATE_BAND[1],
+              f"bench under torchrun on one card: {line}; one process {one}")
+        note = (f"the one-process line's fields, launches and final loss "
+                f"({line['final_loss']:.9g}); {ratio:.3f} x its {one['value']:.2f} volumes/s "
+                f"(band {TORCHRUN_RATE_BAND})")
+    else:
+        check(line["n_gpus"] == n and all(math.isfinite(v) for v in line["per_rank"]),
+              f"bench under torchrun on {n} cards: {line}")
+        note = (f"{n} cards: summed {line['summed']:.2f} volumes/s, per card "
+                f"{line['per_card_vs_one']:.3f} x one card's {line['one_card']:.2f}")
+    print(f"study bench torchrun --nproc_per_node {n}: {line['value']:.2f} {line['unit']} "
+          f"({line['ms_per_step']:.2f} ms a step, best of {BENCH_RUNS} chains of {BENCH_STEPS}); "
+          f"{note}; {time.perf_counter() - t0:.2f} s with the process start | {card}", flush=True)
+    print(f"study: phase in {time.perf_counter() - t_phase:.2f} s; every tool's output in "
+          f"{STUDY_LOG}, the artifacts in {STUDY_DIR}/ | {card}", flush=True)
+    return runs
+
+
+def bench_line(args: list, log, label: str) -> dict:
+    """``python args`` from the root; its one JSON line (rank 0's)."""
+    proc = subprocess.run([sys.executable, *args], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600, env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"{label}: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    log.write(json.dumps({"tool": label, **json.loads(lines[0])}) + "\n")
+    return json.loads(lines[0])
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
 WGMMA_BUILDS = {"flash_attention_fwd": 15, "flash_attention_blocked_fwd": 15,
                 "flash_attention_bwd": 20, "flash_attention_blocked_bwd": 20,
                 "tm_attention": 35}
@@ -4067,6 +4310,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     bench = phase_bench(card)
     torch.cuda.empty_cache()
+    study = phase_study(card)
+    torch.cuda.empty_cache()
     tm_launches = phase_tm_bench()
     meshes = {"dino-mesh": dino_mesh, "downstream-mesh": downstream_mesh}
 
@@ -4110,7 +4355,9 @@ def main() -> int:
                                 "tools export": tools["export"],
                                 "tools parity": tools["parity"],
                                 **{f"bench {k}": r["flash_attention_fwd"]
-                                   for k, r in bench.items() if r.get("flash_attention_fwd")}},
+                                   for k, r in bench.items() if r.get("flash_attention_fwd")},
+                                **{f"study {k}": r["flash_attention_fwd"]
+                                   for k, r in study.items() if r.get("flash_attention_fwd")}},
         "flash_attention_bwd": {"training": train["train"]["flash_attention_bwd"],
                                 "lion training": lion["train"]["flash_attention_bwd"],
                                 "cli training": cli["cli training"]["flash_attention_bwd"],
@@ -4132,7 +4379,9 @@ def main() -> int:
                                 "tools epoch training":
                                     tools["cli"]["cli training"]["flash_attention_bwd"],
                                 **{f"bench {k}": r["flash_attention_bwd"]
-                                   for k, r in bench.items() if r.get("flash_attention_bwd")}},
+                                   for k, r in bench.items() if r.get("flash_attention_bwd")},
+                                **{f"study {k}": r["flash_attention_bwd"]
+                                   for k, r in study.items() if r.get("flash_attention_bwd")}},
         "flash_attention_blocked_fwd": {"stretch training": stretch["train"][blocked[0]],
                                         "stretch eval": stretch["eval"][blocked[0]],
                                         "extract grid 192":
@@ -4231,6 +4480,7 @@ def main() -> int:
             at_dino_teacher_shape=at(kernel_rows, DINO_TEACHER),
             at_downstream_shape=at(kernel_rows, DOWNSTREAM),
             at_pipe_2_shape=at(kernel_rows, PIPE_2), at_pipe_4_shape=at(kernel_rows, PIPE_4),
+            at_extractor_bf16_shape=at(kernel_rows, EXTRACTOR_BF16),
             pipe_layouts=pipe["layouts"],
             at_extract_641_shape={"shape": list(EXTRACT_641), "dtype": "float32",
                                   **{k: extract["b1_641"][k] for k in timing_keys}},

@@ -36,7 +36,19 @@ Every line names the device it ran on (``device``: the card's name and
 power limit, or the CPU) and the kernels' launches over its timed window.
 ``vs_baseline`` is against the reference's 3.1 volumes/s/GPU (BASELINE.md).
 Runs on ``cuda`` unless ``--device cpu`` is given (without a card it
-raises). One card, one process.
+raises).
+
+Across cards (the root ``bench.py``'s ``make_mesh(data=n_chips)``):
+``torchrun --nproc_per_node N -m headct_foundation_tpu_torch.bench
+--compute-only`` runs one process per card (``parallel/distributed.py``,
+NCCL; gloo with ``--device cpu``). Rank 0 first times the step alone, the
+other ranks waiting to join; then every rank times the CLI's step at
+``BATCH_PER_GPU`` volumes with the gradient average over ``DATA N`` that
+the CLI runs. Rank 0 prints one line: ``n_gpus``, ``value`` (the mean of
+the ranks' rates, volumes/s/GPU, as the root bench reports a chip's),
+``summed`` (their sum), ``per_rank``, ``one_card`` (rank 0's rate alone)
+and ``per_card_vs_one`` (``value / one_card``). As one process (or
+``torchrun`` of one) the line is the one-process line.
 """
 
 from __future__ import annotations
@@ -515,6 +527,36 @@ def feature_throughput(device=None, n: int = 16, batch: int = 4,
     return out
 
 
+def compute_only_across(cfg=None, device=None, steps: int = CHAIN_STEPS,
+                        runs: int = MEASURE_RUNS) -> Optional[Dict[str, Any]]:
+    """``compute_only`` on every rank of the ``torchrun`` world, after rank
+    0's run alone; rank 0 returns the line (see the module docstring), the
+    other ranks None."""
+    from headct_foundation_tpu_torch.parallel import distributed
+
+    cfg = cfg if cfg is not None else flagship_config()
+    device = resolve_device(device)
+    if device.type == "cuda":
+        device = torch.device("cuda", distributed.local_rank())
+        torch.cuda.set_device(device)
+    one = compute_only(cfg, device, steps=steps, runs=runs) \
+        if int(os.environ.get("RANK", "0")) == 0 else None
+    world = distributed.init_from_env(device.type, config=cfg)
+    try:
+        line = compute_only(cfg, device, steps=steps, runs=runs)
+        rates = [None] * world
+        torch.distributed.all_gather_object(rates, line["value"])
+    finally:
+        distributed.shutdown()
+    if one is None:
+        return None
+    mean = float(np.mean(rates))
+    line.update(metric="volumes/sec/GPU (MAE 3D pretrain step, data parallel)",
+                **per_gpu(device, mean), n_gpus=world, summed=float(np.sum(rates)),
+                per_rank=rates, one_card=one["value"], per_card_vs_one=mean / one["value"])
+    return line
+
+
 def default_line(cfg=None, device=None) -> Dict[str, Any]:
     """The whole record: the production step, the model-only loop, the
     loader in the loop and the feature latency, in one line."""
@@ -536,11 +578,22 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--set", nargs="+", default=[], metavar="KEY VALUE",
                     help="config overrides merged last")
+    ap.add_argument("--chain-steps", type=int, default=CHAIN_STEPS,
+                    help="compute-only: steps a timed chain")
+    ap.add_argument("--runs", type=int, default=MEASURE_RUNS,
+                    help="compute-only: timed chains, the best kept")
     args = ap.parse_args(argv)
     if len(args.set) % 2:
         raise SystemExit(f"--set needs KEY VALUE pairs, got {args.set}")
     device = resolve_device(args.device)
     cfg = flagship_config(args.set)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        if not args.compute_only:
+            raise SystemExit("across cards (torchrun) the bench runs --compute-only only")
+        result = compute_only_across(cfg, device, args.chain_steps, args.runs)
+        if result is not None:
+            print(json.dumps(result), flush=True)
+        return result
     if args.feature_latency:
         result = feature_latency(device)
     elif args.feature_throughput:
@@ -549,7 +602,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         result = {"metric": "volumes/sec/GPU (MAE pretrain, loader-in-the-loop)",
                   **with_loader(cfg, device), "device": device_info(device)}
     elif args.compute_only:
-        result = compute_only(cfg, device)
+        result = compute_only(cfg, device, steps=args.chain_steps, runs=args.runs)
     elif args.model_only:
         result = {**model_only(cfg, device), "device": device_info(device)}
     else:

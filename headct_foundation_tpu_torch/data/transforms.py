@@ -14,7 +14,9 @@ stack on the device (``data/device_preprocess.py wire_to_compute``):
   soft-tissue windows [-20, 180], ~62.8-HU steps up to 2000; a voxel codes
   to the nearest level.
 
-Each has its decode and its error-shielding placeholder, a value that
+Each has its decode, its host window stack (``hu16_window_stack``,
+``hu8_window_stack``: the on-device expansion's reference) and its
+error-shielding placeholder, a value that
 windows to 0 in every channel, as the zero volume of the windowed format
 does (reference: src/data/datasets.py:70-96).
 
@@ -26,8 +28,9 @@ numpy/scipy chain, copied from its ``data/transforms.py:139-296``
 ``load_and_preprocess`` (NIfTI -> RAS -> 1 mm spline-3 resample ->
 CropForeground(x > 0) -> window stack -> "area" resize -> float16, [C,
 *roi]) and ``load_and_preprocess_hu16`` (the same without the windows: the
-raw HU resized, then ``hu16_encode``, [1, *roi] int16). Its outputs are
-byte-equal to the JAX package's.
+raw HU resized, then ``hu16_encode``, [1, *roi] int16), and the
+reference's factory ``loading_transforms``. Its outputs are byte-equal to
+the JAX package's.
 """
 
 from __future__ import annotations
@@ -93,6 +96,26 @@ def hu16_decode(q: np.ndarray) -> np.ndarray:
 def hu8_decode(q: np.ndarray) -> np.ndarray:
     """uint8 wire codes -> float32 HU (table lookup)."""
     return HU8_TABLE[np.asarray(q)]
+
+
+def hu16_window_stack(q: np.ndarray, in_channels: int) -> np.ndarray:
+    """Host reference of the on-device expansion of an hu16 volume: [1, H,
+    W, D] int16 wire -> [C, H, W, D] float32 in [0, 1] (JAX
+    ``data/transforms.py:131-137``)."""
+    _check_one_channel(q)
+    return window_stack(hu16_decode(q[0]), in_channels)
+
+
+def hu8_window_stack(q: np.ndarray, in_channels: int) -> np.ndarray:
+    """The same for an hu8 volume: [1, H, W, D] uint8 wire -> [C, H, W, D]
+    float32 in [0, 1] (JAX ``data/transforms.py:113-118``)."""
+    _check_one_channel(q)
+    return window_stack(hu8_decode(q[0]), in_channels)
+
+
+def _check_one_channel(q: np.ndarray) -> None:
+    if q.ndim != 4 or q.shape[0] != 1:
+        raise ValueError(f"expected one wire volume [1, H, W, D], got {q.shape}")
 
 
 # ---------------------------------------------------------------------------
@@ -220,6 +243,17 @@ def load_and_preprocess_hu16(path: str, roi: Sequence[int],
     """The hu16 chain: NIfTI path -> [1, *roi] int16 fixed-point HU (the
     windows are applied on the device at train time)."""
     return hu16_encode(area_resize(_load_ras_1mm(path, spacing)[None], roi))
+
+
+def loading_transforms(roi: Sequence[int], in_channels: int) -> Callable[[str], np.ndarray]:
+    """The reference's factory (src/data/transforms.py:108; JAX
+    ``data/transforms.py:297-306``): a callable path -> preprocessed [C,
+    *roi] float16 volume."""
+
+    def _load(path: str) -> np.ndarray:
+        return load_and_preprocess(path, roi, in_channels)
+
+    return _load
 
 
 def extract_feature_preprocess(path: str, roi: Sequence[int], in_channels: int) -> np.ndarray:

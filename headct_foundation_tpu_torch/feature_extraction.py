@@ -27,6 +27,10 @@ Runs on ``cuda`` unless ``device="cpu"`` is passed; with no device and no
 CUDA it raises. On CUDA, float32 matmuls and convolutions are pinned to full
 float32 (``allow_tf32 = False`` for both cuBLAS and cuDNN): the forward is
 float32, as the JAX package's default ``dtype=jnp.float32`` is.
+``dtype=torch.bfloat16`` computes in bfloat16 on the float32 parameters, as
+JAX's ``dtype=jnp.bfloat16`` does (the attention then takes the bf16
+kernel); the outputs are then bfloat16, and ``cls_embedding`` returns
+float32 either way.
 """
 
 from __future__ import annotations
@@ -78,6 +82,7 @@ class FeatureExtractor:
         num_register_tokens: int = 0,
         qkv_bias: bool = True,
         norm_layer: str = "layernorm",
+        dtype: torch.dtype = torch.float32,
         device: Union[None, str, torch.device] = None,
         seed: int = 0,
     ):
@@ -97,6 +102,7 @@ class FeatureExtractor:
             num_register_tokens=num_register_tokens,
             qkv_bias=qkv_bias,
             norm_layer=norm_layer,
+            dtype=dtype,
         )
         model.init_weights(torch.Generator().manual_seed(seed))
         self.missing: List[str] = []
@@ -124,7 +130,7 @@ class FeatureExtractor:
 
     def cls_embedding(self, x) -> np.ndarray:
         out, _ = self(x)
-        return out[:, 0, :].cpu().numpy()
+        return out[:, 0, :].float().cpu().numpy()
 
     def extract_from_files(
         self, paths: Sequence[str], batch_size: int = 8, prefetch: int = 2,

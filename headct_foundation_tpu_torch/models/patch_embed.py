@@ -52,6 +52,19 @@ def patchify3d(x: torch.Tensor, patch_size: Sequence[int]) -> torch.Tensor:
     return x.reshape(B, gh * gw * gd, ph * pw * pd * C)
 
 
+def unpatchify3d(x: torch.Tensor, patch_size: Sequence[int],
+                 out_shape: Sequence[int]) -> torch.Tensor:
+    """[B, L, ph*pw*pd*C] -> [B, C, H, W, D], ``patchify3d``'s inverse
+    (reference: mae.py:172-192; JAX ``models/patch_embed.py:43-53``)."""
+    B = x.shape[0]
+    C, H, W, D = out_shape
+    ph, pw, pd = patch_size
+    gh, gw, gd = H // ph, W // pw, D // pd
+    x = x.reshape(B, gh, gw, gd, ph, pw, pd, C)
+    x = x.permute(0, 7, 1, 4, 2, 5, 3, 6)
+    return x.reshape(B, C, gh * ph, gw * pw, gd * pd)
+
+
 class _ConvParams(nn.Module):
     """Holds a Conv3d's ``weight`` [O, C, ph, pw, pd] and ``bias`` [O] under
     the reference's names; never run as a convolution."""

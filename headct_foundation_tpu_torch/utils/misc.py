@@ -1,19 +1,40 @@
-"""Profiling hook of the training loop.
+"""The datalist split and the profiling hook of the training loop.
 
-``profile_trace`` is the counterpart of the JAX package's
-``utils/misc.py:40``: with ``HEADCT_PROFILE_DIR`` set (or ``log_dir``
-given) it records a ``torch.profiler`` trace (host and, on a card, CUDA
-activity) of the block it wraps and writes it there as a Chrome trace
+``datafold_read`` is the JAX package's ``utils/misc.py:19-37`` (the
+reference's ``src/utils/misc.py:99-120``). ``profile_trace`` is the
+counterpart of the JAX package's ``utils/misc.py:40``: with
+``HEADCT_PROFILE_DIR`` set (or ``log_dir`` given) it records a
+``torch.profiler`` trace (host and, on a card, CUDA activity) of the block
+it wraps and writes it there as a Chrome trace
 (``trace_<pid>.json``). The trainer wraps its first epoch in it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 from typing import Iterator, Optional
 
 import torch
+
+
+def datafold_read(datalist, basedir, fold: int = 0, key: str = "training"):
+    """Split a MONAI-style datalist JSON into (train, val) by fold index:
+    every string or list-of-string value of each record is joined onto
+    ``basedir`` (empty strings left as they are); the records whose
+    ``fold`` is ``fold`` are the validation set, the others training."""
+    with open(datalist) as f:
+        records = json.load(f)[key]
+    for d in records:
+        for k, v in d.items():
+            if isinstance(v, list):
+                d[k] = [os.path.join(basedir, item) for item in v]
+            elif isinstance(v, str):
+                d[k] = os.path.join(basedir, v) if v else v
+    tr = [d for d in records if d.get("fold") != fold]
+    val = [d for d in records if d.get("fold") == fold]
+    return tr, val
 
 
 @contextlib.contextmanager

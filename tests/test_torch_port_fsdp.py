@@ -163,6 +163,21 @@ def test_whole_weights_live_only_while_their_linear_runs(runs):
             assert rank["gathered"] > 0 and rank["alive"] == 0, (case, rank)
 
 
+def test_the_liveness_count_waits_out_another_threads_hold_only():
+    """``still_alive`` waits for a tensor that only another thread holds (as
+    c10d's worker holds a finished collective's output), and counts one that
+    the calling thread's own code keeps."""
+    import threading
+    import weakref
+
+    held = [torch.zeros(4)]
+    mine = torch.zeros(4)
+    refs = [weakref.ref(held[0]), weakref.ref(mine)]
+    threading.Timer(0.2, held.clear).start()
+    assert worker.still_alive(refs, settle=1.0) == 1
+    assert refs[0]() is None and refs[1]() is mine
+
+
 def test_fsdp_checkpoint_loads_in_one_process_bit_for_bit(runs):
     """The checkpoint written at FSDP 2 (gathered whole) restores into a
     one-process state bit for bit: parameters and AdamW moments."""

@@ -6,8 +6,9 @@ steps, one of them on the blocked attention path and one with the fused
 Lion update, a checkpoint save and restore, the manifest reader, a tiny
 DINO step with its checkpoint, and the downstream CLI end to end (LoRA,
 the attentive head, the metrics, the predictions pickle, no plot), the
-scipy chain through the cache tool, the export and parity tools and an
-emulated pipeline, with those imports blocked),
+scipy chain through the cache tool, the export and parity tools, a tiny
+trajectory run and the int8 formula, and an emulated pipeline, with those
+imports and the repository's root ``tools`` blocked),
 defaults to CUDA, and builds from its own config copy.
 
 The subprocess blocks the imports with a ``sys.meta_path`` finder rather than
@@ -36,7 +37,7 @@ _BLOCKED_RUN = r'''
 import importlib, importlib.abc, importlib.machinery, pkgutil, sys
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "headct_foundation_tpu", "pandas", "orbax",
-           "sklearn", "matplotlib")
+           "sklearn", "matplotlib", "tools")
 
 class Block(importlib.abc.Loader):
     """A spec without an origin for a blocked name, whose loading raises: an
@@ -220,6 +221,23 @@ with tempfile.TemporaryDirectory() as tmp:
     report = parity_check.run(["--checkpoint", os.path.join(tmp, "o.pt"), "--nifti-dir",
                                os.path.join(tmp, "scans"), "--device", "cpu"] + geometry)
     assert report["pass"], report
+# the study tools: a tiny trajectory run (no plot without matplotlib) and
+# the int8 formula
+from headct_foundation_tpu_torch.tools import bench_int8, trajectory
+
+with tempfile.TemporaryDirectory() as tmp:
+    summary = trajectory.main(["--engine", "mae", "--epochs", "1", "--steps-per-epoch", "2",
+                               "--batch", "2", "--pool", "2", "--device", "cpu", "--no-assert",
+                               "--out-prefix", os.path.join(tmp, "t"), "--opts",
+                               "MODEL.ROI", "[24,24,24]", "MAE.INPUT_SIZE", "24",
+                               "MAE.PATCH_SIZE", "12", "MAE.ENCODER_DEPTH", "1",
+                               "MAE.ENCODER_EMBED_DIM", "48", "MAE.ENCODER_MLP_DIM", "96",
+                               "MAE.ENCODER_NUM_HEADS", "4", "MAE.DECODER_DEPTH", "1",
+                               "MAE.DECODER_EMBED_DIM", "48", "MAE.DECODER_MLP_DIM", "96",
+                               "MAE.DECODER_NUM_HEADS", "4"])
+    assert summary["steps"] == 2 and summary["png"] is None
+assert bench_int8.int8_dynamic(torch.randn(32, 64).bfloat16(),
+                               torch.randn(48, 64).bfloat16()).shape == (32, 48)
 blocks = [torch.nn.Linear(4, 4) for _ in range(4)]
 x = torch.randn(3, 2, 4, requires_grad=True)
 pipeline.emulate_pipeline(pipeline.split_stages(blocks, 2), x, 2).sum().backward()
@@ -241,8 +259,9 @@ def test_port_imports_and_runs_without_jax():
 
 def test_port_sources_name_no_jax():
     # matplotlib only inside a function (the plots import it where they draw)
-    pattern = re.compile(r"^\s*(import (jax|pandas|orbax|sklearn)|from (jax|pandas|orbax|sklearn))"
-                         r"\b|^(import|from) matplotlib\b|headct_foundation_tpu\.", re.M)
+    pattern = re.compile(r"^\s*(import (jax|pandas|orbax|sklearn|tools)|from (jax|pandas|orbax|"
+                         r"sklearn|tools))\b|^(import|from) matplotlib\b|headct_foundation_tpu\.",
+                         re.M)
     files = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) + [ROOT / "chip_smoke.py", ROOT / "chip_fault_check.py"]
     assert len(files) >= 20
     # the token-major tool and the Lion kernel are the port's own copies
@@ -289,6 +308,18 @@ def test_entry_points_default_to_cuda(monkeypatch):
             tool.main([])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bench.main(["--compute-only"])
+    # the study tools, without --device cpu
+    from headct_foundation_tpu_torch.tools import (
+        bench_int8,
+        dino_semantics,
+        trajectory,
+        transfer_study,
+        wire_equivalence,
+    )
+    for tool, argv in ((trajectory, ["--engine", "mae"]), (wire_equivalence, []),
+                       (dino_semantics, []), (transfer_study, []), (bench_int8, [])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tool.main(argv)
 
 
 def test_build_extractor_from_config_copy():

@@ -32,6 +32,7 @@ import gc
 import os
 import pickle
 import sys
+import time
 import weakref
 
 import torch
@@ -97,6 +98,23 @@ def held_bytes(module, optimizers) -> dict:
             "optimizer": opt}
 
 
+def still_alive(refs, settle: float = 20.0) -> int:
+    """How many of ``refs`` still point at a tensor once c10d has let go of
+    its collectives. A gloo collective's work object holds its output
+    tensor until c10d's worker thread drops the work, which it may do after
+    ``wait()`` has returned to the caller: now and then a moment later on
+    an idle machine, and later still on a loaded one. The calling thread
+    waits here, so a tensor freed within ``settle`` seconds was held by no
+    code of the port."""
+    deadline = time.monotonic() + settle
+    while True:
+        gc.collect()
+        n = sum(r() is not None for r in refs)
+        if not n or time.monotonic() > deadline:
+            return n
+        time.sleep(0.01)
+
+
 def watch_gathers(module) -> dict:
     """Count the whole weights that the ``fsdp`` hooks gather until the end
     of ``module``'s first forward, and how many of them are still alive
@@ -115,8 +133,7 @@ def watch_gathers(module) -> dict:
     def after_forward(mod, args, output):
         if not out:
             comm.gather_shards = gather
-            gc.collect()
-            out.update(gathered=len(seen), alive=sum(r() is not None for r in seen))
+            out.update(gathered=len(seen), alive=still_alive(seen))
 
     comm.gather_shards = recording
     module.register_forward_hook(after_forward)
