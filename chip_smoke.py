@@ -102,7 +102,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
              + 8 B2 launches per train step and 8 B1 per eval batch, counted in
              the CLI process; the latest_ file restored beside the state bit for
              bit and the checkpoint write timed (sync and async); then a resume
-             with TRAIN.MAX_EPOCHS 3 that restarts at the saved epoch index.
+             with TRAIN.MAX_EPOCHS 2 that restarts at the saved epoch index
+             and re-runs that epoch.
 9. dino-cli - ``python -m headct_foundation_tpu_torch.main_pretrain_dino --cfg
              configs/dino/dino_HeadCT.yaml`` on the cli phase's heads and
              manifests (batch 64, 2 steps an epoch), only the paths,
@@ -111,7 +112,7 @@ Phases, each printing a line; any failure raises and exits non-zero:
              exactly 24 B1 + 12 B2 per train step and 24 B1 per eval batch
              counted in the CLI process, latest_ restored beside the state bit
              for bit (student, teacher, optimizer, centre), then a resume with
-             TRAIN.MAX_EPOCHS 3 ("Resumed (full)") at the saved epoch index.
+             TRAIN.MAX_EPOCHS 2 ("Resumed (full)") at the saved epoch index.
 10. extract - feature extraction at full width on the cli phase's heads and
              files: ``python -m headct_foundation_tpu_torch.tools.eval_retrieval
              --cfg configs/downstream/vit_HeadCT_cq500.yaml`` on a cq500 label
@@ -164,6 +165,21 @@ Phases, each printing a line; any failure raises and exits non-zero:
              checkpoint at ViT-B/12 (every cosine >= 0.999, 12 B1); the
              on-card preprocessing against the scipy chain (HEADCT_NATIVE=0)
              at the JAX tests' native-vs-scipy limits.
+12c. soak  - ``tools.soak_resume`` on the flagship MAE main (full width, the
+             disk cache, the threaded loader, the pinned prefetch, async
+             epoch checkpoints) over the cli phase's 32 heads, SOAK_ROWS rows
+             at batch 32 (48 steps an epoch; the tool's own corpus is not
+             built) for SOAK_EPOCHS epochs: SIGKILLed mid-epoch
+             SOAK_KILL_AFTER + 1 (the log shows that epoch every 8 steps, so
+             the kill may fall at step 8, 16, 24, 32 or 40), resumed from the
+             complete latest_ file; the
+             tool's assertions (the resume line, the restart at the chosen
+             file's epoch, the kill inside epoch K + 1, finite and continuous
+             losses) hard, exactly 8 B1 + 8 B2 a train step and 8 B1 an eval
+             batch in both processes (the killed one's completed epochs from
+             its log, the resumed one's from its JSON line) and nothing
+             else, 0 placeholders; both processes' seconds and the kill to
+             the resumed run's first logged step printed.
 13. stretch - the long-context MAE step of configs/mae/mae_HeadCT_192.yaml at
              full width (192^3, patch 12: encoder T=1025 at 12 heads x 64,
              decoder T=4097 at 16 heads x 48) on batches of 2 synthetic hu16
@@ -227,8 +243,10 @@ Phases, each printing a line; any failure raises and exits non-zero:
              ``tools/check_data_parallel.py --fsdp 2`` for the three mains
              and ``--seq 2`` / ``--tensor 2`` for DINO and the downstream
              main (DINO's fsdp and tensor runs in float32 at batch 32; a
-             downstream miss printed, not raised), else one line says they
-             did not run.
+             downstream float32 miss printed, not raised) and the
+             downstream main at DATA, FSDP, SEQ and TENSOR 2 in float64 at
+             batch 32 (``--float64``, held), else one line says they did
+             not run.
 20b. pipe  - GPipe (``parallel/pipeline.py``) of the flagship MAE at batch 32
              bf16, its stages emulated in this process through the per-stage
              forward and backward of ``pipeline_apply``: PIPE 2 at M = 2 and
@@ -1669,14 +1687,14 @@ def check_restored(label: str, latest: Path, payload: dict, got: dict, epoch: in
 
 def resume_cli(label: str, module: str, config: str, opts: list, latest: Path, said: str,
                per_step: dict, per_eval: dict, launches: dict, card: str) -> None:
-    """The CLI resumed from ``latest`` with ``TRAIN.MAX_EPOCHS 3``: its log
-    says ``said`` and it re-runs epochs 1 and 2 from the saved index, with no
+    """The CLI resumed from ``latest`` with ``TRAIN.MAX_EPOCHS 2``: its log
+    says ``said`` and it re-runs epoch 1 from the saved index, with no
     placeholder and the exact launches, which are added to ``launches``."""
     log, resumed, wall = run_cli(["--cfg", config, "--device", "cuda", "--opts", *opts,
-                                  "TRAIN.MAX_EPOCHS", "3", "--model_load_path", str(latest)],
+                                  "TRAIN.MAX_EPOCHS", "2", "--model_load_path", str(latest)],
                                  f"{label} resume", module=module)
     check(f"{said} from {latest} at epoch 1" in log and resumed["start_epoch"] == 1
-          and [e["epoch"] for e in resumed["epochs"]] == [1, 2],
+          and [e["epoch"] for e in resumed["epochs"]] == [1],
           f"{label} resume: no resume at the saved epoch index 1: {resumed['epochs']}")
     check(resumed["placeholders"] == 0,
           f"{label} resume: {resumed['placeholders']} scans were served as placeholders")
@@ -1684,7 +1702,7 @@ def resume_cli(label: str, module: str, config: str, opts: list, latest: Path, s
     for path in launches:
         for k in launches[path]:
             launches[path][k] += more[path][k]
-    print(f"{label}: resume from {latest.name} with TRAIN.MAX_EPOCHS 3: '{said} from ... at "
+    print(f"{label}: resume from {latest.name} with TRAIN.MAX_EPOCHS 2: '{said} from ... at "
           f"epoch 1', epochs {[e['epoch'] for e in resumed['epochs']]} re-run from the saved "
           f"index, test loss {resumed['test']['loss']:.6f}, exit 0 in {wall:.2f} s; launches "
           f"{json.dumps(more)} | {card}", flush=True)
@@ -3494,7 +3512,8 @@ def multi_card_runs(label: str, runs, recorded=()) -> dict:
     for each (config, flags) of ``runs`` (torchrun against one process, at
     the tool's limits); on one card a line says they did not run. A run in
     ``recorded`` is one whose miss of the tool's limits on H100s is recorded
-    in PERF.md and ROADMAP.md (the downstream main's): it must run to its
+    in PERF.md and ROADMAP.md (the downstream main's in float32, rounding
+    that its float64 runs hold apart: ROADMAP.md C.12): it must run to its
     result line, and a miss is printed, not raised."""
     if torch.cuda.device_count() < 2:
         print(f"{label}: the multi-process runs ({'; '.join(' '.join(f) for _, f in runs)}) "
@@ -3519,6 +3538,67 @@ def multi_card_runs(label: str, runs, recorded=()) -> dict:
               f"{key}: no result line, or placeholders")
         out[key] = result
     return out
+
+
+# 48 steps an epoch at batch 32: the kill has 40 steps of epoch 3 to fall in (at
+# 12 the log showed epoch 3 mid-way for 4 steps only, and a run missed them); the
+# writer joins epoch 1's write before it starts epoch 2's, so from epoch 3 on a
+# complete latest_ file is always there
+SOAK_ROWS, SOAK_EPOCHS, SOAK_KILL_AFTER = 1536, 3, 2
+
+
+def phase_soak(workdir: Path, scans: list, card: str) -> dict:
+    """The soak tool's SIGKILL and resume of the MAE main on ``scans`` (the
+    cli phase's heads, repeated to SOAK_ROWS training rows; val and test
+    the heads once), in a subprocess (its own subprocesses are the two
+    runs); returns the B1 and B2 launches of both runs by path."""
+    from headct_foundation_tpu_torch.engines.mae_engine import LOSS_FLUSH
+
+    data = workdir / "data"
+    data.mkdir()
+    for split, rows in (("train", (scans * SOAK_ROWS)[:SOAK_ROWS]), ("val", scans),
+                        ("test", scans)):
+        (data / f"{split}.csv").write_text("img_path\n" + "".join(f"{p}\n" for p in rows))
+    prefix = workdir / "soak"
+    cmd = [sys.executable, "-m", "headct_foundation_tpu_torch.tools.soak_resume",
+           "--scans", str(SOAK_ROWS), "--epochs", str(SOAK_EPOCHS), "--batch", str(TRAIN_BATCH),
+           "--kill-after-epoch", str(SOAK_KILL_AFTER), "--data-root", str(data),
+           "--out", str(workdir / "out"), "--out-prefix", str(prefix)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"soak: the tool exited {proc.returncode}:\n"
+                                f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    result = json.loads((workdir / "soak.json").read_text())
+    per_step = {"flash_attention_fwd": 8, "flash_attention_bwd": 8}
+    killed = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
+    for e in result["phase1_epochs"]:
+        want = {k: v * e["steps"] for k, v in per_step.items()}
+        check(e["steps"] > 0 and e["launches"] == want and e["placeholders"] == 0,
+              f"soak killed run epoch {e['epoch']}: {e}; expected {want}, 0 placeholders")
+        for k in killed:
+            killed[k] += e["launches"][k]
+    resumed = result["phase2_cli"]
+    check(resumed is not None and resumed["placeholders"] == 0,
+          f"soak resumed run: no JSON line or placeholders: {resumed}")
+    resumed_launches = check_cli_launches(resumed, "soak resumed", per_step,
+                                          {"flash_attention_fwd": 8})
+    s = result["seconds"]
+    print(f"soak: killed at epoch {result['killed_at']['epoch']} step "
+          f"{result['killed_at']['step_in_epoch']} of {result['steps_per_epoch']} (kill after "
+          f"epoch {result['kill_after_epoch']}), resumed from the file of epoch "
+          f"{result['checkpoint_epoch']} (from 0) at logged epoch "
+          f"{result['resume_epoch_restarted']}; losses {result['pre_kill_loss']:.4f} before, "
+          f"{result['post_resume_loss']:.4f} after, {result['init_loss']:.4f} at the start; "
+          f"killed run {s['phase1']:.2f} s ({result['steps_phase1']} logged steps, "
+          f"{len(result['phase1_epochs'])} epochs done: {killed}), resumed run "
+          f"{s['phase2']:.2f} s ({result['steps_phase2']} steps: "
+          f"{resumed_launches}), kill to the first resumed step logged "
+          f"{s['kill_to_first_resumed_step']:.2f} s (its launch to it "
+          f"{s['resume_launch_to_first_step']:.2f} s; the first {LOSS_FLUSH} losses are logged at "
+          f"once); the tool {seconds:.2f} s | {card}", flush=True)
+    return {"killed training": killed, "resumed training": resumed_launches["cli training"],
+            "resumed eval": resumed_launches["cli eval"], "seconds": seconds}
 
 
 def phase_tensor(card: str) -> dict:
@@ -3573,8 +3653,10 @@ def phase_fsdp(card: str) -> dict:
     bit, timed beside its bound. On a machine with two cards or more,
     ``tools.check_data_parallel --fsdp 2`` for the three mains and ``--seq
     2`` / ``--tensor 2`` for DINO and the downstream main (DINO's fsdp and
-    tensor runs in float32 at batch 32, a miss of the downstream main's
-    printed); on one card a line says they did not run."""
+    tensor runs in float32 at batch 32, a float32 miss of the downstream
+    main's printed), and the downstream main at DATA, FSDP, SEQ and TENSOR 2
+    in float64 at batch 32, held; on one card a line says they did not
+    run."""
     from headct_foundation_tpu_torch.config import default_config
     from headct_foundation_tpu_torch.engines import dino_engine, downstream_engine, mae_engine
     from headct_foundation_tpu_torch.ops.lion_kernel import (
@@ -3661,7 +3743,12 @@ def phase_fsdp(card: str) -> dict:
             (DINO_CONFIG, ["--nproc", "2", "--tensor", "2", *dino_f32])]
     downstream = [(DOWNSTREAM_CONFIG, ["--nproc", "2", f"--{axis}", "2"])
                   for axis in ("fsdp", "seq", "tensor")]
-    multi = multi_card_runs("fsdp", runs + downstream, recorded=downstream)
+    # the downstream main misses the float32 limits by rounding (ROADMAP.md C.12,
+    # its miss printed); in float64 (batch 32: one process's activations on one
+    # card) every layout holds the float64 limits
+    downstream64 = [(DOWNSTREAM_CONFIG, ["--nproc", "2", *axis, "--float64", "--batch", "32"])
+                    for axis in ([], ["--fsdp", "2"], ["--seq", "2"], ["--tensor", "2"])]
+    multi = multi_card_runs("fsdp", runs + downstream + downstream64, recorded=downstream)
     return {"layout": layout, "lion_shard": lion_shard, "multi": multi}
 
 
@@ -4256,8 +4343,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         tools = phase_tools(Path(tmp), card)  # the cli phase's heads, manifests and latest_
-    print(f"tools: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
-    torch.cuda.empty_cache()
+        print(f"tools: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        (Path(tmp) / "soak").mkdir()
+        soak = phase_soak(Path(tmp) / "soak", [str(Path(tmp) / f"scan{1000 + i}.nii.gz")
+                                               for i in range(CLI_SCANS)], card)
+    print(f"soak: phase in {time.perf_counter() - t0:.2f} s | {card}", flush=True)
 
     blocked = ("flash_attention_blocked_fwd", "flash_attention_blocked_dkv",
                "flash_attention_blocked_dq")
@@ -4354,6 +4446,8 @@ def main() -> int:
                                 "tools epoch eval": tools["cli"]["cli eval"]["flash_attention_fwd"],
                                 "tools export": tools["export"],
                                 "tools parity": tools["parity"],
+                                **{f"soak {k}": v["flash_attention_fwd"]
+                                   for k, v in soak.items() if k != "seconds"},
                                 **{f"bench {k}": r["flash_attention_fwd"]
                                    for k, r in bench.items() if r.get("flash_attention_fwd")},
                                 **{f"study {k}": r["flash_attention_fwd"]
@@ -4378,6 +4472,10 @@ def main() -> int:
                                 "pipe training": pipe["launches"]["flash_attention_bwd"],
                                 "tools epoch training":
                                     tools["cli"]["cli training"]["flash_attention_bwd"],
+                                "soak killed training":
+                                    soak["killed training"]["flash_attention_bwd"],
+                                "soak resumed training":
+                                    soak["resumed training"]["flash_attention_bwd"],
                                 **{f"bench {k}": r["flash_attention_bwd"]
                                    for k, r in bench.items() if r.get("flash_attention_bwd")},
                                 **{f"study {k}": r["flash_attention_bwd"]

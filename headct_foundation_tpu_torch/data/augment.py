@@ -38,6 +38,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from headct_foundation_tpu_torch.utils.misc import wide_dtype
+
 FLIP_PROB = 0.1
 SHIFT_OFFSET = 0.1
 SHIFT_PROB = 0.5
@@ -166,13 +168,15 @@ def draw_adjust_contrast(batch: int, generator: Optional[torch.Generator], devic
 def rand_adjust_contrast(x: torch.Tensor, gamma: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """((x - min) / range) ** gamma * range + min per sample where ``do`` is
     set; the power and what follows it in float32, as the JAX package's type
-    promotion does with a float32 gamma, then cast to x's dtype."""
+    promotion does with a float32 gamma (in float64 for a float64 x), then
+    cast to x's dtype."""
     view = (-1,) + (1,) * (x.dim() - 1)
     dims = tuple(range(1, x.dim()))
     mn, mx = x.amin(dim=dims, keepdim=True), x.amax(dim=dims, keepdim=True)
     span = torch.clamp_min(mx - mn, 1e-7)
     t = torch.clamp((x - mn) / span, 1e-7, 1.0)
-    adj = torch.pow(t.float(), gamma.float().reshape(view)) * span.float() + mn.float()
+    w = wide_dtype(x.dtype)
+    adj = torch.pow(t.to(w), gamma.to(w).reshape(view)) * span.to(w) + mn.to(w)
     return torch.where(do.reshape(view), adj.to(x.dtype), x)
 
 
@@ -185,15 +189,17 @@ def crop_and_resize(x: torch.Tensor, start: torch.Tensor, size: torch.Tensor,
     """Resample each sample's box (start, size [B, 3] float32 voxels; outside
     the volume reads 0) to ``out_shape``. ``"area"``: output cell o of a
     length-L box averages input cells [floor(o L / O), ceil((o + 1) L / O));
-    ``"linear"``: the hat kernel at in = start + (o + 0.5) L / O - 0.5."""
+    ``"linear"``: the hat kernel at in = start + (o + 0.5) L / O - 0.5. The
+    weights are float32 (float64 for a float64 x)."""
     if mode not in ("linear", "area"):
         raise ValueError(f"unknown crop_and_resize mode {mode!r}")
-    start, size = start.float().to(x.device), size.float().to(x.device)
+    wide = wide_dtype(x.dtype)
+    start, size = start.to(x.device, wide), size.to(x.device, wide)
     out = x
     for ax in range(3):
         o = int(out_shape[ax])
-        i_idx = torch.arange(x.shape[2 + ax], dtype=torch.float32, device=x.device)
-        o_idx = torch.arange(o, dtype=torch.float32, device=x.device)
+        i_idx = torch.arange(x.shape[2 + ax], dtype=wide, device=x.device)
+        o_idx = torch.arange(o, dtype=wide, device=x.device)
         if mode == "area":
             length = size[:, ax, None]                                    # [B, 1]
             s_idx = torch.floor(o_idx[None, :] * length / o)              # [B, out]

@@ -46,6 +46,7 @@ from scipy import ndimage
 
 from headct_foundation_tpu_torch.data.nifti import load_nifti, load_nifti_bytes, orientation_ras
 from headct_foundation_tpu_torch.data.transforms import HU8_TABLE, HU16_SCALE, window_params
+from headct_foundation_tpu_torch.utils.misc import wide_dtype
 
 Source = Union[str, os.PathLike, bytes]
 
@@ -199,7 +200,8 @@ class DevicePreprocessor:
 
 
 def _window(hu: torch.Tensor, in_channels: int) -> torch.Tensor:
-    """[B, 1, ...] float32 HU -> [B, C, ...] window stack in [0, 1]."""
+    """[B, 1, ...] float32 (or float64) HU -> [B, C, ...] window stack in
+    [0, 1], in hu's dtype."""
     lows, highs = window_params(in_channels)
     shape = (1, -1) + (1,) * (hu.dim() - 2)
     lo = torch.from_numpy(lows).to(hu.device).reshape(shape)
@@ -207,30 +209,36 @@ def _window(hu: torch.Tensor, in_channels: int) -> torch.Tensor:
     return torch.clamp((hu - lo) / (hi - lo), 0.0, 1.0)
 
 
-def device_hu16_window(batch: torch.Tensor, in_channels: int) -> torch.Tensor:
-    """[B, 1, H, W, D] int16 fixed-point HU -> [B, C, H, W, D] float32 in [0, 1]."""
+def device_hu16_window(batch: torch.Tensor, in_channels: int,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """[B, 1, H, W, D] int16 fixed-point HU -> [B, C, H, W, D] float32 (or
+    ``dtype``, float64) in [0, 1]."""
     if batch.dim() != 5 or batch.shape[1] != 1:
         raise ValueError(f"hu16 batches are [B, 1, H, W, D], got {tuple(batch.shape)}")
-    return _window(batch.to(torch.float32) * np.float32(1.0 / HU16_SCALE), in_channels)
+    scale = torch.tensor(1.0 / HU16_SCALE, dtype=torch.float64).to(dtype)
+    return _window(batch.to(dtype) * scale, in_channels)
 
 
-def device_hu8_window(batch: torch.Tensor, in_channels: int) -> torch.Tensor:
-    """[B, 1, H, W, D] uint8 companded HU codes -> [B, C, H, W, D] float32 in [0, 1]."""
+def device_hu8_window(batch: torch.Tensor, in_channels: int,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """[B, 1, H, W, D] uint8 companded HU codes -> [B, C, H, W, D] float32
+    (or ``dtype``, float64) in [0, 1]."""
     if batch.dim() != 5 or batch.shape[1] != 1:
         raise ValueError(f"hu8 batches are [B, 1, H, W, D], got {tuple(batch.shape)}")
     table = torch.from_numpy(HU8_TABLE).to(batch.device)
-    return _window(table[batch.long()], in_channels)
+    return _window(table[batch.long()].to(dtype), in_channels)
 
 
 def wire_to_compute(batch: torch.Tensor, config, in_channels: int,
                     dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Wire-format batch -> [B, C, ...] volumes in ``dtype``, per
     ``config.DATA.WIRE_FORMAT``: 'hu16' and 'hu8' expand the window stack
-    on the device first; 'windowed' batches only cast."""
+    on the device first (in float32, float64 for a float64 ``dtype``);
+    'windowed' batches only cast."""
     wire = (str(getattr(config.DATA, "WIRE_FORMAT", "windowed"))
             if config is not None else "windowed")
     if wire == "hu16":
-        return device_hu16_window(batch, in_channels).to(dtype)
+        return device_hu16_window(batch, in_channels, wide_dtype(dtype)).to(dtype)
     if wire == "hu8":
-        return device_hu8_window(batch, in_channels).to(dtype)
+        return device_hu8_window(batch, in_channels, wide_dtype(dtype)).to(dtype)
     return batch.to(dtype)

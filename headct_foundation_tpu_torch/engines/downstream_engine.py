@@ -5,9 +5,12 @@ Port of the JAX package's ``engines/downstream_engine.py`` (reference:
 engine_downstream.py, main_downstream.py:141-210):
 
 * ``create_train_state`` builds the ViT (bfloat16 compute, float32
-  parameters; LoRA adapters on q and v with ``TRAIN.LORA``) and the
-  classifier (``build_classifier``: ``linear`` on the CLS token,
-  ``attentive`` over all tokens) from a seeded generator on the CPU, moves
+  parameters; with ``dtype=torch.float64``, the reference mode of
+  ``tools/check_data_parallel.py --float64``, float64 compute, parameters,
+  BatchNorm statistics and AdamW moments, the attention plain; LoRA
+  adapters on q and v with ``TRAIN.LORA``) and the classifier
+  (``build_classifier``: ``linear`` on the CLS token, ``attentive`` over
+  all tokens) from a seeded generator on the CPU, moves
   them to the device and splits the parameters as the JAX package's
   ``optax.multi_transform`` labels them (``:150-175``): the classifier's
   into the classifier's optimizer at 100 x the LR (``lr_clf``: ``BASE_LR x
@@ -110,7 +113,7 @@ from headct_foundation_tpu_torch.utils.checkpoint import (
     wait_for_saves,
 )
 from headct_foundation_tpu_torch.utils.metrics import multiclass_metrics
-from headct_foundation_tpu_torch.utils.misc import profile_trace
+from headct_foundation_tpu_torch.utils.misc import profile_trace, widen
 from headct_foundation_tpu_torch.utils.plots import plot_pr_curve, plotting_available
 from headct_foundation_tpu_torch.utils.torch_interop import (
     downstream_opt_state_to_jax,
@@ -261,6 +264,9 @@ def create_train_state(config, total_steps: int, num_warmup_steps: int, seed: in
     g = torch.Generator().manual_seed(seed)
     model = build_vit_model(config, dtype, lora=bool(config.TRAIN.LORA)).init_weights(g)
     classifier = build_classifier(config, dtype).init_weights(g)
+    if dtype == torch.float64:  # the float64 reference: the same draw, cast
+        model.double()
+        classifier.double()
     shard_model_(model, model.blocks, m).to(device)
     fsdp.shard_module_(classifier, m).to(device)
     labels = backbone_labels(model, config)
@@ -329,7 +335,7 @@ def make_grad_step(config, compute_dtype: torch.dtype = torch.bfloat16) -> Calla
             decisions, drop_g = draws["augment"], draws.get("dropout")
         feats = _features(state, apply_mae_augment(batch, decisions), lock, drop_g)
         logits = state.classifier(feats)
-        loss = F.cross_entropy(logits.float(), target.to(device).long())
+        loss = F.cross_entropy(widen(logits), target.to(device).long())
         (loss / seq if seq > 1 else loss).backward()
         gs = [p.grad for opt in state.optimizers.values() if opt is not None
               for g in opt.param_groups for p in g["params"] if p.grad is not None]
@@ -376,7 +382,7 @@ def make_train_step(config, compute_dtype: torch.dtype = torch.bfloat16) -> Call
                    seed: int, draws: Optional[Dict[str, Any]] = None):
         loss, logits = grads(state, batch, target, seed, draws)
         return apply_update(state), {"loss": loss,
-                                     "probs": torch.softmax(logits.float(), dim=-1)}
+                                     "probs": torch.softmax(widen(logits), dim=-1)}
 
     return train_step
 
@@ -391,7 +397,7 @@ def make_eval_step(config, compute_dtype: torch.dtype = torch.bfloat16) -> Calla
         state.model.eval()
         state.classifier.eval()
         batch = wire_to_compute(batch.to(state.device), config, in_chans, dtype=compute_dtype)
-        logits = state.classifier(_features(state, batch, True)).float()
+        logits = widen(state.classifier(_features(state, batch, True)))
         loss = F.cross_entropy(logits, target.to(state.device).long())
         distributed.data_mean_([loss])
         return {"loss": loss, "probs": torch.softmax(logits, dim=-1)}
@@ -433,7 +439,7 @@ def _drain(pending: list, on_row: Callable, logger, abort_on_nonfinite: bool) ->
     then hand each row to ``on_row``."""
     if not pending:
         return
-    losses = torch.stack([p[0].float() for p in pending]).cpu().tolist()
+    losses = torch.stack([widen(p[0]) for p in pending]).cpu().tolist()
     probs = [p.cpu().numpy() for p in torch.cat([p[1] for p in pending]).split(
         [p[1].shape[0] for p in pending])]
     targets = [t.cpu().numpy() for t in torch.cat([p[2] for p in pending]).split(

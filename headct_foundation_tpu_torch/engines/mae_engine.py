@@ -79,7 +79,10 @@ Port of the JAX package's ``engines/mae_engine.py:44-163, 226-491``
   index (the reference's quirk, MIGRATION.md:52-55). ``tester`` (``:565``)
   is one validation pass over the test loader.
 * Each epoch's stats carry the kernels' launches in it (``launches``, from
-  the wrappers' counters), which the CLI prints.
+  the wrappers' counters), which the CLI prints; the trainer's "Epoch N
+  done" log line gives them too, with the steps and the train loader's
+  placeholders so far, for a run that never reaches its JSON line (the
+  soak tool's killed run).
 """
 
 from __future__ import annotations
@@ -585,10 +588,14 @@ def trainer(
                                                  wandb_run=wandb_run)
         seconds = time.perf_counter() - t0
         if logger:
+            launched = ", ".join(f"{k} {v}" for k, v in train_stats["launches"].items() if v)
             logger.info(
                 f"Epoch {epoch + 1} done in {seconds:.1f}s  "
                 f"train loss {train_stats.get('loss', float('nan')):.4f}  "
-                f"iter {train_stats['iter_time']:.3f}s (data {train_stats['data_time']:.3f}s)")
+                f"iter {train_stats['iter_time']:.3f}s (data {train_stats['data_time']:.3f}s)  "
+                f"steps {train_stats['steps']}  placeholders "
+                f"{getattr(getattr(train_loader, 'dataset', None), 'placeholders', 0)}  "
+                f"launches {launched or 'none'}")
         record: Dict[str, Any] = {"epoch": epoch, "seconds": seconds, "train": train_stats}
         save_checkpoint(state, epoch, best_loss, config.MODEL.DIR, f"latest_{save_name}", **ckpt)
         if (epoch + 1) % val_every == 0 and val_loader is not None:

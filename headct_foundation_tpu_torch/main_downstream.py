@@ -97,7 +97,8 @@ def create_state(config, run: Dict[str, Any], device, dtype: torch.dtype = torch
 def main(config, device: torch.device, logger, wandb_run=None,
          dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
     """The run; ``dtype`` is the compute dtype (bfloat16 as the JAX main
-    computes; float32 for ``tools/check_data_parallel.py``)."""
+    computes; float32, and float64 as its reference, for
+    ``tools/check_data_parallel.py``)."""
     from headct_foundation_tpu_torch.data.pipeline import resolve_wire_format
 
     refuse_orbax(fmt=str(config.TRAIN.CKPT_FORMAT))

@@ -71,6 +71,7 @@ from headct_foundation_tpu_torch.models.layers import (
 )
 from headct_foundation_tpu_torch.ops.attention import dot_product_attention
 from headct_foundation_tpu_torch.parallel.comm import copy_to_group
+from headct_foundation_tpu_torch.utils.misc import widen
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -134,7 +135,7 @@ class SelfAttention(nn.Module):
             v = v + self.lora_v(x).reshape(B, N, H, D)
         if self.save_attn:  # unfused, the probabilities kept: no kernel
             logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / float(D) ** 0.5)
-            self.att_mat = torch.softmax(logits.float(), dim=-1)
+            self.att_mat = torch.softmax(widen(logits), dim=-1)
             y = torch.einsum("bhqk,bkhd->bqhd", self.att_mat.to(q.dtype), v)
         else:
             y = dot_product_attention(q, k, v)

@@ -1,7 +1,9 @@
 """Normalization layers, the compute-dtype Linear and the initializers.
 
-* ``LayerNorm``: torch-default epsilon (1e-5), statistics in float32, the
-  result cast back to the input dtype before the affine.
+* ``LayerNorm``: torch-default epsilon (1e-5), statistics in float32 (in
+  float64 for a float64 input: ``utils/misc.py widen``, as everywhere this
+  module says float32), the result cast back to the input dtype before the
+  affine.
 * ``RMSNorm`` matches the Llama-style reference (reference:
   src/models/layers.py:11-54): normalize in float32, cast back, then scale.
 * ``make_norm`` resolves the ``NORM_LAYER`` config string; like the JAX
@@ -45,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from headct_foundation_tpu_torch.parallel import comm, distributed, mesh
+from headct_foundation_tpu_torch.utils.misc import widen
 
 
 class LayerNorm(nn.Module):
@@ -56,7 +59,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), (self.dim,), eps=self.eps).to(x.dtype)
+        y = F.layer_norm(widen(x), (self.dim,), eps=self.eps).to(x.dtype)
         return y * self.weight.to(x.dtype) + self.bias.to(x.dtype)
 
 
@@ -67,7 +70,7 @@ class RMSNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        xf = widen(x)
         norm = xf * torch.reciprocal(
             torch.sqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + self.eps)
         )
@@ -183,7 +186,7 @@ class TorchBatchNorm(nn.Module):
             self.weight = self.bias = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        xf = widen(x)
         if self.training:
             axes, c = tuple(range(x.dim() - 1)), x.shape[-1]
             # every rank holds a batch of the same size (the loaders pad to it)
@@ -204,7 +207,8 @@ class TorchBatchNorm(nn.Module):
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         if self.weight is not None:
             y = y * self.weight + self.bias
-        return y.to(self.dtype)
+        # a float64 input (the downstream main's float64 reference) stays float64
+        return y.to(torch.float64 if xf.dtype == torch.float64 else self.dtype)
 
 
 # A test-only source of dropout masks: hook(site, global shape) -> a boolean
@@ -266,9 +270,10 @@ def label_dropout_sites(model: nn.Module) -> nn.Module:
 
 
 def _f32_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b in float32, accumulated in float32 and not rounded to the
-    operands' lower precision (``torch.mm``'s ``out_dtype`` on the card)."""
-    if a.dtype == torch.float32:
+    """a @ b in float32 (float64 for float64 operands), accumulated there and
+    not rounded to the operands' lower precision (``torch.mm``'s
+    ``out_dtype`` on the card)."""
+    if a.dtype in (torch.float32, torch.float64):
         return a @ b
     if a.is_cuda:
         return torch.mm(a, b, out_dtype=torch.float32)
@@ -308,7 +313,7 @@ def _add_bias(linear: "Linear", y: torch.Tensor) -> torch.Tensor:
     """The bias in the compute dtype added to a float32 product, then one
     rounding to the compute dtype, as an unsplit linear's epilogue."""
     dt = linear.compute_dtype
-    return (y if linear.bias is None else y + linear.bias.to(dt).float()).to(dt)
+    return (y if linear.bias is None else y + widen(linear.bias.to(dt))).to(dt)
 
 
 def column_parallel(linear: "Linear", x: torch.Tensor, group) -> torch.Tensor:
@@ -317,7 +322,7 @@ def column_parallel(linear: "Linear", x: torch.Tensor, group) -> torch.Tensor:
     and rounded once. Without a group it is ``linear(x)``."""
     if group is None:
         return linear(x)
-    return _add_bias(linear, _split_linear(linear, comm.copy_to_group(x.float(), group)))
+    return _add_bias(linear, _split_linear(linear, comm.copy_to_group(widen(x), group)))
 
 
 def row_parallel(linear: "Linear", x: torch.Tensor, group) -> torch.Tensor:

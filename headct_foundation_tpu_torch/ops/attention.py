@@ -9,6 +9,9 @@ otherwise, for longer sequences (the 192^3 MAE's 1025 and 4097 tokens) and
 rectangular ones. Both run their CUDA kernels on a CUDA tensor and their
 plain versions on a CPU tensor. Shorter sequences take the plain PyTorch
 attention, where the JAX package takes XLA's ``jax.nn.dot_product_attention``.
+float64 q, k and v (the downstream main's float64 reference mode) take the
+plain attention at every length: no kernel takes float64, and each kernel
+entry raises on it.
 
 The sharded branches (JAX ``:139-186``), on the port's mesh
 (``parallel/mesh.py``):
@@ -79,6 +82,13 @@ def pallas_min_t() -> int:
     return int(os.environ.get("HEADCT_PALLAS_MIN_T", "192"))
 
 
+def _takes_kernel(q: torch.Tensor, t: int) -> bool:
+    """The kernel for ``q`` at (global) query count ``t``: the kernel backend,
+    at least ``pallas_min_t()`` queries, and not float64."""
+    return (get_attention_backend(q.device) == "kernel" and t >= pallas_min_t()
+            and q.dtype != torch.float64)
+
+
 def dot_product_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: Optional[float] = None
 ) -> torch.Tensor:
@@ -90,7 +100,7 @@ def dot_product_attention(
         group = mesh.current().group("seq")
         return attend_shard(q, comm.gather_tokens(k, group), comm.gather_tokens(v, group), t,
                             scale=scale)
-    if get_attention_backend(q.device) == "kernel" and q.shape[1] >= pallas_min_t():
+    if _takes_kernel(q, q.shape[1]):
         return _fa.flash_attention(q, k, v, scale=scale)
     return fused_attention_reference(q, k, v, scale)[0]
 
@@ -103,6 +113,6 @@ def attend_shard(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: int,
     query count ``tq`` (default ``kv_len``): ``BlockedFusedAttention`` with
     ``kv_len``, else the plain attention over the real keys."""
     tq = kv_len if tq is None else tq
-    if get_attention_backend(q.device) == "kernel" and tq >= pallas_min_t():
+    if _takes_kernel(q, tq):
         return _fa.BlockedFusedAttention.apply(q, k, v, scale, kv_len)[0]
     return fused_attention_reference(q, k[:, :kv_len], v[:, :kv_len], scale)[0]

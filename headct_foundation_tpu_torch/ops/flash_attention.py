@@ -64,6 +64,7 @@ from typing import Optional, Tuple
 import torch
 
 from headct_foundation_tpu_torch.ops import _build
+from headct_foundation_tpu_torch.utils.misc import widen
 
 # Square sequences up to this length take the whole-sequence kernels (the JAX
 # package's VMEM_PATH_MAX_T); longer or rectangular ones the blocked kernels.
@@ -111,8 +112,9 @@ def _scale(d: int, scale: Optional[float]) -> float:
 
 
 def _bhtd(x: torch.Tensor) -> torch.Tensor:
-    """[B, T, H, D] -> float32 [B, H, T, D]."""
-    return x.permute(0, 2, 1, 3).float()
+    """[B, T, H, D] -> float32 [B, H, T, D] (float64 for a float64 x, which
+    only the plain attention takes)."""
+    return widen(x.permute(0, 2, 1, 3))
 
 
 def _bthd(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -124,7 +126,9 @@ def fused_attention_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version: scores in float32 from operand-dtype inputs,
-    P rounded to the operand dtype before P.V, the TPU kernel's guards."""
+    P rounded to the operand dtype before P.V, the TPU kernel's guards.
+    Also the plain attention of ``ops.attention``, which alone takes
+    float64 (computed in float64 throughout)."""
     B, T, H, D = q.shape
     s = _scale(D, scale)
     qh, kh, vh = (_bhtd(x) for x in (q, k, v))  # [B, H, T, D]
@@ -132,7 +136,7 @@ def fused_attention_reference(
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    o = torch.matmul(p.to(v.dtype).float(), vh) / l
+    o = torch.matmul(widen(p.to(v.dtype)), vh) / l
     lse = (m + torch.log(l)).reshape(B * H, 1, T)
     return _bthd(o, q.dtype), lse
 

@@ -30,6 +30,9 @@ the first update uses ``lr(0)``, as optax does.
   into every parameter group before ``optimizer.step()``. The decay
   applies to every tensor the optimizer holds, biases and norms included (the
   JAX mask leaves out only the frozen leaves); SGD takes none, as in JAX.
+* "float32" here (the clip's norms, Lamb's moments and products) is
+  float64 for float64 parameters (``utils/misc.py wide_dtype``); Lion's
+  momentum is float32, as B6 takes it.
 * ``get_optimizer`` takes parameters or parameter groups (dicts with
   ``"params"``, such as the DINO engine's last layer in a group of its own).
 """
@@ -43,6 +46,7 @@ import torch
 import torch.distributed as dist
 
 from headct_foundation_tpu_torch.ops.lion_kernel import lion_update_leaf, sign_keep_nan
+from headct_foundation_tpu_torch.utils.misc import wide_dtype, widen
 
 
 def norms_over_shards(sq: torch.Tensor, params: list, split) -> torch.Tensor:
@@ -91,7 +95,7 @@ def clip_by_per_param_norm(params: Iterable[torch.nn.Parameter], clip: float,
     grads = [p.grad for p in params]
     if not grads:
         return
-    norms = whole_norms(torch.stack(torch._foreach_norm([g.float() for g in grads])), params,
+    norms = whole_norms(torch.stack(torch._foreach_norm([widen(g) for g in grads])), params,
                         split, stacked)
     coefs = torch.clamp(clip / (norms + eps), max=1.0)
     torch._foreach_mul_(grads, list(coefs))  # in float32, rounded to g's dtype
@@ -139,17 +143,17 @@ class Lamb(torch.optim.Optimizer):
                     continue
                 state = self.state[p]
                 if not state:
-                    state["exp_avg"] = torch.zeros_like(p, dtype=torch.float32)
-                    state["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
+                    state["exp_avg"] = torch.zeros_like(p, dtype=wide_dtype(p.dtype))
+                    state["exp_avg_sq"] = torch.zeros_like(p, dtype=wide_dtype(p.dtype))
                 m, v = state["exp_avg"], state["exp_avg_sq"]
-                g = p.grad.float()
+                g = widen(p.grad)
                 m.mul_(b1).add_((1 - b1) * (g * g if group["exp_avg_quirk"] else g))
                 v.mul_(b2).add_((1 - b2) * g * g)
-                todo.append((p, group, m / (v.sqrt() + eps) + wd * p.float()))
+                todo.append((p, group, m / (v.sqrt() + eps) + wd * widen(p)))
         if not todo:
             return
         params = [p for p, _, _ in todo]
-        norms = torch.stack([torch.stack(torch._foreach_norm([p.float() for p in params])),
+        norms = torch.stack([torch.stack(torch._foreach_norm([widen(p) for p in params])),
                              torch.stack(torch._foreach_norm([a for _, _, a in todo]))])
         norms = whole_norms(norms, params, self.split, self.stacked)
         w_norms, a_norms = norms.unbind(0)

@@ -31,6 +31,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from headct_foundation_tpu_torch.utils.misc import widen
+
 
 def _size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
@@ -159,7 +161,7 @@ class _GatherShards(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         n, dim = _size(ctx.group), ctx.dim
-        parts = g.float().unflatten(dim, (n, ctx.shape[dim])).movedim(dim, 0).contiguous()
+        parts = widen(g).unflatten(dim, (n, ctx.shape[dim])).movedim(dim, 0).contiguous()
         out = parts.new_empty(ctx.shape)
         _reduce_scatter_single(out, parts.flatten(0, 1), ctx.group)
         return out.to(ctx.dtype), None, None, None

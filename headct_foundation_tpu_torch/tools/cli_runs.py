@@ -26,7 +26,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -90,16 +90,18 @@ def write_label_manifest(path: Path, paths: Sequence[str], seed: int) -> np.ndar
 
 
 def run_cli(args: Sequence[str], label: str, launcher: Sequence[str] = (),
-            module: str = "main_pretrain_mae", cwd: Path = ROOT) -> Tuple[str, dict, float]:
+            module: str = "main_pretrain_mae", cwd: Path = ROOT,
+            timeout: float = CLI_TIMEOUT_S, env: Optional[dict] = None
+            ) -> Tuple[str, dict, float]:
     """The CLI ``headct_foundation_tpu_torch.<module>`` with ``args`` in a
-    subprocess from ``cwd`` (the repository's root), at most
-    ``CLI_TIMEOUT_S``; ``launcher`` goes between the interpreter and ``-m``."""
+    subprocess from ``cwd`` (the repository's root), at most ``timeout``
+    seconds, with ``env`` added to the environment; ``launcher`` goes
+    between the interpreter and ``-m``."""
     cmd = [sys.executable, *launcher, "-m", f"headct_foundation_tpu_torch.{module}", *args]
-    env = dict(os.environ)
+    env = dict(os.environ, **(env or {}))
     env["PYTHONPATH"] = os.pathsep.join(x for x in (str(ROOT), env.get("PYTHONPATH")) if x)
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True, text=True,
-                       timeout=CLI_TIMEOUT_S)
+    r = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True, text=True, timeout=timeout)
     wall = time.perf_counter() - t0
     log = r.stdout + r.stderr
     if r.returncode != 0:

@@ -1,4 +1,5 @@
-"""The datalist split and the profiling hook of the training loop.
+"""The datalist split, the profiling hook of the training loop and the
+"at least float32" dtype rule.
 
 ``datafold_read`` is the JAX package's ``utils/misc.py:19-37`` (the
 reference's ``src/utils/misc.py:99-120``). ``profile_trace`` is the
@@ -7,6 +8,15 @@ counterpart of the JAX package's ``utils/misc.py:40``: with
 ``torch.profiler`` trace (host and, on a card, CUDA activity) of the block
 it wraps and writes it there as a Chrome trace
 (``trace_<pid>.json``). The trainer wraps its first epoch in it.
+
+``wide_dtype`` / ``widen`` are the dtype in which the port computes what
+it keeps "in float32" (norm statistics, losses, softmax, the split
+linears' partial sums, optimizer moments): float32 for bfloat16 and
+float32 tensors, float64 for float64 ones (``torch.promote_types`` with
+float32). So the bfloat16 and float32 paths compute what a plain
+``.float()`` gives, and the downstream main's float64 reference mode
+(``main_downstream.run(argv, dtype=torch.float64)``) rounds nowhere to
+float32.
 """
 
 from __future__ import annotations
@@ -17,6 +27,16 @@ import os
 from typing import Iterator, Optional
 
 import torch
+
+
+def wide_dtype(dtype: torch.dtype) -> torch.dtype:
+    """float32, or float64 for a float64 ``dtype``."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in ``wide_dtype(x.dtype)`` (itself when it is already there)."""
+    return x.to(wide_dtype(x.dtype))
 
 
 def datafold_read(datalist, basedir, fold: int = 0, key: str = "training"):

@@ -71,6 +71,7 @@ import numpy as np
 import torch
 
 from headct_foundation_tpu_torch.models.pos_embed import interpolate_pos_embed, nth_root
+from headct_foundation_tpu_torch.utils.misc import wide_dtype
 
 PREFIXES = ("module.", "backbone.", "_orig_mod.")
 
@@ -391,7 +392,7 @@ def _states_to_jax(branches, leaves, kinds, clip_outside: bool, step: int,
     initialises them."""
     def leaf(label, opt, p, key, layout):
         v = states.get(label, opt.state).get(p, {}).get(key)
-        return _to_jax_layout(torch.zeros_like(p, dtype=torch.float32) if v is None else v,
+        return _to_jax_layout(torch.zeros_like(p, dtype=wide_dtype(p.dtype)) if v is None else v,
                               layout)
 
     return _multi_transform(branches, leaves, kinds, clip_outside,

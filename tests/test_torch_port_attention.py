@@ -95,6 +95,47 @@ def test_fused_attention_rejects_what_the_kernel_does_not_take(bad):
         fused_attention(q, q, q)
 
 
+def test_float64_takes_the_plain_attention_and_every_kernel_entry_refuses_it(monkeypatch):
+    """The downstream main's float64 reference mode: the dispatch sends
+    float64 to the plain attention explicitly, under the kernel backend, at
+    every length and on a ``seq`` shard (no kernel entry reached, the result
+    float64 and equal to a float64 numpy softmax attention within 1e-12),
+    and each kernel entry point raises on float64 rather than taking its
+    plain version."""
+    q, k, v = (torch.from_numpy(x).double() for x in _qkv(2, 9, 2, 8))
+    reached = []
+    for name in ("flash_attention", "FusedAttention", "BlockedFusedAttention"):
+        monkeypatch.setattr(port_fa, name, lambda *a, _n=name, **kw: reached.append(_n))
+    prev = port_attn.set_attention_backend("kernel"), port_attn.set_pallas_min_t(1)
+    try:
+        y = port_attn.dot_product_attention(q, k, v)
+        y_shard = port_attn.attend_shard(q[:, :5], k, v, 9)
+    finally:
+        port_attn.set_attention_backend(prev[0])
+        port_attn.set_pallas_min_t(prev[1])
+    monkeypatch.undo()
+    assert reached == [] and y.dtype == y_shard.dtype == torch.float64
+    qn, kn, vn = (x.numpy().transpose(0, 2, 1, 3) for x in (q, k, v))
+    s = qn @ kn.transpose(0, 1, 3, 2) / np.sqrt(8)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    want = ((p / p.sum(-1, keepdims=True)) @ vn).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(y.numpy(), want, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(y_shard.numpy(), want[:, :5], rtol=1e-12, atol=1e-12)
+
+    lse = torch.zeros(4, 1, 9)
+    delta = torch.zeros(4, 1, 9)
+    for call in (lambda: fused_attention(q, k, v),
+                 lambda: fused_attention_bwd(q, k, v, q, q, lse),
+                 lambda: port_fa.blocked_fused_attention(q, k, v),
+                 lambda: port_fa.blocked_attention_dkv(q, k, v, q, lse, delta),
+                 lambda: port_fa.blocked_attention_dq(q, k, v, q, lse, delta),
+                 lambda: port_fa.flash_attention(q, k, v),
+                 lambda: FusedAttention.apply(q, k, v),
+                 lambda: port_fa.BlockedFusedAttention.apply(q, k, v)):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            call()
+
+
 def test_dispatch_on_cpu(monkeypatch):
     """Auto backend on the CPU is plain; the kernel backend sends
     pallas_min_t() <= T <= 1024 through FusedAttention, with

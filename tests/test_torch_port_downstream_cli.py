@@ -17,7 +17,9 @@
   ``float32_downstream``: in bf16 the head's BatchNorm over alike CLS
   features turns the two layouts' roundings into the signal):
   the train, val and test losses within 1e-5 relative, which a BatchNorm
-  on each rank's own half-batch (planted: no all-reduce) fails.
+  on each rank's own half-batch (planted: no all-reduce) fails. The same
+  pair in float64 (``float64_downstream``, the tool's ``--float64``):
+  within 1e-12 relative, and within 1e-5 of the float32 run.
 """
 
 import json
@@ -197,7 +199,10 @@ _DP_WORKER = r'''
 import sys
 
 from headct_foundation_tpu_torch.models import layers
-from headct_foundation_tpu_torch.tools.check_data_parallel import float32_downstream
+from headct_foundation_tpu_torch.tools.check_data_parallel import (
+    float32_downstream,
+    float64_downstream,
+)
 
 if sys.argv[1] == "planted":  # each rank's BatchNorm on its own half-batch, as with no
     class _Alone:              # process group: its own sums over its own count
@@ -206,7 +211,8 @@ if sys.argv[1] == "planted":  # each rank's BatchNorm on its own half-batch, as 
             return False
 
     layers.dist = _Alone
-float32_downstream(sys.argv[2:])  # float32, so one process and two sum the same numbers
+# float32, so one process and two sum the same numbers; float64, the reference
+(float64_downstream if sys.argv[1] == "float64" else float32_downstream)(sys.argv[2:])
 '''
 
 
@@ -216,7 +222,7 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _dp_start(tmp_path, cfg, tag: str, world: int, batch: int, planted: bool = False) -> list:
+def _dp_start(tmp_path, cfg, tag: str, world: int, batch: int, mode: str = "synced") -> list:
     """Start the ``world`` processes of one run; ``_dp_result`` reads it."""
     out = tmp_path / tag
     out.mkdir(parents=True, exist_ok=True)
@@ -231,7 +237,7 @@ def _dp_start(tmp_path, cfg, tag: str, world: int, batch: int, planted: bool = F
             env.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
                        MASTER_ADDR="localhost", MASTER_PORT=str(port))
         procs.append(subprocess.Popen(
-            [sys.executable, "-c", _DP_WORKER, "planted" if planted else "synced", *args],
+            [sys.executable, "-c", _DP_WORKER, mode, *args],
             cwd=out, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     return procs
 
@@ -257,9 +263,15 @@ def _losses(result) -> np.ndarray:
 def test_two_gloo_processes_equal_one_at_twice_the_batch(tmp_path):
     cfg, _ = _dataset(tmp_path, rows={"train": 12, "val": 8, "test": 8})
     runs = [_dp_start(tmp_path, cfg, "one", 1, 4), _dp_start(tmp_path, cfg, "two", 2, 2),
-            _dp_start(tmp_path, cfg, "planted", 2, 2, planted=True)]
-    one, two, planted = (_dp_result(p, w) for p, w in zip(runs, (1, 2, 2)))
+            _dp_start(tmp_path, cfg, "planted", 2, 2, mode="planted"),
+            _dp_start(tmp_path, cfg, "one64", 1, 4, mode="float64"),
+            _dp_start(tmp_path, cfg, "two64", 2, 2, mode="float64")]
+    one, two, planted, one64, two64 = (_dp_result(p, w) for p, w in zip(runs, (1, 2, 2, 1, 2)))
     assert [e["train"]["steps"] for e in one["epochs"]] == [2, 2]  # 2 x 4 shots at batch 4
     np.testing.assert_allclose(_losses(two), _losses(one), rtol=1e-5)
     assert not np.allclose(_losses(planted), _losses(one), rtol=1e-5, atol=0), (
         _losses(planted), _losses(one))
+    # float64: the layouts' roundings all but gone, and the same run as float32's
+    np.testing.assert_allclose(_losses(two64), _losses(one64), rtol=1e-12, atol=0)
+    np.testing.assert_allclose(_losses(one64), _losses(one), rtol=1e-5)
+    assert not np.array_equal(_losses(one64), _losses(one))

@@ -225,6 +225,31 @@ def _moved(after: dict, before: dict) -> set:
     return {k for k in before if not torch.equal(after[k], before[k])}
 
 
+def test_f64_train_steps_run_in_float64_on_the_plain_attention(runs, monkeypatch):
+    """The float64 reference mode (``tools/check_data_parallel.py --float64``)
+    from the same JAX init, the attentive head fine-tuned for 3 steps: every
+    loss within LOSS_REL of the port's float32 steps and of JAX's; every
+    parameter, AdamW moment and BatchNorm statistic float64 after them; and
+    under the kernel backend at T = 9 >= PALLAS_MIN_T the attention is the
+    plain one, dispatched so (no kernel entry is reached)."""
+    losses32 = runs("attentive", "fine-tune")[4]
+    reached = []
+    kernel = port_attn._fa.flash_attention
+    monkeypatch.setattr(port_attn._fa, "flash_attention",
+                        lambda *a, **k: reached.append(a[0].dtype) or kernel(*a, **k))
+    _, _, (_, state), losses_j, losses = _trajectory("attentive", "fine-tune",
+                                                     (jnp.float32, torch.float64))
+    assert reached == []
+    np.testing.assert_allclose(losses, losses32, rtol=LOSS_REL)
+    np.testing.assert_allclose(losses, losses_j, rtol=LOSS_REL)
+    assert losses != losses32  # computed apart, not the float32 run again
+    moments = [v for opt in state.optimizers.values() if opt is not None
+               for st in opt.state.values() for k, v in st.items() if k != "step"]
+    tensors = [*state.model.state_dict().values(), *state.classifier.state_dict().values(),
+               *moments]
+    assert moments and all(t.dtype == torch.float64 for t in tensors if t.is_floating_point())
+
+
 @pytest.mark.parametrize("mode", list(MODES))
 @pytest.mark.parametrize("kind", ["linear", "attentive"])
 def test_f32_train_steps_match_jax(runs, kind, mode):

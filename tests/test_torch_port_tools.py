@@ -16,7 +16,11 @@ soak tools, held against the JAX package on the CPU.
 * ``tools/parity_check.py``: ``--make-oracle-ckpt`` then the check on two
   scans, PASS at 0.999.
 * ``tools/soak_resume.py``: its parse, stitch and checks on the log of a
-  real CPU run of the MAE main and its resume from ``latest_``.
+  real CPU run of the MAE main and its resume from ``latest_``; its kill
+  decision on synthetic logs (a kill past epoch K + 1, or at its last
+  step, is refused), its choice of file on synthetic ``latest_`` lists (a
+  ``*.tmp`` is never chosen) and its checks on a resume at another epoch
+  than the chosen file's.
 """
 
 import json
@@ -204,11 +208,87 @@ def test_soak_parse_and_stitch_on_a_real_run(tmp_path):
                            "--max_epochs", "3"])
     phase2 = soak_resume.parse_steps(str(tmp_path))[len(phase1):]
     log = "".join(p.read_text() for p in (tmp_path / "log").glob("log_rank0_*.txt"))
-    result = soak_resume.stitch(phase1, phase2, phase1[-1], "Resumed from" in log, scans=6)
+    epoch = soak_resume.checkpoint_epoch(latest)
+    assert epoch == ckpt.load_checkpoint(latest)["epoch"] == 2  # the resume's own save
+    # the clean first run "killed" at its last step: not mid-epoch, as failures() says
+    result = soak_resume.stitch(phase1, phase2, phase1[-1], "Resumed from" in log,
+                                checkpoint_epoch=1, kill_after_epoch=1, steps_per_epoch=2,
+                                scans=6)
     assert result["resume_epoch_restarted"] == 2 and result["steps_phase2"] == 4
     assert result["resumed_log_line"] and result["losses_phase1"] == [
         round(r[2], 5) for r in phase1]
     # the tiny run's four steps are too few for the continuity level
-    assert not [b for b in soak_resume.failures(result) if "continuous" not in b]
-    jumped = dict(result, post_resume_loss=result["init_loss"] + 1.0)
+    assert [b for b in soak_resume.failures(result) if "continuous" not in b] == [
+        "the kill fell after step 2 of epoch 2, not mid-epoch 2 (of 2 steps)"]
+    mid = dict(result, killed_at={"epoch": 2, "step_in_epoch": 1})
+    assert not [b for b in soak_resume.failures(mid) if "continuous" not in b]
+    jumped = dict(mid, post_resume_loss=result["init_loss"] + 1.0)
     assert soak_resume.failures(jumped)
+    # the trainer's epoch lines: steps, placeholders and (none on the CPU) launches
+    assert soak_resume.parse_epochs(str(tmp_path)) == [
+        {"epoch": e, "steps": 2, "placeholders": 0, "launches": {}} for e in (1, 2, 2, 3)]
+
+
+def _log_rows(epochs: int, last_steps: int, per_epoch: int = 16) -> list:
+    """The (epoch, step, loss) rows of ``epochs`` - 1 whole epochs of
+    ``per_epoch`` steps and ``last_steps`` of the next, as logged (from 1)."""
+    return [(e, s, 0.5) for e in range(1, epochs + 1)
+            for s in range(1, (per_epoch if e < epochs else last_steps) + 1)]
+
+
+@pytest.mark.parametrize("epochs, last_steps, want", [
+    (2, 16, "wait"),   # epoch K = 2 done; K + 1 not begun
+    (3, 4, "wait"),    # K + 1 has logged fewer than KILL_MIN_STEPS
+    (3, 5, "kill"),
+    (3, 8, "kill"),    # the first group of LOSS_FLUSH losses
+    (3, 15, "kill"),
+    (3, 16, "missed"),  # K + 1's last step: the kill would land at its end
+    (4, 1, "missed"),  # a later epoch
+    (4, 8, "missed"),
+])
+def test_soak_kill_decision_on_synthetic_logs(epochs, last_steps, want):
+    rows = _log_rows(epochs, last_steps)
+    assert soak_resume.kill_decision(rows, 2, 16) == want
+    assert soak_resume.KILL_MIN_STEPS == 5
+
+
+@pytest.mark.parametrize("names, want", [
+    (["latest_mae.ckpt"], "latest_mae.ckpt"),
+    (["latest_mae.ckpt", "latest_mae.ckpt.tmp"], "latest_mae.ckpt"),  # a torn write beside
+    (["latest_mae.ckpt.tmp", "latest_mae.ckpt"], "latest_mae.ckpt"),  # in either order
+    (["latest_mae.ckpt.tmp"], None),  # the first write still under way: none yet
+    ([], None),
+])
+def test_soak_never_chooses_a_torn_checkpoint(names, want):
+    assert soak_resume.complete_checkpoint([f"/out/model_saved/{n}" for n in names]) == (
+        None if want is None else f"/out/model_saved/{want}")
+
+
+def test_soak_fails_a_resume_at_another_epoch_and_a_kill_outside_epoch_k_plus_1():
+    phase1 = _log_rows(3, 8)
+    phase2 = [(2, s, 0.5) for s in range(1, 17)] + [(3, s, 0.5) for s in range(1, 17)]
+    good = soak_resume.stitch(phase1, phase2, phase1[-1], True, checkpoint_epoch=1,
+                              kill_after_epoch=2, steps_per_epoch=16)
+    assert soak_resume.failures(good) == []
+    assert soak_resume.failures(dict(good, checkpoint_epoch=0)) == [
+        "the resume restarted at epoch 2, not at 1, the chosen checkpoint's (epoch 0 from 0)"]
+    late = soak_resume.stitch(phase1 + [(4, 1, 0.5)], phase2, (4, 1, 0.5), True,
+                              checkpoint_epoch=1, kill_after_epoch=2, steps_per_epoch=16)
+    assert soak_resume.failures(late) == [
+        "the kill fell after step 1 of epoch 4, not mid-epoch 3 (of 16 steps)"]
+    assert soak_resume.failures(dict(good, resumed_log_line=False)) == [
+        "the resume did not log 'Resumed from'"]
+
+
+def test_soak_parses_the_epoch_lines_launches(tmp_path):
+    (tmp_path / "log").mkdir()
+    (tmp_path / "log" / "log_rank0_x.txt").write_text(
+        "[t x] (mae_engine.py 1): INFO Epoch 1 done in 3.1s  train loss 0.4000  iter 0.080s "
+        "(data 0.001s)  steps 16  placeholders 0  launches flash_attention_fwd 128, "
+        "flash_attention_bwd 128\n"
+        "[t x] (mae_engine.py 1): INFO Epoch 2 done in 1.3s  train loss 0.3000  iter 0.080s "
+        "(data 0.001s)  steps 16  placeholders 1  launches none\n")
+    assert soak_resume.parse_epochs(str(tmp_path)) == [
+        {"epoch": 1, "steps": 16, "placeholders": 0,
+         "launches": {"flash_attention_fwd": 128, "flash_attention_bwd": 128}},
+        {"epoch": 2, "steps": 16, "placeholders": 1, "launches": {}}]
