@@ -90,6 +90,8 @@ from headct_foundation_tpu_torch.engines.mae_engine import (
     LOSS_FLUSH,
     _batches,
     _launches_since,
+    allreduce_counts,
+    allreduce_since,
     check_mesh,
     drain_pending_losses,
     fsdp_grads,
@@ -124,6 +126,7 @@ from headct_foundation_tpu_torch.utils.checkpoint import (
     save_checkpoint,
     wait_for_saves,
 )
+from headct_foundation_tpu_torch.utils import tracing
 from headct_foundation_tpu_torch.utils.misc import profile_trace
 from headct_foundation_tpu_torch.utils.torch_interop import (
     batch_stats_from_state_dict,
@@ -308,18 +311,27 @@ def create_train_state(
     device = resolve_device(device)
     set_pallas_min_t(config.PARALLEL.PALLAS_MIN_T)
     g = torch.Generator().manual_seed(seed)
-    backbone = build_vit_model(config, dtype).init_weights(g)
-    student = DINOModel(backbone, build_dino_head(config, dtype).init_weights(g))
-    student = shard_model_(student, backbone.blocks, m).to(device)
+    with tracing.span("setup.build"):
+        backbone = build_vit_model(config, dtype)
+    with tracing.span("setup.init_weights"):
+        backbone = backbone.init_weights(g)
+    with tracing.span("setup.build"):
+        head = build_dino_head(config, dtype)
+    with tracing.span("setup.init_weights"):
+        student = DINOModel(backbone, head.init_weights(g))
+    with tracing.span("setup.to_device"):
+        student = shard_model_(student, backbone.blocks, m).to(device)
     trainable = dino_trainable_mask(student, config)
     for name, p in student.named_parameters():
         p.requires_grad_(trainable[name])
-    # the process groups are shared, not copied
-    teacher = copy.deepcopy(student, {id(gr): gr for gr in m.groups.values()})
+    with tracing.span("setup.to_device"):
+        # the process groups are shared, not copied
+        teacher = copy.deepcopy(student, {id(gr): gr for gr in m.groups.values()})
     teacher.requires_grad_(False)
-    optimizer = _optimizer(config, student, split=fsdp.split_groups(student, m))
-    lr_schedule = get_lr_schedule(config, config.TRAIN.BASE_LR, num_warmup_steps, total_steps,
-                                  config.TRAIN.MIN_LR)
+    with tracing.span("setup.optimizer"):
+        optimizer = _optimizer(config, student, split=fsdp.split_groups(student, m))
+        lr_schedule = get_lr_schedule(config, config.TRAIN.BASE_LR, num_warmup_steps,
+                                      total_steps, config.TRAIN.MIN_LR)
     d = config.DINO
     return DINOTrainState(
         student, teacher, optimizer, lr_schedule,
@@ -386,7 +398,8 @@ def make_grad_step(config) -> Callable:
         seq = mesh.current().size("seq")  # each seq rank backpropagates 1 / seq of the loss
         student.train()
         teacher.train()  # a BatchNorm head normalises with the batch's statistics
-        batch = wire_to_compute(batch.to(device), config, in_chans)
+        with tracing.span("augment"):
+            batch = wire_to_compute(batch.to(device), config, in_chans)
         if batch.shape[0] % accum_steps:
             raise ValueError(f"batch {batch.shape[0]} does not split into {accum_steps} "
                              "micro-batches")
@@ -395,16 +408,21 @@ def make_grad_step(config) -> Callable:
         t_sum = torch.zeros_like(state.center[0])
         for i in range(accum_steps):
             g = None if draws is not None else step_generator(device, seed, state.step, i)
-            crops = _crops(config, batch[i * n:(i + 1) * n], g,
-                           None if draws is None else draws[i])
+            with tracing.span("augment"):
+                crops = _crops(config, batch[i * n:(i + 1) * n], g,
+                               None if draws is None else draws[i])
             # the teacher's and the student's backbone dropout, from keys of
             # their own (JAX folds 101 and 102 into the micro-batch's key)
             t_drop, s_drop = ((step_generator(device, seed, state.step, i, k) for k in (101, 102))
                               if drops else (None, None))
-            with torch.no_grad():
-                t_out = teacher(crops[:2], t_drop)
-            loss = dino_loss(student(crops, s_drop), t_out, state.center, teacher_temp, ncrops)
-            (loss / seq if seq > 1 else loss).backward()  # float32 .grad: the micro-batches' sum
+            with tracing.span("fwd"):
+                with torch.no_grad():
+                    t_out = teacher(crops[:2], t_drop)
+                loss = dino_loss(student(crops, s_drop), t_out, state.center, teacher_temp,
+                                 ncrops)
+            with tracing.span("bwd"):
+                # float32 .grad: the micro-batches' sum
+                (loss / seq if seq > 1 else loss).backward()
             loss_sum += loss.detach()
             t_sum += t_out.float().mean(dim=0)
         gs = [p.grad for p in student.parameters() if p.grad is not None]
@@ -427,24 +445,26 @@ def apply_update(state: DINOTrainState, momentum: float, cancel_last_layer: bool
     second half): the last-layer freeze, the per-parameter clip (a split
     tensor's norm over its shards), the step's LR and weight decay, the
     optimizer step, the teacher's EMA and the centre's."""
-    student = state.student
-    last = state.last_layer_group()
-    if cancel_last_layer:
-        for p in last["params"]:
-            p.grad.mul_(0.0)
-    if state.grad_clip:
-        clip_by_per_param_norm(student.parameters(), state.grad_clip,
-                               split=fsdp.split_groups(student))
-    # optax's count before the increment
-    set_step_hyperparameters(state.optimizer, state.lr_schedule(state.step),
-                             scheduled_weight_decay(state.wd_sched, state.step))
-    if cancel_last_layer:
-        last["lr"] = 0.0
-    state.optimizer.step()
-    state.optimizer.zero_grad(set_to_none=True)
-    update_teacher(state.teacher, student, momentum)
-    state.center = update_center(state.center, t_mean[None])
-    state.step += 1
+    with tracing.span("update"):
+        student = state.student
+        last = state.last_layer_group()
+        if cancel_last_layer:
+            for p in last["params"]:
+                p.grad.mul_(0.0)
+        if state.grad_clip:
+            clip_by_per_param_norm(student.parameters(), state.grad_clip,
+                                   split=fsdp.split_groups(student))
+        # optax's count before the increment
+        set_step_hyperparameters(state.optimizer, state.lr_schedule(state.step),
+                                 scheduled_weight_decay(state.wd_sched, state.step))
+        if cancel_last_layer:
+            last["lr"] = 0.0
+        with tracing.span("optimizer"):
+            state.optimizer.step()
+            state.optimizer.zero_grad(set_to_none=True)
+        update_teacher(state.teacher, student, momentum)
+        state.center = update_center(state.center, t_mean[None])
+        state.step += 1
     return state
 
 
@@ -520,26 +540,30 @@ def train_one_epoch(
         if wandb_run is not None:
             wandb_run.log({"Training Loss": loss, "Training lr": lr, "Training wd": wd})
 
-    before = kernel_launches()
+    before, reduced = kernel_launches(), allreduce_counts()
     data_times: List[float] = []
     iter_times: List[float] = []
+    sid = None  # the step id of the spans: state.step at the step's entry
     end = time.perf_counter()
     for idx, batch in enumerate(_batches(DevicePrefetcher.wrap(loader, state.device))):
         data_times.append(time.perf_counter() - end)
+        sid = state.step
         # the reference's quirk: the momentum by the index within the epoch,
         # not the global iteration
         momentum = _at(state.momentum_sched, idx)
-        state, metrics = train_step(state, to_device_batch(batch, state.device), seed,
-                                    momentum, temp, cancel)
+        with tracing.span("step", sid):
+            state, metrics = train_step(state, to_device_batch(batch, state.device), seed,
+                                        momentum, temp, cancel)
         pending.append((metrics["loss"], idx))
         if len(pending) >= LOSS_FLUSH:
-            drain_pending_losses(pending, logger, log)
+            drain_pending_losses(pending, logger, log, sid)
         iter_times.append(time.perf_counter() - end)
         end = time.perf_counter()
-    drain_pending_losses(pending, logger, log)
+    drain_pending_losses(pending, logger, log, sid)
     stats: Dict[str, Any] = {"iter_time": float(np.mean(iter_times)) if iter_times else 0.0,
                              "data_time": float(np.mean(data_times)) if data_times else 0.0,
-                             "steps": len(iter_times), "launches": _launches_since(before)}
+                             "steps": len(iter_times), "launches": _launches_since(before),
+                             "allreduce": allreduce_since(reduced)}
     if losses:
         stats.update(loss=float(np.mean(losses)), lr=float(np.mean(lrs)),
                      wd=float(np.mean(wds)))

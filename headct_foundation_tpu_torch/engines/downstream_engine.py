@@ -93,6 +93,8 @@ from headct_foundation_tpu_torch.engines.dino_engine import build_vit_model, sha
 from headct_foundation_tpu_torch.engines.mae_engine import (
     LOSS_FLUSH,
     _launches_since,
+    allreduce_counts,
+    allreduce_since,
     check_mesh,
     fsdp_grads,
     kernel_launches,
@@ -113,6 +115,7 @@ from headct_foundation_tpu_torch.utils.checkpoint import (
     wait_for_saves,
 )
 from headct_foundation_tpu_torch.utils.metrics import multiclass_metrics
+from headct_foundation_tpu_torch.utils import tracing
 from headct_foundation_tpu_torch.utils.misc import profile_trace, widen
 from headct_foundation_tpu_torch.utils.plots import plot_pr_curve, plotting_available
 from headct_foundation_tpu_torch.utils.torch_interop import (
@@ -433,24 +436,27 @@ def _loader(loader: Iterable, device: torch.device) -> DevicePrefetcher:
     return DevicePrefetcher.wrap(loader, device, device_fields=(0, 1))
 
 
-def _drain(pending: list, on_row: Callable, logger, abort_on_nonfinite: bool) -> None:
+def _drain(pending: list, on_row: Callable, logger, abort_on_nonfinite: bool,
+           step: Optional[int] = None) -> None:
     """Fetch every pending (loss, probs, targets, idx) in one copy each, exit
     1 on a non-finite train loss (reference: engine_downstream.py:118-120),
-    then hand each row to ``on_row``."""
+    then hand each row to ``on_row`` (the ``drain`` span, of step id
+    ``step``)."""
     if not pending:
         return
-    losses = torch.stack([widen(p[0]) for p in pending]).cpu().tolist()
-    probs = [p.cpu().numpy() for p in torch.cat([p[1] for p in pending]).split(
-        [p[1].shape[0] for p in pending])]
-    targets = [t.cpu().numpy() for t in torch.cat([p[2] for p in pending]).split(
-        [p[2].shape[0] for p in pending])]
-    for loss, pr, t, (_, _, _, idx) in zip(losses, probs, targets, pending):
-        if abort_on_nonfinite and not math.isfinite(loss):
-            if logger:
-                logger.info(f"Loss is {loss}, stopping training")
-            sys.exit(1)
-        on_row(loss, pr, t, idx)
-    pending.clear()
+    with tracing.span("drain", step):
+        losses = torch.stack([widen(p[0]) for p in pending]).cpu().tolist()
+        probs = [p.cpu().numpy() for p in torch.cat([p[1] for p in pending]).split(
+            [p[1].shape[0] for p in pending])]
+        targets = [t.cpu().numpy() for t in torch.cat([p[2] for p in pending]).split(
+            [p[2].shape[0] for p in pending])]
+        for loss, pr, t, (_, _, _, idx) in zip(losses, probs, targets, pending):
+            if abort_on_nonfinite and not math.isfinite(loss):
+                if logger:
+                    logger.info(f"Loss is {loss}, stopping training")
+                sys.exit(1)
+            on_row(loss, pr, t, idx)
+        pending.clear()
 
 
 def _metrics(config, probs: List[np.ndarray], targets: List[np.ndarray]) -> Dict[str, float]:
@@ -482,23 +488,27 @@ def train_one_epoch(config, state: DownstreamTrainState, train_step, loader: Ite
         if wandb_run is not None:
             wandb_run.log({"Training Loss": loss})
 
-    before = kernel_launches()
+    before, reduced = kernel_launches(), allreduce_counts()
     data_times: List[float] = []
     iter_times: List[float] = []
+    sid = None  # the step id of the spans: state.step at the step's entry
     end = time.perf_counter()
     for idx, (data, target, _) in enumerate(_loader(loader, state.device)):
         data_times.append(time.perf_counter() - end)
+        sid = state.step
         target = torch.as_tensor(target).to(state.device)
-        state, m = train_step(state, to_device_batch(data, state.device), target, seed)
+        with tracing.span("step", sid):
+            state, m = train_step(state, to_device_batch(data, state.device), target, seed)
         pending.append((m["loss"], m["probs"], target, idx))
         if len(pending) >= LOSS_FLUSH:
-            _drain(pending, on_row, logger, True)
+            _drain(pending, on_row, logger, True, sid)
         iter_times.append(time.perf_counter() - end)
         end = time.perf_counter()
-    _drain(pending, on_row, logger, True)
+    _drain(pending, on_row, logger, True, sid)
     stats: Dict[str, Any] = {"iter_time": float(np.mean(iter_times)) if iter_times else 0.0,
                              "data_time": float(np.mean(data_times)) if data_times else 0.0,
-                             "steps": len(iter_times), "launches": _launches_since(before)}
+                             "steps": len(iter_times), "launches": _launches_since(before),
+                             "allreduce": allreduce_since(reduced)}
     if losses:
         stats["loss"] = float(np.mean(losses))
     stats.update(_metrics(config, probs, targets))

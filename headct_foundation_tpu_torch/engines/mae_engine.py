@@ -82,7 +82,15 @@ Port of the JAX package's ``engines/mae_engine.py:44-163, 226-491``
   the wrappers' counters), which the CLI prints; the trainer's "Epoch N
   done" log line gives them too, with the steps and the train loader's
   placeholders so far, for a run that never reaches its JSON line (the
-  soak tool's killed run).
+  soak tool's killed run). ``allreduce`` is the calls and bytes that
+  ``distributed.all_reduce_sum_`` exchanged in the epoch.
+* Spans (``utils/tracing.py``, off unless enabled): ``step`` and
+  ``drain`` in ``train_one_epoch`` (step id ``state.step`` at the step's
+  entry); ``augment`` (the windowing,
+  then each micro-batch's augmentation), ``fwd`` and ``bwd`` per
+  micro-batch in the grad step; ``update`` around ``apply_update``, with
+  ``optimizer`` around the optimizer's step and ``zero_grad``; the
+  ``setup.*`` stages of ``create_train_state``. They add no operation.
 """
 
 from __future__ import annotations
@@ -115,6 +123,7 @@ from headct_foundation_tpu_torch.utils.checkpoint import (
     save_checkpoint,
     wait_for_saves,
 )
+from headct_foundation_tpu_torch.utils import tracing
 from headct_foundation_tpu_torch.utils.misc import profile_trace
 
 LOSS_FLUSH = 8  # steps between batched loss fetches (see train_one_epoch)
@@ -253,21 +262,25 @@ def create_train_state(
     t = m.size("tensor")
     device = resolve_device(device)
     set_pallas_min_t(config.PARALLEL.PALLAS_MIN_T)
-    model = build_mae_model(config, dtype=dtype)
-    model.init_weights(torch.Generator().manual_seed(seed))
-    if t > 1:
-        for blk in list(model.blocks) + list(model.decoder_blocks):
-            shard_block_(blk, t, m.coord("tensor"), m.group("tensor"))
-    pipeline.keep_stage_(model, m.size("pipe"), m.coord("pipe"))
-    fsdp.shard_module_(model, m)
-    model.to(device)
+    with tracing.span("setup.build"):
+        model = build_mae_model(config, dtype=dtype)
+    with tracing.span("setup.init_weights"):
+        model.init_weights(torch.Generator().manual_seed(seed))
+    with tracing.span("setup.to_device"):  # this rank's part of the model, on the device
+        if t > 1:
+            for blk in list(model.blocks) + list(model.decoder_blocks):
+                shard_block_(blk, t, m.coord("tensor"), m.group("tensor"))
+        pipeline.keep_stage_(model, m.size("pipe"), m.coord("pipe"))
+        fsdp.shard_module_(model, m)
+        model.to(device)
     trainable = mae_trainable_mask(model, config.MAE.POS_EMBED)
     for name, p in model.named_parameters():
         p.requires_grad_(trainable[name])
-    lr_schedule = get_lr_schedule(config, config.TRAIN.BASE_LR, num_warmup_steps, total_steps,
-                                  config.TRAIN.MIN_LR)
-    optimizer = get_optimizer(config, model.parameters(), split=fsdp.split_groups(model, m),
-                              stacked=pipeline.stacked_groups(model, m))
+    with tracing.span("setup.optimizer"):
+        lr_schedule = get_lr_schedule(config, config.TRAIN.BASE_LR, num_warmup_steps,
+                                      total_steps, config.TRAIN.MIN_LR)
+        optimizer = get_optimizer(config, model.parameters(), split=fsdp.split_groups(model, m),
+                                  stacked=pipeline.stacked_groups(model, m))
     return (TrainState(model, optimizer, lr_schedule, grad_clip=float(config.TRAIN.GRAD_CLIP),
                        config=config), lr_schedule)
 
@@ -325,7 +338,8 @@ def make_grad_step(augment: bool = False, accum_steps: int = 1, config=None) -> 
               draws: Optional[Sequence[dict]] = None) -> torch.Tensor:
         model, device = state.model, state.device
         model.train()
-        batch = wire_to_compute(batch.to(device), config, in_chans)
+        with tracing.span("augment"):
+            batch = wire_to_compute(batch.to(device), config, in_chans)
         B = batch.shape[0]
         if B % accum_steps:
             raise ValueError(f"batch {B} does not split into {accum_steps} micro-batches")
@@ -347,13 +361,16 @@ def make_grad_step(augment: bool = False, accum_steps: int = 1, config=None) -> 
                 noise, decisions = draws[i]["noise"], draws[i].get("augment")
                 g_drop = draws[i].get("dropout")
             if augment:
-                mb = apply_mae_augment(mb, decisions)
-            if trunk is not None:
-                loss = pipelined_loss(model, mb, noise, trunk)
-            else:
-                with mesh.global_dropout():
-                    loss, _, _ = model(mb, noise=noise, dropout_generator=g_drop)
-            loss.backward()  # float32 .grad of float32 params: the sum over micro-batches
+                with tracing.span("augment"):
+                    mb = apply_mae_augment(mb, decisions)
+            with tracing.span("fwd"):
+                if trunk is not None:
+                    loss = pipelined_loss(model, mb, noise, trunk)
+                else:
+                    with mesh.global_dropout():
+                        loss, _, _ = model(mb, noise=noise, dropout_generator=g_drop)
+            with tracing.span("bwd"):
+                loss.backward()  # float32 .grad of float32 params: the sum over micro-batches
             loss_sum += loss.detach().float()
         gs = [p.grad for p in model.parameters() if p.grad is not None]
         if accum_steps > 1:
@@ -388,17 +405,19 @@ def apply_update(state: TrainState) -> TrainState:
     second half): the per-parameter clip (a split parameter's norm over all
     its shards, a block parameter's under ``PIPE`` over its stacked leaf),
     the LR of this step, the optimizer step."""
-    model = state.model
-    if state.grad_clip:
-        clip_by_per_param_norm(model.parameters(), state.grad_clip,
-                               split=fsdp.split_groups(model),
-                               stacked=pipeline.stacked_groups(model))
-    lr = state.lr_schedule(state.step)  # optax's count before the increment
-    for group in state.optimizer.param_groups:
-        group["lr"] = lr
-    state.optimizer.step()
-    state.optimizer.zero_grad(set_to_none=True)
-    state.step += 1
+    with tracing.span("update"):
+        model = state.model
+        if state.grad_clip:
+            clip_by_per_param_norm(model.parameters(), state.grad_clip,
+                                   split=fsdp.split_groups(model),
+                                   stacked=pipeline.stacked_groups(model))
+        lr = state.lr_schedule(state.step)  # optax's count before the increment
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        with tracing.span("optimizer"):
+            state.optimizer.step()
+            state.optimizer.zero_grad(set_to_none=True)
+        state.step += 1
     return state
 
 
@@ -466,6 +485,16 @@ def _launches_since(before: Dict[str, int]) -> Dict[str, int]:
     return {k: v - before[k] for k, v in kernel_launches().items()}
 
 
+def allreduce_counts() -> Dict[str, int]:
+    """The ``dist.all_reduce`` calls and bytes of ``all_reduce_sum_`` so far."""
+    f = distributed.all_reduce_sum_
+    return {"calls": f.calls, "bytes": f.bytes}
+
+
+def allreduce_since(before: Dict[str, int]) -> Dict[str, int]:
+    return {k: v - before[k] for k, v in allreduce_counts().items()}
+
+
 def to_device_batch(batch, device: torch.device) -> torch.Tensor:
     """A batch already on ``device`` passes through without a copy; hu16
     (int16) and hu8 (uint8) wire batches ship as they are (the step windows
@@ -479,19 +508,22 @@ def to_device_batch(batch, device: torch.device) -> torch.Tensor:
 
 
 def drain_pending_losses(pending: List[Tuple[torch.Tensor, int]], logger,
-                         log_fn: Callable[[float, int], None]) -> None:
+                         log_fn: Callable[[float, int], None],
+                         step: Optional[int] = None) -> None:
     """Fetch every pending (loss, idx) in one copy, exit on a non-finite loss
-    (reference: engine_pretrain_mae.py:76-78), and log each value."""
+    (reference: engine_pretrain_mae.py:76-78), and log each value (the
+    ``drain`` span, of step id ``step``)."""
     if not pending:
         return
-    values = torch.stack([loss.float() for loss, _ in pending]).cpu().tolist()
-    for loss, (_, idx) in zip(values, pending):
-        if not math.isfinite(loss):
-            if logger:
-                logger.info(f"Loss is {loss}, stopping training")
-            sys.exit(1)
-        log_fn(loss, idx)
-    pending.clear()
+    with tracing.span("drain", step):
+        values = torch.stack([loss.float() for loss, _ in pending]).cpu().tolist()
+        for loss, (_, idx) in zip(values, pending):
+            if not math.isfinite(loss):
+                if logger:
+                    logger.info(f"Loss is {loss}, stopping training")
+                sys.exit(1)
+            log_fn(loss, idx)
+        pending.clear()
 
 
 def _batches(loader: Iterable):
@@ -521,24 +553,28 @@ def train_one_epoch(
         if wandb_run is not None:
             wandb_run.log({"Training Loss": loss, "Training lr": lr})
 
-    before = kernel_launches()
+    before, reduced = kernel_launches(), allreduce_counts()
     data_times: List[float] = []
     iter_times: List[float] = []
     batches = iter(_batches(DevicePrefetcher.wrap(loader, state.device)))
+    sid = None  # the step id of the spans: state.step at the step's entry
     end = time.perf_counter()
     for idx, batch in enumerate(batches):
         data_times.append(time.perf_counter() - end)
+        sid = state.step
         data = to_device_batch(batch, state.device)
-        state, metrics = train_step(state, data, seed)
+        with tracing.span("step", sid):
+            state, metrics = train_step(state, data, seed)
         pending.append((metrics["loss"], idx))
         if len(pending) >= LOSS_FLUSH:
-            drain_pending_losses(pending, logger, log)
+            drain_pending_losses(pending, logger, log, sid)
         iter_times.append(time.perf_counter() - end)
         end = time.perf_counter()
-    drain_pending_losses(pending, logger, log)
+    drain_pending_losses(pending, logger, log, sid)
     stats: Dict[str, Any] = {"iter_time": float(np.mean(iter_times)) if iter_times else 0.0,
                              "data_time": float(np.mean(data_times)) if data_times else 0.0,
-                             "steps": len(iter_times), "launches": _launches_since(before)}
+                             "steps": len(iter_times), "launches": _launches_since(before),
+                             "allreduce": allreduce_since(reduced)}
     if losses:
         stats.update(loss=float(np.mean(losses)), lr=float(np.mean(lrs)))
     return state, stats

@@ -9,7 +9,8 @@ anew and an unchanged one is reused; ptxas's report of the build is saved
 beside it (``ptxas_log``). ``build_all`` starts one ``nvcc`` per source, all
 at once.
 
-Nothing falls back: a missing ``nvcc`` or a failed build raises.
+Nothing falls back: a missing ``nvcc`` or a failed build raises. ``load``
+runs in the ``setup.kernels`` span (``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable
+
+from headct_foundation_tpu_torch.utils import tracing
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -127,5 +130,6 @@ def ptxas_log(name: str) -> str:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of one kernel, built first if needed (callers
     cache what they take from it)."""
-    build_all([name])
-    return ctypes.CDLL(str(library_path(name)))
+    with tracing.span("setup.kernels"):
+        build_all([name])
+        return ctypes.CDLL(str(library_path(name)))

@@ -28,6 +28,11 @@
   ``pipe``, where ``fsdp`` is 1); the gradients of ``fsdp``
   shards, which the gather's backward has already summed over ``fsdp``,
   are summed over ``data`` only.
+* ``all_reduce_sum_`` counts what it exchanges, always: ``.calls`` (one per
+  ``dist.all_reduce``, a bucket each) and ``.bytes`` (the bucket's bytes),
+  plain integers as the kernels' ``.launches`` counters are. ``data_mean_``
+  runs its exchange and divide in the ``allreduce`` span
+  (``utils/tracing.py``); one slice opens none.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import torch
 import torch.distributed as dist
 
 from headct_foundation_tpu_torch.parallel import mesh
+from headct_foundation_tpu_torch.utils import tracing
 
 BUCKET_BYTES = 64 << 20
 
@@ -124,10 +130,16 @@ def all_reduce_sum_(tensors: Sequence[torch.Tensor], group=None) -> None:
     for bucket in _buckets(list(tensors)):
         flat = torch.cat([t.reshape(-1) for t in bucket])
         dist.all_reduce(flat, group=group)
+        all_reduce_sum_.calls += 1
+        all_reduce_sum_.bytes += flat.numel() * flat.element_size()
         offset = 0
         for t in bucket:
             t.copy_(flat[offset:offset + t.numel()].view_as(t))
             offset += t.numel()
+
+
+all_reduce_sum_.calls = 0
+all_reduce_sum_.bytes = 0
 
 
 def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
@@ -146,15 +158,16 @@ def data_mean_(tensors: Sequence[torch.Tensor], sharded: Sequence[torch.Tensor] 
     n = data_world()
     if n == 1:
         return
-    if not laid_out():
-        all_reduce_mean_(tensors)
-        return
-    m = mesh.current()
-    ids = {id(t) for t in sharded}
-    whole = [t for t in tensors if id(t) not in ids]
-    shards = [t for t in tensors if id(t) in ids]
-    if whole:
-        all_reduce_sum_(whole, m.group("batch"))
-    if shards and m.size("data") > 1:
-        all_reduce_sum_(shards, m.group("data"))
-    torch._foreach_div_(list(tensors), n)
+    with tracing.span("allreduce"):
+        if not laid_out():
+            all_reduce_mean_(tensors)
+            return
+        m = mesh.current()
+        ids = {id(t) for t in sharded}
+        whole = [t for t in tensors if id(t) not in ids]
+        shards = [t for t in tensors if id(t) in ids]
+        if whole:
+            all_reduce_sum_(whole, m.group("batch"))
+        if shards and m.size("data") > 1:
+            all_reduce_sum_(shards, m.group("data"))
+        torch._foreach_div_(list(tensors), n)

@@ -7,7 +7,10 @@ counterpart of the JAX package's ``utils/misc.py:40``: with
 ``HEADCT_PROFILE_DIR`` set (or ``log_dir`` given) it records a
 ``torch.profiler`` trace (host and, on a card, CUDA activity) of the block
 it wraps and writes it there as a Chrome trace
-(``trace_<pid>.json``). The trainer wraps its first epoch in it.
+(``trace_<pid>.json``). The trainer wraps its first epoch in it. Spans
+(``utils/tracing.py``) are on inside it, so the trace holds them as
+``user_annotation`` ranges; their records in memory are dropped as it
+ends, and spans go back off unless they were on before.
 
 ``wide_dtype`` / ``widen`` are the dtype in which the port computes what
 it keeps "in float32" (norm statistics, losses, softmax, the split
@@ -27,6 +30,8 @@ import os
 from typing import Iterator, Optional
 
 import torch
+
+from headct_foundation_tpu_torch.utils import tracing
 
 
 def wide_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -67,6 +72,14 @@ def profile_trace(log_dir: Optional[str] = None) -> Iterator[None]:
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield
+    was_on = tracing.enabled()
+    if not was_on:
+        tracing.enable()
+    try:
+        with torch.profiler.profile(activities=activities) as prof:
+            yield
+    finally:
+        if not was_on:
+            tracing.disable()
+            tracing.take()
     prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}.json"))

@@ -7,7 +7,7 @@
   ``--model_load_path`` is routed by content: a torch file is merged into
   the parameters, a pickle that does not fit the train state falls back to
   a params-only merge, and orbax raises at start-up. ``HEADCT_PROFILE_DIR``
-  writes a trace of the first epoch.
+  writes a trace of the first epoch, with the spans as user annotations.
 * The scaled LR, the step counts and the schedule equal the JAX main's for
   the same config (schedule rtol 1e-5: JAX evaluates in float32).
 * Two gloo processes at batch 2 give the losses and parameters of one
@@ -35,6 +35,7 @@ from headct_foundation_tpu_torch.data.nifti import save_nifti
 from headct_foundation_tpu_torch.engines import mae_engine
 from headct_foundation_tpu_torch.optim import lr_sched
 from headct_foundation_tpu_torch.utils import checkpoint as ckpt
+from headct_foundation_tpu_torch.utils import tracing
 from headct_foundation_tpu_torch.utils.torch_interop import OrbaxNotSupportedError
 from tests.test_torch_port_train import TINY, _wire_batches
 
@@ -152,6 +153,12 @@ def test_cli_routes_checkpoints_by_content(tmp_path, monkeypatch):
     main_pretrain_mae.run(args)
     monkeypatch.delenv("HEADCT_PROFILE_DIR")
     assert [p.name for p in (tmp_path / "trace").iterdir()] == [f"trace_{os.getpid()}.json"]
+    # ... holding the spans as user annotations; spans are off again after it
+    with open(tmp_path / "trace" / f"trace_{os.getpid()}.json") as f:
+        events = json.load(f)["traceEvents"]
+    annotated = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"step", "augment", "fwd", "bwd", "update", "optimizer", "drain"} <= annotated
+    assert not tracing.enabled() and tracing.take() == []
     with pytest.raises(OrbaxNotSupportedError):
         main_pretrain_mae.run(args + ["--opts", "TRAIN.CKPT_FORMAT", "orbax"])
     with pytest.raises(OrbaxNotSupportedError):
