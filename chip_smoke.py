@@ -56,8 +56,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
              synthetic hu16 head phantoms: one step's loss and gradients with
              the kernels against the plain attention (bf16 and float32), then
              ``train_one_epoch`` over 6 batches and ``val_one_epoch`` over 1,
-             checking finite losses, moved parameters and 8 forward + 8
-             backward kernel launches per train step, 8 forward per eval
+             checking finite losses, moved parameters and 20 forward + 20
+             backward kernel launches per train step (12 encoder blocks at
+             T = 129, 8 decoder blocks at 513), 20 forward per eval
              batch (counts set to 0 just before each); then step time,
              throughput, peak memory, a breakdown (CUDA events) and the
              device time by kernel group over 2 profiled steps.
@@ -98,8 +99,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
              configs/mae/mae_HeadCT.yaml`` in a subprocess with only the paths,
              TRAIN.MAX_EPOCHS 2 and TRAIN.VAL_EVERY 1 overridden (batch 64, the
              windowed wire through the native cache and the pinned prefetcher):
-             exit 0, latest_ and best_ checkpoints, finite losses and exactly 8 B1
-             + 8 B2 launches per train step and 8 B1 per eval batch, counted in
+             exit 0, latest_ and best_ checkpoints, finite losses and exactly 20 B1
+             + 20 B2 launches per train step and 20 B1 per eval batch, counted in
              the CLI process; the latest_ file restored beside the state bit for
              bit and the checkpoint write timed (sync and async); then a resume
              with TRAIN.MAX_EPOCHS 2 that restarts at the saved epoch index
@@ -158,7 +159,7 @@ Phases, each printing a line; any failure raises and exits non-zero:
 12b. tools - on the cli phase's files: ``tools.build_cache --packed`` of the
              32 heads (each tensor byte-equal to a cache miss) serving the MAE
              main's next epoch from the packed index alone (0 placeholders,
-             no per-volume file written, 8 B1 + 8 B2 per step);
+             no per-volume file written, 20 B1 + 20 B2 per step);
              ``tools.export_torch`` of its latest_ into FeatureExtractor on
              the card (CLS of 8 heads bit-equal to the pickle's, 12 B1 at
              [8,513,12,64] float32); ``tools.parity_check`` on its oracle
@@ -175,7 +176,7 @@ Phases, each printing a line; any failure raises and exits non-zero:
              complete latest_ file; the
              tool's assertions (the resume line, the restart at the chosen
              file's epoch, the kill inside epoch K + 1, finite and continuous
-             losses) hard, exactly 8 B1 + 8 B2 a train step and 8 B1 an eval
+             losses) hard, exactly 20 B1 + 20 B2 a train step and 20 B1 an eval
              batch in both processes (the killed one's completed epochs from
              its log, the resumed one's from its JSON line) and nothing
              else, 0 placeholders; both processes' seconds and the kill to
@@ -192,8 +193,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
              (TRAIN.OPTIMIZER Lion, LION_FUSED True, GRAD_CLIP 1.0): kernel B6
              against its plain version first (bit for bit, at the model's
              shapes and at ragged ones), then 6 train steps and 1 eval batch
-             with exactly one B6 launch per trainable tensor per step and 8
-             B1 + 8 B2 per step (the attention comparison is the train
+             with exactly one B6 launch per trainable tensor per step and 20
+             B1 + 20 B2 per step (the attention comparison is the train
              phase's); on the run's state, every tensor's B6 output bit for
              bit against its plain version and the fused optimizer step bit
              for bit against those outputs, then the unfused step against
@@ -202,7 +203,7 @@ Phases, each printing a line; any failure raises and exits non-zero:
 15. dropout - the MAE step (96^3 as shipped) and the DINO step (as
              shipped) at dropout 0.1, batch 4: each with the kernels against
              the plain attention on the same generators (the train and dino
-             phases' limits), then one step each with exactly 8 B1 + 8 B2
+             phases' limits), then one step each with exactly 20 B1 + 20 B2
              (MAE) and 24 B1 + 12 B2 (DINO); a second run from seed 0
              bit-identical, the rate-0 step different.
 16. context - the ``seq`` split of B3/B4/B5 on one card: the 96^3 decoder
@@ -251,8 +252,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
              bf16, its stages emulated in this process through the per-stage
              forward and backward of ``pipeline_apply``: PIPE 2 at M = 2 and
              4 and PIPE 4 at M = 4 against the unpipelined step (loss and
-             every gradient within TRAIN_TOL), exactly (8 / S) x M B1 + as
-             many B2 per stage; the clip over the stacked leaves against the
+             every gradient within TRAIN_TOL), exactly (20 / S) x M B1 + as
+             many B2 per stage (the encoder's 12 / S blocks and the decoder's
+             8 / S); the clip over the stacked leaves against the
              stacked tensors' clip; the stacked checkpoint at full width
              warm-started into one process bit for bit; B1/B2 at
              [16,513,16,48] and [8,513,16,48] in the kernels phase; with two
@@ -270,8 +272,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
              tools/bench_dino.py at 64, tools/bench_downstream.py fine-tune and
              --lock at 64, tools/bench_longcontext.py at 2; the attention bench
              and sweep (every kernel path within the plain path's limits).
-             Launches over each timed window held exactly: 8 B1 + 8 B2 a MAE
-             step (the fwd variant 8 B1, the encoder variant none), 24 B1 + 12
+             Launches over each timed window held exactly: 20 B1 + 20 B2 a MAE
+             step (the fwd variant 20 B1, the encoder variant 12 + 12), 24 B1 + 12
              B2 a DINO step, 12 + 12 a fine-tune step, 12 B1 a lock step, 20
              B3 + 20 B4 + 20 B5 a 192^3 step.
 20d. study - the study tools in this process at full width, each tool's
@@ -284,14 +286,15 @@ Phases, each printing a line; any failure raises and exits non-zero:
              finite and the bf16 extractor's CLS within BF16_REL_L2 of
              float32 on the same weights;
              tools/transfer_study.py --scale tiny with the JAX slow test's
-             arguments and checks (tests/test_transfer.py); a short
+             arguments and checks (tests/test_transfer.py), its T = 65 on
+             B1/B2; a short
              tools/dino_semantics.py (4 x 50 steps: finite diagnostics,
              accuracies in [0, 1], no kernel at T = 11); tools/bench_int8.py (the int8
              products equal to an int64 product); then the bench's
              compute-only in a new process and under torchrun on every card
              (on one card the torchrun line has the one-process line's
              fields, launches and final loss and a rate within
-             TORCHRUN_RATE_BAND of it). Launches exact: 8 B1 + 8 B2 a MAE
+             TORCHRUN_RATE_BAND of it). Launches exact: 20 B1 + 20 B2 a MAE
              step, 24 B1 + 12 B2 a DINO step, 12 + 12 a fine-tune step, 12 B1
              a probe step under lock and an eval or extraction batch, 12 B1
              bf16 at [4,513,12,64] an extractor call.
@@ -492,6 +495,9 @@ TM_CASES = [(shape, torch.bfloat16, 2e-2, 2e-2, 2e-2, 2e-2) for _, shape in TM_B
     ((2, 70, 4, 32), torch.float32, 2e-5, 1e-4, 1e-4, 1e-3),
     ((2, 129, 2, 128), torch.bfloat16, 2e-2, 2e-2, 2e-2, 2e-2)]
 MAE_CONFIG = "configs/mae/mae_HeadCT.yaml"
+# Attention blocks of both MAE configurations (12 encoder, 8 decoder): each
+# takes the kernels, at 96^3 the whole-sequence B1/B2 (T = 129 and 513).
+MAE_ENCODER_BLOCKS, MAE_BLOCKS = 12, 20
 STRETCH_CONFIG = "configs/mae/mae_HeadCT_192.yaml"
 DINO_CONFIG = "configs/dino/dino_HeadCT.yaml"
 DINO_EPOCH_BATCHES = 3     # batches in each of the two epochs (the first freezes the last layer)
@@ -1285,15 +1291,12 @@ def loss_and_grads(model, wire, cfg, draws, backend: str, names) -> tuple:
         port_attn.set_attention_backend(prev)
 
 
-def compare_backends(model, wire, cfg, draws, dtype, every: bool = False,
-                     label: str = "train") -> dict:
+def compare_backends(model, wire, cfg, draws, dtype, label: str = "train") -> dict:
     """Kernel against plain attention on the same step: loss and every
-    decoder gradient (where the 96^3 step runs its kernels), or every
-    trainable gradient with ``every``."""
-    names = [n for n, p in model.named_parameters()
-             if p.requires_grad and (every or n.startswith("decoder") or n == "mask_token")]
+    trainable gradient."""
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
     return hold_backends(lambda backend: loss_and_grads(model, wire, cfg, draws, backend, names),
-                         dtype, label, "trainable" if every else "decoder")
+                         dtype, label, "trainable")
 
 
 def hold_backends(loss_and_grads_of, dtype, label: str, what: str) -> dict:
@@ -1401,9 +1404,8 @@ def phase_train(label: str, config: str, batch: int, compare_batch: int, seed0: 
     for a kernel not named); the fused Lion update adds one B6 launch per
     trainable tensor per step. ``compare_batch`` is the batch of the
     kernel-vs-plain attention step, run when ``compare``. That step checks
-    every trainable gradient where the blocked kernels run (in the 192^3
-    encoder and decoder), the decoder's otherwise (the 96^3 encoder takes the
-    plain attention)."""
+    every trainable gradient (the kernels run in the encoder and the decoder
+    of both MAE configurations)."""
     from headct_foundation_tpu_torch.config import default_config
     from headct_foundation_tpu_torch.data.augment import apply_mae_augment, draw_mae_augment
     from headct_foundation_tpu_torch.data.device_preprocess import wire_to_compute
@@ -1437,18 +1439,16 @@ def phase_train(label: str, config: str, batch: int, compare_batch: int, seed0: 
     g = mae_engine.step_generator(dev, 7, 0, 0)
     n_tok = int(np.prod(state.model.grid_size))
     if compare:  # kernel against plain attention on one step, same weights and randomness
-        every = per_step.get("flash_attention_blocked_fwd", 0) > 0  # the encoder runs kernels
         draws = {"noise": torch.rand((compare_batch, n_tok), generator=g, device=dev),
                  "augment": draw_mae_augment(compare_batch, g, dev)}
         wire0 = torch.from_numpy(wires[0][:compare_batch]).to(dev)
         compare = {torch.bfloat16: compare_backends(state.model, wire0, cfg, draws,
-                                                    torch.bfloat16, every, label)}
+                                                    torch.bfloat16, label)}
         m32 = mae_engine.build_mae_model(cfg, dtype=torch.float32).to(dev)
         m32.load_state_dict(state.model.state_dict())
         for n, p in m32.named_parameters():
             p.requires_grad_(dict(state.model.named_parameters())[n].requires_grad)
-        compare[torch.float32] = compare_backends(m32, wire0, cfg, draws, torch.float32, every,
-                                                  label)
+        compare[torch.float32] = compare_backends(m32, wire0, cfg, draws, torch.float32, label)
         del m32
         torch.cuda.empty_cache()
 
@@ -1749,8 +1749,8 @@ def phase_cli(workdir: Path, card: str, train_volumes_per_s: float) -> dict:
             "DATA.CACHE_DIR", str(workdir / "cache"), "MODEL.DIR", str(workdir / "model_saved"),
             "LOG.OUTPUT_DIR", str(workdir / "log"), "OUTPUT", str(workdir / "out"),
             "TRAIN.VAL_EVERY", "1"]
-    mae_step = {"flash_attention_fwd": 8, "flash_attention_bwd": 8}
-    mae_eval = {"flash_attention_fwd": 8}
+    mae_step = {"flash_attention_fwd": MAE_BLOCKS, "flash_attention_bwd": MAE_BLOCKS}
+    mae_eval = {"flash_attention_fwd": MAE_BLOCKS}
     first, launches, wall, saved = run_pretrain_cli(
         "cli", "main_pretrain_mae", MAE_CONFIG, opts, workdir / "model_saved", mae_step,
         mae_eval, card, rate_note=f"; the train phase's step at batch {TRAIN_BATCH}: "
@@ -1758,8 +1758,9 @@ def phase_cli(workdir: Path, card: str, train_volumes_per_s: float) -> dict:
     peak = first["peak_memory_bytes"]
     print(f"cli: python -m headct_foundation_tpu_torch.main_pretrain_mae --cfg {MAE_CONFIG} "
           f"(2 epochs) exit 0 in {wall:.2f} s; {saved} written; 0 placeholders; test loss "
-          f"{first['test']['loss']:.6f}; launches {json.dumps(launches)} = 8 B1 + 8 B2 per train "
-          f"step, 8 B1 per eval batch; peak memory {(peak or 0) / 2**30:.2f} GiB "
+          f"{first['test']['loss']:.6f}; launches {json.dumps(launches)} = {MAE_BLOCKS} B1 + "
+          f"{MAE_BLOCKS} B2 per train step, {MAE_BLOCKS} B1 per eval batch; peak memory "
+          f"{(peak or 0) / 2**30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated) | {card}", flush=True)
     print(json.dumps({"cli_launches": launches}), flush=True)
 
@@ -2824,7 +2825,7 @@ def phase_dropout(card: str) -> dict:
     dropout DROPOUT_RATE, batch DROPOUT_BATCH: each with the kernels against
     the plain attention on the same generators (the train and dino phases'
     limits), then one step on the main path with exactly the shipped
-    launches (8 B1 + 8 B2 for the MAE, 24 B1 + 12 B2 for DINO); a second run
+    launches (20 B1 + 20 B2 for the MAE, 24 B1 + 12 B2 for DINO); a second run
     from the same seed bit-identical, the rate-0 step different."""
     from headct_foundation_tpu_torch.data.augment import draw_mae_augment
     from headct_foundation_tpu_torch.engines import dino_engine, mae_engine
@@ -2895,7 +2896,7 @@ def phase_dropout(card: str) -> dict:
               f"dropout dino: the rate-{rate} step is {'not ' if not same else ''}bit-identical "
               f"to the rate-{DROPOUT_RATE} step")
         del again
-    depth = {"mae": 8, "dino": 12}
+    depth = {"mae": MAE_BLOCKS, "dino": 12}
     want = {"mae": {"flash_attention_fwd": depth["mae"], "flash_attention_bwd": depth["mae"]},
             "dino": {"flash_attention_fwd": 2 * depth["dino"],
                      "flash_attention_bwd": depth["dino"]}}
@@ -3248,7 +3249,8 @@ def phase_pipe(card: str) -> dict:
     zero_launches()
     ref_loss, ref = _grads_of(model, names, lambda: model(batch, noise=noise)[0])
     ref_launches = launches()
-    check(ref_launches["flash_attention_fwd"] == 8 and ref_launches["flash_attention_bwd"] == 8,
+    check(ref_launches["flash_attention_fwd"] == MAE_BLOCKS
+          and ref_launches["flash_attention_bwd"] == MAE_BLOCKS,
           f"pipe: the unpipelined step launched {ref_launches}")
     ref_ms = cuda_ms(lambda: model(batch, noise=noise)[0].backward(), iters=3, warmup=1)
     model.zero_grad(set_to_none=True)
@@ -3272,7 +3274,7 @@ def phase_pipe(card: str) -> dict:
         loss, got = _grads_of(model, names,
                               lambda: mae_engine.pipelined_loss(model, batch, noise, trunk))
         total = launches()
-        per = cfg.MAE.DECODER_DEPTH // S * M
+        per = (cfg.MAE.ENCODER_DEPTH // S + cfg.MAE.DECODER_DEPTH // S) * M
         want = {k: (per if k in ("flash_attention_fwd", "flash_attention_bwd") else 0)
                 for k in per_stage[0]}
         check(all(st == want for st in per_stage),
@@ -3380,7 +3382,7 @@ def phase_tools(workdir: Path, card: str) -> dict:
       ``DiskCache`` miss; the per-volume files removed, the MAE main's next
       epoch (``TRAIN.MAX_EPOCHS 1`` on the cli manifests) served from the
       packed index alone: exit 0, 0 placeholders, no per-volume file written,
-      8 B1 + 8 B2 per train step and 8 B1 per eval batch;
+      20 B1 + 20 B2 per train step and 20 B1 per eval batch;
     * ``tools.export_torch`` of the cli phase's ``latest_`` to a reference
       ``.pt``, loaded into ``FeatureExtractor`` on the card: the CLS of 8
       heads bit-equal to the extractor loaded from the pickle, 12 B1 counted
@@ -3422,9 +3424,9 @@ def phase_tools(workdir: Path, card: str) -> dict:
             "OUTPUT", "", "TRAIN.VAL_EVERY", "1", "TRAIN.MAX_EPOCHS", "1"]
     _, result, wall = run_cli(["--cfg", MAE_CONFIG, "--device", "cuda", "--opts", *opts],
                               "tools build_cache epoch", module="main_pretrain_mae")
-    runs = check_cli_launches(result, "tools", {"flash_attention_fwd": 8,
-                                                "flash_attention_bwd": 8},
-                              {"flash_attention_fwd": 8})
+    runs = check_cli_launches(result, "tools", {"flash_attention_fwd": MAE_BLOCKS,
+                                                "flash_attention_bwd": MAE_BLOCKS},
+                              {"flash_attention_fwd": MAE_BLOCKS})
     written = list(packed.glob("*.npy"))
     check(result["placeholders"] == 0 and not written,
           f"tools: the packed cache's epoch: {result['placeholders']} placeholders, "
@@ -3570,7 +3572,7 @@ def phase_soak(workdir: Path, scans: list, card: str) -> dict:
     check(proc.returncode == 0, f"soak: the tool exited {proc.returncode}:\n"
                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
     result = json.loads((workdir / "soak.json").read_text())
-    per_step = {"flash_attention_fwd": 8, "flash_attention_bwd": 8}
+    per_step = {"flash_attention_fwd": MAE_BLOCKS, "flash_attention_bwd": MAE_BLOCKS}
     killed = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
     for e in result["phase1_epochs"]:
         want = {k: v * e["steps"] for k, v in per_step.items()}
@@ -3582,7 +3584,7 @@ def phase_soak(workdir: Path, scans: list, card: str) -> dict:
     check(resumed is not None and resumed["placeholders"] == 0,
           f"soak resumed run: no JSON line or placeholders: {resumed}")
     resumed_launches = check_cli_launches(resumed, "soak resumed", per_step,
-                                          {"flash_attention_fwd": 8})
+                                          {"flash_attention_fwd": MAE_BLOCKS})
     s = result["seconds"]
     print(f"soak: killed at epoch {result['killed_at']['epoch']} step "
           f"{result['killed_at']['step_in_epoch']} of {result['steps_per_epoch']} (kill after "
@@ -3851,7 +3853,7 @@ def bench_tools(card: str, log) -> dict:
         sweep_attention,
     )
 
-    mae = {"flash_attention_fwd": 8, "flash_attention_bwd": 8}
+    mae = {"flash_attention_fwd": MAE_BLOCKS, "flash_attention_bwd": MAE_BLOCKS}
     blocked = {n: 20 for n in ("flash_attention_blocked_fwd", "flash_attention_blocked_dkv",
                                "flash_attention_blocked_dq")}
     runs: dict = {}
@@ -3903,8 +3905,10 @@ def bench_tools(card: str, log) -> dict:
 
     r = quiet(perf_breakdown.run, batch=TRAIN_BATCH, steps=BENCH_BREAKDOWN_STEPS,
               runs=BENCH_RUNS, device="cuda")
-    per_variant = {"full": mae, "fwd_bwd": mae, "fwd": {"flash_attention_fwd": 8},
-                   "encoder_fwd_bwd": {}, "optimizer": {}}
+    per_variant = {"full": mae, "fwd_bwd": mae, "fwd": {"flash_attention_fwd": MAE_BLOCKS},
+                   "encoder_fwd_bwd": {"flash_attention_fwd": MAE_ENCODER_BLOCKS,
+                                       "flash_attention_bwd": MAE_ENCODER_BLOCKS},
+                   "optimizer": {}}
     for name, per in per_variant.items():
         held(f"perf_breakdown {name}", {"launches": r["launches"][name],
                                         "ms_per_step": r["ms_per_step"][name]},
@@ -4047,7 +4051,7 @@ def study_tools(card: str, log) -> dict:
     def per(steps: int, fwd: int, bwd: int = 0, extra_fwd: int = 0) -> dict:
         return {"flash_attention_fwd": steps * fwd + extra_fwd, "flash_attention_bwd": steps * bwd}
 
-    for engine, batch, fwd, bwd in (("mae", 16, 8, 8), ("dino", 8, 24, 12),
+    for engine, batch, fwd, bwd in (("mae", 16, MAE_BLOCKS, MAE_BLOCKS), ("dino", 8, 24, 12),
                                     ("downstream", 8, 12, 12)):
         epochs, steps = STUDY_EPOCHS, STUDY_STEPS
         zero_launches()
@@ -4075,7 +4079,8 @@ def study_tools(card: str, log) -> dict:
                                       "--cosine-scans", str(WIRE_SCANS),
                                       "--out-prefix", str(out / "wire_equivalence")])
     calls = 2 * -(-WIRE_SCANS // WIRE_BATCH)  # hu16 and hu8 windows, batches of 4
-    got = held("wire_equivalence", per(2 * WIRE_STEPS, 8, 8, extra_fwd=12 * calls))
+    got = held("wire_equivalence", per(2 * WIRE_STEPS, MAE_BLOCKS, MAE_BLOCKS,
+                                       extra_fwd=12 * calls))
     series = np.asarray(r["losses_hu16"] + r["losses_hu8"])
     check(len(series) == 2 * WIRE_STEPS and bool(np.isfinite(series).all()),
           "wire_equivalence: a loss series is short or not finite")
@@ -4094,7 +4099,8 @@ def study_tools(card: str, log) -> dict:
           f"cosine min {r['feature_cosine_min']:.6f} mean {r['feature_cosine_mean']:.6f} over "
           f"{WIRE_SCANS} scans (bf16 extractor, float32 arithmetic), equivalent_features "
           f"{r['equivalent_features']}; bf16 CLS vs float32 rel_l2 {rel:.3e} (<= {BF16_REL_L2}); "
-          f"launches {json.dumps(got)} = (8 B1 + 8 B2) x {2 * WIRE_STEPS} + 12 B1 bf16 x {calls} "
+          f"launches {json.dumps(got)} = ({MAE_BLOCKS} B1 + {MAE_BLOCKS} B2) x {2 * WIRE_STEPS} + "
+          f"12 B1 bf16 x {calls} "
           f"extractor calls; {time.perf_counter() - t0:.2f} s | {card}", flush=True)
     torch.cuda.empty_cache()
 
@@ -4102,7 +4108,13 @@ def study_tools(card: str, log) -> dict:
     t0 = time.perf_counter()
     prefix = out / "transfer_tiny"
     r = quiet(transfer_study.main, TRANSFER_TINY + ["--out-prefix", str(prefix)])
-    held("transfer tiny", {})  # T = 65: the plain attention
+    # T = 65 (32^3, patch 8) takes B1/B2: the decoder's 2 blocks a pretrain step, the locked
+    # probe's and the extractor's 4 a batch; the masked encoder's T = 17 the plain attention
+    arg = lambda name: int(TRANSFER_TINY[TRANSFER_TINY.index(name) + 1])
+    pre_steps = arg("--pretrain-epochs") * arg("--pretrain-steps")
+    batches = sum(r["probe"][k]["train_steps"] + r["probe"][k]["eval_batches"]
+                  + r["launches"][f"extract_{k}"]["batches"] for k in ("pretrained", "random"))
+    got = held("transfer tiny", per(pre_steps, 2, 2, extra_fwd=4 * batches))
     ok = (r["auroc_margin"] > 0.01 and r["map_margin"] > 0.01
           and r["probe"]["pretrained"]["best_val_auroc"] > 0.7
           and r["retrieval"]["pretrained"]["mean_map"] > 2 * r["retrieval"]["chance_map"]
@@ -4116,7 +4128,8 @@ def study_tools(card: str, log) -> dict:
           f"retrieval mAP {r['retrieval']['pretrained']['mean_map']:.4f} / "
           f"{r['retrieval']['random']['mean_map']:.4f} (margin {r['map_margin']}, chance "
           f"{r['retrieval']['chance_map']:.4f}); tests/test_transfer.py's checks passed; "
-          f"stages {json.dumps(r['stage_s'])} s; no launches (T = 65); "
+          f"stages {json.dumps(r['stage_s'])} s; launches {json.dumps(got)} = (2 B1 + 2 B2) x "
+          f"{pre_steps} pretrain steps + 4 B1 x {batches} probe and extraction batches (T = 65); "
           f"{time.perf_counter() - t0:.2f} s | {card}", flush=True)
     log.write(json.dumps({"tool": "transfer tiny", **r}) + "\n")
     torch.cuda.empty_cache()
@@ -4304,13 +4317,15 @@ def main() -> int:
         serve_launches = phase_slice(Path(tmp))["flash_attention_fwd"]
     fwd_mae = kernel_rows[(MAE_DECODER, torch.bfloat16)]
     bwd_mae = bwd_rows[(MAE_DECODER, torch.bfloat16)]
-    depth = 8  # decoder blocks of both MAE configurations; the 96^3 encoder runs plain
+    depth = MAE_BLOCKS - MAE_ENCODER_BLOCKS  # decoder blocks of both MAE configurations
     train = phase_train(
         "train", MAE_CONFIG, TRAIN_BATCH, TRAIN_BATCH, 100,
-        {"flash_attention_fwd": depth, "flash_attention_bwd": depth},
-        {"flash_attention_fwd": depth},
-        f"flash_attention_fwd {depth} x {fwd_mae['ms']:.4f} = {depth * fwd_mae['ms']:.2f} ms "
-        f"and flash_attention_bwd {depth} x {bwd_mae['ms']:.4f} = {depth * bwd_mae['ms']:.2f} ms")
+        {"flash_attention_fwd": MAE_BLOCKS, "flash_attention_bwd": MAE_BLOCKS},
+        {"flash_attention_fwd": MAE_BLOCKS},
+        f"the decoder's flash_attention_fwd {depth} x {fwd_mae['ms']:.4f} = "
+        f"{depth * fwd_mae['ms']:.2f} ms and flash_attention_bwd {depth} x {bwd_mae['ms']:.4f} = "
+        f"{depth * bwd_mae['ms']:.2f} ms, and {MAE_ENCODER_BLOCKS} of each at the encoder's "
+        f"[{TRAIN_BATCH},129,12,64]")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     dino = phase_dino(card)
@@ -4353,7 +4368,7 @@ def main() -> int:
 
     blocked = ("flash_attention_blocked_fwd", "flash_attention_blocked_dkv",
                "flash_attention_blocked_dq")
-    enc_blocks = 12
+    enc_blocks = MAE_ENCODER_BLOCKS
     def per_step(n):
         dec_ms = blocked_rows[(n, STRETCH_DECODER, torch.bfloat16)]["ms"]
         enc_ms = blocked_rows[(n, STRETCH_ENCODER, torch.bfloat16)]["ms"]
@@ -4370,8 +4385,8 @@ def main() -> int:
     # already held its attention kernels against the plain attention.
     lion = phase_train(
         "lion", MAE_CONFIG, TRAIN_BATCH, TRAIN_BATCH, 300,
-        {"flash_attention_fwd": depth, "flash_attention_bwd": depth},
-        {"flash_attention_fwd": depth},
+        {"flash_attention_fwd": MAE_BLOCKS, "flash_attention_bwd": MAE_BLOCKS},
+        {"flash_attention_fwd": MAE_BLOCKS},
         "flash_attention_fwd and flash_attention_bwd as in the train phase",
         overrides=["TRAIN.OPTIMIZER", "Lion", "TRAIN.LION_FUSED", True, "TRAIN.GRAD_CLIP", 1.0],
         compare=False)

@@ -25,6 +25,8 @@ from typing import Any, Dict, List
 
 import yaml
 
+from headct_foundation_tpu_torch.ops.attention import DEFAULT_PALLAS_MIN_T
+
 
 class CfgNode(dict):
     """A dict subclass with attribute access and freeze semantics."""
@@ -357,13 +359,12 @@ def _default_config() -> CfgNode:
     _C.PARALLEL.PIPE = 1
     _C.PARALLEL.PIPE_MICROBATCH = 0
     _C.PARALLEL.REMAT = False    # rematerialize transformer blocks
-    # Pallas/XLA attention crossover: sequences shorter than this use XLA's
-    # fused attention (the per-(b,h)-program Pallas kernels are launch-bound
-    # at tiny T; measured crossover between 129 and 513 tokens).
-    # Precedence: explicit config/--opts > HEADCT_PALLAS_MIN_T env > 192
-    # (the env seeds the default here so training runs honor it too — the
-    # engines install the config value via set_pallas_min_t).
-    _C.PARALLEL.PALLAS_MIN_T = int(os.environ.get("HEADCT_PALLAS_MIN_T", "192"))
+    # Kernel/plain attention crossover: sequences shorter than this take the
+    # plain attention (ops/attention.py). Precedence: explicit config/--opts >
+    # HEADCT_PALLAS_MIN_T env > the dispatch's DEFAULT_PALLAS_MIN_T (the env
+    # seeds the default here so training runs honor it too — the engines
+    # install the config value via set_pallas_min_t).
+    _C.PARALLEL.PALLAS_MIN_T = int(os.environ.get("HEADCT_PALLAS_MIN_T", DEFAULT_PALLAS_MIN_T))
 
     # Logging settings (reference: config.py:142-144)
     _C.LOG = CfgNode()

@@ -28,8 +28,9 @@ The sharded branches (JAX ``:139-186``), on the port's mesh
   weight; the padded query rows are dropped at the trunk's end and carry
   no gradient. As in JAX (``:207``), the kernel-or-plain choice is taken on
   the global T: a Q shard shorter than ``pallas_min_t()`` still takes the
-  blocked kernel when T does not, and a short trunk (the 96^3 encoder's
-  129 tokens) takes the plain attention over the gathered keys.
+  blocked kernel when T does not (the 96^3 encoder's 129 tokens on two or
+  four ranks), and a trunk shorter than it takes the plain attention over
+  the gathered keys.
 """
 
 from __future__ import annotations
@@ -46,6 +47,12 @@ from headct_foundation_tpu_torch.parallel import comm, mesh
 # "kernel" | "plain" | None (auto: the kernel on CUDA tensors, plain on CPU).
 _BACKEND: Optional[str] = None
 _PALLAS_MIN_T: Optional[int] = None
+# Shortest sequence that takes the kernel by default, here and in the config's
+# PARALLEL.PALLAS_MIN_T: the least T of tools/sweep_attention.py's grid (65,
+# 129, 192, 257, 513) from which the kernels beat the plain attention forward
+# and backward on an H100 (bfloat16, batch 32 and 64). The JAX package's 192
+# is its TPU crossover.
+DEFAULT_PALLAS_MIN_T = 65
 
 
 def set_attention_backend(name: Optional[str]) -> Optional[str]:
@@ -76,10 +83,10 @@ def set_pallas_min_t(n: Optional[int]) -> Optional[int]:
 
 def pallas_min_t() -> int:
     """Shortest sequence that takes the kernel; HEADCT_PALLAS_MIN_T is read
-    at call time. The default 192 is the JAX package's, not tuned for the GPU."""
+    at call time, else ``DEFAULT_PALLAS_MIN_T``."""
     if _PALLAS_MIN_T is not None:
         return _PALLAS_MIN_T
-    return int(os.environ.get("HEADCT_PALLAS_MIN_T", "192"))
+    return int(os.environ.get("HEADCT_PALLAS_MIN_T", DEFAULT_PALLAS_MIN_T))
 
 
 def _takes_kernel(q: torch.Tensor, t: int) -> bool:

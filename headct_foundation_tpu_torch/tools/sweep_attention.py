@@ -16,7 +16,9 @@ chooses between (``ops/attention.py``, ``ops/flash_attention.py``):
 * ``blocked``: ``BlockedFusedAttention``, B3 forward, B4 / B5 backward.
 
 Each point is a bfloat16 shape (``POINTS``: the JAX sweeps' flagship and
-192^3 shapes, and a T grid around both thresholds); each path is timed
+192^3 shapes, the 96^3 MAE encoder at its training batch of 64 with q, k
+and v strided views of one [B, T, 3, H, D] projection as ``SelfAttention``
+hands them over (``FUSED``), and a T grid around both thresholds); each path is timed
 forward and forward+backward (``bench_attention.time_path``), and its O,
 dQ, dK and dV are held against the plain path's (``agreement``: float32
 elementwise within the kernels' limits, bfloat16 normwise within 1e-2). One
@@ -29,7 +31,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -45,6 +47,7 @@ MIN_T_GRID = [(32, t, 12, 64) for t in (65, 129, 192, 257, 513)]   # around pall
 MAX_T_GRID = [(2, t, 12, 64) for t in (769, 1025, 1281)]           # around VMEM_PATH_MAX_T
 POINTS = [  # (label, [B, T, H, D])
     ("mae_enc", (32, 129, 12, 64)),
+    ("mae_enc_b64_fused", (64, 129, 12, 64)),
     ("mae_dec", (32, 513, 16, 48)),
     ("dino_vit", (16, 517, 12, 64)),
     ("enc_192", (2, 1025, 12, 64)),
@@ -52,6 +55,7 @@ POINTS = [  # (label, [B, T, H, D])
     *((f"min_t_grid T={s[1]}", s) for s in MIN_T_GRID),
     *((f"max_t_grid T={s[1]}", s) for s in MAX_T_GRID),
 ]
+FUSED = {"mae_enc_b64_fused"}  # points whose q, k, v are views of one projection
 PATHS = {
     "plain": lambda q, k, v: fa.fused_attention_reference(q, k, v)[0],
     "whole": lambda q, k, v: fa.FusedAttention.apply(q, k, v, None)[0],
@@ -88,14 +92,27 @@ def agreement(got: Sequence[torch.Tensor], ref: Sequence[torch.Tensor],
     return out
 
 
+def fused_inputs(shape: Sequence[int], dtype: torch.dtype, device: torch.device,
+                 seed: int = 0) -> Tuple[torch.Tensor, ...]:
+    """As ``bench_attention.inputs``, but q, k and v are the strided views
+    [:, :, 0], [:, :, 1] and [:, :, 2] of one [B, T, 3, H, D] tensor that
+    requires gradients."""
+    B, T, H, D = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn(B, T, 3, H, D, device=device, generator=g).to(dtype).requires_grad_()
+    do = torch.randn(*shape, device=device, generator=g).to(dtype)
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], do
+
+
 def point(label: str, shape: Sequence[int], device: torch.device, iters: int = ITERS,
-          dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
+          dtype: torch.dtype = torch.bfloat16, fused: bool = False) -> Dict[str, Any]:
     """Every path that can take ``shape``: its times, its launches and its
-    agreement with the plain path. Raises when a path disagrees."""
-    q, k, v, do = inputs(shape, dtype, device)
+    agreement with the plain path. Raises when a path disagrees. ``fused``:
+    q, k and v are views of one projection (``fused_inputs``)."""
+    q, k, v, do = (fused_inputs if fused else inputs)(shape, dtype, device)
     ref = fwd_bwd(PATHS["plain"], q, k, v, do)
     res: Dict[str, Any] = {"point": label, "shape": list(shape), "dtype": str(dtype)[6:],
-                           "paths": {}, "left_out": {}}
+                           "fused": fused, "paths": {}, "left_out": {}}
     for path, apply in PATHS.items():
         why = left_out(path, shape)
         if why:
@@ -161,7 +178,7 @@ def run(points: Sequence = POINTS, iters: int = ITERS, device=None,
     info = device_info(device)
     results = []
     for label, shape in points:
-        res = point(label, shape, device, iters, dtype)
+        res = point(label, shape, device, iters, dtype, fused=label in FUSED)
         print(json.dumps({**res, "device": info}), flush=True)
         results.append(res)
         if device.type == "cuda":

@@ -20,10 +20,10 @@ port's counterpart of the JAX repository's ``tools/transfer_study.py``.
    against random.
 
 ``--scale tiny``: ViT width 96, 4 encoder and 2 decoder blocks at 32^3,
-patch 8 (T = 65: plain attention); ``flagship``: the shipped
-``configs/mae/mae_HeadCT.yaml`` and ``configs/downstream/vit_HeadCT_rsna.yaml``
-at 96^3. The checks, unless ``--no-assert``, are the JAX tool's
-(``:702-716``): both margins (AUROC and mAP, pretrained minus random) above
+patch 8 (T = 65, on B1/B2 on a card; the masked encoder's 17 plain);
+``flagship``: the shipped ``configs/mae/mae_HeadCT.yaml`` and
+``configs/downstream/vit_HeadCT_rsna.yaml`` at 96^3. The checks, unless
+``--no-assert``, are the JAX tool's (``:702-716``): both margins (AUROC and mAP, pretrained minus random) above
 ``--margin`` and the pretrained probe's best AUROC above ``--min-auroc``.
 Artifacts: ``<prefix>.json`` and, where matplotlib imports, ``<prefix>.png``
 (else ``png`` is null), and the checkpoint ``transfer_mae.ckpt`` beside

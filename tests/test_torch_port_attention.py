@@ -17,6 +17,7 @@ import torch
 
 from headct_foundation_tpu.ops.flash_attention import _fused_bwd, _fused_fwd_impl
 from headct_foundation_tpu.ops.flash_attention import fused_attention as jax_fused_attention
+from headct_foundation_tpu_torch.config import default_config
 from headct_foundation_tpu_torch.ops import attention as port_attn
 from headct_foundation_tpu_torch.ops import flash_attention as port_fa
 from headct_foundation_tpu_torch.ops.flash_attention import (
@@ -162,7 +163,7 @@ def test_dispatch_on_cpu(monkeypatch):
         assert calls == []
 
         port_attn.set_attention_backend("kernel")
-        assert port_attn.pallas_min_t() == 192
+        assert port_attn.pallas_min_t() == port_attn.DEFAULT_PALLAS_MIN_T
         port_attn.dot_product_attention(x9, x9, x9)
         assert calls == []                      # below the threshold
         y = port_attn.dot_product_attention(x200, x200, x200)
@@ -184,6 +185,46 @@ def test_dispatch_on_cpu(monkeypatch):
         port_attn.set_pallas_min_t(prev_min_t)
     with pytest.raises(ValueError):
         port_attn.set_attention_backend("pallas")
+
+
+def test_default_threshold_sends_the_96_encoder_to_the_kernels(monkeypatch):
+    """Under the kernel backend at the default threshold (no override, no
+    HEADCT_PALLAS_MIN_T), the 96^3 MAE encoder's T = 129 reaches
+    FusedAttention, and a ``seq`` rank's 65-row shard of it the blocked
+    path with kv_len 129; the attentive classifier's Tq = 1 query and the
+    DINO semantics configuration's T = 11 stay plain. The config's
+    PARALLEL.PALLAS_MIN_T reads the same default."""
+    calls = []
+
+    class Spy:
+        def __init__(self, name):
+            self.name, self.real = name, getattr(port_fa, name)
+
+        def apply(self, q, k, v, *args):
+            calls.append((self.name, q.shape[1], k.shape[1]))
+            return self.real.apply(q, k, v, *args)
+
+    for name in ("FusedAttention", "BlockedFusedAttention"):
+        monkeypatch.setattr(port_fa, name, Spy(name))
+    monkeypatch.delenv("HEADCT_PALLAS_MIN_T", raising=False)
+    assert default_config().PARALLEL.PALLAS_MIN_T == port_attn.DEFAULT_PALLAS_MIN_T
+    prev = port_attn.set_attention_backend("kernel"), port_attn.set_pallas_min_t(None)
+    try:
+        assert port_attn.pallas_min_t() == port_attn.DEFAULT_PALLAS_MIN_T <= 129
+        x129 = torch.from_numpy(_qkv(2, 129, 2, 8)[0])
+        x11 = torch.from_numpy(_qkv(2, 11, 2, 8)[0])
+        y = port_attn.dot_product_attention(x129, x129, x129)
+        assert calls == [("FusedAttention", 129, 129)]
+        torch.testing.assert_close(y, fused_attention_reference(x129, x129, x129)[0])
+        y = port_attn.attend_shard(x129[:, :65], x129, x129, 129)
+        assert calls[1:] == [("BlockedFusedAttention", 65, 129)]
+        torch.testing.assert_close(y, fused_attention_reference(x129, x129, x129)[0][:, :65])
+        port_attn.dot_product_attention(x129[:, :1], x129, x129)  # one query
+        port_attn.dot_product_attention(x11, x11, x11)
+        assert len(calls) == 2
+    finally:
+        port_attn.set_attention_backend(prev[0])
+        port_attn.set_pallas_min_t(prev[1])
 
 
 def _bthd(x, B, H, T, D):

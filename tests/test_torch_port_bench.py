@@ -38,6 +38,7 @@ from headct_foundation_tpu.models.mae import MaskedAutoencoderViT as JaxMAE
 from headct_foundation_tpu_torch import bench, main_pretrain_mae
 from headct_foundation_tpu_torch.engines import mae_engine
 from headct_foundation_tpu_torch.feature_extraction import FeatureExtractor
+from headct_foundation_tpu_torch.ops import attention as port_attn
 from headct_foundation_tpu_torch.ops import flash_attention as fa
 from headct_foundation_tpu_torch.tools import (
     bench_attention,
@@ -265,6 +266,19 @@ def test_sweep_paths_agree(monkeypatch, dtype):
         sweep_attention.point("bad", (2, 40, 2, 16), torch.device("cpu"), 1, dtype)
 
 
+def test_sweep_fused_point():
+    """The cell's own layout: q, k and v as views of one [B, T, 3, H, D]
+    projection, every kernel path within the plain path's limits; the run
+    takes it for the points in FUSED only."""
+    q, k, v, _ = sweep_attention.fused_inputs((2, 40, 2, 16), torch.bfloat16, torch.device("cpu"))
+    assert q.stride() == k.stride() == v.stride() and not q.is_contiguous()
+    assert q._base is k._base is v._base and q._base.requires_grad
+    res = sweep_attention.point("fused", (2, 40, 2, 16), torch.device("cpu"), 1, fused=True)
+    assert res["fused"] and set(res["paths"]) == {"plain", "whole", "blocked"}
+    assert all(res["paths"][p]["agreement"]["ok"] for p in ("whole", "blocked"))
+    assert sweep_attention.FUSED <= {label for label, _ in sweep_attention.POINTS}
+
+
 def test_sweep_crossovers():
     def res(shape, **ms):
         return {"shape": list(shape), "paths": {p: {"fwd_bwd_ms": t} for p, t in ms.items()}}
@@ -274,7 +288,8 @@ def test_sweep_crossovers():
     long = [res((2, 769, 12, 64), plain=9.0, whole=1.0, blocked=2.0),
             res((2, 1025, 12, 64), plain=9.0, blocked=2.0)]
     c = sweep_attention.crossovers(grid + long)
-    assert c["pallas_min_t"]["implied"] == 192 and c["pallas_min_t"]["current"] == 192
+    assert (c["pallas_min_t"]["implied"] == 192
+            and c["pallas_min_t"]["current"] == port_attn.DEFAULT_PALLAS_MIN_T)
     assert c["VMEM_PATH_MAX_T"]["implied"] == 769
 
 

@@ -605,6 +605,79 @@ def test_cuda_kernels_on_the_lora_layout_at_the_fine_tune_shape():
 
 
 @pytest.mark.cuda
+def test_cuda_kernels_on_the_fused_projection_at_the_mae_encoder_shape():
+    """B1 and B2 at the 96^3 MAE encoder's [64,129,12,64] bf16 as
+    ``SelfAttention`` hands them over: q, k and v strided views of the fused
+    [64,129,3*768] projection; elementwise and normwise against their plain
+    versions, and bit-identical on a rerun. At the default threshold the
+    dispatch sends the shape to B1."""
+    _need_cuda()
+    B, T, H, D = 64, 129, 12, 64
+    g = torch.Generator(device="cuda").manual_seed(5)
+    qkv = torch.randn(B, T, 3 * H * D, device="cuda", generator=g).bfloat16().view(B, T, 3, H, D)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    o, lse = fused_attention(q, k, v)
+    again = fused_attention(q, k, v)
+    o_ref, lse_ref = fused_attention_reference(q, k, v)
+    assert_matches(o, o_ref, 2e-2, 2e-2, "o")
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-4)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    do = torch.randn(B, T, H, D, device="cuda", generator=g).bfloat16()
+    got = fused_attention_bwd(q, k, v, o, do, lse)
+    rerun = fused_attention_bwd(q, k, v, o, do, lse)
+    for name, a, b, c in zip("dq dk dv".split(), got,
+                             fused_attention_bwd_reference(q, k, v, o, do, lse), rerun):
+        assert_matches(a, b, 2e-2, 2e-2, name)
+        assert torch.equal(a, c), name
+    prev = port_attn.set_attention_backend(None), port_attn.set_pallas_min_t(None)
+    before = fused_attention.launches
+    try:
+        y = port_attn.dot_product_attention(q, k, v)
+    finally:
+        port_attn.set_attention_backend(prev[0])
+        port_attn.set_pallas_min_t(prev[1])
+    assert fused_attention.launches == before + 1 and torch.equal(y, o)
+
+
+@pytest.mark.cuda
+def test_cuda_mae_step_launches_b1_and_b2_in_encoder_and_decoder():
+    """One MAE train step at 96^3 (patch 12, mask 0.75: the encoder's T =
+    129, the decoder's 513) of two encoder blocks and one decoder block at
+    the shipped widths, at the default threshold: 1 B1 and 1 B2 per block,
+    an eval batch 1 B1 per block, no other kernel; finite."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from headct_foundation_tpu_torch.config import default_config
+    from headct_foundation_tpu_torch.engines import mae_engine
+
+    _need_cuda()
+    cfg = default_config()
+    cfg.merge_from_file(str(Path(__file__).resolve().parent.parent / "configs/mae/mae_HeadCT.yaml"))
+    cfg.merge_from_list(["MAE.ENCODER_DEPTH", 2, "MAE.DECODER_DEPTH", 1,
+                         "DATA.WIRE_FORMAT", "hu16"])
+    prev = port_attn.set_pallas_min_t(None)
+    try:
+        state, _ = mae_engine.create_train_state(cfg, 20, 1, seed=0, device="cuda")
+        wire = torch.from_numpy(np.random.RandomState(0).randint(-8000, 20000, (2, 1, 96, 96, 96))
+                                .astype(np.int16)).cuda()
+        counters = (fused_attention, fused_attention_bwd, blocked_fused_attention)
+        before = [c.launches for c in counters]
+        state, m = mae_engine.make_train_step(augment=True, config=cfg)(state, wire, 0)
+        torch.cuda.synchronize()
+        assert [c.launches - b for c, b in zip(counters, before)] == [3, 3, 0]
+        assert math.isfinite(m["loss"].item())
+        before = [c.launches for c in counters]
+        out = mae_engine.make_eval_step(cfg)(state, wire, torch.Generator("cuda").manual_seed(0))
+        assert [c.launches - b for c, b in zip(counters, before)] == [3, 0, 0]
+        assert math.isfinite(out["loss"].item())
+    finally:
+        port_attn.set_pallas_min_t(prev)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["fine-tune", "lock", "lora"])
 def test_cuda_downstream_step_launches(mode):
     """One downstream train step of two ViT-B blocks at 96^3 (T = 513, 12

@@ -33,12 +33,14 @@ import tools.dino_semantics as jax_sem
 import tools.trajectory as jax_traj
 import tools.transfer_study as jax_transfer
 import tools.wire_equivalence as jax_wire
+from headct_foundation_tpu.config import default_config as jax_default_config
 from headct_foundation_tpu.data import transforms as jax_transforms
 from headct_foundation_tpu.models.patch_embed import unpatchify3d as jax_unpatchify3d
 from headct_foundation_tpu.utils.misc import datafold_read as jax_datafold_read
 from headct_foundation_tpu_torch.data import transforms
 from headct_foundation_tpu_torch.data.nifti import save_nifti
 from headct_foundation_tpu_torch.models.patch_embed import patchify3d, unpatchify3d
+from headct_foundation_tpu_torch.ops import attention as port_attn
 from headct_foundation_tpu_torch.tools import (
     bench_int8,
     dino_semantics,
@@ -133,8 +135,15 @@ def _flat(cfg, prefix=""):
 
 
 def _assert_configs_equal(got, want):
+    """Every key equal, but the kernel/plain attention crossover, which is
+    each package's device default where a tool leaves it: the port's
+    DEFAULT_PALLAS_MIN_T (the H100's), the JAX package's 192 (the TPU's)."""
     got, want = _flat(got), _flat(want)
     assert set(got) == set(want)
+    key = "PARALLEL.PALLAS_MIN_T"
+    if got[key] != want[key]:
+        assert (got.pop(key), want.pop(key)) == (
+            port_attn.DEFAULT_PALLAS_MIN_T, jax_default_config().PARALLEL.PALLAS_MIN_T)
     assert {k: got[k] for k in got if got[k] != want[k]} == {}
 
 
@@ -167,7 +176,6 @@ def test_class_structure_and_retrieval_scores_match_the_jax_tools():
 
 
 def test_trajectory_summary_fields_match_the_jax_tool(tmp_path):
-    from headct_foundation_tpu.config import default_config as jax_default_config
     from headct_foundation_tpu_torch.config import default_config
 
     rng = np.random.RandomState(1)
